@@ -17,6 +17,9 @@ def pytest_configure(config):
         "(run standalone via -m equivalence)")
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end tests")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (CUDA kernels of repro_torch); "
+        "skips with a reason where there is none")
 
 
 @pytest.fixture
