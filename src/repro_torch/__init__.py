@@ -6,10 +6,11 @@ reference value for value. It imports ``torch`` and numpy, never JAX and
 nothing of ``repro``. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.
 
-This slice ports Algorithm 1's batch path: ``core`` (DAGs, costs,
+Ported so far: Algorithm 1's batch path with load-dependent latency
+(concurrency caps, cold starts, pool traces): ``core`` (DAGs, costs,
 arrivals, priorities, the greedy math, the DES, the batched engine and the
-scheduler service) and ``kernels`` (the CUDA ``acd_evict`` kernel with its
-plain PyTorch version).
+scheduler service) and ``kernels`` (the CUDA ``acd_evict`` and
+``fifo_dispatch`` kernels with their plain PyTorch versions).
 """
 from . import core, kernels
 from .core import (APPS, AppDAG, SkedulixScheduler, Stage, simulate,

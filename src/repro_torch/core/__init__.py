@@ -21,20 +21,26 @@ Layout follows the JAX reference package module for module:
 ``vectorsim``
     ``engine="vector"``: the batched torch engine
     (:func:`simulate_scenarios`, :func:`sweep_scenarios`), running on CUDA
-    with the ACD sweep in the hand-written ``acd_evict`` kernel.
+    with the ACD sweep in the hand-written ``acd_evict`` kernel and the
+    capped public-dispatch chain in ``fifo_dispatch``.
 ``scheduler``
     :class:`SkedulixScheduler` — the user-facing service.
 ``convert``
     Rebuild the port's configuration objects from the reference's fields.
+``coldstart``
+    Load-dependent latency: :class:`ColdStartModel`, :class:`PoolTrace`
+    and the concurrency-cap normaliser, run by both engines.
 
-``faults`` and ``coldstart`` are copied too: the DES and the argument
-normalisers use them. The perf models, the MILP bound and trace-derived
-workloads are not ported yet.
+``faults`` is copied too: the DES and the argument normalisers use it.
+The perf models, the MILP bound and trace-derived workloads are not
+ported yet.
 """
 from .arrivals import (ArrivalProcess, BatchArrivals, MMPPArrivals,
                        PoissonArrivals, TraceArrivals, parse_arrivals,
                        resolve_release)
-from .convert import (cost_model_from_fields, dag_from_fields,
+from .coldstart import ColdStartModel, PoolTrace
+from .convert import (coldstart_from_fields, cost_model_from_fields,
+                      dag_from_fields, pool_trace_from_fields,
                       portfolio_from_fields)
 from .cost import (CostModel, LAMBDA_COST, PriceTrace, Provider,
                    ProviderPortfolio, as_portfolio, demo_portfolio,
@@ -68,4 +74,6 @@ __all__ = [
     "VectorSimResult", "simulate_scenarios", "sweep_scenarios",
     "ENGINE_IMPLS", "resolve_engine_impl", "resolve_device",
     "dag_from_fields", "portfolio_from_fields", "cost_model_from_fields",
+    "coldstart_from_fields", "pool_trace_from_fields",
+    "ColdStartModel", "PoolTrace",
 ]

@@ -2,8 +2,9 @@
 
 The scheduler has no weights: its state is its configuration objects (the
 application DAG, the cost model, the provider portfolio with its price
-traces) plus the ``pred``/``act`` latency matrices, which are plain numpy
-and cross as they are. The functions here rebuild the port's objects from
+traces, the cold-start model and the pool trace) plus the ``pred``/``act``
+latency matrices, which are plain numpy and cross as they are, as do
+concurrency caps (plain numbers). The functions here rebuild the port's objects from
 plain Python fields — the dicts ``dataclasses.asdict`` makes of the
 reference's (or the port's) frozen dataclasses, or the same data read back
 from JSON — so nothing here imports the reference package.
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 from typing import Any, Mapping, Optional
 
+from .coldstart import ColdStartModel, PoolTrace
 from .cost import CostModel, PriceTrace, Provider, ProviderPortfolio
 from .dag import AppDAG, Stage
 
@@ -73,3 +75,28 @@ def portfolio_from_fields(fields: Mapping[str, Any]) -> ProviderPortfolio:
     """:class:`ProviderPortfolio` from ``{"providers": [provider fields]}``."""
     return ProviderPortfolio(tuple(provider_from_fields(p)
                                    for p in fields["providers"]))
+
+
+def coldstart_from_fields(
+        fields: Optional[Mapping[str, Any]]) -> Optional[ColdStartModel]:
+    """:class:`ColdStartModel` from ``{"warm_up_s", "keep_alive_s",
+    "scale_to_zero", "provider_warm_up_s"}`` (``None`` passes)."""
+    if fields is None:
+        return None
+    pw = fields.get("provider_warm_up_s")
+    return ColdStartModel(warm_up_s=float(fields["warm_up_s"]),
+                          keep_alive_s=float(fields["keep_alive_s"]),
+                          scale_to_zero=bool(fields["scale_to_zero"]),
+                          provider_warm_up_s=None if pw is None
+                          else _floats(pw))
+
+
+def pool_trace_from_fields(
+        fields: Optional[Mapping[str, Any]]) -> Optional[PoolTrace]:
+    """:class:`PoolTrace` from ``{"counts", "breakpoints"}`` (``None``
+    passes); a segment's counts are one int or one per stage."""
+    if fields is None:
+        return None
+    return PoolTrace(counts=tuple(tuple(int(x) for x in c)
+                                  for c in fields["counts"]),
+                     breakpoints=_floats(fields["breakpoints"]))

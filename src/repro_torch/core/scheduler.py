@@ -149,6 +149,9 @@ class SkedulixScheduler:
         replicas=None,
         replica_speeds=None,
         price_traces=None,
+        concurrency=None,
+        coldstart=None,
+        pool_trace=None,
         device=None,
         **sim_kwargs,
     ) -> VectorSimResult:
@@ -167,7 +170,11 @@ class SkedulixScheduler:
         slowdown arrays; ``price_traces`` adds a pricing axis — portfolio
         variants or per-provider :class:`.cost.PriceTrace` lists. All are
         scenario data in the vector engine: the whole grid is one batched
-        call. Other keyword arguments forward to
+        call. ``concurrency``, ``coldstart`` and ``pool_trace`` add
+        load-dependent latency shared by every scenario (per-provider
+        concurrency caps with FIFO queueing, cold starts, a time-varying
+        private pool; see :func:`.vectorsim.simulate_scenarios`). Other
+        keyword arguments forward to
         :func:`.vectorsim.simulate_scenarios`, which raises
         ``NotImplementedError`` for the options not ported yet.
         """
@@ -178,7 +185,8 @@ class SkedulixScheduler:
             cost_model=self.cost_model, portfolio=self.portfolio,
             engine=engine, arrivals=arrivals, replicas=replicas,
             replica_speeds=replica_speeds, price_traces=price_traces,
-            device=device, **sim_kwargs)
+            concurrency=concurrency, coldstart=coldstart,
+            pool_trace=pool_trace, device=device, **sim_kwargs)
 
     def baseline_all_public(self, pred, act=None,
                             arrivals: ArrivalsLike = None) -> SimResult:

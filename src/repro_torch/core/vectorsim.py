@@ -50,11 +50,17 @@ the ACD recurrence lives in the kernel, the initialization-offload prefix
 runs on the host in numpy, and the scalar totals reduce on the host in
 :func:`_finalize`. Sorts are stable and argmins take the first index.
 
+Load-dependent latency (:mod:`.coldstart`) grows the same body:
+concurrency caps replay each stage's public dispatches through per-
+provider FIFO slot pools in one call of the ``fifo_dispatch`` kernel (the
+chain is sequential within a scenario row); cold starts carry per-slot
+idle stamps through the private event loop; a pool trace masks each
+private slot by its [on, off) window.
+
 Not in this engine yet (they raise ``NotImplementedError``): fault
-injection, concurrency caps, cold starts, pool traces, job paging
-(``chunk_jobs``), trace-derived ``workload`` specs, egress lookahead,
-``init_window`` and externally supplied offload plans. The DES in
-:mod:`.simulator` covers all of them.
+injection, job paging (``chunk_jobs``), trace-derived ``workload`` specs,
+egress lookahead, ``init_window`` and externally supplied offload plans.
+The DES in :mod:`.simulator` covers all of them.
 """
 from __future__ import annotations
 
@@ -85,9 +91,6 @@ ENGINE_IMPLS = ("kernel",)
 _UNPORTED = {
     "faults": "the faults slice",
     "retry": "the faults slice",
-    "concurrency": "the caps and cold-starts slice (with fifo_dispatch)",
-    "coldstart": "the caps and cold-starts slice (with fifo_dispatch)",
-    "pool_trace": "the caps and cold-starts slice (with fifo_dispatch)",
     "chunk_jobs": "the paging and workloads slice",
     "workload": "the paging and workloads slice",
     "egress_lookahead": "the scenario-axes slice",
@@ -218,7 +221,7 @@ def _gather_ps(x_ps: torch.Tensor, prov: torch.Tensor,
 
 def _run_stage(a, elig, speed_k, clock0_k, acd_k, P_k, rem_k, dur_k,
                keys_k, deadline, t0: float, adaptive: bool,
-               trips: List[int]):
+               trips: List[int], off_k=None, csd=None):
     """Run one stage's event loop for every scenario in lockstep.
 
     ``a`` [B, J] per-job arrival times, ``elig`` [B, J] queue membership,
@@ -228,10 +231,19 @@ def _run_stage(a, elig, speed_k, clock0_k, acd_k, P_k, rem_k, dur_k,
     critical-path remainder, actual duration and priority key,
     ``deadline`` [B, J] absolute deadlines.
 
-    Returns (times, replica) in job coordinates: ``times`` holds the
+    ``off_k`` [B, I] (pool traces) holds each slot's turn-off instant: a
+    slot takes dispatches only while ``t < off``, but a retired slot's
+    completion still counts as a sweep instant. ``csd`` (cold starts) is
+    the private ``(warm_up, keep_alive, scale_to_zero)``: a dispatch onto
+    a slot idle longer than the keep-alive window (or never used, under
+    scale-to-zero) pays the warm-up before its run, unscaled by the slot's
+    speed.
+
+    Returns (times, replica, cold) in job coordinates: ``times`` holds the
     dispatch instant of private jobs and ``-(eviction instant) - 1`` of
-    evicted ones (NaN = never exited; this encoding needs ``t0 >= 0``).
-    Appends the number of body steps to ``trips``.
+    evicted ones (NaN = never exited; this encoding needs ``t0 >= 0``),
+    ``cold`` whether a private dispatch paid the warm-up (all False
+    without ``csd``). Appends the number of body steps to ``trips``.
     """
     B, J = P_k.shape
     dev = P_k.device
@@ -271,6 +283,13 @@ def _run_stage(a, elig, speed_k, clock0_k, acd_k, P_k, rem_k, dur_k,
                          torch.where(present, speed_k, zero)], dim=2)
     acd_m = acd_k[:, None]
     svr = torch.where(present, clock0_k, inf)
+    if csd is not None:
+        wu_priv, ka, s2z = csd
+        # idle-since per slot: the turn-on instant (clock0 covers late
+        # pool slots), -inf = never used under scale-to-zero
+        idle = (torch.full_like(clock0_k, float("-inf")) if s2z
+                else clock0_k.clone())
+        coldq = torch.zeros((B, J), dtype=torch.bool, device=dev)
     times = torch.full((B, J), float("nan"), dtype=torch.float64, device=dev)
     rep = torch.full((B, J), -1, dtype=torch.int32, device=dev)
     t = torch.full((B,), float(t0), dtype=torch.float64, device=dev)
@@ -285,7 +304,14 @@ def _run_stage(a, elig, speed_k, clock0_k, acd_k, P_k, rem_k, dur_k,
         t_arr = arr_t.gather(1, ap[:, None])[:, 0]
         # "t if any replica is free, else the next completion": free slots
         # clamp to t, busy slots keep their clock, absent slots stay inf
-        td_core = torch.maximum(svr, t[:, None]).amin(1)
+        # (a retired pool slot offers no dispatch, but its completion
+        # still sweeps)
+        tc = t[:, None]
+        if off_k is not None:
+            td_core = torch.where((svr <= tc) & (tc < off_k), tc,
+                                  torch.where(svr > tc, svr, inf)).amin(1)
+        else:
+            td_core = torch.maximum(svr, tc).amin(1)
         # empty-queue fast-forward to the next completion when nothing
         # can dispatch before it
         td = torch.where(nq, td_core,
@@ -317,6 +343,8 @@ def _run_stage(a, elig, speed_k, clock0_k, acd_k, P_k, rem_k, dur_k,
             evict_now = torch.zeros_like(q1)
         q2 = q1 & ~evict_now
         free_new = svr <= t_new[:, None]
+        if off_k is not None:
+            free_new = free_new & (t_new[:, None] < off_k)
         # queue rank r pairs with the r-th lowest free replica (integer
         # prefix counts are exact anywhere)
         free_i = free_new.to(torch.int64)
@@ -331,7 +359,17 @@ def _run_stage(a, elig, speed_k, clock0_k, acd_k, P_k, rem_k, dur_k,
         slot_j = (slot1_j - 1.0).to(torch.int32)
         speed_j = mj[:, :, 1]
         disp0 = q2 & (slot1_j > 0)
-        svr_new_j = t_new[:, None] + dur_q * speed_j
+        if csd is not None:
+            # per-slot coldness first, carried to the job row through the
+            # match product (one 1.0 or exact 0.0 per row)
+            cold_i = ((t_new[:, None] - idle > ka)
+                      | torch.isneginf(idle)).to(torch.float64)
+            is_cold_j = disp0 & (torch.bmm(mf, cold_i[:, :, None])[:, :, 0]
+                                 > 0.5)
+            wu_eff_j = torch.where(is_cold_j, wu_priv, zero)
+            svr_new_j = (t_new[:, None] + wu_eff_j) + dur_q * speed_j
+        else:
+            svr_new_j = t_new[:, None] + dur_q * speed_j
         stuck = disp0 & (svr_new_j <= t_new[:, None])
         fs = torch.where(stuck, qrank, J)
         first_stuck = fs.amin(1)
@@ -354,19 +392,41 @@ def _run_stage(a, elig, speed_k, clock0_k, acd_k, P_k, rem_k, dur_k,
         n_disp = torch.minimum(torch.minimum(first_stuck + 1, n_free), n_q2)
         taken = free_new & (free_rank < n_disp[:, None])
         svr = torch.where(taken, slot_val, svr)
+        if csd is not None:
+            coldq = torch.where(disp, is_cold_j, coldq)
+            idle = torch.where(taken, slot_val, idle)
         nq = n_q2 > n_disp
         clean = ~has2
         t = t_new
     trips.append(step)
-    return times.gather(1, inv), rep.gather(1, inv)
+    cold_j = (coldq.gather(1, inv) if csd is not None
+              else torch.zeros((B, J), dtype=torch.bool, device=dev))
+    return times.gather(1, inv), rep.gather(1, inv), cold_j
+
+
+def _lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Row-wise ``jnp.lexsort`` of [B, J] keys: the last key is the primary
+    one, ties fall through to the earlier keys and then to the column
+    index. Stable argsorts from the least significant key up, each
+    gathered through the permutation so far."""
+    perm = torch.argsort(keys[0], dim=1, stable=True)
+    for key in keys[1:]:
+        perm = perm.gather(1, torch.argsort(key.gather(1, perm), dim=1,
+                                            stable=True))
+    return perm
 
 
 def _run_engine(a: Dict[str, torch.Tensor], include_transfers: bool,
                 init_mode: int, adaptive: bool, t0: float,
-                trips: List[int]) -> Dict[str, torch.Tensor]:
+                trips: List[int],
+                load: Optional["_LoadConfig"] = None
+                ) -> Dict[str, torch.Tensor]:
     """Run every scenario of one shape family; ``a`` holds the [B, ...]
-    engine tensors built by :meth:`_Task.engine_args` (stages in topological
-    order, padded to the family's stage count)."""
+    engine tensors built by :class:`_Task` (stages in topological order,
+    padded to the family's stage count). ``load`` carries the call's
+    concurrency caps, cold-start model and pool-trace flag (``None`` when
+    none is set); ``a`` then also holds the occupancy rates ``occ`` under
+    caps and the slot turn-off instants ``off_pool`` under a pool trace."""
     P_pred, act_priv = a["P_pred"], a["act_priv"]
     pub_a, up_a, down_a, dgb_pred = (a["pub_a"], a["up_a"], a["down_a"],
                                      a["dgb_pred"])
@@ -382,6 +442,27 @@ def _run_engine(a: Dict[str, torch.Tensor], include_transfers: bool,
     f64 = torch.float64
     inf = torch.tensor(float("inf"), dtype=f64, device=dev)
     zero = torch.zeros((), dtype=f64, device=dev)
+    capped = load is not None and load.capped
+    cold = load is not None and load.cold
+    csd = (load.warm_up_s, load.keep_alive_s, load.scale_to_zero) \
+        if cold else None
+    if capped:
+        capped_p = torch.from_numpy(np.isfinite(load.caps)).to(dev)
+        wu_p = torch.from_numpy(load.provider_warm_ups).to(dev)
+        # slot c of provider p exists iff c < its cap; uncapped providers
+        # keep all-inf slots (their argmin is 0, their wait forced to 0)
+        present = np.isfinite(load.caps)[:, None] & (
+            np.arange(load.C)[None, :] < load.caps[:, None])
+        sclk0 = torch.from_numpy(np.where(present, t0, np.inf)).to(dev)
+        if cold:
+            sidle0 = torch.from_numpy(np.where(
+                present, -np.inf if load.scale_to_zero else t0,
+                np.inf)).to(dev)
+        else:
+            sidle0 = sclk0
+        sclk0 = sclk0.expand(B, P, load.C).contiguous()
+        sidle0 = sidle0.expand(B, P, load.C).contiguous()
+        iota_J = torch.arange(J, device=dev).expand(B, J)
 
     # per-stage critical-path remainder (reverse index order = reverse
     # topological order; edges go low -> high)
@@ -413,6 +494,8 @@ def _run_engine(a: Dict[str, torch.Tensor], include_transfers: bool,
     rep_l: List[torch.Tensor] = []
     down_l: List[torch.Tensor] = []
     cost_l: List[torch.Tensor] = []
+    qwait_l: List[torch.Tensor] = []
+    coldm_l: List[torch.Tensor] = []
     xeg_j = torch.zeros((B, J), dtype=f64, device=dev)
     iota_P = torch.arange(P, device=dev)
     for k in range(M):
@@ -432,10 +515,12 @@ def _run_engine(a: Dict[str, torch.Tensor], include_transfers: bool,
             forced_k = forced_k | (desc[:, u, k, None] & evict_l[u])
         forced_k = forced_k & ~pinned[:, k, None]
         elig = ~forced_k & ~inert[:, k, None]
-        times_j, rep_j = _run_stage(
+        times_j, rep_j, coldq = _run_stage(
             arr, elig, speed[:, k], clock0[:, k], ~pinned[:, k],
             P_pred[:, :, k], rem_l[k], act_priv[:, :, k],
-            a["stage_keys"][:, :, k], deadline, t0, adaptive, trips)
+            a["stage_keys"][:, :, k], deadline, t0, adaptive, trips,
+            off_k=a["off_pool"][:, k] if load is not None and load.pooled
+            else None, csd=csd)
         evicted = times_j < -0.5  # NaN (never exited) compares False
         locpub = forced_k | evicted
         # decision-epoch pricing: the offload epoch is the arrival time when
@@ -456,34 +541,81 @@ def _run_engine(a: Dict[str, torch.Tensor], include_transfers: bool,
                 selc = selc + torch.where(
                     iota_P[None, :, None] != prov_l[u][:, None, :],
                     pen_u[:, None, :], zero)
-        pidx_k = torch.argmin(selc, dim=1)                       # [B, J]
-        seg_k = seg_pj.gather(1, pidx_k[:, None, :])[:, 0, :]
-        lm = _gather_ps(lat_ps, pidx_k, seg_k)
-        cost_l.append(cost_ps[..., k].reshape(B, -1, J).gather(
-            1, (pidx_k * sel_ps.shape[2] + seg_k)[:, None, :])[:, 0, :])
-        down_l.append(down_a[:, :, k] * lm)
         # upload needed iff some input of stage k lives in private storage
-        # (or the stage reads the original private input); an edge whose
-        # endpoints run public on different providers pays the upstream
-        # provider's egress on the un-multiplied edge volume
+        # (or the stage reads the original private input)
         if include_transfers:
             needs_up = torch.zeros((B, J), dtype=torch.bool, device=dev)
             for u in range(k):
                 needs_up = needs_up | (A[:, u, k, None] & ~loc_l[u])
+            needs_up = torch.where(has_pred[:, None], needs_up, True)
+        if capped:
+            # concurrency caps: the stage's public dispatches replay in the
+            # DES's event order (offload epoch; forced jobs by job id before
+            # evicted ones by queue rank on ties; public jobs first so the
+            # chain stops at n_pub), each taking every provider's earliest
+            # free FIFO slot, in one fifo_dispatch call for all B rows
+            lm_pj = lat_ps.gather(2, seg_pj)                     # [B, P, J]
+            occ_pj = a["occ"][..., k].gather(2, seg_pj)
+            up_raw = (torch.where(needs_up, up_a[:, :, k], zero)
+                      if include_transfers else
+                      torch.zeros((B, J), dtype=f64, device=dev))
+            ready_pj = tau[:, None, :] + up_raw[:, None, :] * lm_pj
+            dur_pj = pub_a[:, :, k][:, None, :] * lm_pj
+            qrank = _inverse_perm(torch.argsort(a["stage_keys"][:, :, k],
+                                                dim=1, stable=True))
+            order_j = _lexsort((
+                torch.where(forced_k, iota_J, qrank),
+                (~forced_k).to(torch.int64),
+                torch.where(locpub, tau, inf),
+                (~locpub).to(torch.int64)))
+            n_pub = locpub.sum(1)
+            (pidx_k, seg_k, wait_f, coldpub_f, start_pub, end_pub,
+             extra_f) = _kernel_ops.fifo_dispatch(
+                order_j.to(torch.int32), locpub, n_pub.to(torch.int32),
+                ready_pj, dur_pj, selc.contiguous(), occ_pj,
+                seg_pj.to(torch.int32), capped_p, wu_p, sclk0, sidle0,
+                load.keep_alive_s if cold else 0.0, cold=cold)
+            pidx_k = pidx_k.to(torch.int64)
+            seg_k = seg_k.to(torch.int64)
+        else:
+            pidx_k = torch.argmin(selc, dim=1)                   # [B, J]
+            seg_k = seg_pj.gather(1, pidx_k[:, None, :])[:, 0, :]
+        lm = _gather_ps(lat_ps, pidx_k, seg_k)
+        cost_k = cost_ps[..., k].reshape(B, -1, J).gather(
+            1, (pidx_k * sel_ps.shape[2] + seg_k)[:, None, :])[:, 0, :]
+        # billed cost and occupancy extra add as one value per (job, stage)
+        cost_l.append(cost_k + extra_f if capped else cost_k)
+        down_l.append(down_a[:, :, k] * lm)
+        # an edge whose endpoints run public on different providers pays
+        # the upstream provider's egress on the un-multiplied edge volume
+        if include_transfers:
+            for u in range(k):
                 moved = (A[:, u, k, None] & loc_l[u] & locpub
                          & (prov_l[u] != pidx_k))
                 rate_u = _gather_ps(eg_ps, prov_l[u], seg_l[u])
                 xeg_j = xeg_j + torch.where(
                     moved, rate_u * (down_a[:, :, u] * EGRESS_GB_PER_S), zero)
-            needs_up = torch.where(has_pred[:, None], needs_up, True)
-            upk = torch.where(needs_up, up_a[:, :, k] * lm, zero)
-        else:
-            upk = torch.zeros((B, J), dtype=f64, device=dev)
-        start = torch.where(locpub, tau + upk, times_j)
+        # private dispatches pay the warm-up the event loop recorded
+        # (additive, after the dispatch instant)
+        start_priv = (times_j + coldq.to(f64) * load.warm_up_s if cold
+                      else times_j)
         # private durations run on the assigned replica's speed
         priv_dur = act_priv[:, :, k] * speed[:, k].gather(
             1, torch.clamp(rep_j, min=0).to(torch.int64))
-        end = start + torch.where(locpub, pub_a[:, :, k] * lm, priv_dur)
+        if capped:
+            start = torch.where(locpub, start_pub, start_priv)
+            end = torch.where(locpub, end_pub, start_priv + priv_dur)
+            qwait_l.append(wait_f)
+            coldm_l.append(coldpub_f | coldq)
+        else:
+            # an uncapped provider is an unbounded warm fleet
+            upk = (torch.where(needs_up, up_a[:, :, k] * lm, zero)
+                   if include_transfers else
+                   torch.zeros((B, J), dtype=f64, device=dev))
+            start = torch.where(locpub, tau + upk, start_priv)
+            end = start + torch.where(locpub, pub_a[:, :, k] * lm, priv_dur)
+            qwait_l.append(torch.zeros((B, J), dtype=f64, device=dev))
+            coldm_l.append(coldq)
         start_l.append(start)
         end_l.append(end)
         loc_l.append(locpub)
@@ -517,8 +649,8 @@ def _run_engine(a: Dict[str, torch.Tensor], include_transfers: bool,
                 attempts=locpub.to(torch.int64),
                 failed=torch.zeros((B, J, M), dtype=torch.int64, device=dev),
                 abandoned=torch.zeros((B, J), dtype=torch.bool, device=dev),
-                queue_wait=torch.zeros((B, J, M), dtype=f64, device=dev),
-                cold=torch.zeros((B, J, M), dtype=torch.bool, device=dev))
+                queue_wait=torch.stack(qwait_l, dim=2),
+                cold=torch.stack(coldm_l, dim=2))
 
 
 # -- host-side preparation ---------------------------------------------------
@@ -742,6 +874,26 @@ def _max_replica_bound(dag: AppDAG, repl_cfgs) -> int:
     return max([1] + [int(v.max()) for v in repl_cfgs if v.size])
 
 
+@dataclasses.dataclass(frozen=True)
+class _LoadConfig:
+    """One call's load-dependent latency (:mod:`.coldstart`), shared by
+    every scenario: ``caps`` [P] per-provider concurrency caps (inf =
+    unbounded) and ``C`` the widest finite one, the public warm-ups
+    ``provider_warm_ups`` [P], the private ``warm_up_s``, the
+    ``keep_alive_s`` window and ``scale_to_zero``; ``capped``/``cold``/
+    ``pooled`` say which of caps, cold starts and a pool trace are set."""
+
+    capped: bool
+    cold: bool
+    pooled: bool
+    C: int
+    caps: np.ndarray
+    provider_warm_ups: np.ndarray
+    warm_up_s: float
+    keep_alive_s: float
+    scale_to_zero: bool
+
+
 class _Task:
     """One application's scenario grid, topologically relabelled and padded
     to the sweep's common (M_pad, I_max) shape family. Host-side numpy."""
@@ -753,7 +905,7 @@ class _Task:
                  arrivals: ArrivalsLike = None,
                  replicas=None, replica_speeds=None,
                  price_traces=None, S_seg: Optional[int] = None,
-                 where: str = ""):
+                 caps=None, coldstart=None, pool=None, where: str = ""):
         from .simulator import _with_transfer_defaults
 
         act = act if act is not None else pred
@@ -893,6 +1045,59 @@ class _Task:
         capacity = np.array([float(repl_cfgs[r].sum()) * c
                              for (_, _, c, r, _, _) in self.grid])
         S = self.S
+
+        # load-dependent latency (caps, cold starts, pool traces): per-call
+        # configs shared by every scenario; caps read occupancy rates per
+        # price trace, a pool trace its slot windows in this task's stage
+        # order
+        capped = caps is not None
+        cold = coldstart is not None
+        pooled = pool is not None
+        clock0 = np.full((S, M_pad, self.I_max), self.t0)
+        load_args: Dict[str, np.ndarray] = {}
+        self.load: Optional[_LoadConfig] = None
+        if capped:
+            occ_by_tr = [tpf.np_occupancy_rates_seg(mem, num_segments=S_seg)
+                         for tpf in trace_cfgs]       # [P, S_seg, M] each
+
+            def pad_occ(o):
+                out = np.zeros(o.shape[:2] + (M_pad,))
+                out[:, :, :M] = o[:, :, topo]
+                return out
+
+            load_args["occ"] = np.stack([pad_occ(occ_by_tr[tr])
+                                         for (_, _, _, _, _, tr)
+                                         in self.grid])
+        if pooled:
+            on_w, off_w = pool
+            w = off_w.shape[1]
+            off_pad = np.full((M_pad, self.I_max), np.inf)
+            off_pad[:M, :w] = off_w[topo, :]
+            load_args["off_pool"] = np.broadcast_to(
+                off_pad, (S, M_pad, self.I_max))
+            # late pool slots enter busy until their turn-on instant (the
+            # DES's pool-on event); never-on slots are absent from the
+            # speed matrix anyway
+            clk = np.full((M_pad, self.I_max), self.t0)
+            with np.errstate(invalid="ignore"):
+                clk[:M, :w] = np.where(
+                    np.isfinite(on_w[topo, :]),
+                    np.maximum(self.t0, on_w[topo, :]), self.t0)
+            clock0 = np.broadcast_to(clk, (S, M_pad, self.I_max)).copy()
+        if capped or cold or pooled:
+            cs = coldstart
+            caps_eff = (np.asarray(caps, dtype=np.float64) if capped
+                        else np.full(self.n_providers, np.inf))
+            self.load = _LoadConfig(
+                capped=capped, cold=cold, pooled=pooled,
+                C=(int(caps_eff[np.isfinite(caps_eff)].max()) if capped
+                   else 0),
+                caps=caps_eff,
+                provider_warm_ups=(cs.provider_warm_ups(self.n_providers)
+                                   if cold else np.zeros(self.n_providers)),
+                warm_up_s=cs.warm_up_s if cold else 0.0,
+                keep_alive_s=cs.keep_alive_s if cold else np.inf,
+                scale_to_zero=bool(cold and cs.scale_to_zero))
         self.args = dict(
             P_pred=pad_cols(pred["P_private"][bsel]),
             act_priv=pad_cols(act["P_private"][bsel]),
@@ -920,7 +1125,8 @@ class _Task:
             pinned=np.broadcast_to(pinned, (S,) + pinned.shape),
             inert=np.broadcast_to(inert, (S,) + inert.shape),
             speed=speed,
-            clock0=np.full((S, M_pad, self.I_max), self.t0))
+            clock0=clock0,
+            **load_args)
 
     def pack(self, out: Dict[str, np.ndarray]) -> VectorSimResult:
         """Slice this task's scenarios out of a (possibly concatenated)
@@ -1025,30 +1231,41 @@ def simulate_scenarios(
     straggler axis of ``{(stage, replica): factor}`` dicts or [M, I]
     arrays, and ``price_traces`` a pricing axis of portfolio variants.
 
+    ``concurrency``/``coldstart``/``pool_trace`` add load-dependent
+    latency (:mod:`.coldstart`): per-provider concurrency caps with FIFO
+    queueing (the capped dispatch chain runs in the ``fifo_dispatch``
+    kernel), a keep-alive/cold-start model, and time-varying private pool
+    sizes. They are per-call configs shared by every scenario of the
+    grid, identical in both engines; degenerate values (no finite cap, a
+    zero-penalty model, a constant pool) give the plain schedule bit for
+    bit. They cannot combine with ``faults``, ``chunk_jobs``, or (for
+    ``pool_trace``) a ``replicas`` axis.
+
     ``engine="vector"`` (the default) runs the batched torch engine on
     ``device`` (``"cuda"`` unless given; a CPU run must pass
     ``device="cpu"``). ``engine="des"`` replays the grid serially through
     the reference simulator (:func:`.simulator.simulate`), which also
     accepts the per-call options this engine does not port yet
     (``init_window``, ``chunk_jobs``, ``egress_lookahead``,
-    ``concurrency``, ``coldstart``, ``pool_trace``, ``offload_mask``);
-    the vector engine raises ``NotImplementedError`` for them. The
-    ``faults`` axis (with ``retry``) and ``workload`` specs raise in
-    both engines.
+    ``offload_mask``); the vector engine raises ``NotImplementedError``
+    for them. The ``faults`` axis (with ``retry``) and ``workload`` specs
+    raise in both engines.
     """
     from .simulator import _with_transfer_defaults, simulate
 
     resolve_engine_impl(engine_impl)  # fail fast on bad impl, any engine
-    _reject_unported(workload=workload, faults=faults, retry=retry)
+    _reject_unported(workload=workload)
+    # the load-config checks of both engines (the replicas-axis x
+    # pool_trace exclusion is a grid-level check), before any rejection
+    # of an unported option they also cover
+    validate_load_kwargs(
+        np.isfinite(norm_concurrency(
+            concurrency, as_portfolio(portfolio, cost_model))).any(),
+        as_coldstart(coldstart), as_pool_trace(pool_trace),
+        faulty=faults is not None, chunk_jobs=chunk_jobs,
+        replicas_axis=replicas is not None)
+    _reject_unported(faults=faults, retry=retry)
     if engine == "des":
-        # same load-config validation as the reference's grid path (the
-        # replicas-axis x pool_trace exclusion is a grid-level check)
-        validate_load_kwargs(
-            np.isfinite(norm_concurrency(
-                concurrency, as_portfolio(portfolio, cost_model))).any(),
-            as_coldstart(coldstart), as_pool_trace(pool_trace),
-            faulty=False, chunk_jobs=chunk_jobs,
-            replicas_axis=replicas is not None)
         act_d = act if act is not None else pred
         _validate_workload_axes(pred, act_d)
         pred_d = _with_transfer_defaults(pred)
@@ -1123,15 +1340,15 @@ def simulate_scenarios(
         raise ValueError(f"unknown engine {engine!r}")
     _reject_unported(init_window=init_window, chunk_jobs=chunk_jobs,
                      egress_lookahead=egress_lookahead,
-                     concurrency=concurrency, coldstart=coldstart,
-                     pool_trace=pool_trace, offload_mask=offload_mask)
+                     offload_mask=offload_mask)
     return sweep_scenarios(
         [dict(dag=dag, pred=pred, act=act, c_max_grid=c_max_grid,
               orders=orders, arrivals=arrivals, replicas=replicas,
               replica_speeds=replica_speeds, price_traces=price_traces)],
         cost_model=cost_model, include_transfers=include_transfers,
         init_phase=init_phase, adaptive=adaptive, t0=t0,
-        portfolio=portfolio, engine_impl=engine_impl, device=device)[0]
+        portfolio=portfolio, concurrency=concurrency, coldstart=coldstart,
+        pool_trace=pool_trace, engine_impl=engine_impl, device=device)[0]
 
 
 _TASK_KEYS = {"dag", "pred", "act", "c_max_grid", "orders", "arrivals",
@@ -1147,6 +1364,9 @@ def sweep_scenarios(
     t0: float = 0.0,
     engine: str = "vector",
     portfolio: Optional[ProviderPortfolio] = None,
+    concurrency=None,
+    coldstart=None,
+    pool_trace=None,
     engine_impl: Optional[str] = None,
     device=None,
     **unported,
@@ -1161,10 +1381,26 @@ def sweep_scenarios(
     task pads to the sweep's common stage count (inert stages), replica
     bound (absent slots) and segment bound (segments that never
     activate); tasks with a common job count run as one batched engine
-    call on ``device`` (``"cuda"`` unless given). ``engine="des"`` replays
-    each task through :func:`simulate_scenarios` with ``engine="des"``.
+    call on ``device`` (``"cuda"`` unless given). ``concurrency``,
+    ``coldstart`` and ``pool_trace`` (see :func:`simulate_scenarios`) are
+    per-call and bind every task; a pool trace provisions each task's
+    pool at the trace's per-stage maximum. ``engine="des"`` replays each
+    task through :func:`simulate_scenarios` with ``engine="des"``.
     Options this engine does not port yet raise ``NotImplementedError``.
     """
+    # load-dependent latency configs: per-call, shared by every task (caps
+    # bind per provider, which every price trace shares); the reference's
+    # exclusions come before the rejection of unported options
+    cs = as_coldstart(coldstart)
+    ptr = as_pool_trace(pool_trace)
+    caps_vec = norm_concurrency(concurrency, as_portfolio(portfolio,
+                                                          cost_model))
+    caps_eff = caps_vec if np.isfinite(caps_vec).any() else None
+    validate_load_kwargs(
+        caps_eff is not None, cs, ptr,
+        faulty=any(t.get("faults") is not None for t in tasks),
+        chunk_jobs=unported.get("chunk_jobs"),
+        replicas_axis=any(t.get("replicas") is not None for t in tasks))
     _reject_unported(**{k: v for k, v in unported.items()
                         if k in _UNPORTED})
     extra = set(unported) - set(_UNPORTED)
@@ -1189,7 +1425,8 @@ def sweep_scenarios(
             portfolio=portfolio, arrivals=t.get("arrivals"),
             replicas=t.get("replicas"),
             replica_speeds=t.get("replica_speeds"),
-            price_traces=t.get("price_traces"))
+            price_traces=t.get("price_traces"), concurrency=concurrency,
+            coldstart=coldstart, pool_trace=pool_trace)
             for t in tasks]
     if engine != "vector":
         raise ValueError(f"unknown engine {engine!r}")
@@ -1205,6 +1442,14 @@ def sweep_scenarios(
     base_pf = as_portfolio(portfolio, cost_model)
     tasks = [dict(t) for t in tasks]
     for i, t in enumerate(tasks):
+        if ptr is not None:
+            # provision the pool at the trace's per-stage maximum and mask
+            # availability with the slot windows (the DES's transform)
+            M_t = t["dag"].num_stages
+            on_t, off_t, _ = ptr.slot_windows(M_t)
+            t["dag"] = t["dag"].with_replicas(
+                ptr.materialize(M_t).max(axis=0))
+            t["_pool"] = (on_t, off_t)
         if t.get("replicas") is not None:
             t["replicas"] = _norm_replica_axis(t["replicas"], t["dag"],
                                                where=f"tasks[{i}]")
@@ -1222,6 +1467,7 @@ def sweep_scenarios(
                      replicas=t.get("replicas"),
                      replica_speeds=t.get("replica_speeds"),
                      price_traces=t["price_traces"], S_seg=S_seg,
+                     caps=caps_eff, coldstart=cs, pool=t.get("_pool"),
                      where=f"tasks[{i}]")
                for i, t in enumerate(tasks)]
     _LAST_RUN_STATS.update(prep_s=time.perf_counter() - t_prep, impl=impl,
@@ -1229,15 +1475,18 @@ def sweep_scenarios(
                            trips=[])
 
     results: List[Optional[VectorSimResult]] = [None] * len(prepped)
-    # tasks of one job count share a shape family and run as one call
-    # (the scenario lanes are independent, so the split is result-
+    # tasks of one shape family (job count and load flags) run as one
+    # call (the scenario lanes are independent, so the split is result-
     # invariant); empty tasks need no engine at all
-    groups: Dict[int, List[int]] = {}
+    groups: Dict[tuple, List[int]] = {}
     for i, p in enumerate(prepped):
         if p.J == 0:
             results[i] = _empty_result(p)
-        else:
-            groups.setdefault(p.J, []).append(i)
+            continue
+        ld = p.load
+        fam = (p.J,) if ld is None else (p.J, ld.capped, ld.cold,
+                                         ld.pooled, ld.C)
+        groups.setdefault(fam, []).append(i)
     init_mode = 1 if init_phase else 0
     for grp in groups.values():
         ps = [prepped[i] for i in grp]
@@ -1248,7 +1497,8 @@ def sweep_scenarios(
         with torch.no_grad():
             out_t = _run_engine(_to_device(fused, dev),
                                 bool(include_transfers), init_mode,
-                                bool(adaptive), float(t0), trips)
+                                bool(adaptive), float(t0), trips,
+                                load=ps[0].load)
             out = {k: v.cpu().numpy() for k, v in out_t.items()}
         t_done = time.perf_counter()
         lo = 0

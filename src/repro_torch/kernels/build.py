@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
 
 #: kernel name -> source file under csrc/
-SOURCES = {"acd_evict": "acd_evict.cu"}
+SOURCES = {"acd_evict": "acd_evict.cu",
+           "fifo_dispatch": "fifo_dispatch.cu"}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 #: seconds each kernel's last build (or cache hit) took, for reporting

@@ -3,15 +3,15 @@
 A wrapper takes the plain version (:mod:`.ref`) only for tensors on the
 CPU. For CUDA tensors it launches the hand-written kernel or raises; it
 never falls back. Each wrapper counts its kernel launches in a plain
-integer attribute (``acd_evict.launches``), so a run can show that its
-main path went through the kernel.
+integer attribute (``acd_evict.launches``, ``fifo_dispatch.launches``),
+so a run can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from . import acd_sweep
-from .ref import acd_evict_plain
+from . import acd_sweep, fifo
+from .ref import acd_evict_plain, fifo_dispatch_plain
 
 _FLOATS = (torch.float64, torch.float32)
 
@@ -61,11 +61,91 @@ def acd_evict(P: torch.Tensor, thresh: torch.Tensor,
 acd_evict.launches = 0
 
 
+def _check_fifo(order, locpub, n_pub, ready, dur, selc, occ, seg, capped,
+                wu, sclk0, sidle0, keep_alive) -> None:
+    args = dict(order=order, locpub=locpub, n_pub=n_pub, ready=ready,
+                dur=dur, selc=selc, occ=occ, seg=seg, capped=capped, wu=wu,
+                sclk0=sclk0, sidle0=sidle0)
+    for name, x in args.items():
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"fifo_dispatch: {name} must be a torch.Tensor")
+        if not x.is_contiguous():
+            raise ValueError(f"fifo_dispatch: {name} must be contiguous")
+        if x.device != ready.device:
+            raise ValueError(f"fifo_dispatch: {name} is on {x.device}, "
+                             f"ready on {ready.device}")
+    if ready.dim() != 3 or sclk0.dim() != 3:
+        raise ValueError("fifo_dispatch: ready must be [B, P, J] and sclk0 "
+                         "[B, P, C]")
+    B, P, J = ready.shape
+    C = sclk0.shape[2]
+    want = dict(order=((B, J), torch.int32), locpub=((B, J), torch.bool),
+                n_pub=((B,), torch.int32), ready=((B, P, J), torch.float64),
+                dur=((B, P, J), torch.float64),
+                selc=((B, P, J), torch.float64),
+                occ=((B, P, J), torch.float64), seg=((B, P, J), torch.int32),
+                capped=((P,), torch.bool), wu=((P,), torch.float64),
+                sclk0=((B, P, C), torch.float64),
+                sidle0=((B, P, C), torch.float64))
+    for name, (shape, dtype) in want.items():
+        x = args[name]
+        if tuple(x.shape) != shape:
+            raise ValueError(f"fifo_dispatch: {name} must have shape "
+                             f"{shape}, got {tuple(x.shape)}")
+        if x.dtype != dtype:
+            raise TypeError(f"fifo_dispatch: {name} must be {dtype}, got "
+                            f"{x.dtype}")
+    if P < 1 or C < 1:
+        raise ValueError(f"fifo_dispatch: needs P >= 1 and C >= 1, got "
+                         f"P={P}, C={C}")
+    if not isinstance(keep_alive, (int, float)):
+        raise TypeError("fifo_dispatch: keep_alive must be a number")
+
+
+def fifo_dispatch(order: torch.Tensor, locpub: torch.Tensor,
+                  n_pub: torch.Tensor, ready: torch.Tensor,
+                  dur: torch.Tensor, selc: torch.Tensor, occ: torch.Tensor,
+                  seg: torch.Tensor, capped: torch.Tensor, wu: torch.Tensor,
+                  sclk0: torch.Tensor, sidle0: torch.Tensor,
+                  keep_alive: float, *, cold: bool = False):
+    """Capped FIFO public-dispatch chain of one stage for B scenario rows:
+    ``order`` [B, J] int32, ``locpub`` [B, J] bool, ``n_pub`` [B] int32,
+    ``ready``/``dur``/``selc``/``occ`` [B, P, J] float64, ``seg``
+    [B, P, J] int32, ``capped`` [P] bool, ``wu`` [P] float64,
+    ``sclk0``/``sidle0`` [B, P, C] float64 -> (prov, seg, wait, cold,
+    start, end, extra), each [B, J]. CPU tensors run
+    :func:`.ref.fifo_dispatch_plain`; CUDA tensors run the CUDA kernel
+    (``csrc/fifo_dispatch.cu``)."""
+    _check_fifo(order, locpub, n_pub, ready, dur, selc, occ, seg, capped,
+                wu, sclk0, sidle0, keep_alive)
+    if ready.device.type == "cpu":
+        return fifo_dispatch_plain(order, locpub, n_pub, ready, dur, selc,
+                                   occ, seg, capped, wu, sclk0, sidle0,
+                                   float(keep_alive), cold=bool(cold))
+    if ready.device.type != "cuda":
+        raise ValueError(f"fifo_dispatch: no kernel for device "
+                         f"{ready.device}")
+    B, _, J = ready.shape
+    dev = ready.device
+    outs = tuple(torch.empty((B, J), dtype=dt, device=dev) for dt in (
+        torch.int32, torch.int32, torch.float64, torch.bool, torch.float64,
+        torch.float64, torch.float64))
+    fifo.launch(order, n_pub, ready, dur, selc, occ, seg, capped, wu, sclk0,
+                sidle0, float(keep_alive), bool(cold), outs)
+    fifo_dispatch.launches += 1
+    return outs
+
+
+fifo_dispatch.launches = 0
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     acd_evict.launches = 0
+    fifo_dispatch.launches = 0
 
 
 def launch_counts() -> dict:
     """Kernel name -> launches since the last reset."""
-    return {"acd_evict": acd_evict.launches}
+    return {"acd_evict": acd_evict.launches,
+            "fifo_dispatch": fifo_dispatch.launches}

@@ -222,3 +222,72 @@ def test_cost_model_round_trip(ref):
     assert got == pcost.CostModel(1.0, 3e-8, 2.0)
     assert convert.cost_model_from_fields(
         dataclasses.asdict(ref.cost.LAMBDA_COST)) == pcost.LAMBDA_COST
+
+
+@pytest.mark.parametrize("name", ["single", "demo3", "spot3", "diurnal2"])
+def test_occupancy_rates_identical(ref, name):
+    mem = np.array([512.0, 1024.0, 3008.0, 2048.0])
+    pf_r = _portfolios(ref.cost)[name]
+    pf_p = _portfolios(pcost)[name]
+    for S in (None, pf_r.num_segments + 2):
+        np.testing.assert_array_equal(
+            pf_p.np_occupancy_rates_seg(mem, num_segments=S),
+            pf_r.np_occupancy_rates_seg(mem, num_segments=S))
+
+
+def _coldstart_models(mod):
+    return [mod.ColdStartModel(),
+            mod.ColdStartModel(warm_up_s=0.5, keep_alive_s=1.0,
+                               scale_to_zero=True),
+            mod.ColdStartModel(warm_up_s=0.2, keep_alive_s=3.0,
+                               provider_warm_up_s=(0.1, 0.0, 0.7))]
+
+
+def test_coldstart_round_trip(ref):
+    import json
+
+    from repro.core import coldstart as rcs
+
+    for cs_r, cs_p in zip(_coldstart_models(rcs),
+                          _coldstart_models(pc.coldstart)):
+        fields = dataclasses.asdict(cs_r)
+        got = convert.coldstart_from_fields(fields)
+        assert got == cs_p
+        assert convert.coldstart_from_fields(json.loads(json.dumps(
+            fields))) == cs_p
+        assert convert.coldstart_from_fields(dataclasses.asdict(got)) == got
+        np.testing.assert_array_equal(got.provider_warm_ups(3),
+                                      cs_r.provider_warm_ups(3))
+        assert got.is_null == cs_r.is_null
+    assert convert.coldstart_from_fields(None) is None
+
+
+@pytest.mark.parametrize("counts,breakpoints", [
+    ((1, 2), (2.0,)), ((2,), ()), (((1, 2, 1, 1), (2, 2, 2, 2), (1, 1, 2, 1)),
+                                   (1.5, 4.0))])
+def test_pool_trace_round_trip(ref, counts, breakpoints):
+    import json
+
+    from repro.core import coldstart as rcs
+
+    pt_r = rcs.PoolTrace(counts=counts, breakpoints=breakpoints)
+    got = convert.pool_trace_from_fields(dataclasses.asdict(pt_r))
+    assert got == pc.PoolTrace(counts=counts, breakpoints=breakpoints)
+    assert convert.pool_trace_from_fields(json.loads(json.dumps(
+        dataclasses.asdict(pt_r)))) == got
+    np.testing.assert_array_equal(got.materialize(4), pt_r.materialize(4))
+    for a, b in zip(got.slot_windows(4), pt_r.slot_windows(4)):
+        np.testing.assert_array_equal(a, b)
+    assert convert.pool_trace_from_fields(None) is None
+
+
+@pytest.mark.parametrize("conc", [None, 2, [1, None, 3], {"1": 4},
+                                  {0: None, 2: 1}])
+def test_concurrency_caps_identical(ref, conc):
+    from repro.core import coldstart as rcs
+
+    pf_r, pf_p = ref.cost.demo_portfolio(3), pcost.demo_portfolio(3)
+    if isinstance(conc, dict) and "1" in conc:
+        conc = {pf_r.names[1]: 4}
+    np.testing.assert_array_equal(pc.coldstart.norm_concurrency(conc, pf_p),
+                                  rcs.norm_concurrency(conc, pf_r))

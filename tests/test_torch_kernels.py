@@ -1,19 +1,22 @@
-"""The port's ``acd_evict`` against the reference's two versions.
+"""The port's ``acd_evict`` and ``fifo_dispatch`` against the reference's
+two versions of each.
 
 The same seeded numpy inputs go through the port's plain PyTorch version
-(``acd_evict_plain``, what the wrapper runs for CPU tensors), the
-reference's oracle (``ref.acd_evict_ref``) and the reference's Pallas
-kernel in interpret mode. All three must agree bit for bit, in float64
-and in float32. The CUDA kernel itself runs only on a GPU: its case here
-is marked ``gpu`` and skips without one; ``chip_smoke.py`` holds it
-against the plain version on the card.
+(``acd_evict_plain`` / ``fifo_dispatch_plain``, what the wrappers run for
+CPU tensors), the reference's oracle (``ref.acd_evict_ref`` /
+``ref.fifo_dispatch_ref``) and the reference's Pallas kernel in interpret
+mode. All three must agree bit for bit (``acd_evict`` in float64 and in
+float32, ``fifo_dispatch`` in float64 with the cold-start model off and
+on). The CUDA kernels themselves run only on a GPU: their cases here are
+marked ``gpu`` and skip without one; ``chip_smoke.py`` holds them against
+the plain versions on the card.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import acd_evict_plain
+from repro_torch.kernels.ref import acd_evict_plain, fifo_dispatch_plain
 from tests.test_torch_harness import reference
 
 DTYPES = {"f64": (np.float64, torch.float64), "f32": (np.float32,
@@ -175,3 +178,231 @@ def test_cuda_kernel_matches_plain_version(dtype):
     torch.cuda.synchronize()
     assert ops.acd_evict.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), _plain(P, thresh, mask))
+
+
+# -- fifo_dispatch ----------------------------------------------------------
+
+FIFO_OUT = ("prov", "seg", "wait", "cold", "start", "end", "extra")
+
+
+def _fifo_rows(rng, B, J, P, C, n_pub, cold):
+    """B rows of the reference kernel test's inputs (``_dispatch_inputs``
+    of ``tests/test_kernels.py``) sharing one ``capped``/``wu`` [P]."""
+    n_pub = np.broadcast_to(np.asarray(n_pub), (B,)).astype(np.int32)
+    order = np.stack([np.concatenate([rng.permutation(n),
+                                      np.arange(n, J)])
+                      for n in n_pub]).astype(np.int32)
+    locpub = np.zeros((B, J), bool)
+    for b, n in enumerate(n_pub):
+        locpub[b, order[b, :n]] = True
+    ready = rng.uniform(0.0, 5.0, (B, P, J))
+    dur = rng.lognormal(0.0, 0.5, (B, P, J))
+    selc = rng.uniform(0.0, 2.0, (B, P, J))
+    occ = rng.uniform(0.0, 0.3, (B, P, J))
+    seg = rng.integers(0, 4, (B, P, J)).astype(np.int32)
+    capped = rng.random(P) < 0.7
+    wu = rng.uniform(0.1, 1.0, P)
+    sclk0 = rng.uniform(0.0, 3.0, (B, P, C))
+    sidle0 = np.where(rng.random((B, P, C)) < (0.5 if cold else 0.0),
+                      -np.inf, sclk0)
+    return dict(order=order, locpub=locpub, n_pub=n_pub, ready=ready,
+                dur=dur, selc=selc, occ=occ, seg=seg, capped=capped, wu=wu,
+                sclk0=sclk0, sidle0=sidle0, keep_alive=0.75)
+
+
+_FIFO_ARGS = ("order", "locpub", "n_pub", "ready", "dur", "selc", "occ",
+              "seg", "capped", "wu", "sclk0", "sidle0")
+
+
+def _fifo_plain(x, cold, device="cpu"):
+    args = [torch.from_numpy(np.ascontiguousarray(x[k])).to(device)
+            for k in _FIFO_ARGS]
+    return [o.cpu().numpy() for o in fifo_dispatch_plain(
+        *args, x["keep_alive"], cold=cold)]
+
+
+def _fifo_reference(ref, x, cold):
+    """(oracle, Pallas-interpret) outputs of the reference, row by row,
+    stacked to [B, J] numpy arrays."""
+    jax = ref.jax
+    import jax.numpy as jnp
+
+    from repro.kernels import dispatch
+
+    oracle, kernel = [], []
+    with jax.enable_x64(True):
+        for b in range(x["order"].shape[0]):
+            row = [jnp.asarray(x[k] if k in ("capped", "wu") else x[k][b])
+                   for k in _FIFO_ARGS]
+            oracle.append([np.asarray(o) for o in ref.kref.fifo_dispatch_ref(
+                *row, x["keep_alive"], cold=cold)])
+            kernel.append([np.asarray(o) for o in dispatch.fifo_dispatch(
+                *row, x["keep_alive"], cold=cold, interpret=True)])
+    return ([np.stack([r[i] for r in oracle]) for i in range(7)],
+            [np.stack([r[i] for r in kernel]) for i in range(7)])
+
+
+def _assert_fifo_equal(got, want, where=""):
+    for name, g, w in zip(FIFO_OUT, got, want):
+        assert g.shape == w.shape, f"{where} {name}: {g.shape} != {w.shape}"
+        np.testing.assert_array_equal(g, w, err_msg=f"{where} {name}")
+
+
+@pytest.mark.parametrize("cold", [False, True])
+@pytest.mark.parametrize("j,p,c,n_pub", [(8, 2, 2, 8), (24, 3, 4, 17),
+                                         (64, 4, 2, 50)])
+def test_fifo_plain_matches_reference_oracle_and_pallas(ref, cold, j, p, c,
+                                                        n_pub):
+    rng = np.random.default_rng(j * 100 + p * 10 + c + cold)
+    x = _fifo_rows(rng, 3, j, p, c, n_pub, cold)
+    got = _fifo_plain(x, cold)
+    oracle, kernel = _fifo_reference(ref, x, cold)
+    _assert_fifo_equal(got, oracle, "oracle")
+    _assert_fifo_equal(got, kernel, "pallas")
+    assert got[2].any()  # some queueing wait
+
+
+@pytest.mark.parametrize("cold", [False, True])
+def test_fifo_ragged_rows_and_edge_counts(ref, cold):
+    """Rows of one batch with n_pub = 0, J and in between: the chain of
+    each row stops at its own count."""
+    rng = np.random.default_rng(17 + cold)
+    x = _fifo_rows(rng, 4, 13, 3, 2, np.array([0, 13, 5, 1]), cold)
+    got = _fifo_plain(x, cold)
+    oracle, kernel = _fifo_reference(ref, x, cold)
+    _assert_fifo_equal(got, oracle, "oracle")
+    _assert_fifo_equal(got, kernel, "pallas")
+    assert all(not o[0].any() for o in got)  # n_pub = 0: zero fill
+
+
+def test_fifo_chain_advances_clocks_sequentially(ref):
+    """All jobs to one capped provider with one slot: starts chain end to
+    end in visit order (pure FIFO queueing)."""
+    rng = np.random.default_rng(4)
+    x = _fifo_rows(rng, 2, 6, 1, 1, 6, False)
+    x["capped"] = np.ones(1, bool)
+    x["occ"] = np.zeros_like(x["occ"])
+    got = _fifo_plain(x, False)
+    oracle, kernel = _fifo_reference(ref, x, False)
+    _assert_fifo_equal(got, oracle, "oracle")
+    _assert_fifo_equal(got, kernel, "pallas")
+    start, end = got[4], got[5]
+    for b in range(2):
+        order = x["order"][b]
+        for a, nxt in zip(order[:-1], order[1:]):
+            assert start[b, nxt] >= end[b, a]
+
+
+def test_fifo_n_pub_truncates(ref):
+    rng = np.random.default_rng(8)
+    x = _fifo_rows(rng, 2, 12, 2, 2, 12, False)
+    x["n_pub"] = np.array([5, 5], np.int32)
+    got = _fifo_plain(x, False)
+    oracle, kernel = _fifo_reference(ref, x, False)
+    _assert_fifo_equal(got, oracle, "oracle")
+    _assert_fifo_equal(got, kernel, "pallas")
+    tail = x["order"][:, 5:]
+    for o in got:
+        assert (np.take_along_axis(o, tail, axis=1) == 0).all()
+
+
+@pytest.mark.parametrize("cold", [False, True])
+@pytest.mark.parametrize("case", ["tied_clocks", "infeasible_provider",
+                                  "all_inf_column", "never_used_slots",
+                                  "uncapped_provider"])
+def test_fifo_edge_cases(ref, cold, case):
+    """Ties take the first index in both argmins; an infeasible provider
+    (selc = inf) is never chosen while another is feasible, and an all-inf
+    column picks provider 0; never-used slots (idle -inf) are cold; an
+    uncapped provider never waits and never turns cold."""
+    rng = np.random.default_rng(23 + cold)
+    x = _fifo_rows(rng, 3, 16, 3, 3, 16, cold)
+    x["capped"] = np.array([True, True, False])
+    if case == "tied_clocks":
+        x["sclk0"][:] = 1.0
+        x["sidle0"][:] = 1.0
+        x["selc"][:, 1] = x["selc"][:, 0]
+        x["occ"][:, 1] = x["occ"][:, 0]
+        x["ready"][:, 1] = x["ready"][:, 0]
+        x["wu"][1] = x["wu"][0]
+    elif case == "infeasible_provider":
+        x["selc"][:, 0] = np.inf
+    elif case == "all_inf_column":
+        x["selc"][:, :, ::3] = np.inf
+    elif case == "never_used_slots":
+        x["sidle0"][:] = -np.inf
+    got = _fifo_plain(x, cold)
+    oracle, kernel = _fifo_reference(ref, x, cold)
+    _assert_fifo_equal(got, oracle, "oracle")
+    _assert_fifo_equal(got, kernel, "pallas")
+    prov, wait, cold_o = got[0], got[2], got[3]
+    if case == "infeasible_provider":
+        assert not (prov == 0).any()
+    if case == "all_inf_column":
+        assert (prov[:, ::3] == 0).all()
+    if case == "never_used_slots" and cold:
+        assert cold_o.any()
+    if case == "tied_clocks":
+        # the first visited job sees providers 0 and 1 tied: 0 wins
+        first = x["order"][:, 0]
+        assert (prov[np.arange(3), first] != 1).all()
+    assert (wait[prov == 2] == 0).all() and not cold_o[prov == 2].any()
+
+
+def test_fifo_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
+    rng = np.random.default_rng(6)
+    x = _fifo_rows(rng, 3, 20, 3, 2, 11, True)
+    before = ops.fifo_dispatch.launches
+    args = [torch.from_numpy(x[k]) for k in _FIFO_ARGS]
+    got = ops.fifo_dispatch(*args, x["keep_alive"], cold=True)
+    assert [o.dtype for o in got] == [
+        torch.int32, torch.int32, torch.float64, torch.bool, torch.float64,
+        torch.float64, torch.float64]
+    _assert_fifo_equal([o.numpy() for o in got], _fifo_plain(x, True))
+    assert ops.fifo_dispatch.launches == before
+    assert set(ops.launch_counts()) == {"acd_evict", "fifo_dispatch"}
+
+
+@pytest.mark.parametrize("case", ["order_dtype", "ready_dtype", "seg_dtype",
+                                  "capped_shape", "sclk_shape", "strided",
+                                  "device", "keep_alive"])
+def test_fifo_wrapper_rejects_bad_arguments(case):
+    rng = np.random.default_rng(1)
+    x = _fifo_rows(rng, 2, 8, 2, 2, 8, False)
+    args = {k: torch.from_numpy(x[k]) for k in _FIFO_ARGS}
+    ka = x["keep_alive"]
+    if case == "order_dtype":
+        args["order"] = args["order"].long()
+    elif case == "ready_dtype":
+        args["ready"] = args["ready"].float()
+    elif case == "seg_dtype":
+        args["seg"] = args["seg"].long()
+    elif case == "capped_shape":
+        args["capped"] = torch.ones(3, dtype=torch.bool)
+    elif case == "sclk_shape":
+        args["sclk0"] = args["sclk0"][:, :1].contiguous()
+    elif case == "strided":
+        args["dur"] = args["dur"].transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "device":
+        args["occ"] = args["occ"].to("meta")
+    elif case == "keep_alive":
+        ka = torch.tensor(0.75)
+    with pytest.raises((TypeError, ValueError)):
+        ops.fifo_dispatch(*(args[k] for k in _FIFO_ARGS), ka)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cold", [False, True])
+def test_cuda_fifo_kernel_matches_plain_version(cold):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (chip_smoke.py runs it)")
+    rng = np.random.default_rng(12)
+    x = _fifo_rows(rng, 30, 4097, 3, 2,
+                   rng.integers(0, 4098, 30), cold)
+    before = ops.fifo_dispatch.launches
+    got = ops.fifo_dispatch(*(torch.from_numpy(x[k]).cuda()
+                              for k in _FIFO_ARGS), x["keep_alive"],
+                            cold=cold)
+    torch.cuda.synchronize()
+    assert ops.fifo_dispatch.launches == before + 1
+    _assert_fifo_equal([o.cpu().numpy() for o in got], _fifo_plain(x, cold))

@@ -270,9 +270,6 @@ def test_empty_job_axis():
 
 UNPORTED = {
     "faults": dict(faults=0.2),
-    "concurrency": dict(concurrency=2),
-    "coldstart": dict(coldstart=0.5),
-    "pool_trace": dict(pool_trace=object()),
     "chunk_jobs": dict(chunk_jobs=8),
     "workload": dict(workload="azure:day=tue,scale=100"),
     "egress_lookahead": dict(egress_lookahead=True),
@@ -290,6 +287,27 @@ def test_unported_options_raise(name):
     with pytest.raises(NotImplementedError, match=name):
         pc.simulate_scenarios(dag, pred, act, device="cpu",
                               **UNPORTED[name])
+
+
+#: load options with an option the reference excludes them with: the
+#: reference's ValueError comes before any NotImplementedError
+LOAD_EXCLUSIONS = {
+    "faults": (dict(faults=0.2, concurrency=2), "faults"),
+    "chunk_jobs": (dict(chunk_jobs=8, coldstart=0.5), "chunk_jobs"),
+    "replicas_axis": (dict(replicas=[[1, 1, 1, 1], [2, 2, 2, 2]],
+                           pool_trace=dict(counts=(1, 2),
+                                           breakpoints=(1.0,))),
+                      "replicas axis"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LOAD_EXCLUSIONS))
+def test_load_option_exclusions_raise(name):
+    dag = pc.APPS["video"]
+    pred, act = workload(dag, J, 0)
+    kw, match = LOAD_EXCLUSIONS[name]
+    with pytest.raises(ValueError, match=match):
+        pc.simulate_scenarios(dag, pred, act, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("key", ["init_phase", "adaptive", "offload_mask",
