@@ -19,22 +19,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    matrix and video x {spt, hcf} x 5 deadlines = 30 scenarios) in one
    ``sweep_scenarios`` call on ``cuda`` at J=512 and J=4096 jobs. The grid
    at J=256 runs on the card and on the CPU and must agree field for
-   field; three scenarios of the J=4096 grid replay through the port's
-   DES and must meet the parity contract (placements, replicas,
-   providers, segments, start and end exact; cost and makespan to a
-   relative 1e-12). The J=512 sweep then runs once more under
+   field; three scenarios of each timed grid (J=512 and J=4096) replay
+   through the port's DES and must meet the parity contract (placements,
+   replicas, providers, segments, start and end exact; cost and makespan
+   to a relative 1e-12). The J=512 sweep then runs once more under
    ``torch.profiler`` to split its wall time into device-busy and idle.
 4. The congested main path: the same grid on a 3-provider portfolio with
    2-slot concurrency caps per provider and a 0.5 s warm-up / 1 s
    keep-alive scale-to-zero cold-start model (the throughput benchmark's
    ``--coldstart 0.5`` point), at J=512 and J=4096 on ``cuda``. Queue waits
    and cold starts must occur; the J=256 grid agrees between the card and
-   the CPU field for field; three J=4096 scenarios meet the DES contract,
-   queue waits and cold flags exact; the J=512 sweep runs once more under
-   the profiler.
+   the CPU field for field; three scenarios of each timed grid meet the
+   DES contract, queue waits and cold flags exact; the J=512 sweep runs
+   once more under the profiler.
 5. A pool trace (one private replica per stage, two from a breakpoint
-   inside the horizon) with the cold-start model, J=512 on ``cuda``; the
-   J=256 grid agrees between the card and the CPU field for field.
+   inside the horizon) with the cold-start model, J=512 on ``cuda``; three
+   of its scenarios meet the DES contract, and the J=256 grid agrees
+   between the card and the CPU field for field.
 6. Prints the kernels' JSON line, then the device line last.
 
 Launch counts are set to 0 just before each main path and read just after
@@ -356,11 +357,7 @@ def main() -> int:
         order = np.stack([rng.permutation(J) for _ in range(B)])
         npub = (rng.integers(0, J + 1, B) if n_pub is None
                 else np.full(B, n_pub))
-        locpub = np.zeros((B, J), bool)
-        for b in range(B):
-            locpub[b, order[b, :npub[b]]] = True
-        x = dict(order=order.astype(np.int32), locpub=locpub,
-                 n_pub=npub.astype(np.int32),
+        x = dict(order=order.astype(np.int32), n_pub=npub.astype(np.int32),
                  ready=rng.uniform(0.0, 0.01 * J, (B, P, J)),
                  dur=rng.lognormal(0.0, 0.5, (B, P, J)),
                  selc=rng.uniform(0.0, 2.0, (B, P, J)),
@@ -374,8 +371,8 @@ def main() -> int:
         if edit is not None:
             edit(x)
         return [torch.from_numpy(np.ascontiguousarray(x[k])).to(dev)
-                for k in ("order", "locpub", "n_pub", "ready", "dur", "selc",
-                          "occ", "seg", "capped", "wu", "sclk0", "sidle0")]
+                for k in ("order", "n_pub", "ready", "dur", "selc", "occ",
+                          "seg", "capped", "wu", "sclk0", "sidle0")]
 
     def tie(x):
         x["sclk0"][:] = 1.0
@@ -425,7 +422,7 @@ def main() -> int:
             fifo_err = max(fifo_err, *errs)
             ok = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
             print(f"fifo_dispatch {label} cold={cold}: "
-                  f"{int(args[2].sum())} chain steps, queue wait "
+                  f"{int(args[1].sum())} chain steps, queue wait "
                   f"{float(got[2].sum()):.3f}, cold {int(got[3].sum())}, "
                   f"max_abs_err {max(errs)}")
             if not ok:
@@ -433,8 +430,8 @@ def main() -> int:
                                      f"kernel != plain")
 
     args = fifo_cases[1][1]
-    B, P, J = args[3].shape
-    C = args[10].shape[2]
+    B, P, J = args[2].shape
+    C = args[9].shape[2]
     fk_ms = cuda_ms(lambda: ops.fifo_dispatch(*args, KA, cold=True), 20)
     t0 = time.perf_counter()
     plain_out = fifo_dispatch_plain(*args, KA, cold=True)
@@ -443,9 +440,9 @@ def main() -> int:
     if not all(torch.equal(g, w) for g, w in zip(
             ops.fifo_dispatch(*args, KA, cold=True), plain_out)):
         raise AssertionError("fifo_dispatch: kernel != plain on the card")
-    n_steps = int(args[2].sum())  # chain steps this input needs (n_pub)
+    n_steps = int(args[1].sum())  # chain steps this input needs (n_pub)
     f_bytes = (n_steps * P * (4 * 8 + 4)      # ready/dur/selc/occ, seg
-               + B * J * (4 + 1) + B * 4      # order, locpub, n_pub
+               + n_steps * 4 + B * 4          # order, n_pub
                + P * (1 + 8) + 2 * B * P * C * 8  # capped, wu, sclk0/sidle0
                + B * J * (2 * 4 + 4 * 8 + 1))  # the seven outputs
     f_ops = n_steps * P * (C + 12)  # slot argmin + wait/cold/pen/key
@@ -495,7 +492,8 @@ def main() -> int:
         launches[("main", J)] = counts
         outs[J] = (tasks, out)
     check_cpu_rerun(f"main path J={CPU_J}", fig4_workload(APPS, CPU_J), {})
-    check_des("main path J=4096", *outs[4096], DES_SCENARIOS, {})
+    for J in MAIN_J:
+        check_des(f"main path J={J}", *outs[J], DES_SCENARIOS, {})
     # where the J=512 sweep's time goes
     profile_sweep("main path J=512", outs[512][0], {}, walls[512])
 
@@ -520,8 +518,9 @@ def main() -> int:
         louts[J] = (tasks, out)
     check_cpu_rerun(f"congested path J={CPU_J}",
                     fig4_workload(APPS, CPU_J), load_kw)
-    check_des("congested path J=4096", *louts[4096], LOAD_DES_SCENARIOS,
-              load_kw, load_fields=True)
+    for J in MAIN_J:
+        check_des(f"congested path J={J}", *louts[J], LOAD_DES_SCENARIOS,
+                  load_kw, load_fields=True)
     profile_sweep("congested path J=512", louts[512][0], load_kw,
                   lwalls[512])
 
@@ -545,6 +544,8 @@ def main() -> int:
                 not (res.replica[priv] == 1).any():
             raise AssertionError(f"pool path {task['name']}: the pool "
                                  f"trace did not bind")
+    check_des("pool path J=512", tasks, out, LOAD_DES_SCENARIOS, pool_kw,
+              load_fields=True)
     tasks = fig4_workload(APPS, CPU_J)
     check_cpu_rerun(f"pool path J={CPU_J}", tasks, pool_kw_for(tasks)[1])
 

@@ -571,7 +571,7 @@ def _run_engine(a: Dict[str, torch.Tensor], include_transfers: bool,
             n_pub = locpub.sum(1)
             (pidx_k, seg_k, wait_f, coldpub_f, start_pub, end_pub,
              extra_f) = _kernel_ops.fifo_dispatch(
-                order_j.to(torch.int32), locpub, n_pub.to(torch.int32),
+                order_j.to(torch.int32), n_pub.to(torch.int32),
                 ready_pj, dur_pj, selc.contiguous(), occ_pj,
                 seg_pj.to(torch.int32), capped_p, wu_p, sclk0, sidle0,
                 load.keep_alive_s if cold else 0.0, cold=cold)

@@ -15,32 +15,31 @@
 // seven outputs (provider, segment, wait, cold, start, end, penalty) are
 // written at column j; columns the chain never visits hold zeros.
 //
-// Bound on this card. At the engine's [B, P, J, C] = [30, 3, 4096, 2] the
-// function reads 4*B*P*J*8 bytes (ready, dur, selc, occ) + B*P*J*4 (seg)
-// + B*J*5 (order, locpub), about 13.9 MB, and writes B*J*41 bytes, about
-// 5.0 MB: some 5.6 us at 3.35 TB/s. The arithmetic is a few operations per
-// (job, provider, slot), far below the card's float64 rate. Its real limit
-// is the chain inside each row: n_pub dependent steps, each a P x C argmin,
-// a P argmin and a clock write that the next step reads.
+// Bound on this card. At the engine's [B, P, J, C] = [30, 3, 4096, 2] with
+// every column visited, the function reads 4*B*P*J*8 bytes (ready, dur,
+// selc, occ) + B*P*J*4 (seg) + B*J*4 + B*4 (order, n_pub), about 13.8 MB,
+// and writes B*J*41 bytes, about 5.0 MB: some 5.6 us at 3.35 TB/s. The
+// arithmetic is a few operations per (job, provider, slot), far below the
+// card's float64 rate. Its real limit is the chain inside each row: n_pub
+// dependent steps, each a P x C argmin, a P argmin and a clock write that
+// the next step reads.
 //
 // What the design does about it. One block per row, so the rows run on
 // separate SMs in parallel. The slot pool lives in shared memory. The
 // block gathers the columns of the next tile of chain steps (ready, dur,
 // selc, occ and seg of every provider at job order[i]) from device memory
 // into shared memory with all its threads, so the scattered loads overlap
-// one another. One warp then runs the tile's steps out of shared memory,
-// one lane per provider (lane l takes providers l, l + 32, ...): the lanes
-// price their providers at once, a shuffle butterfly over the first
-// power of two >= min(P, 32) lanes finds the provider argmin, and the
-// winning lane stores the outputs straight to device memory (stores never
-// stall the chain) and advances its slot. Overlapping the next tile's
-// gather with the current chain, or speculating over the chain, is later
-// work.
+// one another. One thread then runs the tile's steps out of shared
+// memory: a running argmin over the providers, each priced against its
+// earliest-free slot, and stores the outputs straight to device memory
+// (stores never stall the chain). Overlapping the next tile's gather with
+// the current chain, or speculating over the chain, is later work.
 //
 // Exactness. Every float expression keeps the reference's association:
 // (ready + wait) + cold * wu, start + dur, occ * (wait + cold * wu),
-// selc + pen, (ready + wait) - idle; both argmins take the first index on
-// ties and, like jnp.argmin and torch.argmin, the first NaN; max(0, d)
+// selc + pen, (ready + wait) - idle; both argmins are a strict < over a
+// running best from index 0, so they take the first index on ties and,
+// like jnp.argmin and torch.argmin, the first NaN; max(0, d)
 // propagates a NaN d like jnp.maximum. No fmin/fmax (they drop NaNs).
 // Build with --fmad=false: selc + occ * (...) must never contract.
 //
@@ -74,18 +73,6 @@ size_t smem_bytes(int P, int C, int T) {
 // first NaN if there is one): does the later value v replace best?
 __device__ __forceinline__ bool argmin_takes(double v, double best) {
   return !isnan(best) && (isnan(v) || v < best);
-}
-
-// the same order between two (value, index) candidates of any order;
-// index -1 marks no candidate
-__device__ __forceinline__ bool argmin_before(double a, int ia, double b,
-                                              int ib) {
-  if (ia < 0) return false;
-  if (ib < 0) return true;
-  const bool na = isnan(a), nb = isnan(b);
-  if (na != nb) return na;
-  if (na) return ia < ib;
-  return a < b || (a == b && ia < ib);
 }
 
 template <bool kCold>
@@ -144,9 +131,6 @@ fifo_dispatch_kernel(const int* __restrict__ order,
     s_cap[p] = capped[p];
   }
   const int n = min(max(n_pub[b], 0), J);
-  // lanes of the provider argmin's butterfly: a power of two >= min(P, 32)
-  int width = 1;
-  while (width < min(P, 32)) width <<= 1;
   __syncthreads();
 
   for (int base = 0; base < n; base += T) {
@@ -168,16 +152,14 @@ fifo_dispatch_kernel(const int* __restrict__ order,
       }
     }
     __syncthreads();
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x;
+    if (threadIdx.x == 0) {
       for (int ii = 0; ii < m; ++ii) {
-        const int j = t_j[ii];  // the same in every lane
+        const int j = t_j[ii];
         if (j < 0) continue;
-        // this lane's best provider among lane, lane + 32, ...
-        int bp = -1, bsi = 0;
+        int bp = 0, bsi = 0;
         bool bcold = false;
         double bkey = 0.0, bw = 0.0, bcw = 0.0, bpen = 0.0;
-        for (int p = lane; p < P; p += 32) {
+        for (int p = 0; p < P; ++p) {
           const double* clk = sclk + p * C;
           int si = 0;
           double sc = clk[0];
@@ -202,7 +184,7 @@ fifo_dispatch_kernel(const int* __restrict__ order,
           const double cw = (cp ? 1.0 : 0.0) * s_wu[p];
           const double pen = t_occ[ii * P + p] * (w + cw);
           const double key = t_selc[ii * P + p] + pen;
-          if (bp < 0 || argmin_takes(key, bkey)) {
+          if (p == 0 || argmin_takes(key, bkey)) {
             bkey = key;
             bp = p;
             bsi = si;
@@ -212,33 +194,19 @@ fifo_dispatch_kernel(const int* __restrict__ order,
             bcold = cp;
           }
         }
-        // provider argmin across the lanes
-        double wkey = bkey;
-        int wp = bp;
-        for (int off = width >> 1; off > 0; off >>= 1) {
-          const double okey = __shfl_xor_sync(0xffffffffu, wkey, off);
-          const int op = __shfl_xor_sync(0xffffffffu, wp, off);
-          if (argmin_before(okey, op, wkey, wp)) {
-            wkey = okey;
-            wp = op;
-          }
+        const double start = (t_ready[ii * P + bp] + bw) + bcw;
+        const double end = start + t_dur[ii * P + bp];
+        prov_out[row + j] = bp;
+        seg_out[row + j] = t_seg[ii * P + bp];
+        wait_out[row + j] = bw;
+        cold_out[row + j] = bcold ? 1 : 0;
+        start_out[row + j] = start;
+        end_out[row + j] = end;
+        extra_out[row + j] = bpen;
+        if (s_cap[bp] != 0) {
+          sclk[bp * C + bsi] = end;
+          sidle[bp * C + bsi] = end;
         }
-        if (bp >= 0 && wp == bp) {  // the lane that owns the winner
-          const double start = (t_ready[ii * P + bp] + bw) + bcw;
-          const double end = start + t_dur[ii * P + bp];
-          prov_out[row + j] = bp;
-          seg_out[row + j] = t_seg[ii * P + bp];
-          wait_out[row + j] = bw;
-          cold_out[row + j] = bcold ? 1 : 0;
-          start_out[row + j] = start;
-          end_out[row + j] = end;
-          extra_out[row + j] = bpen;
-          if (s_cap[bp] != 0) {
-            sclk[bp * C + bsi] = end;
-            sidle[bp * C + bsi] = end;
-          }
-        }
-        __syncwarp();  // the slot write is seen by the next step's lanes
       }
     }
     __syncthreads();

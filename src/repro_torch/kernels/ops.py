@@ -61,11 +61,11 @@ def acd_evict(P: torch.Tensor, thresh: torch.Tensor,
 acd_evict.launches = 0
 
 
-def _check_fifo(order, locpub, n_pub, ready, dur, selc, occ, seg, capped,
-                wu, sclk0, sidle0, keep_alive) -> None:
-    args = dict(order=order, locpub=locpub, n_pub=n_pub, ready=ready,
-                dur=dur, selc=selc, occ=occ, seg=seg, capped=capped, wu=wu,
-                sclk0=sclk0, sidle0=sidle0)
+def _check_fifo(order, n_pub, ready, dur, selc, occ, seg, capped, wu, sclk0,
+                sidle0, keep_alive) -> None:
+    args = dict(order=order, n_pub=n_pub, ready=ready, dur=dur, selc=selc,
+                occ=occ, seg=seg, capped=capped, wu=wu, sclk0=sclk0,
+                sidle0=sidle0)
     for name, x in args.items():
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"fifo_dispatch: {name} must be a torch.Tensor")
@@ -79,8 +79,8 @@ def _check_fifo(order, locpub, n_pub, ready, dur, selc, occ, seg, capped,
                          "[B, P, C]")
     B, P, J = ready.shape
     C = sclk0.shape[2]
-    want = dict(order=((B, J), torch.int32), locpub=((B, J), torch.bool),
-                n_pub=((B,), torch.int32), ready=((B, P, J), torch.float64),
+    want = dict(order=((B, J), torch.int32), n_pub=((B,), torch.int32),
+                ready=((B, P, J), torch.float64),
                 dur=((B, P, J), torch.float64),
                 selc=((B, P, J), torch.float64),
                 occ=((B, P, J), torch.float64), seg=((B, P, J), torch.int32),
@@ -102,25 +102,24 @@ def _check_fifo(order, locpub, n_pub, ready, dur, selc, occ, seg, capped,
         raise TypeError("fifo_dispatch: keep_alive must be a number")
 
 
-def fifo_dispatch(order: torch.Tensor, locpub: torch.Tensor,
-                  n_pub: torch.Tensor, ready: torch.Tensor,
-                  dur: torch.Tensor, selc: torch.Tensor, occ: torch.Tensor,
+def fifo_dispatch(order: torch.Tensor, n_pub: torch.Tensor,
+                  ready: torch.Tensor, dur: torch.Tensor, selc: torch.Tensor, occ: torch.Tensor,
                   seg: torch.Tensor, capped: torch.Tensor, wu: torch.Tensor,
                   sclk0: torch.Tensor, sidle0: torch.Tensor,
                   keep_alive: float, *, cold: bool = False):
     """Capped FIFO public-dispatch chain of one stage for B scenario rows:
-    ``order`` [B, J] int32, ``locpub`` [B, J] bool, ``n_pub`` [B] int32,
+    ``order`` [B, J] int32 (public jobs first), ``n_pub`` [B] int32,
     ``ready``/``dur``/``selc``/``occ`` [B, P, J] float64, ``seg``
     [B, P, J] int32, ``capped`` [P] bool, ``wu`` [P] float64,
     ``sclk0``/``sidle0`` [B, P, C] float64 -> (prov, seg, wait, cold,
     start, end, extra), each [B, J]. CPU tensors run
     :func:`.ref.fifo_dispatch_plain`; CUDA tensors run the CUDA kernel
     (``csrc/fifo_dispatch.cu``)."""
-    _check_fifo(order, locpub, n_pub, ready, dur, selc, occ, seg, capped,
-                wu, sclk0, sidle0, keep_alive)
+    _check_fifo(order, n_pub, ready, dur, selc, occ, seg, capped, wu, sclk0,
+                sidle0, keep_alive)
     if ready.device.type == "cpu":
-        return fifo_dispatch_plain(order, locpub, n_pub, ready, dur, selc,
-                                   occ, seg, capped, wu, sclk0, sidle0,
+        return fifo_dispatch_plain(order, n_pub, ready, dur, selc, occ, seg,
+                                   capped, wu, sclk0, sidle0,
                                    float(keep_alive), cold=bool(cold))
     if ready.device.type != "cuda":
         raise ValueError(f"fifo_dispatch: no kernel for device "

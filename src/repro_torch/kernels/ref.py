@@ -33,8 +33,8 @@ def acd_evict_plain(P: torch.Tensor, thresh: torch.Tensor,
     return out
 
 
-def fifo_dispatch_plain(order: torch.Tensor, locpub: torch.Tensor,
-                        n_pub: torch.Tensor, ready: torch.Tensor,
+def fifo_dispatch_plain(order: torch.Tensor, n_pub: torch.Tensor,
+                        ready: torch.Tensor,
                         dur: torch.Tensor, selc: torch.Tensor,
                         occ: torch.Tensor, seg: torch.Tensor,
                         capped: torch.Tensor, wu: torch.Tensor,
@@ -52,8 +52,8 @@ def fifo_dispatch_plain(order: torch.Tensor, locpub: torch.Tensor,
     ``dur``; a capped provider's chosen slot then advances its clock and
     idle stamp to the end. Jobs the chain does not visit keep zeros.
 
-    ``order`` [B, J] int, ``locpub`` [B, J] bool (unused by the chain: the
-    caller puts public jobs first), ``n_pub`` [B] int,
+    ``order`` [B, J] int (the caller puts the public jobs first),
+    ``n_pub`` [B] int,
     ``ready``/``dur``/``selc``/``occ`` [B, P, J] float, ``seg`` [B, P, J]
     int, ``capped`` [P] bool, ``wu`` [P] float, ``sclk0``/``sidle0``
     [B, P, C] float. Returns (prov, seg, wait, cold, start, end, extra),

@@ -210,8 +210,11 @@ def _fifo_rows(rng, B, J, P, C, n_pub, cold):
                 sclk0=sclk0, sidle0=sidle0, keep_alive=0.75)
 
 
-_FIFO_ARGS = ("order", "locpub", "n_pub", "ready", "dur", "selc", "occ",
-              "seg", "capped", "wu", "sclk0", "sidle0")
+_FIFO_ARGS = ("order", "n_pub", "ready", "dur", "selc", "occ", "seg",
+              "capped", "wu", "sclk0", "sidle0")
+#: the reference kernel also takes the public mask (it reads only order
+#: and n_pub)
+_FIFO_REF_ARGS = ("order", "locpub") + _FIFO_ARGS[1:]
 
 
 def _fifo_plain(x, cold, device="cpu"):
@@ -233,7 +236,7 @@ def _fifo_reference(ref, x, cold):
     with jax.enable_x64(True):
         for b in range(x["order"].shape[0]):
             row = [jnp.asarray(x[k] if k in ("capped", "wu") else x[k][b])
-                   for k in _FIFO_ARGS]
+                   for k in _FIFO_REF_ARGS]
             oracle.append([np.asarray(o) for o in ref.kref.fifo_dispatch_ref(
                 *row, x["keep_alive"], cold=cold)])
             kernel.append([np.asarray(o) for o in dispatch.fifo_dispatch(
