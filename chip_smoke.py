@@ -36,7 +36,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    inside the horizon) with the cold-start model, J=512 on ``cuda``; three
    of its scenarios meet the DES contract, and the J=256 grid agrees
    between the card and the CPU field for field.
-6. Prints the kernels' JSON line, then the device line last.
+6. The paper's profile -> predict -> schedule path. First ``matmul``
+   against its plain version on the card (ragged shapes, transposed views,
+   1024^3, bf16; the matrix app's integer ``x @ x.T`` at n = 344 and 496
+   bit for bit, also against the CPU) and its time, bound and
+   ``torch.matmul``'s time at [496]^3 and [4096]^3. Then the matrix app at
+   full width traces 924 jobs on the card (MM through ``matmul``), splits
+   them 774/150, fits the ridge models on the card, predicts the test
+   jobs, schedules them SPT and HCF at 0.55x the all-private makespan
+   (DES) and sweeps 2 orders x 5 deadlines on the card (``acd_evict``);
+   video and image run the same loop at full width with 40/16 jobs.
+   Per-stage card latency, model MAPE and lambdas are printed, and 100
+   matrix jobs are traced once more under the profiler. The first
+   jobs' stage outputs agree between card and CPU (MM, EF and RI bit for
+   bit, LU with the same pivots), and the card's fits equal the CPU's
+   (the same lambdas, predictions to a relative 1e-4).
+7. Prints the kernels' JSON line, then the device line last.
 
 Launch counts are set to 0 just before each main path and read just after
 it; every kernel of a path must have launched in it.
@@ -71,6 +86,27 @@ LOAD_DES_SCENARIOS = ((0, 3), (1, 6), (2, 9))
 #: job count of the CPU reruns: a J=512 rerun of each path on the CPU (the
 #: plain acd_evict loop) took 46-64 s and put the script at 6 minutes
 CPU_J = 256
+#: the profiling path: every app at full width (scale 1.0); the matrix app
+#: with the paper's trace counts (benchmarks/common.py FULL_COUNTS), video
+#: and image with the benchmark's quick counts (QUICK_COUNTS)
+PROFILE_COUNTS = {"matrix": (774, 150), "video": (40, 16),
+                  "image": (40, 16)}
+PROFILE_C_MAX_FRAC = 0.55  # the quickstart's deadline: 0.55x all-private
+PRED_KEYS = ("P_private", "P_public", "upload", "download")
+#: jobs of each app whose stage outputs are compared between card and CPU
+CPU_JOBS = {"matrix": 8, "video": 4, "image": 4}
+#: matmul against its plain version: |got - want| <= MM_RTOL * (|x| @ |y|)
+#: elementwise, the float32 rounding of any summation order (bf16 outputs
+#: may also differ by one bf16 ulp, 2^-7 of the value)
+MM_RTOL = 1e-5
+#: LU on the card against the CPU (both float32, the same pivots): packed
+#: factors within LU_RTOL * max|LU| (the Gram matrices' condition number
+#: amplifies rounding), and each factorization's backward error
+#: max|P L U - A| / max|A| below LU_BACKWARD
+LU_RTOL = 2e-3
+LU_BACKWARD = 1e-5
+#: perf models fitted on the card against the same fit on the CPU
+PM_RTOL = 1e-4
 
 
 def fig4_workload(apps, J, jitter=0.05):
@@ -198,6 +234,305 @@ def profile_sweep(label, tasks, sweep_kw, wall):
               f"x{e.count} {e.key[:90]}")
 
 
+def cuda_ms(fn, n):
+    """Milliseconds per call of ``fn`` on the card: one warm-up call, then
+    ``n`` calls between two CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(n):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def matmul_bound(M, K, N, itemsize):
+    """(bound ms, what bounds it, bytes, operations) of one [M, K] @ [K, N]:
+    each input read once and the output written once at the HBM rate, the
+    2MNK float operations at the float32 peak without tensor cores."""
+    n_bytes = (M * K + K * N + M * N) * itemsize
+    n_ops = 2 * M * N * K
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_OPS_PER_S["float32"] * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops)
+
+
+def check_matmul(dev):
+    """``matmul`` against its plain version on the card (ragged, transposed
+    views, 1024^3, bf16; the app's integer x @ x.T bit for bit, also
+    against the CPU), then its time, bound and ``torch.matmul``'s time at
+    [496]^3 and [4096]^3. Returns its entry of the kernels line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_plain
+
+    # the plain version and the library call in IEEE float32, as the kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(13)
+
+    def normal(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev).to(dtype)
+
+    def order_bound(x, y):
+        return MM_RTOL * (x.float().abs() @ y.float().abs())
+
+    max_err = 0.0  # over the float32 cases
+    cases = [("(1, 1, 1)", normal(1, 1), normal(1, 1)),
+             ("ragged (130, 257, 65)", normal(130, 257), normal(257, 65)),
+             ("ragged (127, 129, 131)", normal(127, 129), normal(129, 131)),
+             ("transposed views (200, 300, 150)", normal(300, 200).T,
+              normal(150, 300).T),
+             ("normal (1024, 1024, 1024)", normal(1024, 1024),
+              normal(1024, 1024)),
+             ("bf16 ragged (130, 257, 65)",
+              normal(130, 257, dtype=torch.bfloat16),
+              normal(257, 65, dtype=torch.bfloat16)),
+             ("bf16 (512, 512, 512)", normal(512, 512, dtype=torch.bfloat16),
+              normal(512, 512, dtype=torch.bfloat16))]
+    for label, x, y in cases:
+        got = ops.matmul(x, y)
+        want = matmul_plain(x, y)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        bound = order_bound(x, y)
+        if x.dtype == torch.bfloat16:
+            bound = bound + 2.0 ** -7 * want.float().abs()
+        else:
+            max_err = max(max_err, float(err.max()))
+        worst = float((err / bound.clamp(min=1e-30)).max())
+        print(f"matmul {label} {str(x.dtype)[6:]}: max_abs_err "
+              f"{float(err.max())!r}, worst |err| / tolerance {worst:.4f}")
+        if got.dtype != x.dtype or not bool((err <= bound).all()):
+            raise AssertionError(f"matmul {label}: kernel != plain")
+    for n in (344, 496):
+        xi = torch.from_numpy(rng.integers(0, 10, (n, n)).astype(
+            np.float32)).to(dev)
+        got = ops.matmul(xi, xi.T)
+        want = matmul_plain(xi, xi.T)
+        cpu = matmul_plain(xi.cpu(), xi.cpu().T)
+        same_card, same_cpu = torch.equal(got, want), torch.equal(
+            got.cpu(), cpu)
+        print(f"matmul integer x @ x.T n={n}: bitwise equal to the plain "
+              f"version on the card {same_card}, on the CPU {same_cpu}")
+        if not (same_card and same_cpu):
+            raise AssertionError(f"matmul x @ x.T n={n}: not bit for bit")
+
+    rows = {}
+    for n, reps in ((496, 200), (4096, 10)):
+        x, y = normal(n, n), normal(n, n)
+        k_ms = cuda_ms(lambda: ops.matmul(x, y), reps)
+        p_ms = cuda_ms(lambda: matmul_plain(x, y), reps)
+        l_ms = cuda_ms(lambda: torch.matmul(x, y), reps)
+        bound, by, n_bytes, n_ops = matmul_bound(n, n, n, 4)
+        print(f"matmul [{n}, {n}, {n}] f32: kernel {k_ms:.6f} ms "
+              f"({n_ops / k_ms * 1e-9:.3f} TFLOP/s), plain {p_ms:.6f} ms, "
+              f"torch.matmul (TF32 off) {l_ms:.6f} ms, bound "
+              f"{bound:.6f} ms by {by} (bytes {n_bytes}, operations "
+              f"{n_ops}); kernel at {bound / k_ms:.3f} of the bound")
+        rows[n] = (k_ms, p_ms, l_ms, bound, by)
+    k_ms, p_ms, l_ms, bound, by = rows[496]
+    return {"name": "matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/matmul.cu",
+            "replaces": "src/repro/kernels/matmul.py:36",
+            "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": l_ms}
+
+
+def profile_app(name, device="cuda"):
+    """The paper's loop for one app at full width on ``device``: trace its
+    jobs, split them, fit the perf models, predict the test jobs, and
+    schedule them SPT and HCF at 0.55x the all-private makespan through
+    the DES. Prints per-stage card latency, model MAPE and lambdas."""
+    import numpy as np
+
+    from repro_torch.apps import SPECS, fit_models, generate_traces, \
+        split_traces
+    from repro_torch.core import (SkedulixScheduler, mape,
+                                  simulate_all_private)
+
+    spec = SPECS[name](scale=1.0, device=device)
+    n_tr, n_te = PROFILE_COUNTS[name]
+    t0 = time.perf_counter()
+    traces = generate_traces(spec, n_tr + n_te, seed=0)
+    t_trace = time.perf_counter() - t0
+    tr, te = split_traces(traces, n_tr)
+    t0 = time.perf_counter()
+    pm = fit_models(spec, tr)
+    t_fit = time.perf_counter() - t0
+    pred_all = pm.predict(te["base_features"])
+    for key in ("private", "public", "outsize"):
+        if not np.isfinite(traces[key]).all():
+            raise AssertionError(f"profile {name}: non-finite {key} traces")
+    for key in PRED_KEYS + ("sizes",):
+        if pred_all[key].shape != te["private"].shape or \
+                not np.isfinite(pred_all[key]).all():
+            raise AssertionError(f"profile {name}: bad {key} predictions")
+    print(f"profile {name}: {n_tr + n_te} jobs traced on {spec.device} in "
+          f"{t_trace:.3f} s, models fitted in {t_fit:.3f} s")
+    card_s = (traces["private"] - traces["overhead"]) / spec.time_scale
+    for k, stage in enumerate(spec.dag.stages):
+        sm = pm.stages[k]
+        print(f"  {stage.name}: median card latency "
+              f"{np.median(card_s[:, k]) * 1e3:.6f} ms; test MAPE private "
+              f"{mape(te['private'][:, k], pred_all['P_private'][:, k]):.2f}%"
+              f", public "
+              f"{mape(te['public'][:, k], pred_all['P_public'][:, k]):.2f}%"
+              f", size {mape(te['outsize'][:, k], pred_all['sizes'][:, k]):.2f}"
+              f"%; lambda private {sm.private.lam}, public {sm.public.lam}, "
+              f"size {sm.outsize.lam}")
+    pred = {k: pred_all[k] for k in PRED_KEYS}
+    act = dict(P_private=te["private"], P_public=te["public"],
+               upload=pred["upload"], download=pred["download"])
+    sched = SkedulixScheduler(spec.dag, pm)
+    priv = simulate_all_private(spec.dag, pred, act)
+    c_max = PROFILE_C_MAX_FRAC * priv.makespan
+    print(f"  all-private makespan {priv.makespan:.3f} s; C_max "
+          f"{c_max:.3f} s")
+    for order in ORDERS:
+        r = sched.schedule(c_max, base_features=te["base_features"],
+                           act=act, order=order).result
+        if not (np.isfinite(r.makespan) and np.isfinite(r.cost_usd)):
+            raise AssertionError(f"profile {name} {order}: non-finite")
+        print(f"  {order.upper()}: makespan {r.makespan:.3f} s, met "
+              f"{bool(r.met_deadline)}, cost {r.cost_usd:.6f} USD, "
+              f"{int(r.n_offloaded_stages)} stage executions offloaded")
+    return dict(spec=spec, traces=traces, tr=tr, te=te, pm=pm, act=act,
+                sched=sched, priv=priv)
+
+
+def profile_traces(spec, n_jobs):
+    """``n_jobs`` of the app's jobs traced once more under
+    ``torch.profiler`` (device activity only): device-busy share of the
+    traced wall and kernel time by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.apps import generate_traces
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate_traces(spec, n_jobs, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_events = sorted((e for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: -e.self_device_time_total)
+    busy_s = sum(e.self_device_time_total for e in dev_events) * 1e-6
+    if busy_s <= 0:
+        print(f"profile {spec.name} traces: torch.profiler saw no device "
+              f"time; device busy share not measured")
+        return
+    print(f"profile {spec.name} traces: {n_jobs} jobs in {wall:.3f} s "
+          f"profiled wall, device busy {busy_s:.6f} s ({busy_s / wall:.4f});"
+          f" {sum(e.count for e in dev_events)} device events")
+    for e in dev_events[:6]:
+        print(f"  {e.self_device_time_total * 1e-3:.3f} ms x{e.count} "
+              f"{e.key[:90]}")
+
+
+def check_apps_against_cpu(name, spec, traces):
+    """The first jobs' stage outputs on the card against the CPU (each CPU
+    stage gets the card stage's own input), at the CPU tests' tolerances."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apps import SPECS
+
+    cpu_spec = SPECS[name](scale=1.0, device="cpu")
+    rng = np.random.default_rng(0)  # generate_traces' stream, seed 0
+    M = spec.dag.num_stages
+    worst = {}
+    for j in range(CPU_JOBS[name]):
+        job, feats = spec.make_job(rng)
+        for _ in range(M):  # the trace's per-stage draws, in its order
+            rng.uniform(*spec.overhead_range_s)
+            rng.lognormal(0.0, spec.public_jitter)
+            rng.lognormal(0.0, 0.02)
+        if not np.array_equal(feats, traces["base_features"][j]):
+            raise AssertionError(f"{name} job {j}: not the trace's job")
+        outs = {}
+        for k in spec.dag.topo_order():
+            preds = spec.dag.predecessors(k)
+            ins = [outs[p] for p in preds] if preds else [job]
+            raw = spec.stage_fns[k](ins)
+            cpu_raw = cpu_spec.stage_fns[k]([x.cpu() for x in ins])
+            got = raw[0] if isinstance(raw, tuple) else raw
+            want = cpu_raw[0] if isinstance(cpu_raw, tuple) else cpu_raw
+            outs[k] = got
+            stage = spec.dag.stages[k].name
+            g, w = got.cpu(), want
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"{name} {stage}: shape or dtype")
+            if name == "matrix" and stage == "LU":
+                x = ins[0].to(torch.float32)
+                _, piv_c = torch.linalg.lu_factor(x)
+                _, piv_h = torch.linalg.lu_factor(x.cpu())
+                if not torch.equal(piv_c.cpu(), piv_h):
+                    raise AssertionError(f"matrix job {j}: LU pivots differ"
+                                         f" between card and CPU")
+                d = float((g - w).abs().max() / w.abs().max())
+                back = []
+                for lu, piv in ((g, piv_c.cpu()), (w, piv_h)):
+                    P_, L_, U_ = torch.lu_unpack(lu.double(), piv)
+                    a = x.cpu().double()
+                    back.append(float((P_ @ L_ @ U_ - a).abs().max()
+                                      / a.abs().max()))
+                ok = d <= LU_RTOL and max(back) <= LU_BACKWARD
+                worst["LU rel"] = max(worst.get("LU rel", 0.0), d)
+                worst["LU backward"] = max(worst.get("LU backward", 0.0),
+                                           *back)
+            elif (name == "matrix" or stage in ("EF", "RI")):
+                ok = torch.equal(g, w)
+            elif name == "video":
+                err = (g - w).abs()
+                ok = bool((err <= 1e-5 * w.abs() + 1e-7).all())
+                worst[stage] = max(worst.get(stage, 0.0), float(err.max()))
+            else:
+                d = (g.long() - w.long()).abs()
+                frac = float((d > 0).float().mean())
+                ok = int(d.max()) <= 1 and frac <= 1e-3
+                worst[stage] = max(worst.get(stage, 0.0), frac)
+            if not ok:
+                raise AssertionError(f"{name} job {j} stage {stage}: card "
+                                     f"!= CPU beyond the tolerance")
+    print(f"profile {name}: the first {CPU_JOBS[name]} jobs' stage outputs "
+          f"agree between card and CPU (worst: "
+          + ", ".join(f"{k} {v!r}" for k, v in worst.items()) + ")")
+
+
+def check_fit_against_cpu(name, spec, tr, te, pm):
+    """The perf models fitted on the card against the same fit on the
+    CPU: the same lambda for every model, predictions within PM_RTOL."""
+    import numpy as np
+
+    from repro_torch.apps import fit_models
+
+    cpu = fit_models(spec, tr, device="cpu")
+    for k, (a, b) in enumerate(zip(pm.stages, cpu.stages)):
+        for part in ("private", "public", "outsize"):
+            la, lb = getattr(a, part).lam, getattr(b, part).lam
+            if la != lb:
+                raise AssertionError(f"{name} stage {k} {part}: lambda "
+                                     f"{la} on the card, {lb} on the CPU")
+    got, want = pm.predict(te["base_features"]), cpu.predict(
+        te["base_features"])
+    rel = max(float(np.max(np.abs(got[k] - want[k])
+                           / np.maximum(np.abs(want[k]), 1e-30)))
+              for k in want)
+    print(f"profile {name}: card fit equals the CPU fit in every lambda; "
+          f"predictions max relative difference {rel!r}")
+    if rel > PM_RTOL:
+        raise AssertionError(f"{name}: card predictions != CPU's")
+
+
 def check_des(label, tasks, out, pairs, sim_kw, load_fields=False):
     """Scenarios of a sweep against the port's DES under the parity
     contract (queue waits and cold flags exact too, when loaded)."""
@@ -314,17 +649,6 @@ def main() -> int:
         if evicts != bool(got.any()):
             raise AssertionError(f"acd_evict {label}: evictions expected "
                                  f"{evicts}, got {bool(got.any())}")
-
-    def cuda_ms(fn, n):
-        fn()
-        torch.cuda.synchronize()
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        for _ in range(n):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / n
 
     P, thresh, mask = cases[0][1]
     B, J = P.shape
@@ -549,14 +873,52 @@ def main() -> int:
     tasks = fig4_workload(APPS, CPU_J)
     check_cpu_rerun(f"pool path J={CPU_J}", tasks, pool_kw_for(tasks)[1])
 
-    # -- 6. result ------------------------------------------------------------
+    # -- 6. the profiling path: profile -> predict -> schedule -------------
+    kernels.append(check_matmul(dev))
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    mx = profile_app("matrix")
+    # the whole grid of the matrix test jobs in one batched sweep (acd_evict)
+    fracs = np.linspace(0.45, 0.95, N_DEADLINES)
+    sweep = mx["sched"].schedule_sweep(
+        [float(mx["priv"].makespan * f) for f in fracs],
+        base_features=mx["te"]["base_features"], act=mx["act"],
+        orders=ORDERS)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"profile matrix: 2 orders x {N_DEADLINES} deadlines swept on the "
+          f"card, makespan {sweep.makespan.min():.3f}.."
+          f"{sweep.makespan.max():.3f} s, cost {sweep.cost_usd.min():.6f}.."
+          f"{sweep.cost_usd.max():.6f} USD; path wall "
+          f"{time.perf_counter() - t0:.3f} s; launches {counts}")
+    n_jobs = sum(PROFILE_COUNTS["matrix"])
+    if counts["matmul"] < n_jobs or counts["acd_evict"] <= 0:
+        raise AssertionError(f"profiling path: matmul launched "
+                             f"{counts['matmul']} times for {n_jobs} jobs, "
+                             f"acd_evict {counts['acd_evict']}")
+    if not (np.isfinite(sweep.makespan).all()
+            and np.isfinite(sweep.cost_usd).all()):
+        raise AssertionError("profiling path: non-finite sweep")
+    launches["profile"] = counts
+    profile_traces(mx["spec"], 100)
+    profiled = {"matrix": mx}
+    for name in ("video", "image"):
+        profiled[name] = profile_app(name)
+    for name, run in profiled.items():
+        check_apps_against_cpu(name, run["spec"], run["traces"])
+        check_fit_against_cpu(name, run["spec"], run["tr"], run["te"],
+                              run["pm"])
+
+    # -- 7. result ------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main path of its slice: acd_evict on
-    # the uncapped sweeps, fifo_dispatch on the congested ones
+    # the uncapped sweeps, fifo_dispatch on the congested ones, matmul on
+    # the matrix app's profiling path
     kernels[0]["launches"] = sum(launches[("main", J)]["acd_evict"]
                                  for J in MAIN_J)
     kernels[1]["launches"] = sum(launches[("load", J)]["fifo_dispatch"]
                                  for J in MAIN_J)
+    kernels[2]["launches"] = launches["profile"]["matmul"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Skedulix core in PyTorch: the port's first slice of Alg. 1's batch path.
+"""Skedulix core in PyTorch: Alg. 1's batch path and the perf models that
+feed it.
 
 Layout follows the JAX reference package module for module:
 
@@ -23,25 +24,32 @@ Layout follows the JAX reference package module for module:
     (:func:`simulate_scenarios`, :func:`sweep_scenarios`), running on CUDA
     with the ACD sweep in the hand-written ``acd_evict`` kernel and the
     capped public-dispatch chain in ``fifo_dispatch``.
+``perfmodel``
+    Sec. IV-B's ridge latency and output-size models (:class:`RidgeModel`,
+    :func:`grid_search_ridge`, :class:`AppPerfModel`,
+    :func:`fit_app_perf_model`), fitted in float32 on the device.
+``prng``
+    The reference's cross-validation fold permutation, bit for bit.
 ``scheduler``
     :class:`SkedulixScheduler` — the user-facing service.
 ``convert``
-    Rebuild the port's configuration objects from the reference's fields.
+    Rebuild the port's configuration objects and fitted models from the
+    reference's fields.
 ``coldstart``
     Load-dependent latency: :class:`ColdStartModel`, :class:`PoolTrace`
     and the concurrency-cap normaliser, run by both engines.
 
 ``faults`` is copied too: the DES and the argument normalisers use it.
-The perf models, the MILP bound and trace-derived workloads are not
-ported yet.
+The MILP bound and trace-derived workloads are not ported yet.
 """
 from .arrivals import (ArrivalProcess, BatchArrivals, MMPPArrivals,
                        PoissonArrivals, TraceArrivals, parse_arrivals,
                        resolve_release)
 from .coldstart import ColdStartModel, PoolTrace
 from .convert import (coldstart_from_fields, cost_model_from_fields,
-                      dag_from_fields, pool_trace_from_fields,
-                      portfolio_from_fields)
+                      dag_from_fields, detector_weights_from_fields,
+                      perf_model_from_fields, pool_trace_from_fields,
+                      portfolio_from_fields, ridge_from_fields)
 from .cost import (CostModel, LAMBDA_COST, PriceTrace, Provider,
                    ProviderPortfolio, as_portfolio, demo_portfolio,
                    diurnal_portfolio, lambda_cost, spot_portfolio,
@@ -50,6 +58,9 @@ from .dag import APPS, AppDAG, Stage, image_app, matrix_app, video_app
 from .greedy import (acd_sweep, acd_sweep_torch, init_offload,
                      init_offload_torch, offload_negative_acd,
                      select_provider, select_provider_torch, t_max)
+from .perfmodel import (AppPerfModel, RidgeModel, StageModels,
+                        default_feature_builder, fit_app_perf_model,
+                        fit_ridge, grid_search_ridge, mape)
 from .priority import ORDERS, hcf_key, sort_queue, spt_key
 from .scheduler import BatchReport, SkedulixScheduler
 from .simulator import (SimResult, simulate, simulate_all_private,
@@ -75,5 +86,9 @@ __all__ = [
     "ENGINE_IMPLS", "resolve_engine_impl", "resolve_device",
     "dag_from_fields", "portfolio_from_fields", "cost_model_from_fields",
     "coldstart_from_fields", "pool_trace_from_fields",
+    "perf_model_from_fields", "ridge_from_fields",
+    "detector_weights_from_fields",
     "ColdStartModel", "PoolTrace",
+    "RidgeModel", "fit_ridge", "grid_search_ridge", "mape", "StageModels",
+    "AppPerfModel", "fit_app_perf_model", "default_feature_builder",
 ]

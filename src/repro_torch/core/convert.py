@@ -1,24 +1,33 @@
 """Carry the reference's scheduler state across to the port.
 
-The scheduler has no weights: its state is its configuration objects (the
-application DAG, the cost model, the provider portfolio with its price
-traces, the cold-start model and the pool trace) plus the ``pred``/``act``
-latency matrices, which are plain numpy and cross as they are, as do
-concurrency caps (plain numbers). The functions here rebuild the port's objects from
-plain Python fields — the dicts ``dataclasses.asdict`` makes of the
-reference's (or the port's) frozen dataclasses, or the same data read back
-from JSON — so nothing here imports the reference package.
+The scheduler's state is its configuration objects (the application DAG,
+the cost model, the provider portfolio with its price traces, the
+cold-start model and the pool trace) plus the ``pred``/``act`` latency
+matrices, which are plain numpy and cross as they are, as do concurrency
+caps (plain numbers). Its only weights are the fitted ridge models of the
+perf model and the video detector's convolution weights. The functions
+here rebuild the port's objects from plain Python fields and numpy arrays
+— the dicts ``dataclasses.asdict`` makes of the reference's (or the
+port's) frozen dataclasses, each ridge model's ``w``, ``b``, ``mu`` and
+``sigma`` as arrays, or the same data read back from JSON or ``.npz`` — so
+nothing here imports the reference package.
 
     fields = dataclasses.asdict(reference_dag)
     dag = dag_from_fields(fields)
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
 
 from .coldstart import ColdStartModel, PoolTrace
 from .cost import CostModel, PriceTrace, Provider, ProviderPortfolio
 from .dag import AppDAG, Stage
+from .perfmodel import (DTYPE, AppPerfModel, FeatureBuilder, RidgeModel,
+                        StageModels, default_feature_builder)
+from .vectorsim import resolve_device
 
 
 def _floats(v) -> tuple:
@@ -100,3 +109,45 @@ def pool_trace_from_fields(
     return PoolTrace(counts=tuple(tuple(int(x) for x in c)
                                   for c in fields["counts"]),
                      breakpoints=_floats(fields["breakpoints"]))
+
+
+def ridge_from_fields(fields: Optional[Mapping[str, Any]],
+                      device=None) -> Optional[RidgeModel]:
+    """:class:`.perfmodel.RidgeModel` from ``{"w", "b", "mu", "sigma"}``
+    arrays, as float32 tensors on ``device`` (``None`` passes)."""
+    if fields is None:
+        return None
+    dev = resolve_device(device)
+    return RidgeModel(**{k: torch.as_tensor(np.array(fields[k]),
+                                            dtype=DTYPE, device=dev)
+                         for k in ("w", "b", "mu", "sigma")})
+
+
+def perf_model_from_fields(
+        dag: AppDAG, fields: Mapping[str, Any], device=None,
+        feature_builder: FeatureBuilder = default_feature_builder,
+) -> AppPerfModel:
+    """:class:`.perfmodel.AppPerfModel` from ``{"stages": [stage fields]}``;
+    a stage's fields are ``private``, ``public``, ``outsize``, ``upload``
+    and ``download`` (ridge fields or ``None``) and ``overhead_s``."""
+    stages = [StageModels(
+        private=ridge_from_fields(s["private"], device),
+        public=ridge_from_fields(s["public"], device),
+        outsize=ridge_from_fields(s.get("outsize"), device),
+        overhead_s=float(s.get("overhead_s", 0.0)),
+        upload=ridge_from_fields(s.get("upload"), device),
+        download=ridge_from_fields(s.get("download"), device))
+        for s in fields["stages"]]
+    return AppPerfModel(dag=dag, stages=stages,
+                        feature_builder=feature_builder)
+
+
+def detector_weights_from_fields(fields: Mapping[str, Any], device=None
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """The video detector's ``w1``, ``w2``, ``w3`` from the reference's
+    HWIO arrays, as OIHW float32 tensors on ``device`` (``conv2d``'s
+    layout)."""
+    dev = resolve_device(device)
+    return tuple(torch.as_tensor(np.array(fields[k], dtype=np.float32))
+                 .permute(3, 2, 0, 1).contiguous().to(dev)
+                 for k in ("w1", "w2", "w3"))

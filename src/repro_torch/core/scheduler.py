@@ -11,11 +11,9 @@ scenario grid in one batched call — the unit of work behind every
 deadline-sweep figure — on ``device`` (``"cuda"`` unless given). Both
 accept ``arrivals=`` to schedule an exogenous release stream
 (:mod:`.arrivals`) instead of the paper's batch at ``t0``; deadlines then
-become per-job relative SLAs (``release + C_max``).
-
-The latency models that turn job features into predictions are not ported
-yet: pass ``pred`` explicitly (:meth:`SkedulixScheduler.predict` raises
-``NotImplementedError``).
+become per-job relative SLAs (``release + C_max``). Predictions come as
+``pred``, or from job features through the attached perf model
+(:mod:`.perfmodel`).
 """
 from __future__ import annotations
 
@@ -71,9 +69,9 @@ class BatchReport:
 class SkedulixScheduler:
     """Long-running scheduler service for one application.
 
-    ``perf_model`` is kept for the reference's signature; until the perf
-    models are ported, predictions come in as ``pred``. :meth:`schedule`
-    runs Alg. 1 with the chosen priority order against actual latencies
+    ``perf_model`` (an :class:`.perfmodel.AppPerfModel`) turns job
+    features into predictions (:meth:`predict`). :meth:`schedule` runs
+    Alg. 1 with the chosen priority order against actual latencies
     (if given) to produce the executed schedule —
     for the paper's batch released at ``t0``, or, with ``arrivals=``, for
     an exogenous release stream. ``portfolio`` generalizes the public
@@ -91,14 +89,11 @@ class SkedulixScheduler:
         self.portfolio = portfolio
 
     def predict(self, base_features: np.ndarray) -> Dict[str, np.ndarray]:
-        """Per-stage latency/transfer predictions from a perf model.
-
-        The ridge latency models are not ported yet, so this always
-        raises: pass ``pred`` to :meth:`schedule` / :meth:`schedule_sweep`.
-        """
-        raise NotImplementedError(
-            "perf models are not ported to repro_torch yet (they come with "
-            "the perfmodel, milp and serving slice): pass pred= explicitly")
+        """Per-stage latency/transfer predictions from the perf model
+        (numpy float64 P_private, P_public, sizes, upload, download)."""
+        if self.perf_model is None:
+            raise ValueError("no perf model attached")
+        return self.perf_model.predict(base_features)
 
     def schedule(
         self,

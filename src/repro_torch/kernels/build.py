@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel name -> source file under csrc/
 SOURCES = {"acd_evict": "acd_evict.cu",
-           "fifo_dispatch": "fifo_dispatch.cu"}
+           "fifo_dispatch": "fifo_dispatch.cu",
+           "matmul": "matmul.cu"}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 #: seconds each kernel's last build (or cache hit) took, for reporting

@@ -3,15 +3,17 @@
 A wrapper takes the plain version (:mod:`.ref`) only for tensors on the
 CPU. For CUDA tensors it launches the hand-written kernel or raises; it
 never falls back. Each wrapper counts its kernel launches in a plain
-integer attribute (``acd_evict.launches``, ``fifo_dispatch.launches``),
-so a run can show that its main path went through the kernel.
+integer attribute (``acd_evict.launches``, ``fifo_dispatch.launches``,
+``matmul.launches``), so a run can show that its main path went through
+the kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from . import acd_sweep, fifo
-from .ref import acd_evict_plain, fifo_dispatch_plain
+from . import matmul as _mm
+from .ref import acd_evict_plain, fifo_dispatch_plain, matmul_plain
 
 _FLOATS = (torch.float64, torch.float32)
 
@@ -138,13 +140,59 @@ def fifo_dispatch(order: torch.Tensor, n_pub: torch.Tensor,
 fifo_dispatch.launches = 0
 
 
+_MATMUL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_matmul(x, y) -> None:
+    for name, t in (("x", x), ("y", y)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"matmul: {name} must be a torch.Tensor")
+        if t.dim() != 2:
+            raise ValueError(f"matmul: {name} must be 2-D, got shape "
+                             f"{tuple(t.shape)}")
+    if x.shape[1] != y.shape[0]:
+        raise ValueError(f"matmul: inner sizes differ: x {tuple(x.shape)}, "
+                         f"y {tuple(y.shape)}")
+    if x.device != y.device:
+        raise ValueError(f"matmul: devices differ: x {x.device}, y "
+                         f"{y.device}")
+    if x.dtype not in _MATMUL_DTYPES or y.dtype != x.dtype:
+        raise TypeError(f"matmul: x and y must both be float32 or both "
+                        f"bfloat16, got {x.dtype} and {y.dtype}")
+
+
+def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x`` [M, K] @ ``y`` [K, N] with float32 accumulation, in
+    ``x.dtype`` (float32, or bfloat16 for both). Any strides are taken
+    (``x.T`` is passed as a view). CPU tensors run
+    :func:`.ref.matmul_plain`; CUDA tensors run the CUDA kernel
+    (``csrc/matmul.cu``)."""
+    _check_matmul(x, y)
+    if x.device.type == "cpu":
+        return matmul_plain(x, y)
+    if x.device.type != "cuda":
+        raise ValueError(f"matmul: no kernel for device {x.device}")
+    out = torch.empty((x.shape[0], y.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    _mm.launch(x, y, out)
+    matmul.launches += 1
+    return out
+
+
+matmul.launches = 0
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     acd_evict.launches = 0
     fifo_dispatch.launches = 0
+    matmul.launches = 0
 
 
 def launch_counts() -> dict:
     """Kernel name -> launches since the last reset."""
     return {"acd_evict": acd_evict.launches,
-            "fifo_dispatch": fifo_dispatch.launches}
+            "fifo_dispatch": fifo_dispatch.launches,
+            "matmul": matmul.launches}

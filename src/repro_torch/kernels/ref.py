@@ -118,3 +118,9 @@ def fifo_dispatch_plain(order: torch.Tensor, n_pub: torch.Tensor,
         sclk[bu, pu, su] = end[upd]
         sidle[bu, pu, su] = end[upd]
     return prov_o, seg_o, wait_o, cold_o, start_o, end_o, extra_o
+
+
+def matmul_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x`` [M, K] @ ``y`` [K, N] with float32 accumulation, returned in
+    ``x.dtype`` (plain version of ``matmul``)."""
+    return (x.float() @ y.float()).to(x.dtype)

@@ -36,9 +36,13 @@ def reference() -> types.SimpleNamespace:
         if shim:
             jax.experimental.enable_x64 = jax.enable_x64
         try:
+            import repro.apps as apps
             import repro.core as core
-            from repro.core import (arrivals, cost, dag, greedy, priority,
-                                    scheduler, simulator, vectorsim)
+            from repro.apps import image, matrix, video
+            from repro.core import (arrivals, cost, dag, greedy, perfmodel,
+                                    priority, scheduler, simulator,
+                                    vectorsim)
+            from repro.kernels import matmul, ops
         finally:
             if shim:
                 del jax.experimental.enable_x64
@@ -48,7 +52,9 @@ def reference() -> types.SimpleNamespace:
             jax=jax, core=core, arrivals=arrivals, cost=cost, dag=dag,
             greedy=greedy, priority=priority, scheduler=scheduler,
             simulator=simulator, vectorsim=vectorsim, acd_sweep=acd_sweep,
-            kref=ref, serving_dag=serving_dag)
+            kref=ref, serving_dag=serving_dag, apps=apps, matrix=matrix,
+            video=video, image=image, perfmodel=perfmodel, matmul=matmul,
+            kops=ops)
     return _REF
 
 
@@ -123,7 +129,8 @@ def test_port_sources_import_neither_jax_nor_reference():
 
 
 def test_import_repro_torch_loads_no_jax():
-    code = ("import sys, repro_torch, repro_torch.kernels.build; "
+    code = ("import sys, repro_torch, repro_torch.apps, "
+            "repro_torch.core.perfmodel, repro_torch.kernels.build; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -1,5 +1,5 @@
-"""The port's ``acd_evict`` and ``fifo_dispatch`` against the reference's
-two versions of each.
+"""The port's ``acd_evict``, ``fifo_dispatch`` and ``matmul`` against the
+reference's two versions of each.
 
 The same seeded numpy inputs go through the port's plain PyTorch version
 (``acd_evict_plain`` / ``fifo_dispatch_plain``, what the wrappers run for
@@ -7,7 +7,9 @@ CPU tensors), the reference's oracle (``ref.acd_evict_ref`` /
 ``ref.fifo_dispatch_ref``) and the reference's Pallas kernel in interpret
 mode. All three must agree bit for bit (``acd_evict`` in float64 and in
 float32, ``fifo_dispatch`` in float64 with the cold-start model off and
-on). The CUDA kernels themselves run only on a GPU: their cases here are
+on; ``matmul`` within a stated float32 tolerance, and bit for bit on the
+matrix app's integer ``x @ x.T``). The CUDA kernels themselves run only on
+a GPU: their cases here are
 marked ``gpu`` and skip without one; ``chip_smoke.py`` holds them against
 the plain versions on the card.
 """
@@ -16,7 +18,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import acd_evict_plain, fifo_dispatch_plain
+from repro_torch.kernels.ref import (acd_evict_plain, fifo_dispatch_plain,
+                                     matmul_plain)
 from tests.test_torch_harness import reference
 
 DTYPES = {"f64": (np.float64, torch.float64), "f32": (np.float32,
@@ -363,7 +366,8 @@ def test_fifo_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
         torch.float64, torch.float64]
     _assert_fifo_equal([o.numpy() for o in got], _fifo_plain(x, True))
     assert ops.fifo_dispatch.launches == before
-    assert set(ops.launch_counts()) == {"acd_evict", "fifo_dispatch"}
+    assert set(ops.launch_counts()) == {"acd_evict", "fifo_dispatch",
+                                        "matmul"}
 
 
 @pytest.mark.parametrize("case", ["order_dtype", "ready_dtype", "seg_dtype",
@@ -409,3 +413,149 @@ def test_cuda_fifo_kernel_matches_plain_version(cold):
     torch.cuda.synchronize()
     assert ops.fifo_dispatch.launches == before + 1
     _assert_fifo_equal([o.cpu().numpy() for o in got], _fifo_plain(x, cold))
+
+
+# -- matmul -----------------------------------------------------------------
+
+MATMUL_SHAPES = [(1, 1, 1), (8, 8, 8), (130, 257, 65), (127, 129, 131),
+                 (64, 200, 3)]
+
+
+def _mm_inputs(rng, m, k, n):
+    return (rng.normal(size=(m, k)).astype(np.float32),
+            rng.normal(size=(k, n)).astype(np.float32))
+
+
+def _mm_bound(x, y):
+    """The float32 tolerance of any summation order:
+    ``|got - want| <= 1e-5 * (|x| @ |y|)`` elementwise."""
+    return 1e-5 * (np.abs(x.astype(np.float64)) @ np.abs(y.astype(np.float64)))
+
+
+def _reference_matmul(ref, x, y):
+    """(oracle, Pallas-interpret) results of the reference, as float32."""
+    import jax.numpy as jnp
+
+    xj, yj = jnp.asarray(x), jnp.asarray(y)
+    oracle = ref.kref.matmul_ref(xj, yj)
+    kernel = ref.matmul(xj, yj, interpret=True)
+    return (np.asarray(oracle.astype(jnp.float32)),
+            np.asarray(kernel.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
+def test_matmul_plain_matches_reference_f32(ref, m, k, n):
+    rng = np.random.default_rng(m * 7 + k * 3 + n)
+    x, y = _mm_inputs(rng, m, k, n)
+    got = matmul_plain(torch.from_numpy(x), torch.from_numpy(y))
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    oracle, kernel = _reference_matmul(ref, x, y)
+    bound = _mm_bound(x, y)
+    assert (np.abs(got.numpy() - oracle) <= bound).all()
+    assert (np.abs(got.numpy() - kernel) <= bound).all()
+
+
+@pytest.mark.parametrize("m,k,n", [(130, 257, 65), (16, 64, 32)])
+def test_matmul_plain_matches_reference_bf16(ref, m, k, n):
+    """bf16 in, float32 accumulation, bf16 out: the float32 sums agree to
+    the order tolerance, so the rounded outputs differ by at most one bf16
+    ulp (2^-7 of the value)."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(m + k + n)
+    x, y = _mm_inputs(rng, m, k, n)
+    xb, yb = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, y))
+    got = matmul_plain(xb, yb)
+    assert got.dtype == torch.bfloat16
+    xf, yf = xb.float().numpy(), yb.float().numpy()  # the bf16 values
+    xj = jnp.asarray(xf).astype(jnp.bfloat16)
+    yj = jnp.asarray(yf).astype(jnp.bfloat16)
+    oracle = np.asarray(ref.kref.matmul_ref(xj, yj).astype(jnp.float32))
+    kernel = np.asarray(ref.matmul(xj, yj, interpret=True)
+                        .astype(jnp.float32))
+    g = got.float().numpy()
+    bound = 2.0 ** -7 * np.abs(oracle) + _mm_bound(xf, yf)
+    assert (np.abs(g - oracle) <= bound).all()
+    assert (np.abs(g - kernel) <= bound).all()
+
+
+@pytest.mark.parametrize("n", [8, 72, 96])
+def test_matmul_integer_gram_is_exact(ref, n):
+    """The matrix app's MM: ``x @ x.T`` of integers 0-9 has integer
+    partial sums below 2^24, so it is exact in float32 in any order."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(n)
+    x = rng.integers(0, 10, (n, n)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    got = ops.matmul(xt, xt.T).numpy()
+    want = (x.astype(np.int64) @ x.T.astype(np.int64)).astype(np.float32)
+    np.testing.assert_array_equal(got, want)
+    oracle, kernel = _reference_matmul(ref, x, x.T.copy())
+    np.testing.assert_array_equal(got, oracle)
+    np.testing.assert_array_equal(got, kernel)
+    np.testing.assert_array_equal(
+        got, np.asarray(ref.kops.matmul(jnp.asarray(x), jnp.asarray(x).T)))
+
+
+def test_matmul_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
+    rng = np.random.default_rng(21)
+    x, y = _mm_inputs(rng, 33, 17, 9)
+    before = ops.matmul.launches
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    got = ops.matmul(xt, yt)
+    np.testing.assert_array_equal(got.numpy(), matmul_plain(xt, yt).numpy())
+    # strided views are taken as they are
+    got_t = ops.matmul(yt.T, xt.T)
+    np.testing.assert_array_equal(got_t.numpy(),
+                                  matmul_plain(yt.T, xt.T).numpy())
+    assert ops.matmul.launches == before
+    assert ops.launch_counts()["matmul"] == before
+
+
+@pytest.mark.parametrize("case", ["f64", "int", "mixed", "one_d", "inner",
+                                  "device", "not_tensor"])
+def test_matmul_wrapper_rejects_bad_arguments(case):
+    x = torch.rand(4, 5)
+    y = torch.rand(5, 3)
+    if case == "f64":
+        x, y = x.double(), y.double()
+    elif case == "int":
+        x, y = x.int(), y.int()
+    elif case == "mixed":
+        y = y.to(torch.bfloat16)
+    elif case == "one_d":
+        x = x[0]
+    elif case == "inner":
+        y = torch.rand(4, 3)
+    elif case == "device":
+        y = y.to("meta")
+    elif case == "not_tensor":
+        y = y.numpy()
+    with pytest.raises((TypeError, ValueError)):
+        ops.matmul(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_matmul_kernel_matches_plain_version(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (chip_smoke.py runs it)")
+    rng = np.random.default_rng(31)
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    for m, k, n in MATMUL_SHAPES + [(496, 496, 496)]:
+        x, y = (torch.from_numpy(a).to(tdt).cuda()
+                for a in _mm_inputs(rng, m, k, n))
+        before = ops.matmul.launches
+        got = ops.matmul(x, y)
+        torch.cuda.synchronize()
+        assert ops.matmul.launches == before + 1
+        want = matmul_plain(x.cpu(), y.cpu()).float().numpy()
+        bound = _mm_bound(x.float().cpu().numpy(), y.float().cpu().numpy())
+        if dtype == "bf16":
+            bound = bound + 2.0 ** -7 * np.abs(want)
+        assert (np.abs(got.float().cpu().numpy() - want) <= bound).all()
+    xi = torch.from_numpy(rng.integers(0, 10, (496, 496)).astype(
+        np.float32)).cuda()
+    np.testing.assert_array_equal(ops.matmul(xi, xi.T).cpu().numpy(),
+                                  matmul_plain(xi.cpu(), xi.cpu().T).numpy())

@@ -64,7 +64,8 @@ def test_schedule_and_baselines_match_reference(ref):
 
 def test_unported_inputs_raise():
     sched = pc.SkedulixScheduler(pc.APPS["matrix"])
-    with pytest.raises(NotImplementedError, match="pred="):
+    # no perf model attached: the reference's error
+    with pytest.raises(ValueError, match="no perf model attached"):
         sched.schedule_sweep((10.0,), base_features=np.ones((4, 3)))
     with pytest.raises(NotImplementedError, match="workload"):
         sched.schedule(10.0, workload="azure:day=tue,scale=100")
