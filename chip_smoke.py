@@ -100,10 +100,10 @@ CPU_JOBS = {"matrix": 8, "video": 4, "image": 4}
 #: may also differ by one bf16 ulp, 2^-7 of the value)
 MM_RTOL = 1e-5
 #: LU on the card against the CPU (both float32, the same pivots): packed
-#: factors within LU_RTOL * max|LU| (the Gram matrices' condition number
-#: amplifies rounding), and each factorization's backward error
+#: factors within LU_RTOL * max|LU|, the tolerance the CPU tests hold LU to
+#: against the reference, and each factorization's backward error
 #: max|P L U - A| / max|A| below LU_BACKWARD
-LU_RTOL = 2e-3
+LU_RTOL = 1e-4
 LU_BACKWARD = 1e-5
 #: perf models fitted on the card against the same fit on the CPU
 PM_RTOL = 1e-4
@@ -190,25 +190,20 @@ def check_cpu_rerun(label, tasks, sweep_kw):
     print(f"{label}: cuda and cpu results equal in every field")
 
 
-def profile_sweep(label, tasks, sweep_kw, wall):
-    """The sweep once more under ``torch.profiler`` (device activity
-    only): device-busy share of the unprofiled wall ``wall``, kernel time
-    by name, device events per body step."""
-    import time
-
+def device_profile(label, fn):
+    """``fn()`` once under ``torch.profiler``, device activity only (host-op
+    events would triple the trace and its post-processing time without
+    entering the busy share). Returns (device-busy s, profiled wall s,
+    device events by descending self time), or None, saying so, when the
+    profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import sweep_scenarios, vectorsim
-
-    # host-op events would triple the trace and its post-processing time
-    # without entering the busy share
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sweep_scenarios(tasks, device="cuda", **sweep_kw)
+        fn()
         torch.cuda.synchronize()
         wall_p = time.perf_counter() - t0
-    steps = sum(sum(t) for t in vectorsim._LAST_RUN_STATS["trips"])
     dev_events = sorted((e for e in prof.key_averages()
                          if e.device_type == torch.autograd.DeviceType.CUDA),
                         key=lambda e: -e.self_device_time_total)
@@ -216,7 +211,28 @@ def profile_sweep(label, tasks, sweep_kw, wall):
     if busy_s <= 0:
         print(f"profile {label}: torch.profiler saw no device time; device "
               f"busy share not measured")
+        return None
+    return busy_s, wall_p, dev_events
+
+
+def print_top_events(dev_events, n=6):
+    for e in dev_events[:n]:
+        print(f"  {e.self_device_time_total * 1e-3:.3f} ms x{e.count} "
+              f"{e.key[:90]}")
+
+
+def profile_sweep(label, tasks, sweep_kw, wall):
+    """The sweep once more under the profiler: device-busy share of the
+    profiled wall and of the unprofiled wall ``wall``, kernel time by name,
+    device events per body step."""
+    from repro_torch.core import sweep_scenarios, vectorsim
+
+    got = device_profile(label, lambda: sweep_scenarios(
+        tasks, device="cuda", **sweep_kw))
+    if got is None:
         return
+    busy_s, wall_p, dev_events = got
+    steps = sum(sum(t) for t in vectorsim._LAST_RUN_STATS["trips"])
     n_events = sum(e.count for e in dev_events)
     kern = {k: sum(e.self_device_time_total for e in dev_events
                    if k in e.key) * 1e-6
@@ -229,9 +245,7 @@ def profile_sweep(label, tasks, sweep_kw, wall):
                       for k, v in kern.items())
           + f"; {n_events} device events, {n_events / steps:.1f} per body "
           f"step ({steps} steps)")
-    for e in dev_events[:6]:
-        print(f"  {e.self_device_time_total * 1e-6:.3f} s "
-              f"x{e.count} {e.key[:90]}")
+    print_top_events(dev_events)
 
 
 def cuda_ms(fn, n):
@@ -267,14 +281,21 @@ def check_matmul(dev):
     views, 1024^3, bf16; the app's integer x @ x.T bit for bit, also
     against the CPU), then its time, bound and ``torch.matmul``'s time at
     [496]^3 and [4096]^3. Returns its entry of the kernels line."""
+    from repro_torch.core.precision import ieee_float32
+
+    # the plain version and the library call in IEEE float32, as the
+    # kernel computes; the process's own setting comes back after
+    with ieee_float32():
+        return _check_matmul(dev)
+
+
+def _check_matmul(dev):
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import matmul_plain
 
-    # the plain version and the library call in IEEE float32, as the kernel
-    torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(13)
 
     def normal(*shape, dtype=torch.float32):
@@ -409,33 +430,29 @@ def profile_app(name, device="cuda"):
 
 
 def profile_traces(spec, n_jobs):
-    """``n_jobs`` of the app's jobs traced once more under
-    ``torch.profiler`` (device activity only): device-busy share of the
-    traced wall and kernel time by name."""
+    """``n_jobs`` of the app's jobs traced once more without and once
+    under the profiler: device-busy share of the profiled and of the
+    unprofiled wall, kernel time by name."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.apps import generate_traces
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        generate_traces(spec, n_jobs, seed=0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_events = sorted((e for e in prof.key_averages()
-                         if e.device_type == torch.autograd.DeviceType.CUDA),
-                        key=lambda e: -e.self_device_time_total)
-    busy_s = sum(e.self_device_time_total for e in dev_events) * 1e-6
-    if busy_s <= 0:
-        print(f"profile {spec.name} traces: torch.profiler saw no device "
-              f"time; device busy share not measured")
+    t0 = time.perf_counter()
+    generate_traces(spec, n_jobs, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    label = f"{spec.name} traces"
+    got = device_profile(label, lambda: generate_traces(spec, n_jobs,
+                                                        seed=0))
+    if got is None:
         return
-    print(f"profile {spec.name} traces: {n_jobs} jobs in {wall:.3f} s "
-          f"profiled wall, device busy {busy_s:.6f} s ({busy_s / wall:.4f});"
-          f" {sum(e.count for e in dev_events)} device events")
-    for e in dev_events[:6]:
-        print(f"  {e.self_device_time_total * 1e-3:.3f} ms x{e.count} "
-              f"{e.key[:90]}")
+    busy_s, wall_p, dev_events = got
+    print(f"profile {label}: {n_jobs} jobs, device busy {busy_s:.6f} s of "
+          f"a {wall_p:.3f} s profiled wall ({busy_s / wall_p:.4f}); of the "
+          f"unprofiled {wall:.3f} s wall {busy_s / wall:.4f} busy, "
+          f"{1 - busy_s / wall:.4f} idle; "
+          f"{sum(e.count for e in dev_events)} device events")
+    print_top_events(dev_events)
 
 
 def check_apps_against_cpu(name, spec, traces):
@@ -508,29 +525,55 @@ def check_apps_against_cpu(name, spec, traces):
           + ", ".join(f"{k} {v!r}" for k, v in worst.items()) + ")")
 
 
+def check_tf32_took_effect(dev):
+    """With TF32 turned on for the process: a float32 product outside the
+    port's IEEE scope must differ from the one inside it (so the setting
+    took effect), and a second product inside must equal the first."""
+    import torch
+
+    from repro_torch.core.precision import ieee_float32
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(1024, 1024, device=dev, generator=g)
+    with ieee_float32():
+        ieee = x @ x
+    tf32 = x @ x
+    with ieee_float32():
+        again = x @ x
+    rel = float((tf32 - ieee).abs().max() / ieee.abs().max())
+    print(f"TF32 on for the process: a product outside the port's scope "
+          f"differs from the IEEE one by {rel!r} of its max; inside the "
+          f"scope bit for bit {torch.equal(again, ieee)}")
+    if rel == 0.0 or not torch.equal(again, ieee):
+        raise AssertionError("TF32 setting or its scope did not take effect")
+
+
 def check_fit_against_cpu(name, spec, tr, te, pm):
-    """The perf models fitted on the card against the same fit on the
-    CPU: the same lambda for every model, predictions within PM_RTOL."""
+    """The perf models fitted on the card, and refitted on the card under
+    the process's current setting, against the same fit on the CPU: the
+    same lambda for every model, predictions within PM_RTOL."""
     import numpy as np
 
     from repro_torch.apps import fit_models
 
     cpu = fit_models(spec, tr, device="cpu")
-    for k, (a, b) in enumerate(zip(pm.stages, cpu.stages)):
-        for part in ("private", "public", "outsize"):
-            la, lb = getattr(a, part).lam, getattr(b, part).lam
-            if la != lb:
-                raise AssertionError(f"{name} stage {k} {part}: lambda "
-                                     f"{la} on the card, {lb} on the CPU")
-    got, want = pm.predict(te["base_features"]), cpu.predict(
-        te["base_features"])
-    rel = max(float(np.max(np.abs(got[k] - want[k])
-                           / np.maximum(np.abs(want[k]), 1e-30)))
-              for k in want)
-    print(f"profile {name}: card fit equals the CPU fit in every lambda; "
-          f"predictions max relative difference {rel!r}")
-    if rel > PM_RTOL:
-        raise AssertionError(f"{name}: card predictions != CPU's")
+    want = cpu.predict(te["base_features"])
+    for label, fit in (("card fit", pm), ("card refit", fit_models(spec, tr))):
+        for k, (a, b) in enumerate(zip(fit.stages, cpu.stages)):
+            for part in ("private", "public", "outsize"):
+                la, lb = getattr(a, part).lam, getattr(b, part).lam
+                if la != lb:
+                    raise AssertionError(
+                        f"{name} {label} stage {k} {part}: lambda {la} on "
+                        f"the card, {lb} on the CPU")
+        got = fit.predict(te["base_features"])
+        rel = max(float(np.max(np.abs(got[k] - want[k])
+                               / np.maximum(np.abs(want[k]), 1e-30)))
+                  for k in want)
+        print(f"profile {name}: {label} equals the CPU fit in every lambda;"
+              f" predictions max relative difference {rel!r}")
+        if rel > PM_RTOL:
+            raise AssertionError(f"{name}: {label} predictions != CPU's")
 
 
 def check_des(label, tasks, out, pairs, sim_kw, load_fields=False):
@@ -904,10 +947,19 @@ def main() -> int:
     profiled = {"matrix": mx}
     for name in ("video", "image"):
         profiled[name] = profile_app(name)
-    for name, run in profiled.items():
-        check_apps_against_cpu(name, run["spec"], run["traces"])
-        check_fit_against_cpu(name, run["spec"], run["tr"], run["te"],
-                              run["pm"])
+    # card against CPU with TF32 turned on for the process, as a user may
+    # turn it on: the port keeps its float32 products and convolutions in
+    # IEEE float32 in its own scope, so they must agree all the same
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        check_tf32_took_effect(dev)
+        for name, run in profiled.items():
+            check_apps_against_cpu(name, run["spec"], run["traces"])
+            check_fit_against_cpu(name, run["spec"], run["tr"], run["te"],
+                                  run["pm"])
+    finally:
+        torch.set_float32_matmul_precision(precision)
 
     # -- 7. result ------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -24,6 +24,7 @@ import torch
 from ..core.dag import AppDAG
 from ..core.perfmodel import (AppPerfModel, FeatureBuilder,
                               default_feature_builder, fit_app_perf_model)
+from ..core.vectorsim import resolve_device
 
 # stage_fn(inputs: list of predecessor outputs (or [job_input] at sources))
 #   -> output tensor, or a tuple/list of them
@@ -46,7 +47,12 @@ class AppSpec:
     # measured compute is dilated into the paper's latency regime (the
     # reference's factors, kept as they are)
     time_scale: float = 1.0
-    device: torch.device = torch.device("cpu")
+    # where the stages run and the models fit: ``cuda`` unless the caller
+    # names another (resolved in ``__post_init__``; raises without a GPU)
+    device: torch.device | str | None = None
+
+    def __post_init__(self) -> None:
+        self.device = resolve_device(self.device)
 
     @property
     def name(self) -> str:

@@ -10,7 +10,8 @@ matter for this app (Sec. V-A).
 Resize repeats ``jax.image.resize(..., "bilinear")`` with its default
 antialiasing: the triangle-kernel weight matrices are built in numpy in
 float32 exactly as JAX builds them, then applied on the device with two
-products.
+products. Resize's products and Compress's DCT run in IEEE float32
+(TF32 off on the card), as the reference's.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core.dag import image_app
+from ..core.precision import ieee_float32
 from ..core.vectorsim import resolve_device
 from .base import AppSpec
 
@@ -77,6 +79,7 @@ def resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], weights, _F32(0)).astype(_F32)
 
 
+@ieee_float32()
 def _resize_stage(ins: List[Any]):
     img = ins[0].to(torch.float32)               # [H, W, 3]
     h, w, c = img.shape
@@ -101,6 +104,7 @@ _QTAB = (np.full((8, 8), 24.0)
          + 4.0 * np.add.outer(np.arange(8), np.arange(8))).astype(_F32)
 
 
+@ieee_float32()
 def _compress_stage(ins: List[Any]):
     img = ins[0].to(torch.float32) - 128.0       # [200, 200, 3]
     dev = img.device

@@ -4,7 +4,8 @@ Stage MM multiplies the input matrix by its transpose through
 :func:`repro_torch.kernels.ops.matmul`: the hand-written CUDA kernel on the
 card, its plain version on the CPU (``x.T`` is passed as a view). Stage LU
 computes an LU decomposition of the product with partial pivoting
-(``torch.linalg.lu_factor``) and returns the packed factors. Inputs are
+(``torch.linalg.lu_factor``, TF32 off on the card) and returns the packed
+factors. Inputs are
 random integer matrices of dimension 350..500 (Sec. V-A); ``scale``
 shrinks dims for fast tests.
 """
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core.dag import matrix_app
+from ..core.precision import ieee_float32
 from ..core.vectorsim import resolve_device
 from ..kernels import ops
 from .base import AppSpec
@@ -28,6 +30,7 @@ def _mm_stage(ins: List[Any]):
     return ops.matmul(x, x.T)
 
 
+@ieee_float32()
 def _lu_stage(ins: List[Any]):
     x = ins[0].to(torch.float32)
     # right-looking LU with partial pivoting, as in scipy.lu: the packed

@@ -19,8 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.convert import detector_weights_from_fields
 from ..core.dag import video_app
+from ..core.precision import ieee_float32
 from ..core.vectorsim import resolve_device
 from .base import AppSpec
 
@@ -40,8 +40,10 @@ def _ef_stage(ins: List[Any]):
 def load_detector_weights(device=None) -> Tuple[torch.Tensor, ...]:
     """The detector's three convolution weights as OIHW float32 tensors on
     ``device`` (the file holds them in the reference's HWIO layout)."""
+    dev = resolve_device(device)
     with np.load(DETECTOR_WEIGHTS) as z:
-        return detector_weights_from_fields(z, device)
+        return tuple(torch.from_numpy(z[k]).permute(3, 2, 0, 1)
+                     .contiguous().to(dev) for k in ("w1", "w2", "w3"))
 
 
 def _same_pads(n: int, k: int, stride: int) -> Tuple[int, int]:
@@ -60,21 +62,13 @@ def _conv_same(x: torch.Tensor, w: torch.Tensor, stride: int):
     return F.conv2d(x, w, stride=stride)
 
 
-def _ieee_convolutions():
-    """cuDNN with TF32 off for the scope (float32 convolutions in IEEE
-    float32, as the reference computes them); other flags unchanged."""
-    cudnn = torch.backends.cudnn
-    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                       deterministic=cudnn.deterministic, allow_tf32=False)
-
-
 def _make_detector(device):
     w1, w2, w3 = load_detector_weights(device)
 
     def detect(ins: List[Any]):
         frames = ins[0].to(torch.float32) / 255.0  # [F, H, W, 3]
         x = frames.permute(0, 3, 1, 2)            # NCHW
-        with _ieee_convolutions():
+        with ieee_float32():
             h = torch.relu(_conv_same(x, w1, 2))
             h = torch.relu(_conv_same(h, w2, 2))
             h = torch.relu(_conv_same(h, w3, 2))

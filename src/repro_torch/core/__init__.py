@@ -30,6 +30,9 @@ Layout follows the JAX reference package module for module:
     :func:`fit_app_perf_model`), fitted in float32 on the device.
 ``prng``
     The reference's cross-validation fold permutation, bit for bit.
+``precision``
+    :func:`ieee_float32`: TF32 off on the card for the port's float32
+    products and convolutions, whatever the process set.
 ``scheduler``
     :class:`SkedulixScheduler` — the user-facing service.
 ``convert``
@@ -47,8 +50,8 @@ from .arrivals import (ArrivalProcess, BatchArrivals, MMPPArrivals,
                        resolve_release)
 from .coldstart import ColdStartModel, PoolTrace
 from .convert import (coldstart_from_fields, cost_model_from_fields,
-                      dag_from_fields, detector_weights_from_fields,
-                      perf_model_from_fields, pool_trace_from_fields,
+                      dag_from_fields, perf_model_from_fields,
+                      pool_trace_from_fields,
                       portfolio_from_fields, ridge_from_fields)
 from .cost import (CostModel, LAMBDA_COST, PriceTrace, Provider,
                    ProviderPortfolio, as_portfolio, demo_portfolio,
@@ -61,6 +64,7 @@ from .greedy import (acd_sweep, acd_sweep_torch, init_offload,
 from .perfmodel import (AppPerfModel, RidgeModel, StageModels,
                         default_feature_builder, fit_app_perf_model,
                         fit_ridge, grid_search_ridge, mape)
+from .precision import ieee_float32
 from .priority import ORDERS, hcf_key, sort_queue, spt_key
 from .scheduler import BatchReport, SkedulixScheduler
 from .simulator import (SimResult, simulate, simulate_all_private,
@@ -83,11 +87,10 @@ __all__ = [
     "SkedulixScheduler", "BatchReport",
     "SimResult", "simulate", "simulate_all_public", "simulate_all_private",
     "VectorSimResult", "simulate_scenarios", "sweep_scenarios",
-    "ENGINE_IMPLS", "resolve_engine_impl", "resolve_device",
+    "ENGINE_IMPLS", "resolve_engine_impl", "resolve_device", "ieee_float32",
     "dag_from_fields", "portfolio_from_fields", "cost_model_from_fields",
     "coldstart_from_fields", "pool_trace_from_fields",
     "perf_model_from_fields", "ridge_from_fields",
-    "detector_weights_from_fields",
     "ColdStartModel", "PoolTrace",
     "RidgeModel", "fit_ridge", "grid_search_ridge", "mape", "StageModels",
     "AppPerfModel", "fit_app_perf_model", "default_feature_builder",

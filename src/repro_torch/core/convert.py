@@ -5,7 +5,8 @@ the cost model, the provider portfolio with its price traces, the
 cold-start model and the pool trace) plus the ``pred``/``act`` latency
 matrices, which are plain numpy and cross as they are, as do concurrency
 caps (plain numbers). Its only weights are the fitted ridge models of the
-perf model and the video detector's convolution weights. The functions
+perf model (the video detector's weights ship with the app as data,
+``apps/detector_w7.npz``). The functions
 here rebuild the port's objects from plain Python fields and numpy arrays
 — the dicts ``dataclasses.asdict`` makes of the reference's (or the
 port's) frozen dataclasses, each ridge model's ``w``, ``b``, ``mu`` and
@@ -17,7 +18,7 @@ nothing here imports the reference package.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -141,13 +142,3 @@ def perf_model_from_fields(
     return AppPerfModel(dag=dag, stages=stages,
                         feature_builder=feature_builder)
 
-
-def detector_weights_from_fields(fields: Mapping[str, Any], device=None
-                                 ) -> Tuple[torch.Tensor, ...]:
-    """The video detector's ``w1``, ``w2``, ``w3`` from the reference's
-    HWIO arrays, as OIHW float32 tensors on ``device`` (``conv2d``'s
-    layout)."""
-    dev = resolve_device(device)
-    return tuple(torch.as_tensor(np.array(fields[k], dtype=np.float32))
-                 .permute(3, 2, 0, 1).contiguous().to(dev)
-                 for k in ("w1", "w2", "w3"))

@@ -10,7 +10,8 @@ module solves the normal equations in torch, batched over (lambda x fold),
 on the device the caller names (``cuda`` unless given). It computes in
 float32, the reference's ``jnp.result_type(float)`` with 64-bit types off,
 and draws the cross-validation folds with the reference's permutation
-(:mod:`.prng`), so both pick the same penalty.
+(:mod:`.prng`), so both pick the same penalty. Its products run in IEEE
+float32 on the card (:func:`.precision.ieee_float32`), as the reference's.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 
 from . import prng
 from .dag import AppDAG
+from .precision import ieee_float32
 from .vectorsim import resolve_device
 
 DTYPE = torch.float32
@@ -52,6 +54,7 @@ class RidgeModel:
     def device(self) -> torch.device:
         return self.w.device
 
+    @ieee_float32()
     def predict(self, X) -> torch.Tensor:
         """Predictions [N] (float32, on the model's device) for ``X``
         [N, D] or [D]."""
@@ -68,6 +71,7 @@ def _standardize(X: torch.Tensor
     return (X - mu) / sigma, mu, sigma
 
 
+@ieee_float32()
 def fit_ridge(X, y, lam: float = 1.0, device=None) -> RidgeModel:
     """Closed-form ridge with unpenalized intercept, on ``device``
     (``cuda`` unless given)."""
@@ -111,6 +115,7 @@ def fold_ids(n: int, k: int = 5, seed: int = 0) -> np.ndarray:
     return fid
 
 
+@ieee_float32()
 def grid_search_ridge(
     X,
     y,

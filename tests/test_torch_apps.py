@@ -203,6 +203,24 @@ def test_run_job_and_split_traces(ref):
         np.testing.assert_array_equal(te[key], want_te[key])
 
 
+def test_bare_app_spec_resolves_its_device():
+    """A user's own ``AppSpec`` runs where the port's entry points run:
+    ``cuda`` unless it names another device, raising without a GPU."""
+    base = apps.SPECS["matrix"](scale=0.2, device="cpu")
+    fields = {f.name: getattr(base, f.name)
+              for f in dataclasses.fields(apps.AppSpec) if f.name != "device"}
+    if torch.cuda.is_available():
+        assert apps.AppSpec(**fields).device == torch.device("cuda")
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            apps.AppSpec(**fields)
+    spec = apps.AppSpec(**fields, device="cpu")
+    assert spec.device == torch.device("cpu")
+    traces = apps.generate_traces(spec, 12, seed=0)
+    pm = apps.fit_models(spec, traces)
+    assert pm.stages[0].private.device == torch.device("cpu")
+
+
 def test_quickstart_pipeline_matches_reference(ref):
     """``examples/quickstart.py``'s loop on both packages: the matrix app
     at half scale, 60 traced jobs split 45/15, the ridge models, their

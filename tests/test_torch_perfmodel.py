@@ -18,6 +18,7 @@ from repro_torch.core import (SkedulixScheduler, dag_from_fields,
                               perf_model_from_fields)
 from repro_torch.core import perfmodel as P
 from repro_torch.core import prng
+from repro_torch.core.precision import ieee_float32
 from tests.test_torch_harness import reference
 
 RTOL = 1e-5
@@ -225,3 +226,33 @@ def test_scheduler_predict_uses_the_perf_model(ref, app_traces):
                          base_features=base)
     assert np.isfinite(rep.result.makespan)
     assert rep.pred["P_private"] is not None
+
+
+@pytest.mark.parametrize("outer", ["tf32", "ieee", "legacy high"])
+def test_ieee_float32_turns_tf32_off_in_its_scope_and_restores(outer):
+    """The fits' scope: TF32 off for cuBLAS and cuDNN inside, and the
+    process's own setting back after it, whichever API set it (also as
+    the decorator the fits and predictions use)."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = matmul.fp32_precision
+    try:
+        if outer == "legacy high":
+            torch.set_float32_matmul_precision("high")
+        else:
+            matmul.fp32_precision = outer
+        seen = matmul.fp32_precision
+
+        @ieee_float32()
+        def inside():
+            return matmul.fp32_precision, cudnn.allow_tf32
+
+        with ieee_float32():
+            assert (matmul.fp32_precision, cudnn.allow_tf32) == ("ieee",
+                                                                 False)
+        assert inside() == ("ieee", False)
+        assert matmul.fp32_precision == seen
+        if outer == "legacy high":
+            assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        matmul.fp32_precision = before
+    torch.get_float32_matmul_precision()  # the legacy reader still works
