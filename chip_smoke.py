@@ -51,7 +51,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    jobs' stage outputs agree between card and CPU (MM, EF and RI bit for
    bit, LU with the same pivots), and the card's fits equal the CPU's
    (the same lambdas, predictions to a relative 1e-4).
-7. Prints the kernels' JSON line, then the device line last.
+7. The model stack's serving path. First ``rglru`` at recurrentgemma's
+   [8, 2048, 4096] (from a nonzero h0, a continuation split at t = 1000,
+   a ragged shape) and ``rwkv6`` at rwkv6-1.6b's [8, 32, 2048, 64] (bf16,
+   and float32 from a nonzero s0, in the model's strided layout), and
+   both at the serve phase's own shapes (prefill and one decode step),
+   against their plain versions (``rglru`` bit for bit; ``rwkv6``'s state bit for
+   bit, o within the float32 bound of two summation orders), with times
+   and bounds. Then ``launch/serve.py --execute-smoke``'s batch (8
+   requests, 16 new tokens) through ``InferenceEngine`` at the full
+   ``rwkv6-1.6b`` and ``recurrentgemma-9b`` configs, plus 2 x 2304 tokens
+   past recurrentgemma's window, with walls, launch counts, finite logits
+   and a profiler pass; the decode step timed with the port's activations
+   and with torch's fused ones; prefill(S) + decode_step against
+   prefill(S+1) at the full configs in bf16 (within BF16_GAP of the
+   logits' scale) and in float32 (within the reference suite's
+   tolerance); and card against CPU at full width, 2 and 3 layers,
+   float32: the same greedy tokens.
+8. Prints the kernels' JSON line, then the device line last.
 
 Launch counts are set to 0 just before each main path and read just after
 it; every kernel of a path must have launched in it.
@@ -107,6 +124,34 @@ LU_RTOL = 1e-4
 LU_BACKWARD = 1e-5
 #: perf models fitted on the card against the same fit on the CPU
 PM_RTOL = 1e-4
+#: the serving path: launch/serve.py --execute-smoke's batch (8 requests,
+#: prompt lengths drawn from [8, 96) with numpy's seed, 16 new tokens,
+#: cache_len 192), at each architecture's full config
+SERVE_SEED = 0
+SERVE_REQUESTS = 8
+SERVE_PROMPT = (8, 96)
+SERVE_NEW = 16
+SERVE_CACHE = 192
+#: recurrentgemma's long batch: prompts past its 2048-token window, so
+#: prefill takes the rolled-cache path and rglru runs 2304 steps
+LONG_BATCH, LONG_PROMPT, LONG_CACHE = 2, 2304, 2048
+#: prefill(S) + decode_step == prefill(S+1): the reference suite's own
+#: tolerance (tests/test_models.py:88-90), held at the full configs in
+#: float32
+INCR_TOL = dict(rtol=2e-2, atol=2e-3)
+#: ... and in bf16 at full width, where torch's GEMMs round one row apart
+#: from S rows: max |decode - prefill(S+1)| <= BF16_GAP * max |prefill(S+1)|.
+#: Read at 0.019-0.038 of the logits' scale on the serve batches (rwkv6
+#: 0.099 of 5.1, recurrentgemma 0.186 of 5.2 and 0.172 of 4.5); a decode
+#: that reads a wrong state or position moves logits by their own scale
+BF16_GAP = 0.1
+#: card against CPU at full width and cut depth, float32 in IEEE float32:
+#: depth (one super-block of recurrentgemma), decode steps, and the logits'
+#: tolerance |card - cpu| <= CPU_RTOL * max|cpu| (float32 rounding of
+#: d = 2048-4096 dot products in another order, through a few layers)
+CPU_LAYERS = {"rwkv6-1.6b": 2, "recurrentgemma-9b": 3}
+CPU_DECODE = 4
+CPU_RTOL = 1e-4
 
 
 def fig4_workload(apps, J, jitter=0.05):
@@ -610,6 +655,512 @@ def check_des(label, tasks, out, pairs, sim_kw, load_fields=False):
                                  f"engine != DES in {bad}")
 
 
+def rglru_bound(B, T, D, with_h0):
+    """(bound ms, what bounds it, bytes, operations) of one ``rglru``: x and
+    a read and y written once (float32), h0 read and h_T written; seven
+    float operations per element (a*a, 1-, max, sqrt, *x, a*h, +)."""
+    n = B * T * D
+    n_bytes = 3 * n * 4 + (2 if with_h0 else 1) * B * D * 4
+    n_ops = 7 * n
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_OPS_PER_S["float32"] * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops)
+
+
+def rwkv6_bound(B, H, T, Dk, Dv, itemsize, with_s0):
+    """(bound ms, what bounds it, bytes, operations) of one ``rwkv6``: r, k,
+    v read and o written in their type, w (float32) read, u read, s0 read
+    and S_T written (float32); the operations the function needs per
+    (b, h, t): 2 Dk Dv for r^T S, 3 Dk Dv for w * S + k^T v, and 3 Dk + 2 Dv
+    for the bonus (sum_k r u k) * v and its add (the kernel itself does
+    7 Dk Dv: see csrc/rwkv6.cu)."""
+    n_bytes = (B * H * T * (2 * Dk + 2 * Dv) * itemsize
+               + B * H * T * Dk * 4 + H * Dk * 4
+               + (2 if with_s0 else 1) * B * H * Dk * Dv * 4)
+    n_ops = B * H * T * (5 * Dk * Dv + 3 * Dk + 2 * Dv)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_OPS_PER_S["float32"] * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops)
+
+
+def longest_prompt(arch):
+    """The longest prompt of the serve batch at ``arch``'s config: the
+    recurrences' T at its prefill."""
+    from repro_torch.configs import get_config
+
+    return max(r.prompt_len for r in serve_requests(
+        get_config(arch), SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW,
+        SERVE_SEED))
+
+
+def check_rglru(dev):
+    """``rglru`` against its plain version on the card, bit for bit: at
+    recurrentgemma's width [8, 2048, 4096] from a nonzero h0, a
+    continuation split at t = 1000, a ragged shape, and the shapes the
+    serve phase gives it (each batch's prefill from zeros and a decode step
+    from a nonzero h); then its time, the plain version's and the bound.
+    Returns its entry of the kernels line."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rglru_plain
+
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def inputs(B, T, D):
+        x = torch.randn(B, T, D, device=dev, generator=g)
+        a = torch.rand(B, T, D, device=dev, generator=g) * 0.98 + 0.01
+        return x, a, torch.randn(B, D, device=dev, generator=g)
+
+    x, a, h0 = inputs(8, 2048, 4096)
+    y, hT = ops.rglru(x, a, h0)
+    yp, hp = rglru_plain(x, a, h0)
+    c = 1000
+    y1, h1 = ops.rglru(x[:, :c].contiguous(), a[:, :c].contiguous(), h0)
+    y2, h2 = ops.rglru(x[:, c:].contiguous(), a[:, c:].contiguous(), h1)
+    xr, ar, _ = inputs(3, 37, 300)
+    yr, hr = ops.rglru(xr, ar)
+    yrp, hrp = rglru_plain(xr, ar)
+    torch.cuda.synchronize()
+    err = max(float((y - yp).abs().max()), float((hT - hp).abs().max()),
+              float((yr - yrp).abs().max()))
+    ulps = int((y.view(torch.int32).long()
+                - yp.view(torch.int32).long()).abs().max())
+    same = (torch.equal(y, yp) and torch.equal(hT, hp)
+            and torch.equal(yr, yrp) and torch.equal(hr, hrp))
+    split = torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, hT)
+    print(f"rglru [8, 2048, 4096] f32 from h0 and ragged [3, 37, 300]: "
+          f"bitwise equal to the plain version {same} (max_abs_err {err!r},"
+          f" largest ulp gap {ulps}); split at t={c} equals the whole scan "
+          f"{split}")
+    if not (same and split):
+        raise AssertionError("rglru: kernel != plain version")
+    S = longest_prompt("recurrentgemma-9b")
+    for B, T, with_h0 in ((SERVE_REQUESTS, S, False),
+                          (SERVE_REQUESTS, 1, True),
+                          (LONG_BATCH, LONG_PROMPT, False),
+                          (LONG_BATCH, 1, True)):
+        xs, as_, hs = inputs(B, T, 4096)
+        args = (xs, as_, hs if with_h0 else None)
+        ys, hTs = ops.rglru(*args)
+        ysp, hsp = rglru_plain(*args)
+        torch.cuda.synchronize()
+        ok = torch.equal(ys, ysp) and torch.equal(hTs, hsp)
+        e = max(float((ys - ysp).abs().max()), float((hTs - hsp).abs().max()))
+        err = max(err, e)
+        print(f"rglru serve shape [{B}, {T}, 4096] f32 from "
+              f"{'a nonzero h0' if with_h0 else 'zeros'}: bitwise equal to "
+              f"the plain version {ok} (max_abs_err {e!r})")
+        if not ok:
+            raise AssertionError(f"rglru [{B}, {T}, 4096]: kernel != plain "
+                                 f"version")
+    B, T, D = x.shape
+    k_ms = cuda_ms(lambda: ops.rglru(x, a, h0), 20)
+    p_ms = cuda_ms(lambda: rglru_plain(x, a, h0), 1)
+    bound, by, n_bytes, n_ops = rglru_bound(B, T, D, True)
+    print(f"rglru [{B}, {T}, {D}] f32: kernel {k_ms:.6f} ms "
+          f"({n_bytes / k_ms * 1e-9:.3f} TB/s), plain {p_ms:.3f} ms, bound "
+          f"{bound:.6f} ms by {by} (bytes {n_bytes}, operations {n_ops}); "
+          f"kernel at {bound / k_ms:.3f} of the bound")
+    return {"name": "rglru", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru.cu",
+            "replaces": "src/repro/kernels/rglru.py:51",
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def check_rwkv6(dev):
+    """``rwkv6`` against its plain version on the card, in the model's
+    layout (head-split views): at rwkv6-1.6b's [8, 32, 2048, 64] in bf16
+    and in float32 from a nonzero s0, and at the shapes the serve phase
+    gives it in bf16 (its prefill, T = the longest prompt, from zeros and
+    from a nonzero s0, and a decode step, T = 1, from a nonzero s0). S_T
+    bit for bit; o within the float32 rounding of two summation orders
+    over k, 2 (Dk - 1) 2^-24 sum_k |terms|, plus one bf16 ulp of the value
+    in bf16. Then its time, the plain version's and the bound. Returns its
+    entry of the kernels line."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rwkv6_plain
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    H, Dk = 32, 64
+
+    def inputs(B, T, dt, with_s0):
+        # the model's [B, T, H, D] projections viewed as [B, H, T, D]
+        r, k, v = (torch.randn(B, T, H, Dk, device=dev, generator=g)
+                   .mul(0.3).to(dt).transpose(1, 2) for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn(B, T, H, Dk, device=dev,
+                                             generator=g) - 4.0))
+        u = torch.randn(H, Dk, device=dev, generator=g) * 0.1
+        s0 = (torch.randn(B, H, Dk, Dk, device=dev, generator=g)
+              if with_s0 else None)
+        return r, k, v, w.transpose(1, 2), u, s0
+
+    def against_plain(label, args):
+        o, sT = ops.rwkv6(*args)
+        op, sp, sums = rwkv6_plain(*args, term_sums=True)
+        torch.cuda.synchronize()
+        err = (o.float() - op.float()).abs()
+        bound = 2 * (Dk - 1) * 2.0 ** -24 * sums
+        if o.dtype == torch.bfloat16:
+            _, e = torch.frexp(torch.maximum(o.float().abs(),
+                                             op.float().abs()))
+            bound = bound + torch.ldexp(torch.ones_like(bound), e - 8)
+        ok_o = bool((err <= bound).all())
+        ok_s = torch.equal(sT, sp)
+        print(f"rwkv6 {list(args[0].shape)} {label}: o max_abs_err "
+              f"{float(err.max())!r} (at most {float((err / bound).max()):.3f}"
+              f" of its bound), S_T bitwise equal to the plain version "
+              f"{ok_s}; o strides {o.stride()}")
+        if not (ok_o and ok_s):
+            raise AssertionError(f"rwkv6 {label}: kernel != plain version")
+        return float(err.max())
+
+    B, T = 8, 2048
+    timed = inputs(B, T, torch.bfloat16, False)
+    max_err = max(against_plain("bf16", timed),
+                  against_plain("f32 from s0",
+                                inputs(B, T, torch.float32, True)))
+    S = longest_prompt("rwkv6-1.6b")
+    for label, T_serve, with_s0 in (("serve prefill bf16", S, False),
+                                    ("serve prefill bf16 from s0", S, True),
+                                    ("serve decode bf16 from s0", 1, True)):
+        max_err = max(max_err, against_plain(
+            label, inputs(SERVE_REQUESTS, T_serve, torch.bfloat16, with_s0)))
+    k_ms = cuda_ms(lambda: ops.rwkv6(*timed), 10)
+    p_ms = cuda_ms(lambda: rwkv6_plain(*timed), 1)
+    bound, by, n_bytes, n_ops = rwkv6_bound(B, H, T, Dk, Dk, 2, False)
+    print(f"rwkv6 [{B}, {H}, {T}, {Dk}] bf16: kernel {k_ms:.6f} ms "
+          f"({n_ops / k_ms * 1e-9:.3f} TFLOP/s of the function's "
+          f"operations), plain {p_ms:.3f} ms, bound {bound:.6f} ms by {by} "
+          f"(bytes {n_bytes}, operations {n_ops}; built without fused "
+          f"multiply-adds, the kernel can reach at most half the float32 "
+          f"peak, {2 * bound:.6f} ms); kernel at {bound / k_ms:.3f} of the "
+          f"bound")
+    return {"name": "rwkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6.py:56",
+            "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def serve_requests(cfg, n, lengths, new, seed):
+    """``n`` requests as ``launch/serve.py --execute-smoke`` draws them: each
+    a prompt length from ``lengths`` (a range, or one length), then its
+    tokens, from numpy's ``seed``."""
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        plen = (int(rng.integers(*lengths)) if isinstance(lengths, tuple)
+                else lengths)
+        out.append(Request(i, rng.integers(0, cfg.vocab_size, plen)
+                           .astype(np.int32), new))
+    return out
+
+
+def padded(reqs):
+    """The engine's left-padded token batch of ``reqs``."""
+    import numpy as np
+
+    pmax = max(r.prompt_len for r in reqs)
+    toks = np.zeros((len(reqs), pmax), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, pmax - r.prompt_len:] = r.tokens
+    return toks
+
+
+def serve_batch(label, engine, reqs):
+    """One ``generate_batch`` with the launch counts set to 0 just before
+    and read just after; prints its walls and decode rate."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = engine.generate_batch(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    n_new = max(r.max_new_tokens for r in reqs)
+    c = outs[0]
+    print(f"serve {label}: {len(reqs)} requests, prompts "
+          f"{min(r.prompt_len for r in reqs)}..{max(r.prompt_len for r in reqs)}"
+          f" tokens, cache_len {engine.cache_len}: prefill "
+          f"{c.prefill_s * 1e3:.3f} ms, decode {c.decode_s * 1e3:.3f} ms for "
+          f"{n_new} steps ({len(reqs) * n_new / c.decode_s:.1f} tokens/s, "
+          f"{c.decode_s / n_new * 1e3:.3f} ms per step), wall {wall:.3f} s; "
+          f"launches {counts}")
+    return outs, counts, wall
+
+
+def incremental_gap(model, toks, cache_len):
+    """prefill(S) of ``toks`` [B, S], decode_step of its greedy tokens, and
+    prefill(S+1) of the same tokens: (prefill logits, decode logits,
+    prefill(S+1) logits, greedy tokens, the INCR_TOL line and whether every
+    logit is within it)."""
+    import torch
+
+    S = toks.shape[1]
+    logits, cache = model.prefill(toks, cache_len=cache_len)
+    first = torch.argmax(logits, -1)
+    dec, _ = model.decode_step(cache, first, S)
+    full, _ = model.prefill(torch.cat([toks, first[:, None]], 1),
+                            cache_len=cache_len)
+    torch.cuda.synchronize()
+    d, f = dec.float(), full.float()
+    err = (d - f).abs()
+    bad = err > INCR_TOL["atol"] + INCR_TOL["rtol"] * f.abs()
+    line = (f"prefill({S}) + decode_step vs prefill({S + 1}): max abs diff "
+            f"{float(err.max())!r} on logits up to {float(f.abs().max()):.3f}"
+            f", {int(bad.sum())} of {bad.numel()} beyond rtol "
+            f"{INCR_TOL['rtol']}, atol {INCR_TOL['atol']}")
+    return logits, dec, full, first, line, not bool(bad.any())
+
+
+def check_serve_logits(label, model, reqs, outs, cache_len):
+    """The engine's batch once more by hand: finite logits, the engine's
+    first tokens the prefill's argmax, and the gap between prefill(S) +
+    decode_step and prefill(S+1) within BF16_GAP of the logits' scale. In
+    bf16 at full width the two paths round apart (torch's GEMMs take other
+    kernels for one token than for S), so INCR_TOL holds only in float32
+    (check_incremental_float32); the line also prints how many logits lie
+    beyond it."""
+    import torch
+
+    toks = torch.from_numpy(padded(reqs)).to(model.device)
+    logits, dec, full, first, line, _ = incremental_gap(model, toks,
+                                                        cache_len)
+    engine_first = torch.tensor([int(c.tokens[0]) for c in outs],
+                                device=model.device)
+    same_first = torch.equal(first, engine_first)
+    finite = all(bool(torch.isfinite(x).all()) for x in (logits, dec, full))
+    gap = float((dec.float() - full.float()).abs().max()
+                / full.float().abs().max())
+    print(f"serve {label}: logits {tuple(logits.shape)} finite {finite}; "
+          f"the engine's first tokens are the prefill's argmax {same_first};"
+          f" {model.cfg.dtype} {line}; max gap {gap:.6f} of the logits' "
+          f"scale (limit {BF16_GAP})")
+    if not (finite and same_first and gap <= BF16_GAP):
+        raise AssertionError(f"serve {label}: logits check failed")
+
+
+def check_incremental_float32(arch, dev, seed):
+    """prefill(S) + decode_step against prefill(S+1) at the full config in
+    float32 (full width and depth, IEEE float32 products), within INCR_TOL:
+    the serve batch, and for recurrentgemma the long batch past its window
+    (the rolled cache)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import ieee_float32
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              kv_dtype="float32")
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    batches = [("batch", serve_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT,
+                                        1, SERVE_SEED), SERVE_CACHE)]
+    if arch == "recurrentgemma-9b":
+        batches.append(("long batch", serve_requests(
+            cfg, LONG_BATCH, LONG_PROMPT, 1, SERVE_SEED + 1), LONG_CACHE))
+    for label, reqs, cache_len in batches:
+        toks = torch.from_numpy(padded(reqs)).to(dev)
+        t0 = time.perf_counter()
+        with ieee_float32():
+            logits, dec, full, _, line, ok = incremental_gap(model, toks,
+                                                             cache_len)
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (logits, dec, full))
+        print(f"serve {arch} {label} float32, full depth "
+              f"({time.perf_counter() - t0:.3f} s): finite {finite}; {line}")
+        if not (ok and finite):
+            raise AssertionError(f"serve {arch} {label}: float32 "
+                                 f"prefill/decode check failed")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_full(arch, dev, seed):
+    """One architecture's full config on the card (weights drawn from a
+    seeded generator there): a warm-up batch, then the timed batch (and
+    recurrentgemma's long batch) with the launch counts, the logits checks
+    and, for rwkv6, a profiler pass. Returns (the kernel's launches in the
+    timed batches, {batch label: (completions, wall)})."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import InferenceEngine
+
+    cfg = get_config(arch)
+    kernel = {"rwkv6-1.6b": "rwkv6", "recurrentgemma-9b": "rglru"}[arch]
+    n_rec = sum(cfg.layer_kind(i) == kernel for i in range(cfg.num_layers))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"serve {arch}: {cfg.num_layers} layers ({n_rec} {kernel}), "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}: {n_params} "
+          f"parameters, {n_bytes / 1e9:.3f} GB, drawn on the card in "
+          f"{time.perf_counter() - t0:.3f} s")
+    batches = [("batch", serve_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT,
+                                        SERVE_NEW, SERVE_SEED), SERVE_CACHE)]
+    if arch == "recurrentgemma-9b":
+        batches.append(("long batch", serve_requests(
+            cfg, LONG_BATCH, LONG_PROMPT, SERVE_NEW, SERVE_SEED + 1),
+            LONG_CACHE))
+    launches, runs = 0, {}
+    for label, reqs, cache_len in batches:
+        engine = InferenceEngine(model, cache_len=cache_len)
+        if label == "batch":  # first-use costs stay out of the timed run
+            engine.generate_batch(reqs)
+        outs, counts, wall = serve_batch(f"{arch} {label}", engine, reqs)
+        want = n_rec * (1 + max(r.max_new_tokens for r in reqs))
+        if counts[kernel] != want:
+            raise AssertionError(f"serve {arch} {label}: {kernel} launched "
+                                 f"{counts[kernel]} times, expected {want}")
+        launches += counts[kernel]
+        check_serve_logits(f"{arch} {label}", model, reqs, outs, cache_len)
+        runs[label] = (outs, wall)
+        if arch == "rwkv6-1.6b":
+            profile_serve(arch, engine, reqs, wall)
+        if label == "batch":
+            time_activations(arch, engine, reqs)
+    print(f"serve {arch}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, runs
+
+
+def time_activations(arch, engine, reqs, n=3):
+    """The decode step with the port's activations (``layers.gelu``,
+    ``silu``, ``sigmoid``: one op per op of XLA's expansion, for bf16
+    parity with the reference) against torch's fused ``F.gelu(approximate=
+    "tanh")``, ``F.silu`` and ``torch.sigmoid`` swapped in: ``n``
+    ``generate_batch`` calls each, alternating; prints each one's median
+    decode ms per step. A measurement of what the parity costs; the fused
+    versions are not the port's."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers, recurrent
+
+    ported = {k: getattr(layers, k) for k in ("gelu", "silu", "sigmoid")}
+    fused = {"gelu": lambda x: F.gelu(x, approximate="tanh"),
+             "silu": F.silu, "sigmoid": torch.sigmoid}
+    steps = max(r.max_new_tokens for r in reqs)
+    per_step = {"ported": [], "fused": []}
+    try:
+        for _ in range(n):
+            for name, fns in (("ported", ported), ("fused", fused)):
+                for mod in (layers, recurrent):
+                    for k, f in fns.items():
+                        setattr(mod, k, f)
+                outs = engine.generate_batch(reqs)
+                per_step[name].append(outs[0].decode_s / steps * 1e3)
+    finally:
+        for mod in (layers, recurrent):
+            for k, f in ported.items():
+                setattr(mod, k, f)
+    med = {k: statistics.median(v) for k, v in per_step.items()}
+    print(f"serve {arch} activations: decode ms per step, the port's "
+          f"expanded {med['ported']:.3f} (runs "
+          f"{', '.join(f'{x:.3f}' for x in per_step['ported'])}), torch's "
+          f"fused {med['fused']:.3f} (runs "
+          f"{', '.join(f'{x:.3f}' for x in per_step['fused'])}): the "
+          f"expansion costs {med['ported'] - med['fused']:.3f} ms per step")
+
+
+def profile_serve(arch, engine, reqs, wall):
+    """One more ``generate_batch`` under the profiler: device busy and idle
+    share of the profiled and of the unprofiled wall, the kernels' share,
+    the top device operations."""
+    got = device_profile(f"serve {arch}",
+                         lambda: engine.generate_batch(reqs))
+    if got is None:
+        return
+    busy_s, wall_p, dev_events = got
+    kern = {k: sum(e.self_device_time_total for e in dev_events
+                   if k in e.key) * 1e-6 for k in ("rwkv6", "rglru")}
+    print(f"profile serve {arch}: device busy {busy_s:.6f} s of a "
+          f"{wall_p:.3f} s profiled wall ({busy_s / wall_p:.4f}); of the "
+          f"unprofiled {wall:.3f} s wall {busy_s / wall:.4f} busy, "
+          f"{1 - busy_s / wall:.4f} idle; "
+          + ", ".join(f"{k} {v:.6f} s ({v / busy_s:.4f} of busy)"
+                      for k, v in kern.items() if v)
+          + f"; {sum(e.count for e in dev_events)} device events")
+    print_top_events(dev_events, 8)
+
+
+def check_serve_against_cpu(arch, dev, seed):
+    """The architecture at full width and CPU_LAYERS depth in float32, the
+    same weights on the card and the CPU (drawn on the card, copied): the
+    engine's greedy tokens over CPU_DECODE steps equal, prefill logits
+    within CPU_RTOL of their scale; float32 products in IEEE float32."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import ieee_float32
+    from repro_torch.models import Model
+    from repro_torch.serving import InferenceEngine
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=CPU_LAYERS[arch],
+                              dtype="float32", kv_dtype="float32")
+    card = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    reqs = serve_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, CPU_DECODE,
+                          SERVE_SEED)
+    toks = torch.from_numpy(padded(reqs))
+    t0 = time.perf_counter()
+    with ieee_float32():
+        got = InferenceEngine(card, SERVE_CACHE).generate_batch(reqs)
+        lc, _ = card.prefill(toks.to(dev), cache_len=SERVE_CACHE)
+        t1 = time.perf_counter()
+        want = InferenceEngine(cpu, SERVE_CACHE).generate_batch(reqs)
+        lh, _ = cpu.prefill(toks, cache_len=SERVE_CACHE)
+    t2 = time.perf_counter()
+    same = all(np.array_equal(g.tokens, w.tokens) for g, w in zip(got, want))
+    rel = float((lc.cpu() - lh).abs().max() / lh.abs().max())
+    print(f"serve {arch} at {cfg.num_layers} layers, float32: card "
+          f"{t1 - t0:.3f} s, CPU {t2 - t1:.3f} s; greedy tokens over "
+          f"{CPU_DECODE} steps equal {same}; prefill logits differ by "
+          f"{rel!r} of their max (tolerance {CPU_RTOL})")
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not same or rel > CPU_RTOL:
+        raise AssertionError(f"serve {arch}: card != CPU")
+
+
 def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
@@ -961,7 +1512,20 @@ def main() -> int:
     finally:
         torch.set_float32_matmul_precision(precision)
 
-    # -- 7. result ------------------------------------------------------------
+    # -- 7. the serving path: the model stack with rglru and rwkv6 ----------
+    kernels.append(check_rglru(dev))
+    kernels.append(check_rwkv6(dev))
+    t0 = time.perf_counter()
+    serve_launches = {}
+    for seed, arch in enumerate(("rwkv6-1.6b", "recurrentgemma-9b")):
+        serve_launches[arch], _ = serve_full(arch, dev, seed)
+    for seed, arch in enumerate(("rwkv6-1.6b", "recurrentgemma-9b")):
+        check_incremental_float32(arch, dev, seed + 20)
+    for seed, arch in enumerate(("rwkv6-1.6b", "recurrentgemma-9b")):
+        check_serve_against_cpu(arch, dev, seed + 10)
+    print(f"serve: phase wall {time.perf_counter() - t0:.3f} s")
+
+    # -- 8. result ------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main path of its slice: acd_evict on
     # the uncapped sweeps, fifo_dispatch on the congested ones, matmul on
@@ -971,6 +1535,10 @@ def main() -> int:
     kernels[1]["launches"] = sum(launches[("load", J)]["fifo_dispatch"]
                                  for J in MAIN_J)
     kernels[2]["launches"] = launches["profile"]["matmul"]
+    # rglru and rwkv6: their launches in the timed serve batches (one per
+    # recurrent layer per prefill and per decode step)
+    kernels[3]["launches"] = serve_launches["recurrentgemma-9b"]
+    kernels[4]["launches"] = serve_launches["rwkv6-1.6b"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,20 +7,32 @@ nothing of ``repro``. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.
 
 Ported so far: Algorithm 1's batch path with load-dependent latency
-(concurrency caps, cold starts, pool traces) and the paper's profile ->
-predict -> schedule loop: ``core`` (DAGs, costs, arrivals, priorities, the
-greedy math, the DES, the batched engine, the ridge perf models and the
-scheduler service), ``apps`` (the matrix, video and image applications as
-PyTorch stage programs, and trace generation) and ``kernels`` (the CUDA
-``acd_evict``, ``fifo_dispatch`` and ``matmul`` kernels with their plain
-PyTorch versions).
+(concurrency caps, cold starts, pool traces), the paper's profile ->
+predict -> schedule loop, and the model stack's serving path:
+
+- ``core``: DAGs, costs, arrivals, priorities, the greedy math, the DES,
+  the batched engine, the ridge perf models and the scheduler service;
+- ``apps``: the matrix, video and image applications as PyTorch stage
+  programs, and trace generation;
+- ``models``: the decoder LM's serving modes (``Model.prefill``,
+  ``Model.decode_step``) with RG-LRU and RWKV-6 recurrent blocks and
+  windowed attention;
+- ``configs``: the architectures the port serves (``rwkv6-1.6b``,
+  ``recurrentgemma-9b``) and the assigned shapes;
+- ``serving``: the batched greedy ``InferenceEngine``;
+- ``kernels``: the hand-written CUDA kernels ``acd_evict``,
+  ``fifo_dispatch``, ``matmul``, ``rglru`` and ``rwkv6``, with their plain
+  PyTorch versions.
 """
-from . import apps, core, kernels
+from . import apps, configs, core, kernels, models, serving
 from .apps import SPECS, fit_models, generate_traces, split_traces
 from .core import (APPS, AppDAG, AppPerfModel, SkedulixScheduler, Stage,
                    simulate, simulate_scenarios, sweep_scenarios)
+from .models import Model, ModelConfig
+from .serving import InferenceEngine, Request
 
-__all__ = ["apps", "core", "kernels", "APPS", "AppDAG", "Stage",
-           "SkedulixScheduler", "simulate", "simulate_scenarios",
-           "sweep_scenarios", "SPECS", "generate_traces", "split_traces",
-           "fit_models", "AppPerfModel"]
+__all__ = ["apps", "configs", "core", "kernels", "models", "serving",
+           "APPS", "AppDAG", "Stage", "SkedulixScheduler", "simulate",
+           "simulate_scenarios", "sweep_scenarios", "SPECS",
+           "generate_traces", "split_traces", "fit_models", "AppPerfModel",
+           "Model", "ModelConfig", "InferenceEngine", "Request"]

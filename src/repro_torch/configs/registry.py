@@ -1,0 +1,89 @@
+"""Architecture registry of the port, and the assigned input shapes.
+
+``ARCHS`` lists the architectures the port can run: the two whose layers
+are all recurrent blocks and windowed attention (``rwkv6-1.6b``,
+``recurrentgemma-9b``). The reference registers eight more;
+:func:`get_config` and :func:`get_smoke_config` name the ROADMAP item that
+brings each of them.
+
+Shapes (per the assignment):
+  train_4k     seq 4,096   global_batch 256   (training)
+  prefill_32k  seq 32,768  global_batch 32    (inference-prefill)
+  decode_32k   seq 32,768  global_batch 128   (one token, KV cache=seq)
+  long_500k    seq 524,288 global_batch 1     (long-context decode;
+               sub-quadratic archs only)
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from ..models.config import ModelConfig
+from . import recurrentgemma_9b, rwkv6_1_6b
+
+_MODULES = {
+    "recurrentgemma-9b": recurrentgemma_9b,
+    "rwkv6-1.6b": rwkv6_1_6b,
+}
+
+_DENSE = ("ROADMAP Queue 1, Next item 1 (the attention path with the "
+          "flash_attention and flash_decode kernels)")
+#: the reference's other architectures -> the ROADMAP item that ports them
+NOT_PORTED = {
+    "llama3-8b": _DENSE,
+    "stablelm-12b": _DENSE,
+    "starcoder2-15b": _DENSE,
+    "qwen1.5-32b": _DENSE,
+    "olmoe-1b-7b": "ROADMAP Queue 1, Next item 2 (MoE layers)",
+    "arctic-480b": "ROADMAP Queue 1, Next item 2 (MoE layers)",
+    "whisper-large-v3": "ROADMAP Queue 1, Next item 3 (the encoder-decoder)",
+    "internvl2-76b": "ROADMAP Queue 1, Next item 4 (vision patches)",
+}
+
+ARCHS = tuple(_MODULES)
+
+
+def _module(arch: str):
+    if arch in _MODULES:
+        return _MODULES[arch]
+    if arch in NOT_PORTED:
+        raise NotImplementedError(
+            f"architecture {arch!r} is not ported to repro_torch yet; it "
+            f"comes with {NOT_PORTED[arch]}")
+    raise KeyError(f"unknown architecture {arch!r}; the port has {ARCHS}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).config()
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke_config()
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    def scaled(self, seq: int, batch: int) -> "ShapeSpec":
+        return dataclasses.replace(self, seq_len=seq, global_batch=batch)
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """long_500k needs sub-quadratic decode (SSM / hybrid-with-window)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full-attention arch: 512k-token KV decode is "
+                       "quadratic-cost/unbounded-cache; skipped per "
+                       "assignment rules (DESIGN.md §4)")
+    return True, ""

@@ -142,3 +142,56 @@ def perf_model_from_fields(
     return AppPerfModel(dag=dag, stages=stages,
                         feature_builder=feature_builder)
 
+
+
+def _leaves(tree, prefix: str = ""):
+    """(dotted path, array) of every leaf of a nested dict / list tree."""
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def tensor_from_array(a, device=None) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``; bfloat16 arrays (numpy's
+    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects) cross as
+    their 16-bit patterns."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # torch.from_numpy needs a writable buffer
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def model_params_from_fields(cfg, fields: Mapping[str, Any], device=None):
+    """:class:`repro_torch.models.Model` of ``cfg`` on ``device``
+    (``cuda`` unless the caller names another) holding the weights of a
+    reference parameter tree given as numpy arrays: ``embed``,
+    ``lm_head``, ``final_norm``, ``scan_layers.slot{i}`` (layers stacked
+    along axis 0) and ``rest_layers`` (a list). The tree's paths are the
+    model's parameter names; shapes and dtypes must match exactly."""
+    from ..models.model import Model
+
+    model = Model(cfg, device=device)
+    params = dict(model.named_parameters())
+    given = dict(_leaves(fields))
+    if set(given) != set(params):
+        raise ValueError(
+            f"parameter names differ: missing {sorted(set(params) - set(given))}"
+            f", unexpected {sorted(set(given) - set(params))}")
+    with torch.no_grad():
+        for name, p in params.items():
+            t = tensor_from_array(np.asarray(given[name]))
+            if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
+                raise ValueError(
+                    f"{name}: got {tuple(t.shape)} {t.dtype}, the model has "
+                    f"{tuple(p.shape)} {p.dtype}")
+            p.copy_(t)
+    return model

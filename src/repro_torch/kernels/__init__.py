@@ -8,14 +8,22 @@
   matmul        — tiled ``x @ y`` with float32 accumulation, the matrix
                   app's MM stage (port of ``repro.kernels.matmul``;
                   ``csrc/matmul.cu``)
+  rglru         — RG-LRU gated linear scan of recurrentgemma's recurrent
+                  blocks (port of ``repro.kernels.rglru``;
+                  ``csrc/rglru.cu``)
+  rwkv6         — RWKV-6 WKV recurrence with data-dependent decay of
+                  rwkv6's time-mix blocks (port of ``repro.kernels.rwkv6``;
+                  ``csrc/rwkv6.cu``)
 
 ``ops`` holds the checked wrappers (plain version for CPU tensors, the
 kernel for CUDA tensors, launch counts), ``ref`` the plain versions,
 ``build`` the ``nvcc`` build into ``build/kernels/``.
 """
 from . import ops, ref
-from .ops import acd_evict, fifo_dispatch, matmul
-from .ref import acd_evict_plain, fifo_dispatch_plain, matmul_plain
+from .ops import acd_evict, fifo_dispatch, matmul, rglru, rwkv6
+from .ref import (acd_evict_plain, fifo_dispatch_plain, matmul_plain,
+                  rglru_plain, rwkv6_plain)
 
 __all__ = ["ops", "ref", "acd_evict", "acd_evict_plain", "fifo_dispatch",
-           "fifo_dispatch_plain", "matmul", "matmul_plain"]
+           "fifo_dispatch_plain", "matmul", "matmul_plain", "rglru",
+           "rglru_plain", "rwkv6", "rwkv6_plain"]

@@ -29,7 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel name -> source file under csrc/
 SOURCES = {"acd_evict": "acd_evict.cu",
            "fifo_dispatch": "fifo_dispatch.cu",
-           "matmul": "matmul.cu"}
+           "matmul": "matmul.cu",
+           "rglru": "rglru.cu",
+           "rwkv6": "rwkv6.cu"}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 #: seconds each kernel's last build (or cache hit) took, for reporting

@@ -4,16 +4,21 @@ A wrapper takes the plain version (:mod:`.ref`) only for tensors on the
 CPU. For CUDA tensors it launches the hand-written kernel or raises; it
 never falls back. Each wrapper counts its kernel launches in a plain
 integer attribute (``acd_evict.launches``, ``fifo_dispatch.launches``,
-``matmul.launches``), so a run can show that its main path went through
-the kernel.
+``matmul.launches``, ``rglru.launches``, ``rwkv6.launches``), so a run can
+show that its main path went through the kernel.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
 from . import acd_sweep, fifo
 from . import matmul as _mm
-from .ref import acd_evict_plain, fifo_dispatch_plain, matmul_plain
+from . import rglru as _rg
+from . import rwkv6 as _rk
+from .ref import (acd_evict_plain, fifo_dispatch_plain, matmul_plain,
+                  rglru_plain, rwkv6_plain)
 
 _FLOATS = (torch.float64, torch.float32)
 
@@ -184,15 +189,142 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 matmul.launches = 0
 
 
+def _check_tensors(name, **xs) -> torch.device:
+    """Every argument is a tensor, all on one device (returned)."""
+    dev = None
+    for arg, x in xs.items():
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name}: {arg} must be a torch.Tensor")
+        if dev is None:
+            dev = x.device
+        elif x.device != dev:
+            raise ValueError(f"{name}: {arg} is on {x.device}, the first "
+                             f"argument on {dev}")
+    return dev
+
+
+def _check_rglru(x, a, h0) -> None:
+    xs = dict(x=x, a=a) if h0 is None else dict(x=x, a=a, h0=h0)
+    _check_tensors("rglru", **xs)
+    if x.dim() != 3 or x.numel() == 0:
+        raise ValueError(f"rglru: x must be a non-empty [B, T, D], got "
+                         f"shape {tuple(x.shape)}")
+    B, _, D = x.shape
+    want = dict(x=tuple(x.shape), a=tuple(x.shape), h0=(B, D))
+    for arg, t in xs.items():
+        if tuple(t.shape) != want[arg]:
+            raise ValueError(f"rglru: {arg} must have shape {want[arg]}, "
+                             f"got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"rglru: {arg} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"rglru: {arg} must be contiguous")
+    if x.device.type == "cuda" and B > 65535:
+        raise ValueError(f"rglru: the kernel takes at most 65535 rows, got "
+                         f"B={B}")
+
+
+def rglru(x: torch.Tensor, a: torch.Tensor,
+          h0: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RG-LRU scan ``h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2, 0)) x_t`` over
+    ``x``, ``a`` [B, T, D] float32 (contiguous) from ``h0`` [B, D] float32
+    (zeros when ``None``) -> (y [B, T, D] float32, h_T [B, D] float32).
+    CPU tensors run :func:`.ref.rglru_plain`; CUDA tensors run the CUDA
+    kernel (``csrc/rglru.cu``)."""
+    _check_rglru(x, a, h0)
+    if x.device.type == "cpu":
+        return rglru_plain(x, a, h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"rglru: no kernel for device {x.device}")
+    y = torch.empty_like(x)
+    hT = torch.empty((x.shape[0], x.shape[2]), dtype=torch.float32,
+                     device=x.device)
+    _rg.launch(x, a, h0, y, hT)
+    rglru.launches += 1
+    return y, hT
+
+
+rglru.launches = 0
+
+
+_RWKV_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_rwkv6(r, k, v, w, u, s0) -> None:
+    xs = dict(r=r, k=k, v=v, w=w, u=u)
+    if s0 is not None:
+        xs["s0"] = s0
+    dev = _check_tensors("rwkv6", **xs)
+    if r.dim() != 4 or v.dim() != 4 or r.numel() == 0 or v.numel() == 0:
+        raise ValueError(f"rwkv6: r and v must be non-empty [B, H, T, D], "
+                         f"got {tuple(r.shape)} and {tuple(v.shape)}")
+    B, H, T, Dk = r.shape
+    Dv = v.shape[-1]
+    want = dict(r=(B, H, T, Dk), k=(B, H, T, Dk), v=(B, H, T, Dv),
+                w=(B, H, T, Dk), u=(H, Dk), s0=(B, H, Dk, Dv))
+    for arg, t in xs.items():
+        if tuple(t.shape) != want[arg]:
+            raise ValueError(f"rwkv6: {arg} must have shape {want[arg]}, "
+                             f"got {tuple(t.shape)}")
+    if r.dtype not in _RWKV_DTYPES or k.dtype != r.dtype \
+            or v.dtype != r.dtype:
+        raise TypeError(f"rwkv6: r, k and v must all be float32 or all "
+                        f"bfloat16, got {r.dtype}, {k.dtype}, {v.dtype}")
+    for arg in ("w", "u", "s0"):
+        if arg in xs and xs[arg].dtype != torch.float32:
+            raise TypeError(f"rwkv6: {arg} must be float32, got "
+                            f"{xs[arg].dtype}")
+    for arg in ("r", "k", "v", "w"):
+        if xs[arg].stride(-1) != 1:
+            raise ValueError(f"rwkv6: {arg} must have a unit stride along "
+                             f"its last dimension")
+    for arg in ("u", "s0"):
+        if arg in xs and not xs[arg].is_contiguous():
+            raise ValueError(f"rwkv6: {arg} must be contiguous")
+    if dev.type == "cuda" and (Dk not in _rk.DK_SIZES or Dv > _rk.MAX_DV):
+        raise ValueError(f"rwkv6: the kernel takes Dk in {_rk.DK_SIZES} "
+                         f"and Dv <= {_rk.MAX_DV}, got Dk={Dk}, Dv={Dv}")
+
+
+def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          w: torch.Tensor, u: torch.Tensor,
+          s0: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 WKV recurrence: ``r``, ``k``, ``w`` [B, H, T, Dk], ``v``
+    [B, H, T, Dv] (``r``/``k``/``v`` float32 or bfloat16, ``w`` float32;
+    any strides with a unit last one, so head-split views pass without a
+    copy), ``u`` [H, Dk] and ``s0`` [B, H, Dk, Dv] float32 (zeros when
+    ``None``) -> (o [B, H, T, Dv] in ``v.dtype``, S_T [B, H, Dk, Dv]
+    float32). CPU tensors run :func:`.ref.rwkv6_plain`; CUDA tensors run
+    the CUDA kernel (``csrc/rwkv6.cu``), whose ``o`` has the strides of
+    ``v``."""
+    _check_rwkv6(r, k, v, w, u, s0)
+    if r.device.type == "cpu":
+        return rwkv6_plain(r, k, v, w, u, s0)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6: no kernel for device {r.device}")
+    B, H, _, Dk = r.shape
+    o = torch.empty_like(v)  # v's strides when dense, else contiguous
+    sT = torch.empty((B, H, Dk, v.shape[-1]), dtype=torch.float32,
+                     device=r.device)
+    _rk.launch(r, k, v, w, u, s0, o, sT)
+    rwkv6.launches += 1
+    return o, sT
+
+
+rwkv6.launches = 0
+
+
+_WRAPPERS = (acd_evict, fifo_dispatch, matmul, rglru, rwkv6)
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    acd_evict.launches = 0
-    fifo_dispatch.launches = 0
-    matmul.launches = 0
+    for fn in _WRAPPERS:
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
     """Kernel name -> launches since the last reset."""
-    return {"acd_evict": acd_evict.launches,
-            "fifo_dispatch": fifo_dispatch.launches,
-            "matmul": matmul.launches}
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the port's kernels (the correctness ground
-truth on any device).
+truth on any device), and the recurrences of the model stack's blocks.
 
 Each function repeats its kernel's arithmetic op for op with ordinary
 tensor operations. The wrappers in :mod:`.ops` call them for tensors on
@@ -7,6 +7,8 @@ the CPU; ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 They are no yardstick of speed.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -124,3 +126,68 @@ def matmul_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``x`` [M, K] @ ``y`` [K, N] with float32 accumulation, returned in
     ``x.dtype`` (plain version of ``matmul``)."""
     return (x.float() @ y.float()).to(x.dtype)
+
+
+def rglru_plain(x: torch.Tensor, a: torch.Tensor,
+                h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RG-LRU linear recurrence (plain version of ``rglru``; the reference's
+    ``ref.rglru_ref``):
+
+        h_t = a_t * h_{t-1} + sqrt(max(1 - a_t^2, 0)) * x_t
+
+    ``x``, ``a`` [B, T, D] (``a`` in (0, 1)), optional ``h0`` [B, D].
+    Inputs go to float32; returns (y [B, T, D] in ``x.dtype``, h_T [B, D]
+    float32). A loop over time of elementwise float32 operations, each
+    rounded on its own (the kernel computes the same, built without
+    fused multiply-adds)."""
+    x32, a32 = x.float(), a.float()
+    g = torch.sqrt(torch.clamp_min(1.0 - a32 * a32, 0.0)) * x32
+    h = (torch.zeros_like(x32[:, 0]) if h0 is None
+         else h0.float().clone())
+    ys = torch.empty_like(x32)
+    for t in range(x32.shape[1]):
+        h = a32[:, t] * h + g[:, t]
+        ys[:, t] = h
+    return ys.to(x.dtype), h
+
+
+def rwkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                w: torch.Tensor, u: torch.Tensor,
+                s0: Optional[torch.Tensor] = None, term_sums: bool = False
+                ) -> Tuple[torch.Tensor, ...]:
+    """RWKV-6 (Finch) WKV recurrence with data-dependent decay (plain
+    version of ``rwkv6``; the reference's ``ref.rwkv6_ref``).
+
+    ``r``, ``k``, ``w`` [B, H, T, Dk], ``v`` [B, H, T, Dv], ``u`` [H, Dk],
+    optional ``s0`` [B, H, Dk, Dv]; per (b, h), with state S [Dk, Dv]:
+
+        o_t = sum_k r_t[k] * (S[k, :] + u[k] * k_t[k] * v_t)
+        S   = w_t[:, None] * S + k_t^T v_t            (w_t in (0, 1))
+
+    Inputs go to float32; returns (o [B, H, T, Dv] in ``v.dtype``, S_T
+    [B, H, Dk, Dv] float32). The state update is elementwise, so the
+    kernel's S_T equals this one bit for bit; ``o`` sums over k in
+    another order than the kernel's. With ``term_sums`` it also returns
+    sum_k |r_t[k] (S[k, j] + u[k] k_t[k] v_t[j])| for every o_t[j]
+    (float32): the scale of o's rounding. Two summation orders of Dk terms
+    differ by at most 2 (Dk - 1) 2^-24 times it, the bound the kernel's
+    checks hold o to."""
+    r32, k32, v32, w32 = (t.float() for t in (r, k, v, w))
+    b, h, t_len, dk = r32.shape
+    dv = v32.shape[-1]
+    S = (torch.zeros((b, h, dk, dv), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float().clone())
+    uu = u.float()[None, :, :, None]                      # [1, H, Dk, 1]
+    o = torch.empty((b, h, t_len, dv), dtype=torch.float32, device=r.device)
+    sums = torch.empty_like(o) if term_sums else None
+    for t in range(t_len):
+        kv = k32[:, :, t, :, None] * v32[:, :, t, None, :]  # [B, H, Dk, Dv]
+        terms = (S + uu * kv) * r32[:, :, t, :, None]
+        o[:, :, t] = terms.sum(-2)
+        if term_sums:
+            sums[:, :, t] = terms.abs().sum(-2)
+        S = w32[:, :, t, :, None] * S + kv
+    if term_sums:
+        return o.to(v.dtype), S, sums
+    return o.to(v.dtype), S

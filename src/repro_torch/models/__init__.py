@@ -1,0 +1,6 @@
+# The model stack's serving path: config-driven decoder LM with RG-LRU and
+# RWKV-6 recurrent blocks and windowed attention (port of repro.models).
+from .config import ModelConfig
+from .model import Model
+
+__all__ = ["ModelConfig", "Model"]

@@ -1,0 +1,369 @@
+"""Decoder-only LM assembly for the port's architectures: serving modes.
+
+Port of the reference's ``models/model.py`` (``Model.prefill`` and
+``Model.decode_step``, the stack unrolled as the reference serves it).
+Layers are grouped into *super-blocks* of ``cfg.block_pattern`` period as
+the reference groups them: the parameters of slot ``si`` of every
+super-block stack along a leading axis (``scan_layers.slot{si}.*``), and
+the remainder layers follow as a list (``rest_layers.{i}.*``). The
+module's parameter names are the reference's parameter-tree paths joined
+with dots (``scan_layers.slot0.mixer.w_x``, ``embed``, ...), so weights
+carry across by name (:func:`repro_torch.core.convert.model_params_from_fields`).
+Caches keep the reference's layout too: ``{"scan": {"slot{si}": {name:
+[n_super, ...]}}, "rest": [per-layer dicts]}``.
+
+Modes:
+  prefill — full-sequence forward; returns last-token logits + caches
+            (attention K/V right-aligned into ``cache_len`` slots, rolled
+            for windowed layers; recurrent states carried).
+  decode  — one token; K/V caches updated at slot ``pos % cache_len``
+            for windowed layers. ``decode_step`` updates the caches in
+            place and returns them (the reference's engine donates its
+            cache the same way).
+
+Training (``loss_fn``) is not ported yet. The encoder and cross-attention,
+MoE layers and vision patches are not either: a config that needs them
+raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..core.vectorsim import resolve_device
+from .config import ModelConfig
+from .layers import (Init, Params, apply_norm, attention_apply, attn_init,
+                     cache_update, decode_attention, dtype_of, ffn_apply,
+                     ffn_init, init_norm, rope)
+from .recurrent import (rglru_block, rglru_init, rglru_state_init,
+                        rwkv6_block, rwkv6_init, rwkv6_state_init)
+
+def unported_parts(cfg: ModelConfig) -> List[str]:
+    """What of ``cfg`` the port cannot run yet, each with its ROADMAP item
+    (empty when the config runs)."""
+    out = []
+    if cfg.num_experts:
+        out.append("MoE layers (ROADMAP Queue 1, Next item 2)")
+    if cfg.is_encdec:
+        out.append("the encoder and cross-attention (ROADMAP Queue 1, Next "
+                   "item 3)")
+    if cfg.vision_patches:
+        out.append("vision patches (ROADMAP Queue 1, Next item 4)")
+    return out
+
+
+# -- per-layer params -------------------------------------------------------
+
+def _layer_init(cfg: ModelConfig, kind: str) -> Params:
+    dt = dtype_of(cfg.dtype)
+    p: Params = {"norm1": init_norm(cfg, cfg.d_model),
+                 "norm2": init_norm(cfg, cfg.d_model)}
+    if kind == "attn":
+        p["mixer"] = attn_init(cfg, dt)
+    elif kind == "rglru":
+        p["mixer"] = rglru_init(cfg, dt)
+    elif kind == "rwkv6":
+        p["mixer"] = rwkv6_init(cfg, dt)
+    else:
+        raise ValueError(kind)
+    p["ffn"] = ffn_init(cfg, cfg.d_model, cfg.d_ff, dt)
+    return p
+
+
+def _layer_cache_init(cfg: ModelConfig, kind: str, batch: int,
+                      cache_len: int, device) -> Dict[str, torch.Tensor]:
+    if kind == "attn":
+        dt = dtype_of(cfg.kv_dtype)
+        hkv, hd = cfg.num_kv_heads, cfg.hd
+        eff = min(cache_len, cfg.window) if cfg.window else cache_len
+        return {"k": torch.zeros((batch, hkv, eff, hd), dtype=dt,
+                                 device=device),
+                "v": torch.zeros((batch, hkv, eff, hd), dtype=dt,
+                                 device=device)}
+    if kind == "rglru":
+        return rglru_state_init(cfg, batch, dtype_of(cfg.dtype), device)
+    return rwkv6_state_init(cfg, batch, dtype_of(cfg.dtype), device)
+
+
+class ParamTree(nn.Module):
+    """Parameters built from a nested dict of :class:`.layers.Init` specs:
+    a sub-dict becomes a submodule, a spec a parameter of shape ``lead +
+    spec.shape`` (a stack of ``lead`` layers). Serving parameters carry no
+    gradient."""
+
+    def __init__(self, specs: Params, lead: Tuple[int, ...] = (),
+                 device=None):
+        super().__init__()
+        self.specs: Dict[str, Init] = {}
+        for name, spec in specs.items():
+            if isinstance(spec, dict):
+                self.add_module(name, ParamTree(spec, lead, device))
+            else:
+                self.specs[name] = spec
+                self.register_parameter(name, nn.Parameter(torch.empty(
+                    tuple(lead) + tuple(spec.shape), dtype=spec.dtype,
+                    device=device), requires_grad=False))
+
+    def tree(self, index: Optional[int] = None) -> Params:
+        """Nested dict of the tensors (of layer ``index`` of a stack)."""
+        out: Params = {}
+        for name, p in self.named_parameters(recurse=False):
+            out[name] = p if index is None else p[index]
+        for name, m in self.named_children():
+            out[name] = m.tree(index)
+        return out
+
+
+def _fill(p: torch.Tensor, spec: Init,
+          generator: Optional[torch.Generator]) -> None:
+    if spec.kind == "normal":
+        p.normal_(generator=generator)
+        p.mul_(spec.value)
+    elif spec.kind == "full":
+        p.fill_(spec.value)
+    else:
+        raise ValueError(spec.kind)
+
+
+# -- one layer, serving modes --------------------------------------------------
+
+def _self_attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                      cache: Params, pos: int) -> Tuple[torch.Tensor, Params]:
+    """x [B,1,d]; cache update at the rolling slot + one-token attention."""
+    b = x.shape[0]
+    q = x @ p["mixer"]["wq"]
+    k = x @ p["mixer"]["wk"]
+    v = x @ p["mixer"]["wv"]
+    if cfg.qkv_bias:
+        q, k, v = (q + p["mixer"]["bq"], k + p["mixer"]["bk"],
+                   v + p["mixer"]["bv"])
+    q = q.reshape(b, 1, cfg.num_heads, cfg.hd)
+    k = k.reshape(b, 1, cfg.num_kv_heads, cfg.hd)
+    v = v.reshape(b, 1, cfg.num_kv_heads, cfg.hd)
+    posb = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q = rope(q, posb, cfg.rope_theta)[:, 0]                          # [B,H,D]
+    k = rope(k, posb, cfg.rope_theta)[:, 0]                          # [B,Hkv,D]
+    v = v[:, 0]
+    s_cache = cache["k"].shape[2]
+    slot = pos % s_cache if cfg.window else min(pos, s_cache - 1)
+    k_new = cache_update(cache["k"], k, slot)
+    v_new = cache_update(cache["v"], v, slot)
+    # rolling cache: every slot is valid once pos >= s_cache
+    eff_pos = min(pos, s_cache - 1) if cfg.window else pos
+    out = decode_attention(q, k_new, v_new, eff_pos, window=None)
+    out = out.reshape(b, 1, -1) @ p["mixer"]["wo"]
+    new_cache = dict(cache)
+    new_cache["k"], new_cache["v"] = k_new, v_new
+    return out, new_cache
+
+
+def _right_align_cache(cfg: ModelConfig, kt: torch.Tensor, vt: torch.Tensor,
+                       cache_len: int) -> Params:
+    """[B,Hkv,S,D] -> cache of ``min(cache_len, window)`` slots, with each
+    absolute position p stored at slot p % len (rolling invariant)."""
+    s = kt.shape[2]
+    eff = min(cache_len, cfg.window) if cfg.window else cache_len
+    if not cfg.window and s > eff:
+        raise ValueError(
+            f"full-attention prefill of {s} tokens needs cache_len >= {s}, "
+            f"got {cache_len}")
+    if s >= eff:
+        k_sl, v_sl = kt[:, :, s - eff:], vt[:, :, s - eff:]
+        if cfg.window:
+            shift = (s - eff) % eff
+            k_sl = torch.roll(k_sl, shift, dims=2)
+            v_sl = torch.roll(v_sl, shift, dims=2)
+    else:
+        pad = (0, 0, 0, eff - s)
+        k_sl = torch.nn.functional.pad(kt, pad)
+        v_sl = torch.nn.functional.pad(vt, pad)
+    kd = dtype_of(cfg.kv_dtype)
+    return {"k": k_sl.to(kd).contiguous(), "v": v_sl.to(kd).contiguous()}
+
+
+def _layer_apply(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+                 positions: torch.Tensor, mode: str, cache: Optional[Params],
+                 pos: Optional[int], cache_len: int
+                 ) -> Tuple[torch.Tensor, Params]:
+    h = apply_norm(cfg, p["norm1"], x)
+    if kind == "attn":
+        if mode == "decode":
+            out, new_cache = _self_attn_decode(cfg, p, h, cache, pos)
+        else:
+            out, (kt, vt) = attention_apply(
+                cfg, p["mixer"], h, positions, causal=True, window=cfg.window)
+            new_cache = _right_align_cache(cfg, kt, vt, cache_len)
+    elif kind == "rglru":
+        out, new_cache = rglru_block(cfg, p["mixer"], h, cache)
+    else:  # rwkv6
+        out, new_cache = rwkv6_block(cfg, p["mixer"], h, cache)
+    x = x + out
+    h2 = apply_norm(cfg, p["norm2"], x)
+    x = x + ffn_apply(cfg, p["ffn"], h2)
+    return x, new_cache
+
+
+# -- the model ---------------------------------------------------------------
+
+class Model(nn.Module):
+    """The serving model of one config, its parameters on ``device``
+    (``cuda`` unless the caller names another; raises without a GPU).
+
+    The parameters are allocated uninitialised: :meth:`init` draws them
+    (the reference's distributions and scales) or
+    ``load_state_dict`` / ``convert.model_params_from_fields`` fills
+    them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        missing = unported_parts(cfg)
+        if missing:
+            raise NotImplementedError(
+                f"{cfg.name}: not ported to repro_torch yet: "
+                + "; ".join(missing))
+        self.cfg = cfg
+        dev = resolve_device(device)
+        dt = dtype_of(cfg.dtype)
+        d, V = cfg.d_model, cfg.vocab_size
+        self.specs = {"embed": Init((V, d), dt, "normal", d ** -0.5)}
+        if not cfg.tied_embeddings:
+            self.specs["lm_head"] = Init((d, V), dt, "normal", d ** -0.5)
+        for name, spec in self.specs.items():
+            self.register_parameter(name, nn.Parameter(torch.empty(
+                spec.shape, dtype=spec.dtype, device=dev),
+                requires_grad=False))
+        self.final_norm = ParamTree(init_norm(cfg, d), device=dev)
+        self.n_super = cfg.num_layers // cfg.pattern_period
+        groups = self._group_layers()
+        if self.n_super:
+            self.scan_layers = nn.ModuleDict({
+                slot: ParamTree(_layer_init(cfg, cfg.layer_kind(layers[0])),
+                                (self.n_super,), dev)
+                for slot, layers in groups["scan_layers"].items()})
+        self.rest_layers = nn.ModuleList(
+            ParamTree(_layer_init(cfg, cfg.layer_kind(li)), device=dev)
+            for li in groups["rest_layers"])
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # ---- init ----
+    def init(self, generator: Optional[torch.Generator] = None) -> "Model":
+        """Draw every parameter in place, in the reference's distributions
+        and scales (normal times the fan-in scale; norms, decays and mixes
+        at their constants), from ``generator`` (on the model's device)."""
+        for mod in self.modules():
+            if isinstance(mod, (Model, ParamTree)):
+                for name, spec in mod.specs.items():
+                    _fill(getattr(mod, name), spec, generator)
+        return self
+
+    def _group_layers(self) -> Params:
+        """Layer index of every (super-block, slot) of the stack and of the
+        remainder layers, the reference's grouping."""
+        period = self.cfg.pattern_period
+        return {"scan_layers": {f"slot{si}": [b * period + si
+                                              for b in range(self.n_super)]
+                                for si in range(period)} if self.n_super
+                else {},
+                "rest_layers": list(range(self.n_super * period,
+                                          self.cfg.num_layers))}
+
+    # ---- caches ----
+    def init_cache(self, batch: int, cache_len: int) -> Params:
+        cfg = self.cfg
+        period = cfg.pattern_period
+        caches: Params = {"rest": [
+            _layer_cache_init(cfg, cfg.layer_kind(li), batch, cache_len,
+                              self.device)
+            for li in self._group_layers()["rest_layers"]]}
+        if self.n_super:
+            caches["scan"] = {
+                f"slot{si}": {
+                    k: x[None].expand((self.n_super,) + x.shape).clone()
+                    for k, x in _layer_cache_init(
+                        cfg, cfg.block_pattern[si], batch, cache_len,
+                        self.device).items()}
+                for si in range(period)}
+        return caches
+
+    # ---- stack ----
+    def _run_stack(self, x: torch.Tensor, positions: torch.Tensor, mode: str,
+                   caches: Optional[Params], pos: Optional[int],
+                   cache_len: int) -> Tuple[torch.Tensor, Params]:
+        cfg = self.cfg
+        period = cfg.pattern_period
+        decode = mode == "decode"
+        new_scan: Dict[str, List[Params]] = {f"slot{si}": []
+                                              for si in range(period)}
+        for bi in range(self.n_super):
+            for si in range(period):
+                slot = f"slot{si}"
+                c_in = None
+                if decode:
+                    c_in = {k: t[bi] for k, t in caches["scan"][slot].items()}
+                x, c_out = _layer_apply(
+                    cfg, cfg.block_pattern[si],
+                    self.scan_layers[slot].tree(bi), x, positions, mode,
+                    c_in, pos, cache_len)
+                if decode:  # write back into the stacked caches
+                    for k, t in c_out.items():
+                        if t is not c_in[k]:
+                            c_in[k].copy_(t)
+                else:
+                    new_scan[slot].append(c_out)
+        rest = []
+        for i, lp in enumerate(self.rest_layers):
+            li = self.n_super * period + i
+            c_in = caches["rest"][i] if decode else None
+            x, c_out = _layer_apply(cfg, cfg.layer_kind(li), lp.tree(), x,
+                                    positions, mode, c_in, pos, cache_len)
+            rest.append(c_out)
+        if decode:
+            caches["rest"] = rest
+            return x, caches
+        out: Params = {"rest": rest}
+        if self.n_super:
+            out["scan"] = {slot: {k: torch.stack([c[k] for c in cs])
+                                  for k in cs[0]}
+                           for slot, cs in new_scan.items()}
+        return x, out
+
+    def _head(self) -> torch.Tensor:
+        if self.cfg.tied_embeddings:
+            return self.embed.T
+        return self.lm_head
+
+    # ---- public: serving ----
+    @torch.inference_mode()
+    def prefill(self, tokens, cache_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Params]:
+        """tokens [B, S] -> (last-token logits [B, V], caches)."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        b, s = tokens.shape
+        x = self.embed[tokens]
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        cache_len = cache_len or s
+        x, caches = self._run_stack(x, positions, "prefill", None, None,
+                                    cache_len)
+        x = apply_norm(self.cfg, self.final_norm.tree(), x)
+        logits = x[:, -1] @ self._head()                  # [B, V]
+        return logits, caches
+
+    @torch.inference_mode()
+    def decode_step(self, caches: Params, token, pos: int
+                    ) -> Tuple[torch.Tensor, Params]:
+        """token [B] int, pos int -> (logits [B, V], caches updated in
+        place)."""
+        token = torch.as_tensor(token, device=self.device).long()
+        pos = int(pos)
+        x = self.embed[token[:, None]]                # [B, 1, d]
+        positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
+                               device=self.device)
+        x, caches = self._run_stack(x, positions, "decode", caches, pos, 0)
+        x = apply_norm(self.cfg, self.final_norm.tree(), x)
+        logits = x[:, 0] @ self._head()
+        return logits, caches

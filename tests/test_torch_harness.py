@@ -43,6 +43,11 @@ def reference() -> types.SimpleNamespace:
                                     priority, scheduler, simulator,
                                     vectorsim)
             from repro.kernels import matmul, ops
+            import repro.configs as configs
+            import repro.models as models
+            from repro.kernels import rglru, rwkv6
+            from repro.models import layers, recurrent
+            from repro.serving import engine
         finally:
             if shim:
                 del jax.experimental.enable_x64
@@ -54,7 +59,8 @@ def reference() -> types.SimpleNamespace:
             simulator=simulator, vectorsim=vectorsim, acd_sweep=acd_sweep,
             kref=ref, serving_dag=serving_dag, apps=apps, matrix=matrix,
             video=video, image=image, perfmodel=perfmodel, matmul=matmul,
-            kops=ops)
+            kops=ops, configs=configs, models=models, layers=layers,
+            recurrent=recurrent, rglru=rglru, rwkv6=rwkv6, engine=engine)
     return _REF
 
 
@@ -130,7 +136,8 @@ def test_port_sources_import_neither_jax_nor_reference():
 
 def test_import_repro_torch_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.apps, "
-            "repro_torch.core.perfmodel, repro_torch.kernels.build; "
+            "repro_torch.core.perfmodel, repro_torch.kernels.build, "
+            "repro_torch.configs, repro_torch.models, repro_torch.serving; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")

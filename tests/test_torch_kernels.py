@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (acd_evict_plain, fifo_dispatch_plain,
-                                     matmul_plain)
+                                     matmul_plain, rglru_plain, rwkv6_plain)
 from tests.test_torch_harness import reference
 
 DTYPES = {"f64": (np.float64, torch.float64), "f32": (np.float32,
@@ -367,7 +367,7 @@ def test_fifo_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
     _assert_fifo_equal([o.numpy() for o in got], _fifo_plain(x, True))
     assert ops.fifo_dispatch.launches == before
     assert set(ops.launch_counts()) == {"acd_evict", "fifo_dispatch",
-                                        "matmul"}
+                                        "matmul", "rglru", "rwkv6"}
 
 
 @pytest.mark.parametrize("case", ["order_dtype", "ready_dtype", "seg_dtype",
@@ -559,3 +559,268 @@ def test_cuda_matmul_kernel_matches_plain_version(dtype):
         np.float32)).cuda()
     np.testing.assert_array_equal(ops.matmul(xi, xi.T).cpu().numpy(),
                                   matmul_plain(xi.cpu(), xi.cpu().T).numpy())
+
+
+# -- rglru and rwkv6 (the model stack's recurrences) -------------------------
+
+REC_DTYPES = ("f32", "bf16")
+#: plain version against the reference's oracle and Pallas kernel in
+#: float32: both loop over time with the same elementwise association, but
+#: XLA's CPU backend may contract ``a * h + g`` into a fused multiply-add,
+#: so values agree to a few float32 ulps, not bit for bit
+REC_F32 = dict(rtol=1e-5, atol=1e-6)
+#: bf16 outputs round float32 values that agree to REC_F32: they may
+#: differ by one bf16 ulp (2^-7 of the value at most)
+REC_BF16 = dict(rtol=2.0 ** -7, atol=1e-6)
+
+
+def _tol(dtype):
+    return REC_F32 if dtype == "f32" else REC_BF16
+
+
+def _to_torch(x):
+    """A reference array (any float dtype) as a torch tensor of its type."""
+    from repro_torch.core.convert import tensor_from_array
+
+    return tensor_from_array(np.asarray(x))
+
+
+def _rglru_inputs(rng, b, t, d, dtype, with_h0):
+    """(x, a, h0) as jax arrays: x, a in ``dtype``, h0 float32 or None."""
+    import jax.numpy as jnp
+
+    jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16}[dtype]
+    x = jnp.asarray(rng.normal(size=(b, t, d)).astype(np.float32), jdt)
+    a = jnp.asarray(rng.uniform(0.2, 0.99, (b, t, d)).astype(np.float32),
+                    jdt)
+    h0 = (jnp.asarray(rng.normal(size=(b, d)).astype(np.float32))
+          if with_h0 else None)
+    return x, a, h0
+
+
+def _assert_close(got, want, dtype, what=""):
+    g = got.float().numpy()
+    w = np.asarray(want.astype("float32"))
+    np.testing.assert_allclose(g, w, err_msg=what, **_tol(dtype))
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", REC_DTYPES)
+@pytest.mark.parametrize("b,t,d", [(1, 16, 8), (3, 50, 16), (4, 33, 32)])
+def test_rglru_plain_matches_reference_oracle_and_pallas(ref, b, t, d,
+                                                         dtype, with_h0):
+    rng = np.random.default_rng(b * 100 + t + d)
+    x, a, h0 = _rglru_inputs(rng, b, t, d, dtype, with_h0)
+    y, hT = rglru_plain(_to_torch(x), _to_torch(a),
+                        None if h0 is None else _to_torch(h0))
+    assert y.dtype == _to_torch(x).dtype and hT.dtype == torch.float32
+    y_o, h_o = ref.kref.rglru_ref(x, a, h0)
+    # T = 50 and 33 are no multiple of the kernel's 16-step time block
+    y_k, h_k = ref.kops.rglru(x, a, h0, use_pallas=True, bb=2, bt=16)
+    for name, (yy, hh) in (("oracle", (y_o, h_o)), ("pallas", (y_k, h_k))):
+        _assert_close(y, yy, dtype, f"y vs {name}")
+        np.testing.assert_allclose(hT.numpy(), np.asarray(hh), **REC_F32,
+                                   err_msg=f"h_T vs {name}")
+
+
+def test_rglru_plain_continuation_is_exact(ref):
+    """[0:t1] then [t1:T] from the carried state equals the whole scan bit
+    for bit (the same elementwise operations), and the reference's
+    continuation to REC_F32."""
+    rng = np.random.default_rng(17)
+    x, a, h0 = _rglru_inputs(rng, 2, 40, 8, "f32", True)
+    xt, at, h0t = _to_torch(x), _to_torch(a), _to_torch(h0)
+    y, hT = rglru_plain(xt, at, h0t)
+    y1, h1 = rglru_plain(xt[:, :13], at[:, :13], h0t)
+    y2, h2 = rglru_plain(xt[:, 13:], at[:, 13:], h1)
+    assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(h2, hT)
+    _, r1 = ref.kops.rglru(x[:, :13], a[:, :13], h0, use_pallas=True, bt=8)
+    r2, rh = ref.kops.rglru(x[:, 13:], a[:, 13:], r1, use_pallas=True, bt=8)
+    _assert_close(y2, r2, "f32")
+    np.testing.assert_allclose(h2.numpy(), np.asarray(rh), **REC_F32)
+
+
+def _rwkv6_inputs(rng, b, h, t, dk, dv, dtype, with_s0):
+    """(r, k, v, w, u, s0) as jax arrays: r, k, v in ``dtype``, the rest
+    float32 (s0 None unless asked for)."""
+    import jax.numpy as jnp
+
+    jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16}[dtype]
+
+    def normal(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    r, k = (jnp.asarray(normal(b, h, t, dk, scale=0.5), jdt)
+            for _ in range(2))
+    v = jnp.asarray(normal(b, h, t, dv, scale=0.5), jdt)
+    w = jnp.asarray(rng.uniform(0.3, 0.98, (b, h, t, dk)).astype(np.float32))
+    u = jnp.asarray(normal(h, dk, scale=0.3))
+    s0 = jnp.asarray(normal(b, h, dk, dv)) if with_s0 else None
+    return r, k, v, w, u, s0
+
+
+def _rwkv6_torch(args):
+    return [None if x is None else _to_torch(x) for x in args]
+
+
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("dtype", REC_DTYPES)
+@pytest.mark.parametrize("b,h,t,dk,dv", [(1, 1, 16, 8, 8), (2, 2, 40, 16, 16),
+                                         (1, 3, 21, 16, 8)])
+def test_rwkv6_plain_matches_reference_oracle_and_pallas(ref, b, h, t, dk, dv,
+                                                         dtype, with_s0):
+    rng = np.random.default_rng(b * 1000 + h * 100 + t + dk + dv)
+    args = _rwkv6_inputs(rng, b, h, t, dk, dv, dtype, with_s0)
+    o, sT = rwkv6_plain(*_rwkv6_torch(args))
+    assert o.dtype == _to_torch(args[2]).dtype and sT.dtype == torch.float32
+    o_o, s_o = ref.kref.rwkv6_ref(*args)
+    # T = 40 and 21 are no multiple of the kernel's 16-step time block
+    o_k, s_k = ref.kops.rwkv6(*args, use_pallas=True, bt=16)
+    for name, (oo, ss) in (("oracle", (o_o, s_o)), ("pallas", (o_k, s_k))):
+        _assert_close(o, oo, dtype, f"o vs {name}")
+        np.testing.assert_allclose(sT.numpy(), np.asarray(ss), **REC_F32,
+                                   err_msg=f"S_T vs {name}")
+    if dtype == "f32":  # the rounding bound the card's checks use
+        bound = 2 * (dk - 1) * 2.0 ** -24 * rwkv6_plain(
+            *_rwkv6_torch(args), term_sums=True)[2].numpy()
+        assert (np.abs(o.numpy() - np.asarray(o_o)) <= bound).all()
+
+
+def test_rwkv6_plain_continuation_is_exact(ref):
+    rng = np.random.default_rng(23)
+    args = _rwkv6_inputs(rng, 1, 2, 24, 8, 8, "f32", True)
+    r, k, v, w, u, s0 = _rwkv6_torch(args)
+    o, sT = rwkv6_plain(r, k, v, w, u, s0)
+    o1, s1 = rwkv6_plain(r[:, :, :11], k[:, :, :11], v[:, :, :11],
+                         w[:, :, :11], u, s0)
+    o2, s2 = rwkv6_plain(r[:, :, 11:], k[:, :, 11:], v[:, :, 11:],
+                         w[:, :, 11:], u, s1)
+    assert torch.equal(torch.cat([o1, o2], 2), o) and torch.equal(s2, sT)
+    jr, jk, jv, jw, ju, js0 = args
+    _, q1 = ref.kops.rwkv6(jr[:, :, :11], jk[:, :, :11], jv[:, :, :11],
+                           jw[:, :, :11], ju, js0, use_pallas=True, bt=4)
+    q2, qs = ref.kops.rwkv6(jr[:, :, 11:], jk[:, :, 11:], jv[:, :, 11:],
+                            jw[:, :, 11:], ju, q1, use_pallas=True, bt=4)
+    _assert_close(o2, q2, "f32")
+    np.testing.assert_allclose(s2.numpy(), np.asarray(qs), **REC_F32)
+
+
+def test_recurrence_wrappers_on_cpu_run_plain_versions_and_count_nothing():
+    rng = np.random.default_rng(29)
+    x, a, h0 = (_to_torch(z) for z in _rglru_inputs(rng, 2, 9, 8, "f32",
+                                                    True))
+    before = ops.launch_counts()
+    y, hT = ops.rglru(x, a, h0)
+    yp, hp = rglru_plain(x, a, h0)
+    assert torch.equal(y, yp) and torch.equal(hT, hp)
+    # the model's head-split views pass as they are
+    args = _rwkv6_torch(_rwkv6_inputs(rng, 2, 3, 7, 8, 8, "bf16", True))
+    r, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in args[:3])
+    assert not r.is_contiguous()
+    o, sT = ops.rwkv6(r, k, v, *args[3:])
+    op, sp = rwkv6_plain(*args)
+    assert torch.equal(o, op) and torch.equal(sT, sp)
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("case", ["f64", "bf16", "a_shape", "h0_shape",
+                                  "two_d", "strided", "device", "not_tensor",
+                                  "empty"])
+def test_rglru_wrapper_rejects_bad_arguments(case):
+    x, a, h0 = torch.rand(2, 5, 4), torch.rand(2, 5, 4), torch.rand(2, 4)
+    if case == "f64":
+        x = x.double()
+    elif case == "bf16":
+        a = a.to(torch.bfloat16)
+    elif case == "a_shape":
+        a = a[:, :4].contiguous()
+    elif case == "h0_shape":
+        h0 = torch.rand(2, 5)
+    elif case == "two_d":
+        x, a = x[0], a[0]
+    elif case == "strided":
+        x = torch.rand(2, 4, 5).transpose(1, 2)
+    elif case == "device":
+        h0 = h0.to("meta")
+    elif case == "not_tensor":
+        x = x.numpy()
+    elif case == "empty":
+        x, a = x[:, :0], a[:, :0]
+    with pytest.raises((TypeError, ValueError)):
+        ops.rglru(x, a, h0)
+
+
+@pytest.mark.parametrize("case", ["f64", "mixed", "w_bf16", "u_shape",
+                                  "s0_shape", "v_batch", "last_stride",
+                                  "s0_strided", "device", "three_d"])
+def test_rwkv6_wrapper_rejects_bad_arguments(case):
+    B, H, T, D = 2, 3, 5, 4
+    r, k, v, w = (torch.rand(B, H, T, D) for _ in range(4))
+    u, s0 = torch.rand(H, D), torch.rand(B, H, D, D)
+    if case == "f64":
+        r, k, v = r.double(), k.double(), v.double()
+    elif case == "mixed":
+        v = v.to(torch.bfloat16)
+    elif case == "w_bf16":
+        w = w.to(torch.bfloat16)
+    elif case == "u_shape":
+        u = torch.rand(H, D + 1)
+    elif case == "s0_shape":
+        s0 = torch.rand(B, H, D, D + 1)
+    elif case == "v_batch":
+        v = torch.rand(B + 1, H, T, D)
+    elif case == "last_stride":
+        k = torch.rand(B, H, D, T).transpose(2, 3)
+    elif case == "s0_strided":
+        s0 = s0.transpose(2, 3)
+    elif case == "device":
+        u = u.to("meta")
+    elif case == "three_d":
+        r = r[0]
+    with pytest.raises((TypeError, ValueError)):
+        ops.rwkv6(r, k, v, w, u, s0)
+
+
+@pytest.mark.gpu
+def test_cuda_rglru_kernel_matches_plain_version():
+    """Bit for bit: both round every elementwise operation on its own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (chip_smoke.py runs it)")
+    rng = np.random.default_rng(37)
+    for b, t, d in [(1, 1, 1), (3, 50, 300), (8, 129, 4096)]:
+        x, a, h0 = (_to_torch(z).cuda() for z in _rglru_inputs(
+            rng, b, t, d, "f32", True))
+        before = ops.rglru.launches
+        y, hT = ops.rglru(x, a, h0)
+        torch.cuda.synchronize()
+        assert ops.rglru.launches == before + 1
+        yp, hp = rglru_plain(x, a, h0)
+        assert torch.equal(y, yp) and torch.equal(hT, hp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", REC_DTYPES)
+def test_cuda_rwkv6_kernel_matches_plain_version(dtype):
+    """S_T bit for bit (the state update is elementwise); o within the
+    float32 rounding of two summation orders over k, 2 (Dk - 1) 2^-24
+    sum_k |terms|, plus one bf16 ulp of the value in bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (chip_smoke.py runs it)")
+    rng = np.random.default_rng(41)
+    for b, h, t, dk, dv in [(1, 1, 1, 16, 16), (2, 3, 45, 32, 32),
+                            (2, 4, 70, 64, 64), (1, 2, 33, 64, 40)]:
+        args = [None if z is None else _to_torch(z).cuda() for z in
+                _rwkv6_inputs(rng, b, h, t, dk, dv, dtype, True)]
+        before = ops.rwkv6.launches
+        o, sT = ops.rwkv6(*args)
+        torch.cuda.synchronize()
+        assert ops.rwkv6.launches == before + 1
+        op, sp, sums = rwkv6_plain(*args, term_sums=True)
+        assert torch.equal(sT, sp)
+        bound = 2 * (dk - 1) * 2.0 ** -24 * sums
+        if dtype == "bf16":
+            _, e = torch.frexp(torch.maximum(o.float().abs(),
+                                             op.float().abs()))
+            bound = bound + torch.ldexp(torch.ones_like(bound), e - 8)
+        assert bool(((o.float() - op.float()).abs() <= bound).all())
