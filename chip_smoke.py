@@ -51,23 +51,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    jobs' stage outputs agree between card and CPU (MM, EF and RI bit for
    bit, LU with the same pivots), and the card's fits equal the CPU's
    (the same lambdas, predictions to a relative 1e-4).
-7. The model stack's serving path. First ``rglru`` at recurrentgemma's
-   [8, 2048, 4096] (from a nonzero h0, a continuation split at t = 1000,
-   a ragged shape) and ``rwkv6`` at rwkv6-1.6b's [8, 32, 2048, 64] (bf16,
-   and float32 from a nonzero s0, in the model's strided layout), and
-   both at the serve phase's own shapes (prefill and one decode step),
-   against their plain versions (``rglru`` bit for bit; ``rwkv6``'s state bit for
-   bit, o within the float32 bound of two summation orders), with times
-   and bounds. Then ``launch/serve.py --execute-smoke``'s batch (8
-   requests, 16 new tokens) through ``InferenceEngine`` at the full
-   ``rwkv6-1.6b`` and ``recurrentgemma-9b`` configs, plus 2 x 2304 tokens
-   past recurrentgemma's window, with walls, launch counts, finite logits
-   and a profiler pass; the decode step timed with the port's activations
-   and with torch's fused ones; prefill(S) + decode_step against
-   prefill(S+1) at the full configs in bf16 (within BF16_GAP of the
-   logits' scale) and in float32 (within the reference suite's
-   tolerance); and card against CPU at full width, 2 and 3 layers,
-   float32: the same greedy tokens.
+7. The model stack's serving path. First the repair of the bf16
+   prefill/decode split: every row of ``linear(x [96, K], w)`` (the
+   matmul kernel) equals the row computed alone, bit for bit, at the
+   FFN's widths (4096 x 14336 and back), beside torch.matmul's count.
+   Then ``flash_attention`` and ``flash_decode`` at every attention shape
+   of the phase and ragged ones (S = 1, sq < sk, sq > sk, windows, not
+   causal, float32; decode lengths 0, 1, partial and full) against their
+   plain versions, with times, bounds and
+   ``scaled_dot_product_attention``'s time as the yardstick; ``rglru`` at
+   recurrentgemma's [8, 2048, 4096] (from a nonzero h0, a continuation
+   split at t = 1000, a ragged shape) and ``rwkv6`` at rwkv6-1.6b's
+   [8, 32, 2048, 64] (bf16, and float32 from a nonzero s0, in the model's
+   strided layout), and both at the serve phase's own shapes. Then
+   ``launch/serve.py --execute-smoke``'s batch (8 requests, 16 new tokens)
+   through ``InferenceEngine`` at the full ``rwkv6-1.6b``,
+   ``recurrentgemma-9b`` and ``llama3-8b`` configs, plus each long batch
+   (2 x 2304 tokens past recurrentgemma's window, 2 x 4096 tokens of
+   llama3-8b), with walls, every kernel's launch count against its
+   prediction, finite logits and profiler passes; the decode step timed
+   with the port's activations and with torch's fused ones;
+   prefill(S) + decode_step against prefill(S+1) at the full configs in
+   bf16 and in float32, within the reference suite's tolerance;
+   ``stablelm-12b`` and ``starcoder2-15b`` at full width and 2 layers (a
+   prefill and 4 decode steps, each against prefill(S+1)); and card
+   against CPU at full width, 2 and 3 layers, float32: the same greedy
+   tokens.
 8. Prints the kernels' JSON line, then the device line last.
 
 Launch counts are set to 0 just before each main path and read just after
@@ -88,6 +97,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: non-tensor-core float rates the kernel's adds and compares run at
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12}
+#: ... and the dense bf16 tensor-core rate, the attention bound's for bf16
+#: inputs (any kernel computing the same function may use the tensor cores)
+PEAK_BF16_TC_OPS_PER_S = 989e12
 
 N_DEADLINES = 5
 ORDERS = ("spt", "hcf")
@@ -132,24 +144,39 @@ SERVE_REQUESTS = 8
 SERVE_PROMPT = (8, 96)
 SERVE_NEW = 16
 SERVE_CACHE = 192
-#: recurrentgemma's long batch: prompts past its 2048-token window, so
-#: prefill takes the rolled-cache path and rglru runs 2304 steps
-LONG_BATCH, LONG_PROMPT, LONG_CACHE = 2, 2304, 2048
+#: each architecture's long batch (2 prompts, cache_len): recurrentgemma
+#: past its 2048-token window, so prefill takes the rolled-cache path and
+#: rglru runs 2304 steps; llama3-8b a 4096-token document with room for
+#: the new tokens in its full-attention cache (long documents, RAG
+#: contexts)
+LONG_BATCH = 2
+LONG = {"recurrentgemma-9b": (2304, 2048), "llama3-8b": (4096, 4112)}
+#: the architectures served at full width and depth
+SERVED = ("rwkv6-1.6b", "recurrentgemma-9b", "llama3-8b")
+#: dense architectures run at full width and SHORT_LAYERS layers: one
+#: prefill and SHORT_DECODE decode steps, each held against prefill(S+1)
+SHORT = ("stablelm-12b", "starcoder2-15b")
+SHORT_LAYERS = 2
+SHORT_DECODE = 4
 #: prefill(S) + decode_step == prefill(S+1): the reference suite's own
 #: tolerance (tests/test_models.py:88-90), held at the full configs in
-#: float32
+#: bf16 and in float32. Every weight product goes through the matmul
+#: kernel, whose rows do not depend on how many come with them, so the two
+#: paths round alike in bf16 too.
 INCR_TOL = dict(rtol=2e-2, atol=2e-3)
-#: ... and in bf16 at full width, where torch's GEMMs round one row apart
-#: from S rows: max |decode - prefill(S+1)| <= BF16_GAP * max |prefill(S+1)|.
-#: Read at 0.019-0.038 of the logits' scale on the serve batches (rwkv6
-#: 0.099 of 5.1, recurrentgemma 0.186 of 5.2 and 0.172 of 4.5); a decode
-#: that reads a wrong state or position moves logits by their own scale
-BF16_GAP = 0.1
 #: card against CPU at full width and cut depth, float32 in IEEE float32:
 #: depth (one super-block of recurrentgemma), decode steps, and the logits'
 #: tolerance |card - cpu| <= CPU_RTOL * max|cpu| (float32 rounding of
 #: d = 2048-4096 dot products in another order, through a few layers)
-CPU_LAYERS = {"rwkv6-1.6b": 2, "recurrentgemma-9b": 3}
+CPU_LAYERS = {"rwkv6-1.6b": 2, "recurrentgemma-9b": 3, "llama3-8b": 2}
+#: the rows of linear(x [S, K], w) against linear(x[i:i+1], w), bf16, at
+#: the dense projections' widths: the FFN's (4096 -> 14336, 14336 -> 4096)
+ROWS_S = 96
+ROWS_SHAPES = ((4096, 14336), (14336, 4096))
+#: the attention kernels against their plain versions: |err| <=
+#: ATTN_RTOL * max|v| (outputs are convex combinations of v's rows; float32
+#: summation order), plus one bf16 ulp of the output for bf16 outputs
+ATTN_RTOL = 1e-5
 CPU_DECODE = 4
 CPU_RTOL = 1e-4
 
@@ -321,6 +348,25 @@ def matmul_bound(M, K, N, itemsize):
             "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops)
 
 
+def matmul_check(label, x, y, got, want):
+    """|got - want| <= MM_RTOL * (|x| @ |y|), plus 2^-7 |want| (the
+    output's rounding) in bf16; prints, raises on a miss; returns the max
+    abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    bound = MM_RTOL * (x.float().abs() @ y.float().abs())
+    if x.dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -7 * want.float().abs()
+    worst = float((err / bound.clamp(min=1e-30)).max())
+    print(f"matmul {label} {str(x.dtype)[6:]}: max_abs_err "
+          f"{float(err.max())!r}, worst |err| / tolerance {worst:.4f}")
+    if got.dtype != x.dtype or not bool((err <= bound).all()):
+        raise AssertionError(f"matmul {label}: kernel != plain")
+    return float(err.max())
+
+
 def check_matmul(dev):
     """``matmul`` against its plain version on the card (ragged, transposed
     views, 1024^3, bf16; the app's integer x @ x.T bit for bit, also
@@ -347,9 +393,6 @@ def _check_matmul(dev):
         return torch.from_numpy(rng.normal(size=shape).astype(
             np.float32)).to(dev).to(dtype)
 
-    def order_bound(x, y):
-        return MM_RTOL * (x.float().abs() @ y.float().abs())
-
     max_err = 0.0  # over the float32 cases
     cases = [("(1, 1, 1)", normal(1, 1), normal(1, 1)),
              ("ragged (130, 257, 65)", normal(130, 257), normal(257, 65)),
@@ -364,20 +407,9 @@ def _check_matmul(dev):
              ("bf16 (512, 512, 512)", normal(512, 512, dtype=torch.bfloat16),
               normal(512, 512, dtype=torch.bfloat16))]
     for label, x, y in cases:
-        got = ops.matmul(x, y)
-        want = matmul_plain(x, y)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        bound = order_bound(x, y)
-        if x.dtype == torch.bfloat16:
-            bound = bound + 2.0 ** -7 * want.float().abs()
-        else:
-            max_err = max(max_err, float(err.max()))
-        worst = float((err / bound.clamp(min=1e-30)).max())
-        print(f"matmul {label} {str(x.dtype)[6:]}: max_abs_err "
-              f"{float(err.max())!r}, worst |err| / tolerance {worst:.4f}")
-        if got.dtype != x.dtype or not bool((err <= bound).all()):
-            raise AssertionError(f"matmul {label}: kernel != plain")
+        err = matmul_check(label, x, y, ops.matmul(x, y), matmul_plain(x, y))
+        if x.dtype == torch.float32:
+            max_err = max(max_err, err)
     for n in (344, 496):
         xi = torch.from_numpy(rng.integers(0, 10, (n, n)).astype(
             np.float32)).to(dev)
@@ -740,7 +772,7 @@ def check_rglru(dev):
     S = longest_prompt("recurrentgemma-9b")
     for B, T, with_h0 in ((SERVE_REQUESTS, S, False),
                           (SERVE_REQUESTS, 1, True),
-                          (LONG_BATCH, LONG_PROMPT, False),
+                          (LONG_BATCH, LONG["recurrentgemma-9b"][0], False),
                           (LONG_BATCH, 1, True)):
         xs, as_, hs = inputs(B, T, 4096)
         args = (xs, as_, hs if with_h0 else None)
@@ -848,6 +880,369 @@ def check_rwkv6(dev):
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
+def live_pairs(sq, sk, causal, window):
+    """Live (query, key) pairs of one (b, h) of a prefill: query i at
+    position sk - sq + i, key j live iff j <= qpos (causal) and j > qpos -
+    window."""
+    n = 0
+    for i in range(sq):
+        qpos = sk - sq + i
+        hi = min(sk - 1, qpos) if causal else sk - 1
+        lo = max(0, qpos - window + 1) if window else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def attention_bound(q_elems, kv_elems, itemsize, n_ops, dtype):
+    """(bound ms, what bounds it, bytes, operations) of one attention call:
+    q read and out written (``q_elems`` each), the live K and V rows read
+    (``kv_elems`` each), in their type; ``n_ops`` (4 D per live pair and
+    query head) at the bf16 tensor-core peak for bf16 inputs, the float32
+    peak for float32 ones."""
+    n_bytes = (2 * q_elems + 2 * kv_elems) * itemsize
+    peak = (PEAK_BF16_TC_OPS_PER_S if dtype == "bfloat16"
+            else PEAK_OPS_PER_S["float32"])
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / peak * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops)
+
+
+def attn_check(label, got, want, v):
+    """|got - want| <= ATTN_RTOL * max|v| (+ one bf16 ulp of the output in
+    bf16); prints and raises on a miss; returns the max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    bound = ATTN_RTOL * float(v.float().abs().max()) + torch.zeros_like(err)
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(got.float().abs(),
+                                         want.float().abs()))
+        bound = bound + torch.ldexp(torch.ones_like(bound), e - 8)
+    ok = (got.dtype == want.dtype and got.shape == want.shape
+          and bool((err <= bound).all()) and bool(torch.isfinite(got).all()))
+    e_max = float(err.max()) if err.numel() else 0.0
+    worst = float((err / bound).max()) if err.numel() else 0.0
+    print(f"{label}: max_abs_err {e_max!r}, worst |err| / tolerance "
+          f"{worst:.4f}")
+    if not ok:
+        raise AssertionError(f"{label}: kernel != plain version")
+    return e_max
+
+
+def head_split(B, S, H, D, dt, dev, g):
+    """A [B, H, S, D] view of a [B, S, H, D] tensor (the model's layout)."""
+    import torch
+
+    return torch.randn(B, S, H, D, device=dev, generator=g).to(
+        dt).transpose(1, 2)
+
+
+def attention_shapes():
+    """The serve phase's attention shapes: (arch, B, Hq, Hkv, D, window,
+    serve prompt, serve cache, long prompt or None, long cache)."""
+    from repro_torch.configs import get_config
+
+    out = []
+    for arch in ("recurrentgemma-9b", "llama3-8b") + SHORT:
+        cfg = get_config(arch)
+        long_p, long_c = LONG.get(arch, (None, None))
+        out.append((arch, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+                    cfg.window, longest_prompt(arch), long_p, long_c))
+    return out
+
+
+def check_flash_attention(dev):
+    """``flash_attention`` against its plain version on the card: at every
+    prefill shape of the serve phase (both batches of recurrentgemma-9b and
+    llama3-8b, the short runs of stablelm-12b and starcoder2-15b) in bf16,
+    and ragged cases (S = 1, sq < sk, sq > sk, windows, not causal,
+    float32, head dims 8-256); then its time, the plain version's,
+    ``scaled_dot_product_attention``'s (the yardstick, never the port's)
+    and the bound at llama3-8b's long prefill. Returns its entry of the
+    kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import ieee_float32
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for arch, hq, hkv, d, window, s_serve, s_long, _ in attention_shapes():
+        cases.append((f"{arch} serve prefill", SERVE_REQUESTS, hq, hkv,
+                      s_serve, s_serve, d, True, window, bf16))
+        if s_long:
+            cases.append((f"{arch} long prefill", LONG_BATCH, hq, hkv,
+                          s_long, s_long, d, True, window, bf16))
+    cases += [("ragged S=1", 3, 4, 2, 1, 1, 64, True, None, f32),
+              ("ragged sq < sk", 2, 8, 2, 37, 300, 128, True, None, f32),
+              ("ragged sq < sk window", 2, 16, 1, 70, 333, 256, True, 50,
+               bf16),
+              ("ragged sq > sk (rows without keys)", 2, 4, 4, 90, 40, 32,
+               True, None, f32),
+              ("not causal, window", 2, 6, 3, 65, 129, 16, False, 17, f32),
+              ("not causal", 1, 2, 1, 200, 77, 8, False, None, bf16),
+              ("f32 causal D=256", 2, 16, 1, 130, 130, 256, True, 64, f32),
+              ("f32 causal D=160", 2, 8, 2, 97, 97, 160, True, None, f32)]
+    max_err = 0.0
+    with ieee_float32():
+        for label, B, hq, hkv, sq, sk, d, causal, window, dt in cases:
+            q = head_split(B, sq, hq, d, dt, dev, g)
+            k, v = (head_split(B, sk, hkv, d, dt, dev, g) for _ in range(2))
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+            max_err = max(max_err, attn_check(
+                f"flash_attention {label} [{B}, {hq}/{hkv}, {sq}x{sk}, {d}] "
+                f"{str(dt)[6:]} causal={causal} window={window}", got, want,
+                v))
+            del q, k, v, got, want
+
+        rows = {}
+        for arch, hq, hkv, d, window, s_serve, s_long, _ in \
+                attention_shapes()[:2]:
+            for B, S in ((SERVE_REQUESTS, s_serve), (LONG_BATCH, s_long)):
+                q = head_split(B, S, hq, d, bf16, dev, g)
+                k, v = (head_split(B, S, hkv, d, bf16, dev, g)
+                        for _ in range(2))
+                n = 20 if S < 1000 else 3
+                k_ms = cuda_ms(lambda: ops.flash_attention(
+                    q, k, v, causal=True, window=window), n)
+                p_ms = cuda_ms(lambda: flash_attention_plain(
+                    q, k, v, causal=True, window=window), 1)
+                if window is None:
+                    def lib():
+                        return F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True, enable_gqa=True)
+                else:
+                    pos = torch.arange(S, device=dev)
+                    mask = ((pos[None, :] <= pos[:, None])
+                            & (pos[None, :] > pos[:, None] - window))
+
+                    def lib():
+                        return F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=mask, enable_gqa=True)
+                l_ms = cuda_ms(lib, n)
+                pairs = live_pairs(S, S, True, window)
+                bound, by, n_bytes, n_ops = attention_bound(
+                    B * hq * S * d, B * hkv * S * d, 2,
+                    4 * B * hq * d * pairs, "bfloat16")
+                print(f"flash_attention {arch} [{B}, {hq}/{hkv}, {S}, {d}] "
+                      f"bf16 window={window}: kernel {k_ms:.6f} ms "
+                      f"({n_ops / k_ms * 1e-9:.3f} TFLOP/s), plain "
+                      f"{p_ms:.3f} ms, scaled_dot_product_attention "
+                      f"{l_ms:.6f} ms, bound {bound:.6f} ms by {by} (bytes "
+                      f"{n_bytes}, operations {n_ops}, {pairs} live pairs "
+                      f"per head); kernel at {bound / k_ms:.4f} of the "
+                      f"bound, {k_ms / l_ms:.2f}x the library call")
+                rows[arch, S] = (k_ms, p_ms, l_ms, bound, by)
+                del q, k, v
+    k_ms, p_ms, l_ms, bound, by = rows["llama3-8b", LONG["llama3-8b"][0]]
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:87",
+            "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": l_ms}
+
+
+def check_flash_decode(dev):
+    """``flash_decode`` against its plain version on the card: at every
+    decode shape of the serve phase in bf16 (the query heads' strided view,
+    the caches of the serve and the long batches), with lengths 0, 1,
+    partial and full, and float32 and other head dims; then its time, the
+    plain version's, ``scaled_dot_product_attention``'s with a boolean
+    mask of the live slots, and the bound, called as the model calls it
+    (with ``end``), at the serve and long batches of recurrentgemma-9b and
+    llama3-8b; the kernels line takes llama3-8b's long batch (length 4097
+    of 4112 slots). Returns its entry of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.precision import ieee_float32
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_decode_plain
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    bf16, f32 = torch.bfloat16, torch.float32
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def inputs(B, hq, hkv, S, d, dt):
+        q = head_split(B, 1, hq, d, dt, dev, g)[:, :, 0]      # [B, Hq, D]
+        k, v = (torch.randn(B, hkv, S, d, device=dev, generator=g).to(dt)
+                for _ in range(2))
+        return q, k, v
+
+    def lengths(B, S, full):
+        """0, 1, partial and full lengths over the rows (all ``full`` when
+        the model's own mask is wanted)."""
+        if full is not None:
+            return torch.full((B,), full, dtype=torch.int32, device=dev)
+        pick = [0, 1, S // 2 + 3, S, S - 1, 65, 64, 63]
+        return torch.tensor([pick[i % len(pick)] for i in range(B)],
+                            dtype=torch.int32, device=dev)
+
+    # (label, B, Hq, Hkv, S, D, dtype, length of every row (None: mixed),
+    # end of every row (None: the first length slots; else the last length
+    # positions before end, position P at slot P % S, as the model reads
+    # its caches))
+    cases = []
+    for arch, hq, hkv, d, window, s_serve, s_long, c_long in \
+            attention_shapes():
+        eff = min(SERVE_CACHE, window) if window else SERVE_CACHE
+        cases.append((f"{arch} serve decode", SERVE_REQUESTS, hq, hkv, eff,
+                      d, bf16, s_serve + 1, s_serve + 1))
+        cases.append((f"{arch} serve decode, mixed lengths", SERVE_REQUESTS,
+                      hq, hkv, eff, d, bf16, None, None))
+        if s_long:
+            eff = min(c_long, window) if window else c_long
+            cases.append((f"{arch} long decode", LONG_BATCH, hq, hkv, eff,
+                          d, bf16, min(s_long + 1, eff), s_long + 1))
+    cases += [("f32 mixed lengths", 8, 8, 2, 300, 128, f32, None, None),
+              ("f32 D=16 G=16", 8, 16, 1, 70, 16, f32, None, None),
+              ("bf16 D=160 mixed lengths", 8, 32, 8, 130, 160, bf16, None,
+               None),
+              ("f32 rolled cache", 8, 8, 2, 100, 64, f32, 100, 1037),
+              ("f32 one slot", 3, 4, 4, 1, 64, f32, None, None)]
+    max_err = 0.0
+    with ieee_float32():
+        for label, B, hq, hkv, S, d, dt, full, last in cases:
+            q, k, v = inputs(B, hq, hkv, S, d, dt)
+            length = lengths(B, S, full)
+            end = (None if last is None else torch.full(
+                (B,), last, dtype=torch.int32, device=dev))
+            got = ops.flash_decode(q, k, v, length, end)
+            want = flash_decode_plain(q, k, v, length, end)
+            zero = length == 0
+            if bool(zero.any()) and bool(got[zero].abs().max() != 0):
+                raise AssertionError(f"flash_decode {label}: length 0 did "
+                                     f"not give zeros")
+            max_err = max(max_err, attn_check(
+                f"flash_decode {label} [{B}, {hq}/{hkv}, {S}, {d}] "
+                f"{str(dt)[6:]} lengths {length.tolist()} end {last}", got,
+                want, v))
+
+        rows = {}
+        for arch, hq, hkv, d, window, s_serve, s_long, c_long in \
+                attention_shapes()[:2]:
+            # the call as the model makes it: length = eff_pos + 1 and end
+            # = pos + 1 (recurrentgemma's long batch reads a rolled cache)
+            for B, S, last in (
+                    (SERVE_REQUESTS, min(SERVE_CACHE, window or SERVE_CACHE),
+                     s_serve + 1),
+                    (LONG_BATCH, min(c_long, window or c_long), s_long + 1)):
+                n_live = min(last, S)
+                q, k, v = inputs(B, hq, hkv, S, d, bf16)
+                length = lengths(B, S, n_live)
+                end = lengths(B, S, last)
+                k_ms = cuda_ms(lambda: ops.flash_decode(q, k, v, length, end),
+                               50)
+                p_ms = cuda_ms(lambda: flash_decode_plain(q, k, v, length,
+                                                          end), 5)
+                # slot s holds a live position iff it is among the n_live
+                # slots before end's, counted around the ring
+                mask = ((torch.arange(S, device=dev)[None, :]
+                         - (end - length)[:, None]) % S
+                        < length[:, None])[:, None, None, :]
+                q4 = q[:, :, None]
+                l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k, v, attn_mask=mask, enable_gqa=True), 50)
+                bound, by, n_bytes, n_ops = attention_bound(
+                    B * hq * d, B * hkv * n_live * d, 2,
+                    4 * B * hq * d * n_live, "bfloat16")
+                print(f"flash_decode {arch} q [{B}, {hq}, {d}], cache [{B}, "
+                      f"{hkv}, {S}, {d}] bf16, length {n_live}, end {last}: "
+                      f"kernel "
+                      f"{k_ms:.6f} ms ({n_bytes / k_ms * 1e-9:.3f} TB/s), "
+                      f"{B * hkv} blocks on {n_sm} "
+                      f"SMs, plain {p_ms:.6f} ms, "
+                      f"scaled_dot_product_attention {l_ms:.6f} ms, bound "
+                      f"{bound:.6f} ms by {by} (bytes {n_bytes}, operations "
+                      f"{n_ops}); kernel at {bound / k_ms:.4f} of the bound, "
+                      f"{k_ms / l_ms:.2f}x the library call")
+                rows[arch, B] = (k_ms, p_ms, l_ms, bound, by)
+    k_ms, p_ms, l_ms, bound, by = rows["llama3-8b", LONG_BATCH]
+    return {"name": "flash_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:70",
+            "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": l_ms}
+
+
+def check_linear_rows(dev):
+    """The matmul kernel on the serving path, and the repair of the bf16
+    prefill/decode gap. Against its plain version (check_matmul's bf16
+    bound), in bf16, at the weight products the serve phase gives it:
+    M = 8 (a decode step), the serve batch's prefill rows and the long
+    batch's 2 x 4096, through the FFN's [4096, 14336] and [14336, 4096]
+    read as layer views of a stacked [2, K, N] parameter, and the heads at
+    M = 8: llama3-8b's [4096, 128256] and recurrentgemma-9b's tied
+    [256000, 4096].T. Then every row of ``linear(x [S, K], w)`` equals
+    ``linear(x[i:i+1], w)`` bit for bit at the FFN's widths (and the same
+    count for torch.matmul, which the projections took before), and the
+    kernel's time at the serve batch's prefill and decode row counts
+    beside torch.matmul's."""
+    import torch
+
+    from repro_torch.core.precision import ieee_float32
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_plain
+    from repro_torch.models.layers import linear
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    bf16 = torch.bfloat16
+    m_prefill = SERVE_REQUESTS * longest_prompt("llama3-8b")
+
+    def normal(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=g) * scale).to(bf16)
+
+    with ieee_float32():
+        for K, N in ROWS_SHAPES:
+            w = normal(2, K, N, scale=K ** -0.5)[1]  # a layer's view
+            for m in (SERVE_REQUESTS, m_prefill, LONG_BATCH * LONG[
+                    "llama3-8b"][0]):
+                x = normal(m, K)
+                matmul_check(f"serve [{m}, {K}] @ layer view [{K}, {N}]", x,
+                             w, ops.matmul(x, w), matmul_plain(x, w))
+            del w, x
+        for label, w in (("llama3-8b head", normal(4096, 128256,
+                                                   scale=4096 ** -0.5)),
+                         ("recurrentgemma-9b tied head", normal(
+                             256000, 4096).T)):
+            x = normal(SERVE_REQUESTS, 4096)
+            matmul_check(f"{label} [{SERVE_REQUESTS}, 4096] @ "
+                         f"{list(w.shape)} strides {w.stride()}", x, w,
+                         ops.matmul(x, w), matmul_plain(x, w))
+            del w
+        torch.cuda.empty_cache()
+
+    for K, N in ROWS_SHAPES:
+        x = normal(ROWS_S, K)
+        w = normal(K, N, scale=K ** -0.5)
+        full, lib = linear(x, w), x @ w
+        same = sum(torch.equal(linear(x[i:i + 1], w)[0], full[i])
+                   for i in range(ROWS_S))
+        same_lib = sum(torch.equal((x[i:i + 1] @ w)[0], lib[i])
+                       for i in range(ROWS_S))
+        times = {}
+        for m in (SERVE_REQUESTS, m_prefill):
+            xm = normal(m, K)
+            times[m] = (cuda_ms(lambda: linear(xm, w), 20),
+                        cuda_ms(lambda: xm @ w, 20))
+        print(f"linear rows [{ROWS_S}, {K}] @ [{K}, {N}] bf16: {same} of "
+              f"{ROWS_S} rows bitwise equal to the row alone (matmul "
+              f"kernel); torch.matmul {same_lib} of {ROWS_S}; time "
+              + ", ".join(f"M={m} {a:.6f} ms (torch.matmul {b:.6f} ms)"
+                          for m, (a, b) in times.items()))
+        if same != ROWS_S:
+            raise AssertionError(f"linear [{K}, {N}]: rows depend on the "
+                                 f"row count")
+
+
 def serve_requests(cfg, n, lengths, new, seed):
     """``n`` requests as ``launch/serve.py --execute-smoke`` draws them: each
     a prompt length from ``lengths`` (a range, or one length), then its
@@ -928,17 +1323,14 @@ def incremental_gap(model, toks, cache_len):
 
 def check_serve_logits(label, model, reqs, outs, cache_len):
     """The engine's batch once more by hand: finite logits, the engine's
-    first tokens the prefill's argmax, and the gap between prefill(S) +
-    decode_step and prefill(S+1) within BF16_GAP of the logits' scale. In
-    bf16 at full width the two paths round apart (torch's GEMMs take other
-    kernels for one token than for S), so INCR_TOL holds only in float32
-    (check_incremental_float32); the line also prints how many logits lie
-    beyond it."""
+    first tokens the prefill's argmax, and prefill(S) + decode_step within
+    INCR_TOL of prefill(S+1), every logit (the reference suite's check, at
+    the full config in its working dtype). Returns the line's reading."""
     import torch
 
     toks = torch.from_numpy(padded(reqs)).to(model.device)
-    logits, dec, full, first, line, _ = incremental_gap(model, toks,
-                                                        cache_len)
+    logits, dec, full, first, line, ok = incremental_gap(model, toks,
+                                                         cache_len)
     engine_first = torch.tensor([int(c.tokens[0]) for c in outs],
                                 device=model.device)
     same_first = torch.equal(first, engine_first)
@@ -947,17 +1339,18 @@ def check_serve_logits(label, model, reqs, outs, cache_len):
                 / full.float().abs().max())
     print(f"serve {label}: logits {tuple(logits.shape)} finite {finite}; "
           f"the engine's first tokens are the prefill's argmax {same_first};"
-          f" {model.cfg.dtype} {line}; max gap {gap:.6f} of the logits' "
-          f"scale (limit {BF16_GAP})")
-    if not (finite and same_first and gap <= BF16_GAP):
+          f" {model.cfg.dtype} {line}; max gap {gap!r} of the logits' scale;"
+          f" bitwise equal {torch.equal(dec, full)}")
+    if not (finite and same_first and ok):
         raise AssertionError(f"serve {label}: logits check failed")
 
 
 def check_incremental_float32(arch, dev, seed):
     """prefill(S) + decode_step against prefill(S+1) at the full config in
     float32 (full width and depth, IEEE float32 products), within INCR_TOL:
-    the serve batch, and for recurrentgemma the long batch past its window
-    (the rolled cache)."""
+    the serve batch, and the long batch where the architecture has one
+    (recurrentgemma past its window, the rolled cache; llama3-8b's 4096
+    tokens)."""
     import dataclasses
     import gc
 
@@ -971,12 +1364,7 @@ def check_incremental_float32(arch, dev, seed):
                               kv_dtype="float32")
     model = Model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(seed))
-    batches = [("batch", serve_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT,
-                                        1, SERVE_SEED), SERVE_CACHE)]
-    if arch == "recurrentgemma-9b":
-        batches.append(("long batch", serve_requests(
-            cfg, LONG_BATCH, LONG_PROMPT, 1, SERVE_SEED + 1), LONG_CACHE))
-    for label, reqs, cache_len in batches:
+    for label, reqs, cache_len in serve_batches(cfg, arch, 1):
         toks = torch.from_numpy(padded(reqs)).to(dev)
         t0 = time.perf_counter()
         with ieee_float32():
@@ -994,12 +1382,46 @@ def check_incremental_float32(arch, dev, seed):
     torch.cuda.empty_cache()
 
 
+def serve_batches(cfg, arch, new):
+    """(label, requests, cache_len) of the serve batch and, where the
+    architecture has one, its long batch."""
+    out = [("batch", serve_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, new,
+                                    SERVE_SEED), SERVE_CACHE)]
+    if arch in LONG:
+        prompt, cache_len = LONG[arch]
+        out.append(("long batch", serve_requests(
+            cfg, LONG_BATCH, prompt, new, SERVE_SEED + 1), cache_len))
+    return out
+
+
+#: weight products (``linear``) of one layer's mixer, by kind
+MIXER_PRODUCTS = {"attn": 4, "rglru": 5, "rwkv6": 6}
+
+
+def expected_launches(cfg, new):
+    """Kernel launches of one ``generate_batch`` (a prefill and ``new``
+    decode steps): the recurrence kernels and both attention kernels once
+    per layer of their kind and forward (flash_attention in the prefill,
+    flash_decode in each decode step), matmul once per weight product (the
+    mixer's, the FFN's two or three, the head)."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    n_attn = kinds.count("attn")
+    per_forward = (sum(MIXER_PRODUCTS[k] for k in kinds)
+                   + (3 if cfg.glu else 2) * cfg.num_layers + 1)
+    return {"acd_evict": 0, "fifo_dispatch": 0,
+            "matmul": per_forward * (1 + new),
+            "flash_attention": n_attn, "flash_decode": n_attn * new,
+            "rglru": kinds.count("rglru") * (1 + new),
+            "rwkv6": kinds.count("rwkv6") * (1 + new)}
+
+
 def serve_full(arch, dev, seed):
     """One architecture's full config on the card (weights drawn from a
-    seeded generator there): a warm-up batch, then the timed batch (and
-    recurrentgemma's long batch) with the launch counts, the logits checks
-    and, for rwkv6, a profiler pass. Returns (the kernel's launches in the
-    timed batches, {batch label: (completions, wall)})."""
+    seeded generator there): a warm-up batch, then the timed batch (and the
+    long batch where it has one) with every kernel's launch count, the
+    logits checks, the decode step with fused activations, and for rwkv6
+    and llama3-8b a profiler pass. Returns ({kernel: launches in the timed
+    batches}, {batch label: (completions, wall)})."""
     import gc
 
     import torch
@@ -1009,8 +1431,7 @@ def serve_full(arch, dev, seed):
     from repro_torch.serving import InferenceEngine
 
     cfg = get_config(arch)
-    kernel = {"rwkv6-1.6b": "rwkv6", "recurrentgemma-9b": "rglru"}[arch]
-    n_rec = sum(cfg.layer_kind(i) == kernel for i in range(cfg.num_layers))
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device=dev).init(
@@ -1018,30 +1439,27 @@ def serve_full(arch, dev, seed):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    print(f"serve {arch}: {cfg.num_layers} layers ({n_rec} {kernel}), "
-          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}: {n_params} "
-          f"parameters, {n_bytes / 1e9:.3f} GB, drawn on the card in "
-          f"{time.perf_counter() - t0:.3f} s")
-    batches = [("batch", serve_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT,
-                                        SERVE_NEW, SERVE_SEED), SERVE_CACHE)]
-    if arch == "recurrentgemma-9b":
-        batches.append(("long batch", serve_requests(
-            cfg, LONG_BATCH, LONG_PROMPT, SERVE_NEW, SERVE_SEED + 1),
-            LONG_CACHE))
-    launches, runs = 0, {}
-    for label, reqs, cache_len in batches:
+    print(f"serve {arch}: {cfg.num_layers} layers ("
+          + ", ".join(f"{kinds.count(k)} {k}" for k in sorted(set(kinds)))
+          + f"), d_model {cfg.d_model}, {cfg.num_heads} heads over "
+          f"{cfg.num_kv_heads} KV heads, head_dim {cfg.hd}, vocab "
+          f"{cfg.vocab_size}: {n_params} parameters, {n_bytes / 1e9:.3f} GB,"
+          f" drawn on the card in {time.perf_counter() - t0:.3f} s")
+    launches, runs = {}, {}
+    for label, reqs, cache_len in serve_batches(cfg, arch, SERVE_NEW):
         engine = InferenceEngine(model, cache_len=cache_len)
         if label == "batch":  # first-use costs stay out of the timed run
             engine.generate_batch(reqs)
         outs, counts, wall = serve_batch(f"{arch} {label}", engine, reqs)
-        want = n_rec * (1 + max(r.max_new_tokens for r in reqs))
-        if counts[kernel] != want:
-            raise AssertionError(f"serve {arch} {label}: {kernel} launched "
-                                 f"{counts[kernel]} times, expected {want}")
-        launches += counts[kernel]
+        want = expected_launches(cfg, max(r.max_new_tokens for r in reqs))
+        if counts != want:
+            raise AssertionError(f"serve {arch} {label}: launches {counts}, "
+                                 f"expected {want}")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
         check_serve_logits(f"{arch} {label}", model, reqs, outs, cache_len)
         runs[label] = (outs, wall)
-        if arch == "rwkv6-1.6b":
+        if arch in ("rwkv6-1.6b", "llama3-8b"):
             profile_serve(arch, engine, reqs, wall)
         if label == "batch":
             time_activations(arch, engine, reqs)
@@ -1051,6 +1469,62 @@ def serve_full(arch, dev, seed):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, runs
+
+
+def serve_short(arch, dev, seed):
+    """A dense architecture at full width and SHORT_LAYERS layers, bf16:
+    the serve batch's prefill and SHORT_DECODE greedy decode steps, each
+    step's logits held against the card's own prefill of the tokens so far
+    at INCR_TOL, every kernel's launches counted. Returns the launches."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=SHORT_LAYERS)
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    reqs = serve_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, SHORT_DECODE,
+                          SERVE_SEED)
+    toks = torch.from_numpy(padded(reqs)).to(dev)
+    S = toks.shape[1]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(toks, cache_len=SERVE_CACHE)
+    steps = []
+    for i in range(SHORT_DECODE):
+        tok = torch.argmax(logits, -1)
+        toks = torch.cat([toks, tok[:, None]], 1)
+        logits, cache = model.decode_step(cache, tok, S + i)
+        steps.append(logits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = expected_launches(cfg, SHORT_DECODE)
+    readings, ok = [], counts == want
+    for i, dec in enumerate(steps):
+        full, _ = model.prefill(toks[:, :S + i + 1], cache_len=SERVE_CACHE)
+        d, f = dec.float(), full.float()
+        bad = (d - f).abs() > INCR_TOL["atol"] + INCR_TOL["rtol"] * f.abs()
+        ok = ok and not bool(bad.any()) and bool(torch.isfinite(d).all())
+        readings.append(f"{int(bad.sum())} beyond (max abs diff "
+                        f"{float((d - f).abs().max())!r})")
+    print(f"serve {arch} at {SHORT_LAYERS} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads, "
+          f"head_dim {cfg.hd}: prefill {S} tokens + {SHORT_DECODE} decode "
+          f"steps in {wall:.3f} s; each step against prefill(S+1) at "
+          f"INCR_TOL: {'; '.join(readings)}; launches {counts}")
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"serve {arch}: short run failed (launches "
+                             f"expected {want})")
+    return counts
 
 
 def time_activations(arch, engine, reqs, n=3):
@@ -1104,7 +1578,9 @@ def profile_serve(arch, engine, reqs, wall):
         return
     busy_s, wall_p, dev_events = got
     kern = {k: sum(e.self_device_time_total for e in dev_events
-                   if k in e.key) * 1e-6 for k in ("rwkv6", "rglru")}
+                   if k in e.key) * 1e-6
+            for k in ("rwkv6", "rglru", "matmul", "flash_attention",
+                      "flash_decode")}
     print(f"profile serve {arch}: device busy {busy_s:.6f} s of a "
           f"{wall_p:.3f} s profiled wall ({busy_s / wall_p:.4f}); of the "
           f"unprofiled {wall:.3f} s wall {busy_s / wall:.4f} busy, "
@@ -1119,7 +1595,9 @@ def check_serve_against_cpu(arch, dev, seed):
     """The architecture at full width and CPU_LAYERS depth in float32, the
     same weights on the card and the CPU (drawn on the card, copied): the
     engine's greedy tokens over CPU_DECODE steps equal, prefill logits
-    within CPU_RTOL of their scale; float32 products in IEEE float32."""
+    within CPU_RTOL of their scale; float32 products in IEEE float32. Then,
+    as a reading, the CPU's bf16 prefill(S) + decode_step against
+    prefill(S+1) with the same weights rounded to bf16."""
     import dataclasses
     import gc
 
@@ -1154,6 +1632,13 @@ def check_serve_against_cpu(arch, dev, seed):
           f"{t1 - t0:.3f} s, CPU {t2 - t1:.3f} s; greedy tokens over "
           f"{CPU_DECODE} steps equal {same}; prefill logits differ by "
           f"{rel!r} of their max (tolerance {CPU_RTOL})")
+    # a reading, not a gate: on the CPU the plain product's rows depend on
+    # the row count, so the bf16 gap the card's kernels close stays there
+    cpu = Model(dataclasses.replace(cfg, dtype="bfloat16",
+                                    kv_dtype="bfloat16"), device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    print(f"serve {arch} at {cfg.num_layers} layers, bf16 on the CPU: "
+          f"{incremental_gap(cpu, toks, SERVE_CACHE)[4]}")
     del card, cpu
     gc.collect()
     torch.cuda.empty_cache()
@@ -1512,33 +1997,47 @@ def main() -> int:
     finally:
         torch.set_float32_matmul_precision(precision)
 
-    # -- 7. the serving path: the model stack with rglru and rwkv6 ----------
+    # -- 7. the serving path: the model stack's kernels ---------------------
+    check_linear_rows(dev)
+    kernels.append(check_flash_attention(dev))
+    kernels.append(check_flash_decode(dev))
     kernels.append(check_rglru(dev))
     kernels.append(check_rwkv6(dev))
     t0 = time.perf_counter()
     serve_launches = {}
-    for seed, arch in enumerate(("rwkv6-1.6b", "recurrentgemma-9b")):
-        serve_launches[arch], _ = serve_full(arch, dev, seed)
-    for seed, arch in enumerate(("rwkv6-1.6b", "recurrentgemma-9b")):
+    for seed, arch in enumerate(SERVED):
+        counts, _ = serve_full(arch, dev, seed)
+        for k, n in counts.items():
+            serve_launches[k] = serve_launches.get(k, 0) + n
+    for seed, arch in enumerate(SHORT):
+        serve_short(arch, dev, seed + 30)
+    for seed, arch in enumerate(SERVED):
         check_incremental_float32(arch, dev, seed + 20)
-    for seed, arch in enumerate(("rwkv6-1.6b", "recurrentgemma-9b")):
+    for seed, arch in enumerate(SERVED):
         check_serve_against_cpu(arch, dev, seed + 10)
-    print(f"serve: phase wall {time.perf_counter() - t0:.3f} s")
+    print(f"serve: phase wall {time.perf_counter() - t0:.3f} s; launches "
+          f"in the timed serve batches {serve_launches}")
 
     # -- 8. result ------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main path of its slice: acd_evict on
-    # the uncapped sweeps, fifo_dispatch on the congested ones, matmul on
-    # the matrix app's profiling path
-    kernels[0]["launches"] = sum(launches[("main", J)]["acd_evict"]
-                                 for J in MAIN_J)
-    kernels[1]["launches"] = sum(launches[("load", J)]["fifo_dispatch"]
-                                 for J in MAIN_J)
-    kernels[2]["launches"] = launches["profile"]["matmul"]
-    # rglru and rwkv6: their launches in the timed serve batches (one per
-    # recurrent layer per prefill and per decode step)
-    kernels[3]["launches"] = serve_launches["recurrentgemma-9b"]
-    kernels[4]["launches"] = serve_launches["rwkv6-1.6b"]
+    # the uncapped sweeps, fifo_dispatch on the congested ones; matmul on
+    # the matrix app's profiling path and on the timed serve batches (every
+    # weight product); flash_attention, flash_decode, rglru and rwkv6 on
+    # the timed serve batches
+    by_name = {k["name"]: k for k in kernels}
+    by_name["acd_evict"]["launches"] = sum(
+        launches[("main", J)]["acd_evict"] for J in MAIN_J)
+    by_name["fifo_dispatch"]["launches"] = sum(
+        launches[("load", J)]["fifo_dispatch"] for J in MAIN_J)
+    by_name["matmul"]["launches"] = (launches["profile"]["matmul"]
+                                     + serve_launches["matmul"])
+    for name in ("flash_attention", "flash_decode", "rglru", "rwkv6"):
+        by_name[name]["launches"] = serve_launches[name]
+    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if missing or len(kernels) != 7:
+        raise AssertionError(f"kernels never launched on their path: "
+                             f"{missing}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

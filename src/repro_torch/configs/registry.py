@@ -1,8 +1,9 @@
 """Architecture registry of the port, and the assigned input shapes.
 
-``ARCHS`` lists the architectures the port can run: the two whose layers
-are all recurrent blocks and windowed attention (``rwkv6-1.6b``,
-``recurrentgemma-9b``). The reference registers eight more;
+``ARCHS`` lists the architectures the port can run: the recurrent and
+hybrid ones (``rwkv6-1.6b``, ``recurrentgemma-9b``) and the dense ones
+whose attention, norms and FFNs it has (``llama3-8b``, ``stablelm-12b``,
+``starcoder2-15b``). The reference registers five more;
 :func:`get_config` and :func:`get_smoke_config` name the ROADMAP item that
 brings each of them.
 
@@ -19,21 +20,21 @@ import dataclasses
 from typing import Dict
 
 from ..models.config import ModelConfig
-from . import recurrentgemma_9b, rwkv6_1_6b
+from . import (llama3_8b, recurrentgemma_9b, rwkv6_1_6b, stablelm_12b,
+               starcoder2_15b)
 
 _MODULES = {
+    "llama3-8b": llama3_8b,
     "recurrentgemma-9b": recurrentgemma_9b,
     "rwkv6-1.6b": rwkv6_1_6b,
+    "stablelm-12b": stablelm_12b,
+    "starcoder2-15b": starcoder2_15b,
 }
 
-_DENSE = ("ROADMAP Queue 1, Next item 1 (the attention path with the "
-          "flash_attention and flash_decode kernels)")
 #: the reference's other architectures -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "llama3-8b": _DENSE,
-    "stablelm-12b": _DENSE,
-    "starcoder2-15b": _DENSE,
-    "qwen1.5-32b": _DENSE,
+    "qwen1.5-32b": ("ROADMAP Queue 1, Next item 1 (its float8_e4m3fn KV "
+                    "cache through the attention kernels)"),
     "olmoe-1b-7b": "ROADMAP Queue 1, Next item 2 (MoE layers)",
     "arctic-480b": "ROADMAP Queue 1, Next item 2 (MoE layers)",
     "whisper-large-v3": "ROADMAP Queue 1, Next item 3 (the encoder-decoder)",

@@ -7,7 +7,14 @@
                   ``repro.kernels.dispatch``; ``csrc/fifo_dispatch.cu``)
   matmul        — tiled ``x @ y`` with float32 accumulation, the matrix
                   app's MM stage (port of ``repro.kernels.matmul``;
-                  ``csrc/matmul.cu``)
+                  ``csrc/matmul.cu``); also every weight product of the
+                  served models (``models.layers.linear``)
+  flash_attention — prefill attention with an online softmax, causal and
+                  sliding-window masks, GQA (port of
+                  ``repro.kernels.flash_attention``;
+                  ``csrc/flash_attention.cu``)
+  flash_decode  — one new token per head against a KV cache (port of
+                  ``repro.kernels.flash_decode``; ``csrc/flash_decode.cu``)
   rglru         — RG-LRU gated linear scan of recurrentgemma's recurrent
                   blocks (port of ``repro.kernels.rglru``;
                   ``csrc/rglru.cu``)
@@ -20,10 +27,13 @@ kernel for CUDA tensors, launch counts), ``ref`` the plain versions,
 ``build`` the ``nvcc`` build into ``build/kernels/``.
 """
 from . import ops, ref
-from .ops import acd_evict, fifo_dispatch, matmul, rglru, rwkv6
-from .ref import (acd_evict_plain, fifo_dispatch_plain, matmul_plain,
+from .ops import (acd_evict, fifo_dispatch, flash_attention, flash_decode,
+                  matmul, rglru, rwkv6)
+from .ref import (acd_evict_plain, fifo_dispatch_plain,
+                  flash_attention_plain, flash_decode_plain, matmul_plain,
                   rglru_plain, rwkv6_plain)
 
 __all__ = ["ops", "ref", "acd_evict", "acd_evict_plain", "fifo_dispatch",
-           "fifo_dispatch_plain", "matmul", "matmul_plain", "rglru",
-           "rglru_plain", "rwkv6", "rwkv6_plain"]
+           "fifo_dispatch_plain", "flash_attention", "flash_attention_plain",
+           "flash_decode", "flash_decode_plain", "matmul", "matmul_plain",
+           "rglru", "rglru_plain", "rwkv6", "rwkv6_plain"]

@@ -30,6 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {"acd_evict": "acd_evict.cu",
            "fifo_dispatch": "fifo_dispatch.cu",
            "matmul": "matmul.cu",
+           "flash_attention": "flash_attention.cu",
+           "flash_decode": "flash_decode.cu",
            "rglru": "rglru.cu",
            "rwkv6": "rwkv6.cu"}
 

@@ -4,8 +4,9 @@ A wrapper takes the plain version (:mod:`.ref`) only for tensors on the
 CPU. For CUDA tensors it launches the hand-written kernel or raises; it
 never falls back. Each wrapper counts its kernel launches in a plain
 integer attribute (``acd_evict.launches``, ``fifo_dispatch.launches``,
-``matmul.launches``, ``rglru.launches``, ``rwkv6.launches``), so a run can
-show that its main path went through the kernel.
+``matmul.launches``, ``flash_attention.launches``,
+``flash_decode.launches``, ``rglru.launches``, ``rwkv6.launches``), so a
+run can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -14,10 +15,13 @@ from typing import Optional, Tuple
 import torch
 
 from . import acd_sweep, fifo
+from . import flash_attention as _fa
+from . import flash_decode as _fd
 from . import matmul as _mm
 from . import rglru as _rg
 from . import rwkv6 as _rk
-from .ref import (acd_evict_plain, fifo_dispatch_plain, matmul_plain,
+from .ref import (acd_evict_plain, fifo_dispatch_plain,
+                  flash_attention_plain, flash_decode_plain, matmul_plain,
                   rglru_plain, rwkv6_plain)
 
 _FLOATS = (torch.float64, torch.float32)
@@ -189,6 +193,118 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 matmul.launches = 0
 
 
+_ATTN_DTYPES = (torch.float32, torch.bfloat16)
+#: the attention kernels take head dims up to this (llama 128,
+#: recurrentgemma 256)
+ATTN_MAX_D = 256
+
+
+def _check_attn(name, q, k, v, q_dims) -> None:
+    """q has ``q_dims`` dims ([B, Hq, (Sq,) D]), k and v [B, Hkv, S, D]:
+    one device, one dtype (float32 or bfloat16), Hq a multiple of Hkv, a
+    unit stride along D."""
+    _check_tensors(name, q=q, k=k, v=v)
+    if q.dim() != q_dims or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{name}: q must be {q_dims}-D and k, v 4-D, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if k.shape != v.shape:
+        raise ValueError(f"{name}: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} differ")
+    B, Hq, D = q.shape[0], q.shape[1], q.shape[-1]
+    if k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} differ in batch or head dim")
+    Hkv = k.shape[1]
+    if Hkv < 1 or Hq % Hkv != 0:
+        raise ValueError(f"{name}: Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if q.dtype not in _ATTN_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k and v must all be float32 or all "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1 and t.shape[-1] > 1:
+            raise ValueError(f"{name}: {arg} must have a unit stride along "
+                             f"its last dimension")
+    if q.device.type == "cuda" and not 1 <= D <= ATTN_MAX_D:
+        raise ValueError(f"{name}: the kernel takes head dims 1..{ATTN_MAX_D}"
+                         f", got D={D}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Prefill attention with an online softmax: ``q`` [B, Hq, Sq, D],
+    ``k``/``v`` [B, Hkv, Sk, D] (float32 or bfloat16, any strides with a
+    unit last one), query positions right-aligned to ``Sk - Sq``, causal
+    and sliding-window masks, GQA by ``h // (Hq / Hkv)``, scores scaled by
+    ``D^-0.5`` after the dot; a row with no live key gives zeros -> [B, Hq,
+    Sq, D] in ``q.dtype`` (``q``'s strides when dense). CPU tensors run
+    :func:`.ref.flash_attention_plain`; CUDA tensors run the CUDA kernel
+    (``csrc/flash_attention.cu``)."""
+    _check_attn("flash_attention", q, k, v, 4)
+    if window is not None and (isinstance(window, bool)
+                               or not isinstance(window, int)
+                               or window < 1):
+        raise ValueError(f"flash_attention: window must be None or an int "
+                         f">= 1, got {window!r}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=bool(causal),
+                                     window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if q.shape[0] > 65535 or q.shape[1] > 65535:
+        raise ValueError("flash_attention: the kernel takes at most 65535 "
+                         "batch rows and heads")
+    out = torch.empty_like(q)  # q's strides when dense, else contiguous
+    if out.numel() == 0:
+        return out
+    _fa.launch(q, k, v, out, bool(causal), window)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 length: torch.Tensor,
+                 end: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One new token per query head against a KV cache: ``q`` [B, Hq, D],
+    ``k``/``v`` [B, Hkv, S, D] (float32 or bfloat16, any strides with a
+    unit last one), ``length`` [B] int32 on q's device: row b has n =
+    min(length[b], S) live keys, cache slots 0 .. n-1 (the TPU kernel's
+    mask), or with ``end`` [B] int32 the key positions ``end[b] - n`` ..
+    ``end[b] - 1``, position P at slot P % S (the model's rolling cache,
+    walked in position order); a row with n = 0 gives zeros -> [B, Hq, D]
+    in ``q.dtype``. CPU tensors run :func:`.ref.flash_decode_plain`; CUDA
+    tensors run the CUDA kernel (``csrc/flash_decode.cu``)."""
+    _check_attn("flash_decode", q, k, v, 3)
+    ints = dict(length=length) if end is None else dict(length=length,
+                                                        end=end)
+    _check_tensors("flash_decode", q=q, **ints)
+    for arg, t in ints.items():
+        if t.dtype != torch.int32 or tuple(t.shape) != (q.shape[0],):
+            raise TypeError(f"flash_decode: {arg} must be int32 [B] = "
+                            f"[{q.shape[0]}], got {t.dtype} "
+                            f"{tuple(t.shape)}")
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, length, end)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode: no kernel for device {q.device}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    if end is None:  # the first n = min(length, S) slots: positions 0..n-1
+        end = length.clamp(0, k.shape[2])
+    _fd.launch(q, k, v, length.contiguous(), end.contiguous(), out)
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0
+
+
 def _check_tensors(name, **xs) -> torch.device:
     """Every argument is a tensor, all on one device (returned)."""
     dev = None
@@ -316,7 +432,8 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 rwkv6.launches = 0
 
 
-_WRAPPERS = (acd_evict, fifo_dispatch, matmul, rglru, rwkv6)
+_WRAPPERS = (acd_evict, fifo_dispatch, matmul, flash_attention,
+             flash_decode, rglru, rwkv6)
 
 
 def reset_launch_counts() -> None:

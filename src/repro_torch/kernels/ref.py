@@ -191,3 +191,77 @@ def rwkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if term_sums:
         return o.to(v.dtype), S, sums
     return o.to(v.dtype), S
+
+
+#: the TPU attention kernels' logit for a masked (query, key) pair
+MASKED_LOGIT = -0.7 * torch.finfo(torch.float32).max
+
+
+def _masked_softmax_product(s: torch.Tensor, mask: torch.Tensor,
+                            v: torch.Tensor) -> torch.Tensor:
+    """sum_k softmax(s)[..., k] v[k] over the live keys of ``mask`` (float32
+    scores ``s`` [..., Sq, Sk], ``v`` [..., Sk, D] float32); a row with no
+    live key gives zeros."""
+    s = torch.where(mask, s, MASKED_LOGIT)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    denom = p.sum(-1, keepdim=True)
+    return (p @ v) / torch.where(denom == 0.0, 1.0, denom)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """Prefill attention (plain version of ``flash_attention``; the TPU
+    kernel's function). ``q`` [B, Hq, Sq, D], ``k``/``v`` [B, Hkv, Sk, D];
+    query head h reads KV head ``h // (Hq / Hkv)``. Query i sits at
+    position ``Sk - Sq + i`` (right-aligned); key j is live iff ``j <=
+    qpos`` under ``causal`` and ``j > qpos - window`` under a window.
+    Scores ``(q . k) * D^-0.5`` in float32; masked logits are
+    :data:`MASKED_LOGIT` and weigh nothing; a row with no live key gives
+    zeros. Returns [B, Hq, Sq, D] in ``q.dtype``."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.float().reshape(b, hkv, g, sq, d)
+    kf = k.float()[:, :, None]                            # [B, Hkv, 1, Sk, D]
+    s = (qg @ kf.transpose(-1, -2)) * (d ** -0.5)         # [B, Hkv, G, Sq, Sk]
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    out = _masked_softmax_product(s, mask, v.float()[:, :, None])
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       length: Optional[torch.Tensor] = None,
+                       end: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One-token attention over a KV cache (plain version of
+    ``flash_decode``; the TPU kernel's function). ``q`` [B, Hq, D],
+    ``k``/``v`` [B, Hkv, S, D], ``length`` [B] int (all S when ``None``):
+    row b has n = min(max(length[b], 0), S) live keys, cache slots 0 .. n-1
+    (the TPU kernel's mask ``j < min(length[b], S)``), or with ``end`` [B]
+    int the positions max(end[b] - n, 0) .. end[b] - 1, position P at slot
+    P % S (a rolled cache). Scores in float32 scaled after the dot; a row
+    with n = 0 gives zeros (the reference's oracle gives NaN there).
+    Returns [B, Hq, D] in ``q.dtype``."""
+    b, hq, d = q.shape
+    hkv, s_len = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.float().reshape(b, hkv, g, 1, d)
+    kf = k.float()[:, :, None]                            # [B, Hkv, 1, S, D]
+    s = (qg @ kf.transpose(-1, -2)) * (d ** -0.5)         # [B, Hkv, G, 1, S]
+    slot = torch.arange(s_len, device=q.device)
+    n = (torch.full((b,), s_len, device=q.device) if length is None
+         else length.to(q.device).long().clamp(0, s_len))
+    hi = n if end is None else end.to(q.device).long()
+    # slot j holds position hi - 1 - back, back its distance from the newest
+    back = torch.remainder(hi[:, None] - 1 - slot[None, :], max(s_len, 1))
+    mask = back < torch.minimum(n, hi.clamp_min(0))[:, None]
+    out = _masked_softmax_product(s, mask[:, None, None, None, :],
+                                  v.float()[:, :, None])
+    return out.reshape(b, hq, d).to(q.dtype)

@@ -10,8 +10,13 @@ parameters from them on its device and fills them in place, so a
 full-width model is drawn on the card and weights carried from elsewhere
 land in the same tensors.
 
-Attention runs outside any kernel here, in float32 einsums over the
-storage-dtype values (the reference's ``preferred_element_type``).
+Every weight product goes through :func:`linear`, the port's ``matmul``
+kernel on the card: it computes each output row the same way whatever the
+number of rows, so prefill(S) + decode_step equals prefill(S+1) in bf16
+as the reference's serving paths do. Prefill attention goes through the
+``flash_attention`` kernel (:func:`attention_apply`); the reference's
+``chunked_attention`` and ``decode_attention`` stay here, held against the
+reference by the tests.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops as kops
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -130,6 +136,21 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
+# -- weight products -----------------------------------------------------------
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., K] @ ``w`` [K, N] with float32 accumulation, in x's dtype,
+    through :func:`repro_torch.kernels.ops.matmul`: the ``matmul`` kernel
+    on the card, whose output rows do not depend on how many rows come
+    with them (one thread per element, K summed in one fixed order, no
+    split); on the CPU the plain float32 product rounded once. ``w`` may
+    be a view (a layer of the stacked parameters): it is read through its
+    strides, never copied."""
+    lead = x.shape[:-1]
+    out = kops.matmul(x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(*lead, w.shape[1])
+
+
 # -- FFN --------------------------------------------------------------------
 
 def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -139,10 +160,10 @@ def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def ffn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """Gated (SwiGLU-style) or plain 2-matrix FFN."""
     if cfg.glu:
-        h = _act(cfg, x @ p["w_gate"]) * (x @ p["w_up"])
+        h = _act(cfg, linear(x, p["w_gate"])) * linear(x, p["w_up"])
     else:
-        h = _act(cfg, x @ p["w_up"])
-    return h @ p["w_down"]
+        h = _act(cfg, linear(x, p["w_up"]))
+    return linear(h, p["w_down"])
 
 
 def ffn_init(cfg: ModelConfig, d: int, ff: int, dtype: torch.dtype) -> Params:
@@ -284,9 +305,9 @@ def attention_apply(
     """Full-sequence self-attention (prefill). Returns (out, (k, v)) with
     k, v [B, Hkv, S, D] after RoPE."""
     b, s, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = linear(x, p["wq"])
+    k = linear(x, p["wk"])
+    v = linear(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, cfg.num_heads, cfg.hd)
@@ -295,6 +316,6 @@ def attention_apply(
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     q, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    out = chunked_attention(q, kt, vt, causal=causal, window=window)
+    out = kops.flash_attention(q, kt, vt, causal=causal, window=window)
     out = out.transpose(1, 2).reshape(b, s, -1)
-    return out @ p["wo"], (kt, vt)
+    return linear(out, p["wo"]), (kt, vt)

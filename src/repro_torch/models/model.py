@@ -34,9 +34,10 @@ from torch import nn
 
 from ..core.vectorsim import resolve_device
 from .config import ModelConfig
+from ..kernels import ops as kops
 from .layers import (Init, Params, apply_norm, attention_apply, attn_init,
-                     cache_update, decode_attention, dtype_of, ffn_apply,
-                     ffn_init, init_norm, rope)
+                     cache_update, dtype_of, ffn_apply, ffn_init, init_norm,
+                     linear, rope)
 from .recurrent import (rglru_block, rglru_init, rglru_state_init,
                         rwkv6_block, rwkv6_init, rwkv6_state_init)
 
@@ -133,9 +134,9 @@ def _self_attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
                       cache: Params, pos: int) -> Tuple[torch.Tensor, Params]:
     """x [B,1,d]; cache update at the rolling slot + one-token attention."""
     b = x.shape[0]
-    q = x @ p["mixer"]["wq"]
-    k = x @ p["mixer"]["wk"]
-    v = x @ p["mixer"]["wv"]
+    q = linear(x, p["mixer"]["wq"])
+    k = linear(x, p["mixer"]["wk"])
+    v = linear(x, p["mixer"]["wv"])
     if cfg.qkv_bias:
         q, k, v = (q + p["mixer"]["bq"], k + p["mixer"]["bk"],
                    v + p["mixer"]["bv"])
@@ -150,10 +151,16 @@ def _self_attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     slot = pos % s_cache if cfg.window else min(pos, s_cache - 1)
     k_new = cache_update(cache["k"], k, slot)
     v_new = cache_update(cache["v"], v, slot)
-    # rolling cache: every slot is valid once pos >= s_cache
+    # rolling cache: every slot is valid once pos >= s_cache; eff_pos + 1
+    # keys are live (decode_attention's mask kpos <= eff_pos), read in
+    # position order (position p sits at slot p % s_cache), as the prefill
+    # of one more token reads them
     eff_pos = min(pos, s_cache - 1) if cfg.window else pos
-    out = decode_attention(q, k_new, v_new, eff_pos, window=None)
-    out = out.reshape(b, 1, -1) @ p["mixer"]["wo"]
+    length = torch.full((b,), eff_pos + 1, dtype=torch.int32,
+                        device=x.device)
+    end = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    out = kops.flash_decode(q, k_new, v_new, length, end)
+    out = linear(out.reshape(b, 1, -1), p["mixer"]["wo"])
     new_cache = dict(cache)
     new_cache["k"], new_cache["v"] = k_new, v_new
     return out, new_cache
@@ -350,7 +357,7 @@ class Model(nn.Module):
         x, caches = self._run_stack(x, positions, "prefill", None, None,
                                     cache_len)
         x = apply_norm(self.cfg, self.final_norm.tree(), x)
-        logits = x[:, -1] @ self._head()                  # [B, V]
+        logits = linear(x[:, -1], self._head())                  # [B, V]
         return logits, caches
 
     @torch.inference_mode()
@@ -365,5 +372,5 @@ class Model(nn.Module):
                                device=self.device)
         x, caches = self._run_stack(x, positions, "decode", caches, pos, 0)
         x = apply_norm(self.cfg, self.final_norm.tree(), x)
-        logits = x[:, 0] @ self._head()
+        logits = linear(x[:, 0], self._head())
         return logits, caches

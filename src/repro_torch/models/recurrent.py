@@ -13,7 +13,7 @@ import torch
 
 from ..kernels import ops as kops
 from .config import ModelConfig
-from .layers import Init, Params, gelu, sigmoid, silu
+from .layers import Init, Params, gelu, linear, sigmoid, silu
 
 _CONV_K = 4  # temporal conv width (Griffin)
 
@@ -51,7 +51,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 def _decay(p: Params, x: torch.Tensor) -> torch.Tensor:
     """a_t = exp(-c * softplus(lam) * sigmoid(W_rg x))  in (0, 1)."""
     c = 8.0
-    r = sigmoid((x @ p["w_rg"]).float())
+    r = sigmoid(linear(x, p["w_rg"]).float())
     lam = p["lam"]
     # jax.nn.softplus is logaddexp(x, 0)
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))
@@ -62,15 +62,15 @@ def rglru_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 state: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [B,S,d] -> (out [B,S,d], new_state {conv [B,K-1,d], h [B,d]})."""
-    gate = gelu(x @ p["w_gate"])
-    u = x @ p["w_x"]
+    gate = gelu(linear(x, p["w_gate"]))
+    u = linear(x, p["w_x"])
     u, conv_state = _causal_conv(
         u, p["conv"], None if state is None else state["conv"])
     a = _decay(p, x)
-    i = sigmoid((x @ p["w_ig"]).float())
+    i = sigmoid(linear(x, p["w_ig"]).float())
     h0 = None if state is None else state["h"]
     y, hT = kops.rglru(u.float() * i, a, h0)
-    out = (y.to(x.dtype) * gate) @ p["w_out"]
+    out = linear(y.to(x.dtype) * gate, p["w_out"])
     return out, {"conv": conv_state, "h": hT}
 
 
@@ -125,12 +125,12 @@ def rwkv6_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     xs = _token_shift(x, None if state is None else state["shift"])
     mix = p["mix"].to(x.dtype)
     xr, xk, xv, xw, xg = (x * mix[i] + xs * (1 - mix[i]) for i in range(5))
-    r = (xr @ p["w_r"]).reshape(b, s, H, hd).transpose(1, 2)   # [B,H,S,hd]
-    k = (xk @ p["w_k"]).reshape(b, s, H, hd).transpose(1, 2)
-    v = (xv @ p["w_v"]).reshape(b, s, H, hd).transpose(1, 2)
-    w = torch.exp(-torch.exp((xw @ p["w_w"]).float() - 4.0))
+    r = linear(xr, p["w_r"]).reshape(b, s, H, hd).transpose(1, 2)   # [B,H,S,hd]
+    k = linear(xk, p["w_k"]).reshape(b, s, H, hd).transpose(1, 2)
+    v = linear(xv, p["w_v"]).reshape(b, s, H, hd).transpose(1, 2)
+    w = torch.exp(-torch.exp(linear(xw, p["w_w"]).float() - 4.0))
     w = w.reshape(b, s, H, hd).transpose(1, 2)
-    g = silu(xg @ p["w_g"])
+    g = silu(linear(xg, p["w_g"]))
     s0 = None if state is None else state["wkv"]
     o, sT = kops.rwkv6(r, k, v, w, p["u"], s0)
     o = o.transpose(1, 2).reshape(b, s, d)
@@ -139,7 +139,7 @@ def rwkv6_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     o32 = (o32 - o32.mean(-1, keepdim=True)) * torch.rsqrt(
         o32.var(-1, keepdim=True, correction=0) + 1e-5)
     o = (o32.reshape(b, s, d) * p["ln_scale"]).to(x.dtype)
-    out = (o * g) @ p["w_o"]
+    out = linear(o * g, p["w_o"])
     return out, {"shift": x[:, -1:], "wkv": sT}
 
 

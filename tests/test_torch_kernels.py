@@ -367,7 +367,8 @@ def test_fifo_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
     _assert_fifo_equal([o.numpy() for o in got], _fifo_plain(x, True))
     assert ops.fifo_dispatch.launches == before
     assert set(ops.launch_counts()) == {"acd_evict", "fifo_dispatch",
-                                        "matmul", "rglru", "rwkv6"}
+                                        "matmul", "flash_attention",
+                                        "flash_decode", "rglru", "rwkv6"}
 
 
 @pytest.mark.parametrize("case", ["order_dtype", "ready_dtype", "seg_dtype",
