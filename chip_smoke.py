@@ -51,14 +51,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    jobs' stage outputs agree between card and CPU (MM, EF and RI bit for
    bit, LU with the same pivots), and the card's fits equal the CPU's
    (the same lambdas, predictions to a relative 1e-4).
-7. The model stack's serving path. First the repair of the bf16
-   prefill/decode split: every row of ``linear(x [96, K], w)`` (the
-   matmul kernel) equals the row computed alone, bit for bit, at the
-   FFN's widths (4096 x 14336 and back), beside torch.matmul's count.
-   Then ``flash_attention`` and ``flash_decode`` at every attention shape
-   of the phase and ragged ones (S = 1, sq < sk, sq > sk, windows, not
-   causal, float32; decode lengths 0, 1, partial and full) against their
-   plain versions, with times, bounds and
+7. The model stack's serving path. First the bf16 ``matmul`` kernel
+   (tensor cores) at the serve shapes: against its plain version at
+   M = 8, 656 and 8192 through the FFN's layer views and at M = 8 through
+   both heads, each timed beside torch.matmul and its bound; its TMA and
+   thread-staged paths bit for bit; and every row of ``linear(x [M, K],
+   w)`` and of the norms' ``row_mean`` equal to the row computed alone,
+   bit for bit, at M = 8, 656 and 8192 (what keeps the bf16
+   prefill/decode split exact), beside torch.matmul's and torch.var's
+   counts, and ``row_mean`` over 65,600 rows of 4096 (more row tiles than
+   a second grid dimension may number). Then ``flash_attention`` and ``flash_decode`` at every
+   attention shape of the phase and ragged ones (S = 1, sq < sk,
+   sq > sk, windows, not causal, float32; decode lengths 0, 1, partial
+   and full) against their plain versions, with times, bounds and
    ``scaled_dot_product_attention``'s time as the yardstick; ``rglru`` at
    recurrentgemma's [8, 2048, 4096] (from a nonzero h0, a continuation
    split at t = 1000, a ragged shape) and ``rwkv6`` at rwkv6-1.6b's
@@ -93,13 +98,13 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
-#: non-tensor-core float rates the kernel's adds and compares run at
+#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the
+#: non-tensor-core float rates the kernels' float64 and float32 work runs
+#: at, and the dense bf16 tensor-core rate, the bound of bf16 products and
+#: attention (any kernel computing the same function may use the tensor
+#: cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12}
-#: ... and the dense bf16 tensor-core rate, the attention bound's for bf16
-#: inputs (any kernel computing the same function may use the tensor cores)
-PEAK_BF16_TC_OPS_PER_S = 989e12
+PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
 
 N_DEADLINES = 5
 ORDERS = ("spt", "hcf")
@@ -169,10 +174,21 @@ INCR_TOL = dict(rtol=2e-2, atol=2e-3)
 #: tolerance |card - cpu| <= CPU_RTOL * max|cpu| (float32 rounding of
 #: d = 2048-4096 dot products in another order, through a few layers)
 CPU_LAYERS = {"rwkv6-1.6b": 2, "recurrentgemma-9b": 3, "llama3-8b": 2}
-#: the rows of linear(x [S, K], w) against linear(x[i:i+1], w), bf16, at
-#: the dense projections' widths: the FFN's (4096 -> 14336, 14336 -> 4096)
-ROWS_S = 96
+#: the rows of linear(x [M, K], w) against linear(x[i:i+1], w), bf16, at
+#: the dense projections' widths: the FFN's (4096 -> 14336, 14336 -> 4096),
+#: at the serve phase's row counts (a decode step, the serve batch's
+#: prefill, the long batch's; check_linear_rows)
 ROWS_SHAPES = ((4096, 14336), (14336, 4096))
+#: the heads at a decode step: (label, d, vocab, tied); a tied head is the
+#: embedding's transpose [V, d].T, so y is K-major
+HEADS = (("llama3-8b head", 4096, 128256, False),
+         ("recurrentgemma-9b tied head", 4096, 256000, True))
+#: a norm over a long prefill (rows, d): 65,600 tokens at d = 4096, whose
+#: row mean's first level [4,198,400, 64] takes more row tiles than the
+#: 65,535 a second grid dimension may number; its means within
+#: ROW_MEAN_ATOL of the float64 ones
+ROW_MEAN_LONG = (65600, 4096)
+ROW_MEAN_ATOL = 1e-6
 #: the attention kernels against their plain versions: |err| <=
 #: ATTN_RTOL * max|v| (outputs are convex combinations of v's rows; float32
 #: summation order), plus one bf16 ulp of the output for bf16 outputs
@@ -336,14 +352,16 @@ def cuda_ms(fn, n):
     return t0.elapsed_time(t1) / n
 
 
-def matmul_bound(M, K, N, itemsize):
-    """(bound ms, what bounds it, bytes, operations) of one [M, K] @ [K, N]:
-    each input read once and the output written once at the HBM rate, the
-    2MNK float operations at the float32 peak without tensor cores."""
+def matmul_bound(M, K, N, dtype):
+    """(bound ms, what bounds it, bytes, operations) of one [M, K] @ [K, N]
+    in ``dtype`` ("float32" or "bfloat16"): each input read once and the
+    output written once at the HBM rate, the 2MNK operations at the peak of
+    the type (float32 without tensor cores, bf16 on the tensor cores)."""
+    itemsize = 4 if dtype == "float32" else 2
     n_bytes = (M * K + K * N + M * N) * itemsize
     n_ops = 2 * M * N * K
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / PEAK_OPS_PER_S["float32"] * 1e3
+    ops_ms = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops)
 
@@ -429,7 +447,7 @@ def _check_matmul(dev):
         k_ms = cuda_ms(lambda: ops.matmul(x, y), reps)
         p_ms = cuda_ms(lambda: matmul_plain(x, y), reps)
         l_ms = cuda_ms(lambda: torch.matmul(x, y), reps)
-        bound, by, n_bytes, n_ops = matmul_bound(n, n, n, 4)
+        bound, by, n_bytes, n_ops = matmul_bound(n, n, n, "float32")
         print(f"matmul [{n}, {n}, {n}] f32: kernel {k_ms:.6f} ms "
               f"({n_ops / k_ms * 1e-9:.3f} TFLOP/s), plain {p_ms:.6f} ms, "
               f"torch.matmul (TF32 off) {l_ms:.6f} ms, bound "
@@ -900,8 +918,7 @@ def attention_bound(q_elems, kv_elems, itemsize, n_ops, dtype):
     query head) at the bf16 tensor-core peak for bf16 inputs, the float32
     peak for float32 ones."""
     n_bytes = (2 * q_elems + 2 * kv_elems) * itemsize
-    peak = (PEAK_BF16_TC_OPS_PER_S if dtype == "bfloat16"
-            else PEAK_OPS_PER_S["float32"])
+    peak = PEAK_OPS_PER_S["bfloat16" if dtype == "bfloat16" else "float32"]
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / peak * 1e3
     return (max(bytes_ms, ops_ms),
@@ -1174,73 +1191,143 @@ def check_flash_decode(dev):
 
 
 def check_linear_rows(dev):
-    """The matmul kernel on the serving path, and the repair of the bf16
-    prefill/decode gap. Against its plain version (check_matmul's bf16
-    bound), in bf16, at the weight products the serve phase gives it:
-    M = 8 (a decode step), the serve batch's prefill rows and the long
-    batch's 2 x 4096, through the FFN's [4096, 14336] and [14336, 4096]
-    read as layer views of a stacked [2, K, N] parameter, and the heads at
-    M = 8: llama3-8b's [4096, 128256] and recurrentgemma-9b's tied
-    [256000, 4096].T. Then every row of ``linear(x [S, K], w)`` equals
-    ``linear(x[i:i+1], w)`` bit for bit at the FFN's widths (and the same
-    count for torch.matmul, which the projections took before), and the
-    kernel's time at the serve batch's prefill and decode row counts
-    beside torch.matmul's."""
+    """The bf16 matmul kernel (tensor cores) on the serving path, and the
+    repair of the bf16 prefill/decode gap. Against its plain version
+    (check_matmul's bf16 bound) at the weight products the serve phase
+    gives it, each timed beside its plain version, torch.matmul and its
+    bound: M = 8 (a decode step), the serve batch's prefill rows and the
+    long batch's 2 x 4096, through the FFN's [4096, 14336] and
+    [14336, 4096] read as layer views of a stacked [2, K, N] parameter,
+    and the heads at M = 8: llama3-8b's [4096, 128256] and
+    recurrentgemma-9b's tied [256000, 4096].T (y K-major). Then the TMA and
+    thread-staged paths bit for bit at the serve batch's prefill through a
+    layer view and at a decode step through the tied head; and every row
+    of ``linear(x [M, K], w)`` equals ``linear(x[i:i+1], w)`` bit for bit at
+    the FFN's widths for M = 8, the prefill rows and 8192 (and the same
+    count for torch.matmul), and so does every row of the norms' row mean
+    (``layers.row_mean``, float32; the same count for torch.var), also on
+    a sample of ``ROW_MEAN_LONG``'s rows. Returns the bf16 timings for
+    matmul's entry of the kernels line."""
+    import importlib
+
     import torch
 
     from repro_torch.core.precision import ieee_float32
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import matmul_plain
-    from repro_torch.models.layers import linear
+    from repro_torch.models.layers import linear, row_mean
 
+    mm = importlib.import_module("repro_torch.kernels.matmul")
     g = torch.Generator(device=dev).manual_seed(25)
     bf16 = torch.bfloat16
-    m_prefill = SERVE_REQUESTS * longest_prompt("llama3-8b")
+    rows = (SERVE_REQUESTS, SERVE_REQUESTS * longest_prompt("llama3-8b"),
+            LONG_BATCH * LONG["llama3-8b"][0])
 
     def normal(*shape, scale=1.0):
         return (torch.randn(*shape, device=dev, generator=g) * scale).to(bf16)
 
+    def timed(label, phase, x, w, reps):
+        err = matmul_check(label, x, w, ops.matmul(x, w), matmul_plain(x, w))
+        M, K = x.shape
+        N = w.shape[1]
+        k_ms = cuda_ms(lambda: ops.matmul(x, w), reps)
+        p_ms = cuda_ms(lambda: matmul_plain(x, w), reps)
+        l_ms = cuda_ms(lambda: torch.matmul(x, w), reps)
+        bound, by, n_bytes, n_ops = matmul_bound(M, K, N, "bfloat16")
+        plan = mm.tile_plan(M, N, K, w.stride())
+        print(f"matmul {label} bf16: kernel {k_ms:.6f} ms, plain {p_ms:.6f} "
+              f"ms, torch.matmul {l_ms:.6f} ms, bound {bound:.6f} ms by {by} "
+              f"(bytes {n_bytes}, operations {n_ops}); kernel at "
+              f"{bound / k_ms:.3f} of the bound, {k_ms / l_ms:.2f}x "
+              f"torch.matmul's time; plan {tuple(plan)}")
+        return {"phase": phase, "shape": [M, K, N],
+                "y_strides": list(w.stride()), "max_abs_err": err,
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                "bound_by": by, "library_ms": l_ms}
+
+    timings = []
     with ieee_float32():
         for K, N in ROWS_SHAPES:
             w = normal(2, K, N, scale=K ** -0.5)[1]  # a layer's view
-            for m in (SERVE_REQUESTS, m_prefill, LONG_BATCH * LONG[
-                    "llama3-8b"][0]):
+            for m, phase, reps in zip(rows, ("decode", "prefill",
+                                             "long prefill"), (50, 20, 5)):
                 x = normal(m, K)
-                matmul_check(f"serve [{m}, {K}] @ layer view [{K}, {N}]", x,
-                             w, ops.matmul(x, w), matmul_plain(x, w))
+                timings.append(timed(f"serve [{m}, {K}] @ layer view [{K}, "
+                                     f"{N}]", phase, x, w, reps))
             del w, x
-        for label, w in (("llama3-8b head", normal(4096, 128256,
-                                                   scale=4096 ** -0.5)),
-                         ("recurrentgemma-9b tied head", normal(
-                             256000, 4096).T)):
-            x = normal(SERVE_REQUESTS, 4096)
-            matmul_check(f"{label} [{SERVE_REQUESTS}, 4096] @ "
-                         f"{list(w.shape)} strides {w.stride()}", x, w,
-                         ops.matmul(x, w), matmul_plain(x, w))
-            del w
+        for label, d, V, tied in HEADS:
+            w = normal(V, d).T if tied else normal(d, V, scale=d ** -0.5)
+            x = normal(SERVE_REQUESTS, d)
+            timings.append(timed(f"{label} [{SERVE_REQUESTS}, {d}] @ "
+                                 f"{list(w.shape)} strides {w.stride()}",
+                                 "decode head", x, w, 20))
+        # the two staging paths: the same bytes in shared memory
+        K, N = ROWS_SHAPES[0]
+        for label, x, y in (
+                ("prefill layer view", normal(rows[1], K),
+                 normal(2, K, N, scale=K ** -0.5)[1]),
+                ("decode tied head", x, w)):
+            tma = ops.matmul(x, y)
+            threads = torch.empty_like(tma)
+            mm.launch(x, y, threads, _by_threads=True)
+            torch.cuda.synchronize()
+            same = torch.equal(tma, threads)
+            print(f"matmul staging paths, {label} {list(x.shape)} @ "
+                  f"{list(y.shape)} strides {y.stride()}: TMA and "
+                  f"thread-staged bitwise equal {same}")
+            if not same:
+                raise AssertionError(f"matmul {label}: TMA != thread-staged")
+        del w, x, y, tma, threads
         torch.cuda.empty_cache()
 
     for K, N in ROWS_SHAPES:
-        x = normal(ROWS_S, K)
         w = normal(K, N, scale=K ** -0.5)
-        full, lib = linear(x, w), x @ w
-        same = sum(torch.equal(linear(x[i:i + 1], w)[0], full[i])
-                   for i in range(ROWS_S))
-        same_lib = sum(torch.equal((x[i:i + 1] @ w)[0], lib[i])
-                       for i in range(ROWS_S))
-        times = {}
-        for m in (SERVE_REQUESTS, m_prefill):
-            xm = normal(m, K)
-            times[m] = (cuda_ms(lambda: linear(xm, w), 20),
-                        cuda_ms(lambda: xm @ w, 20))
-        print(f"linear rows [{ROWS_S}, {K}] @ [{K}, {N}] bf16: {same} of "
-              f"{ROWS_S} rows bitwise equal to the row alone (matmul "
-              f"kernel); torch.matmul {same_lib} of {ROWS_S}; time "
-              + ", ".join(f"M={m} {a:.6f} ms (torch.matmul {b:.6f} ms)"
-                          for m, (a, b) in times.items()))
-        if same != ROWS_S:
-            raise AssertionError(f"linear [{K}, {N}]: rows depend on the "
-                                 f"row count")
+        for m in rows:
+            x = normal(m, K)
+            full, lib = linear(x, w), x @ w
+            same = sum(torch.equal(linear(x[i:i + 1], w)[0], full[i])
+                       for i in range(m))
+            same_lib = sum(torch.equal((x[i:i + 1] @ w)[0], lib[i])
+                           for i in range(m))
+            print(f"linear rows [{m}, {K}] @ [{K}, {N}] bf16: {same} of {m} "
+                  f"rows bitwise equal to the row alone (matmul kernel, "
+                  f"plan {tuple(mm.tile_plan(m, N, K, w.stride()))}); "
+                  f"torch.matmul {same_lib} of {m}")
+            if same != m:
+                raise AssertionError(f"linear [{m}, {K}] @ [{K}, {N}]: rows "
+                                     f"depend on the row count")
+        del w, x, full, lib
+    # the norms' row means, the other per-row sums of the serving path
+    for m in rows:
+        x = normal(m, ROWS_SHAPES[0][0]).float() * 3
+        full, lib = row_mean(x * x), torch.var(x, -1, correction=0)
+        same = sum(torch.equal(row_mean(x[i:i + 1] * x[i:i + 1])[0],
+                               full[i]) for i in range(m))
+        same_lib = sum(torch.equal(torch.var(x[i:i + 1], -1,
+                                             correction=0)[0], lib[i])
+                       for i in range(m))
+        print(f"row_mean rows [{m}, {x.shape[1]}] float32: {same} of {m} "
+              f"rows bitwise equal to the row alone (matmul kernel); "
+              f"torch.var {same_lib} of {m}")
+        if same != m:
+            raise AssertionError(f"row_mean [{m}]: rows depend on the row "
+                                 f"count")
+    # a long prefill's norm (ROW_MEAN_LONG)
+    m, d = ROW_MEAN_LONG
+    x = torch.randn(m, d, device=dev, generator=g)
+    full = row_mean(x)
+    pick = [*range(64), *range(64, m - 64, 997), *range(m - 64, m)]
+    same = sum(torch.equal(row_mean(x[i:i + 1])[0], full[i]) for i in pick)
+    err = (full.double() - x.double().mean(-1, keepdim=True)).abs().max()
+    print(f"row_mean rows [{m}, {d}] float32 (first level [{m * d // 64}, "
+          f"64]): {same} of {len(pick)} sampled rows bitwise equal to the "
+          f"row alone; max |err| against the float64 mean {float(err)!r}")
+    if same != len(pick) or not float(err) <= ROW_MEAN_ATOL:
+        raise AssertionError(f"row_mean [{m}, {d}]: wrong past the grid's "
+                             f"second dimension")
+    del x, full
+    torch.cuda.empty_cache()
+    return timings
 
 
 def serve_requests(cfg, n, lengths, new, seed):
@@ -1403,11 +1490,20 @@ def expected_launches(cfg, new):
     decode steps): the recurrence kernels and both attention kernels once
     per layer of their kind and forward (flash_attention in the prefill,
     flash_decode in each decode step), matmul once per weight product (the
-    mixer's, the FFN's two or three, the head)."""
+    mixer's, the FFN's two or three, the head) and per row mean of a norm
+    (``layers.row_mean``: one mean per rmsnorm, two per layernorm and per
+    rwkv6 group norm; two norms a layer and the final one)."""
+    from repro_torch.models.layers import row_mean_launches
+
     kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
     n_attn = kinds.count("attn")
+    per_norm = ((1 if cfg.norm == "rmsnorm" else 2)
+                * row_mean_launches(cfg.d_model))
     per_forward = (sum(MIXER_PRODUCTS[k] for k in kinds)
-                   + (3 if cfg.glu else 2) * cfg.num_layers + 1)
+                   + (3 if cfg.glu else 2) * cfg.num_layers + 1
+                   + per_norm * (2 * cfg.num_layers + 1)
+                   + 2 * row_mean_launches(cfg.rwkv_head_dim)
+                   * kinds.count("rwkv6"))
     return {"acd_evict": 0, "fifo_dispatch": 0,
             "matmul": per_forward * (1 + new),
             "flash_attention": n_attn, "flash_decode": n_attn * new,
@@ -1632,8 +1728,9 @@ def check_serve_against_cpu(arch, dev, seed):
           f"{t1 - t0:.3f} s, CPU {t2 - t1:.3f} s; greedy tokens over "
           f"{CPU_DECODE} steps equal {same}; prefill logits differ by "
           f"{rel!r} of their max (tolerance {CPU_RTOL})")
-    # a reading, not a gate: on the CPU the plain product's rows depend on
-    # the row count, so the bf16 gap the card's kernels close stays there
+    # a reading, not a gate: the plain product's rows no longer depend on
+    # the row count, but the plain attention versions still sum prefill
+    # and decode in different orders on the CPU
     cpu = Model(dataclasses.replace(cfg, dtype="bfloat16",
                                     kv_dtype="bfloat16"), device="cpu")
     cpu.load_state_dict(card.state_dict())
@@ -1998,7 +2095,7 @@ def main() -> int:
         torch.set_float32_matmul_precision(precision)
 
     # -- 7. the serving path: the model stack's kernels ---------------------
-    check_linear_rows(dev)
+    bf16_matmul = check_linear_rows(dev)
     kernels.append(check_flash_attention(dev))
     kernels.append(check_flash_decode(dev))
     kernels.append(check_rglru(dev))
@@ -2032,6 +2129,7 @@ def main() -> int:
         launches[("load", J)]["fifo_dispatch"] for J in MAIN_J)
     by_name["matmul"]["launches"] = (launches["profile"]["matmul"]
                                      + serve_launches["matmul"])
+    by_name["matmul"]["bf16"] = bf16_matmul
     for name in ("flash_attention", "flash_decode", "rglru", "rwkv6"):
         by_name[name]["launches"] = serve_launches[name]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]

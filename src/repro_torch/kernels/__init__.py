@@ -5,10 +5,11 @@
                   ``csrc/acd_evict.cu``)
   fifo_dispatch — capped FIFO public-dispatch chain of one stage (port of
                   ``repro.kernels.dispatch``; ``csrc/fifo_dispatch.cu``)
-  matmul        — tiled ``x @ y`` with float32 accumulation, the matrix
-                  app's MM stage (port of ``repro.kernels.matmul``;
-                  ``csrc/matmul.cu``); also every weight product of the
-                  served models (``models.layers.linear``)
+  matmul        — ``x @ y`` with float32 accumulation: the matrix app's
+                  MM stage in IEEE float32 on the CUDA cores, and every
+                  weight product of the served models in bf16 on the
+                  tensor cores (``models.layers.linear``) (port of
+                  ``repro.kernels.matmul``; ``csrc/matmul.cu``)
   flash_attention — prefill attention with an online softmax, causal and
                   sliding-window masks, GQA (port of
                   ``repro.kernels.flash_attention``;

@@ -23,6 +23,9 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+#: flags of every source, part of the hash key: sm_90a for wgmma;
+#: --fmad=false keeps the CUDA-core float code's multiplies and adds apart
+#: (its fused multiply-adds are explicit fmaf); wgmma is unaffected
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
 

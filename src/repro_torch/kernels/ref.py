@@ -122,10 +122,27 @@ def fifo_dispatch_plain(order: torch.Tensor, n_pub: torch.Tensor,
     return prov_o, seg_o, wait_o, cold_o, start_o, end_o, extra_o
 
 
+#: rows of each float32 product in :func:`matmul_plain`
+PLAIN_ROWS = 64
+
+
 def matmul_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``x`` [M, K] @ ``y`` [K, N] with float32 accumulation, returned in
-    ``x.dtype`` (plain version of ``matmul``)."""
-    return (x.float() @ y.float()).to(x.dtype)
+    ``x.dtype`` (plain version of ``matmul``). Its rows do not depend on how
+    many rows come with them, as the kernel's do not: y is widened once,
+    and every row goes through a [PLAIN_ROWS, K] @ [K, N] product of the
+    same shape (zero rows pad the last), where a single product of all M
+    rows lets the library's choice of algorithm, which follows M, change
+    each row's summation."""
+    xf, yf = x.float(), y.float()
+    M = xf.shape[0]
+    if M == 0:
+        return xf.new_zeros((0, yf.shape[1])).to(x.dtype)
+    pad = -M % PLAIN_ROWS
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros((pad, xf.shape[1]))])
+    out = torch.cat([rows @ yf for rows in xf.split(PLAIN_ROWS)])
+    return out[:M].to(x.dtype)
 
 
 def rglru_plain(x: torch.Tensor, a: torch.Tensor,

@@ -12,8 +12,9 @@ land in the same tensors.
 
 Every weight product goes through :func:`linear`, the port's ``matmul``
 kernel on the card: it computes each output row the same way whatever the
-number of rows, so prefill(S) + decode_step equals prefill(S+1) in bf16
-as the reference's serving paths do. Prefill attention goes through the
+number of rows, and so do the norms' row means (:func:`row_mean`), so
+prefill(S) + decode_step equals prefill(S+1) in bf16 as the reference's
+serving paths do. Prefill attention goes through the
 ``flash_attention`` kernel (:func:`attention_apply`); the reference's
 ``chunked_attention`` and ``decode_attention`` stay here, held against the
 reference by the tests.
@@ -53,10 +54,49 @@ def dtype_of(name: str) -> torch.dtype:
 
 # -- norms ---------------------------------------------------------------
 
+_FILLS: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
+#: columns each first-level sum of :func:`row_mean` adds up
+ROW_GROUP = 64
+
+
+def _fill(n: int, value: float, device: torch.device) -> torch.Tensor:
+    """A cached float32 [n, 1] column of ``value``."""
+    col = _FILLS.get((n, value, device))
+    if col is None:
+        col = _FILLS[n, value, device] = torch.full(
+            (n, 1), value, dtype=torch.float32, device=device)
+    return col
+
+
+def row_mean_launches(n: int) -> int:
+    """``matmul`` launches of one :func:`row_mean` over ``n`` columns."""
+    return 2 if n > ROW_GROUP and n % ROW_GROUP == 0 else 1
+
+
+def row_mean(x32: torch.Tensor) -> torch.Tensor:
+    """Mean over the last dim of a float32 tensor (kept as a dim of 1), in
+    a fixed order whatever the number of rows: through the float32
+    ``matmul``, where on the card one thread adds up each output in
+    ascending order, first over groups of ``ROW_GROUP`` columns (``@``
+    ones), then over the groups' sums weighted by 1/n (exact scaling for a
+    power-of-two n). torch's own reductions
+    choose their order from the tensor's shape, so a prefill row and the
+    same row at a decode step could round apart and break prefill(S) +
+    decode_step == prefill(S+1)."""
+    n = x32.shape[-1]
+    rows = x32.reshape(-1, n)
+    if row_mean_launches(n) == 2:
+        groups = kops.matmul(rows.reshape(-1, ROW_GROUP),
+                             _fill(ROW_GROUP, 1.0, x32.device))
+        rows = groups.reshape(-1, n // ROW_GROUP)
+    mean = kops.matmul(rows, _fill(rows.shape[1], 1.0 / n, x32.device))
+    return mean.reshape(*x32.shape[:-1], 1)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    var = row_mean(x32 * x32)
     return (x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
             ).to(x.dtype)
 
@@ -64,9 +104,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
-    mu = torch.mean(x32, dim=-1, keepdim=True)
-    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
-    y = (x32 - mu) * torch.rsqrt(var + eps)
+    centred = x32 - row_mean(x32)
+    # population variance, as jnp.var
+    y = centred * torch.rsqrt(row_mean(centred * centred) + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
@@ -140,11 +180,15 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x`` [..., K] @ ``w`` [K, N] with float32 accumulation, in x's dtype,
-    through :func:`repro_torch.kernels.ops.matmul`: the ``matmul`` kernel
-    on the card, whose output rows do not depend on how many rows come
-    with them (one thread per element, K summed in one fixed order, no
-    split); on the CPU the plain float32 product rounded once. ``w`` may
-    be a view (a layer of the stacked parameters): it is read through its
+    through :func:`repro_torch.kernels.ops.matmul`, whose output rows do
+    not depend on how many rows come with them. On the card (bf16) every
+    element is the sum of the same ``wgmma`` m64nXk16 instructions (X and
+    the operand layouts chosen from N and w's strides, never from the row
+    count) over the same 16-deep K chunks in ascending k into one float32
+    accumulator: no split-K, no atomics (``kernels/matmul.py:tile_plan``).
+    On the CPU every row goes through a float32 product of the same
+    shape, rounded once. ``w`` may be a view (a layer of the stacked
+    parameters, or the tied embedding's transpose): it is read through its
     strides, never copied."""
     lead = x.shape[:-1]
     out = kops.matmul(x.reshape(-1, x.shape[-1]), w)

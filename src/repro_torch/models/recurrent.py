@@ -13,7 +13,7 @@ import torch
 
 from ..kernels import ops as kops
 from .config import ModelConfig
-from .layers import Init, Params, gelu, linear, sigmoid, silu
+from .layers import Init, Params, gelu, linear, row_mean, sigmoid, silu
 
 _CONV_K = 4  # temporal conv width (Griffin)
 
@@ -134,10 +134,11 @@ def rwkv6_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     s0 = None if state is None else state["wkv"]
     o, sT = kops.rwkv6(r, k, v, w, p["u"], s0)
     o = o.transpose(1, 2).reshape(b, s, d)
-    # per-head group norm (population variance, as jnp.var)
+    # per-head group norm (population variance, as jnp.var), its row means
+    # independent of the row count
     o32 = o.float().reshape(b, s, H, hd)
-    o32 = (o32 - o32.mean(-1, keepdim=True)) * torch.rsqrt(
-        o32.var(-1, keepdim=True, correction=0) + 1e-5)
+    centred = o32 - row_mean(o32)
+    o32 = centred * torch.rsqrt(row_mean(centred * centred) + 1e-5)
     o = (o32.reshape(b, s, d) * p["ln_scale"]).to(x.dtype)
     out = linear(o * g, p["w_o"])
     return out, {"shift": x[:, -1:], "wkv": sT}

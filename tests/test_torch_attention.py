@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import flash_attention_plain, flash_decode_plain
-from repro_torch.models.layers import linear
+from repro_torch.models.layers import linear, row_mean
 from tests.test_torch_harness import reference
 
 F32_TOL = 1e-5
@@ -329,6 +329,21 @@ def test_linear_is_matmul_of_the_flattened_rows():
     assert ops.matmul.launches == before
 
 
+@pytest.mark.parametrize("m", [1, 8, 40, 656])
+def test_row_mean_rows_do_not_depend_on_the_row_count(m):
+    """The norms' row mean (``x @ ones / n`` through ``matmul``) gives each
+    row the same bits whatever the row count, and the mean to float32
+    rounding."""
+    rng = np.random.default_rng(m + 5)
+    x = torch.from_numpy(rng.normal(size=(m, 3, 2048)).astype(np.float32))
+    full = row_mean(x)
+    assert full.shape == (m, 3, 1)
+    for i in range(m):
+        assert torch.equal(row_mean(x[i:i + 1])[0], full[i]), i
+    torch.testing.assert_close(full, x.double().mean(-1, keepdim=True)
+                               .float(), rtol=1e-5, atol=1e-6)
+
+
 # -- on the card -----------------------------------------------------------
 
 def _cuda():
@@ -420,14 +435,48 @@ def test_cuda_decode_equals_attention_of_the_last_row():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 40, 656, 8192])
+def test_cuda_row_mean_rows_do_not_depend_on_the_row_count(m):
+    """On the card too: the norms' row means, bit for bit against the row
+    alone (torch's own mean and var are not, at these shapes)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(m, 2048, device=dev, generator=g) * 3
+    full = row_mean(x * x)
+    for i in range(m):
+        assert torch.equal(row_mean(x[i:i + 1] * x[i:i + 1])[0], full[i]), i
+
+
+@pytest.mark.gpu
+def test_cuda_row_mean_takes_more_rows_than_a_grid_dimension():
+    """65,600 rows of d = 4096 (a long prefill's norm): the first level is
+    [4,198,400, 64] @ ones, past the 65,535 row tiles that one grid
+    dimension but the first can number. Rows near both ends and across the
+    range equal the row alone, and the mean is the float64 one to float32
+    rounding."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(65600, 4096, device=dev, generator=g)
+    full = row_mean(x)
+    rows = [*range(64), *range(64, 65536, 997), *range(65536, 65600)]
+    for i in rows:
+        assert torch.equal(row_mean(x[i:i + 1])[0], full[i]), i
+    torch.testing.assert_close(full, x.double().mean(-1, keepdim=True)
+                               .float(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 40, 656, 8192])
 @pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096)])
-def test_cuda_linear_rows_do_not_depend_on_the_row_count(k, n):
-    """Every row of ``linear(x[:S], w)`` equals ``linear(x[i:i+1], w)`` bit
-    for bit in bf16: what makes prefill(S) + decode_step equal
+def test_cuda_linear_rows_do_not_depend_on_the_row_count(k, n, m):
+    """Every row of ``linear(x[:M], w)`` equals ``linear(x[i:i+1], w)`` bit
+    for bit in bf16, at a decode step's, a smoke batch's, the serve
+    batch's prefill and the long batch's row counts (each a different
+    block plan of the kernel): what makes prefill(S) + decode_step equal
     prefill(S+1) on the card."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn(40, k, device=dev, generator=g).to(torch.bfloat16)
+    x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
     w = (torch.randn(k, n, device=dev, generator=g) * k ** -0.5).to(
         torch.bfloat16)
     full = linear(x, w)

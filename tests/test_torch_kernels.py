@@ -499,6 +499,23 @@ def test_matmul_integer_gram_is_exact(ref, n):
         got, np.asarray(ref.kops.matmul(jnp.asarray(x), jnp.asarray(x).T)))
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 8, 40, 130, 656])
+def test_matmul_plain_rows_do_not_depend_on_the_row_count(m, dtype):
+    """Every row of ``matmul_plain(x[:M], y)`` equals the row computed
+    alone, bit for bit, as the kernel's rows do: what lets the CPU's bf16
+    prefill(S) + decode_step equal prefill(S+1) where the plain attention
+    agrees."""
+    rng = np.random.default_rng(m)
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    x, y = (torch.from_numpy(a).to(tdt) for a in _mm_inputs(rng, m, 1536,
+                                                              384))
+    full = matmul_plain(x, y)
+    assert full.shape == (m, 384) and full.dtype == tdt
+    for i in range(m):
+        assert torch.equal(matmul_plain(x[i:i + 1], y)[0], full[i]), i
+
+
 def test_matmul_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
     rng = np.random.default_rng(21)
     x, y = _mm_inputs(rng, 33, 17, 9)
@@ -560,6 +577,122 @@ def test_cuda_matmul_kernel_matches_plain_version(dtype):
         np.float32)).cuda()
     np.testing.assert_array_equal(ops.matmul(xi, xi.T).cpu().numpy(),
                                   matmul_plain(xi.cpu(), xi.cpu().T).numpy())
+
+
+# -- the bf16 kernel's tile plan ---------------------------------------------
+
+#: row counts the plan must treat alike: a lone row, a decode step, a
+#: smoke batch, the serve batch's prefill rows, the long batch's
+PLAN_ROWS = (1, 8, 40, 656, 8192)
+#: ragged products: odd widths, K not a multiple of 16, N below one tile
+PLAN_RAGGED = [(257, 65, (65, 1)), (129, 131, (1, 129)), (40, 256, (256, 1)),
+               (1, 1, (1, 1)), (4096, 7, (7, 1))]
+
+
+def _mm_module():
+    import importlib
+
+    return importlib.import_module("repro_torch.kernels.matmul")
+
+
+def _served_products(arch):
+    """(K, N, y strides) of each 2-D parameter of ``arch``'s full config
+    as ``layers.linear`` reads it (a layer view of its stack, N
+    contiguous) and of its head (the tied embedding's transpose)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import _layer_init
+
+    cfg = get_config(arch)
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else (v,))
+
+    out = set()
+    for kind in {cfg.layer_kind(i) for i in range(cfg.num_layers)}:
+        for spec in leaves(_layer_init(cfg, kind)):
+            if len(spec.shape) == 2:
+                K, N = spec.shape
+                out.add((K, N, (N, 1)))
+    d, V = cfg.d_model, cfg.vocab_size
+    out.add((d, V, (1, d)) if cfg.tied_embeddings else (d, V, (V, 1)))
+    return sorted(out)
+
+
+def _plans_across_rows(products):
+    for K, N, strides in products:
+        plans = [_mm_module().tile_plan(M, N, K, strides) for M in PLAN_ROWS]
+        # what fixes each element's sum beyond the module's constant X, BK
+        # and K order: y's layout, from its strides, never from M
+        assert len({p.b_major for p in plans}) == 1, (K, N, plans)
+        assert plans[0].b_major == ("k" if strides[0] == 1 and not (
+            strides[1] == 1 and N > 1) else "mn")
+        for M, p in zip(PLAN_ROWS, plans):
+            # M chooses only the block rows and instructions per step
+            assert p.warpgroups == (1 if M <= 64 else 2)
+            assert p.n_instr in _mm_module().N_INSTR
+            if M <= 64:
+                assert p.n_instr == 1
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b",
+                                  "llama3-8b", "stablelm-12b",
+                                  "starcoder2-15b"])
+def test_bf16_tile_plan_arithmetic_does_not_depend_on_the_row_count(arch):
+    """At every served width the plan's y layout is the same for M in
+    PLAN_ROWS (X, BK and the K order are the module's constants); it
+    differs only in block rows and instructions per step."""
+    _plans_across_rows(_served_products(arch))
+
+
+def test_bf16_tile_plan_ragged_shapes():
+    _plans_across_rows(PLAN_RAGGED)
+    mm = _mm_module()
+    # the tied head's transpose is held K-major
+    assert mm.tile_plan(8, 256000, 4096, (1, 4096)).b_major == "k"
+    # the serve batch's prefill takes four instructions per step
+    assert mm.tile_plan(656, 4096, 14336, (4096, 1)).n_instr == 4
+
+
+#: bf16 products of the kernel's staging paths: (label, M, K, N, y layout):
+#: layer views of a stacked [2, K, N] (MN-major y),
+#: a transposed [N, K].T (K-major y, the tied head's layout), a 514-byte
+#: row stride (no TMA: thread-staged), K not a multiple of 16
+BF16_CASES = [("layer view", 656, 4096, 1024, "stack"),
+              ("layer view decode", 8, 2048, 2048, "stack"),
+              ("transposed", 8, 4096, 4000, "T"),
+              ("transposed prefill", 300, 512, 1000, "T"),
+              ("unaligned stride", 130, 257, 65, "dense"),
+              ("ragged K", 100, 40, 256, "stack")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BF16_CASES, ids=[c[0] for c in BF16_CASES])
+def test_cuda_bf16_matmul_layouts_and_staging_paths(case):
+    """The bf16 kernel within check_matmul's bound of the plain version for
+    each y layout and staging path, and its TMA and thread-staged paths
+    bit for bit equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (chip_smoke.py runs it)")
+    _, M, K, N, layout = case
+    rng = np.random.default_rng(M + K + N)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32))
+    if layout == "stack":
+        y = torch.from_numpy(rng.normal(size=(2, K, N)).astype(np.float32))
+    else:
+        y = torch.from_numpy(rng.normal(size=(N, K) if layout == "T"
+                                        else (K, N)).astype(np.float32))
+    x, y = x.to(torch.bfloat16).cuda(), y.to(torch.bfloat16).cuda()
+    y = y[1] if layout == "stack" else (y.T if layout == "T" else y)
+    got = ops.matmul(x, y)
+    threads = torch.empty_like(got)
+    _mm_module().launch(x, y, threads, _by_threads=True)
+    torch.cuda.synchronize()
+    want = matmul_plain(x.cpu(), y.cpu()).float().numpy()
+    bound = (_mm_bound(x.float().cpu().numpy(), y.float().cpu().numpy())
+             + 2.0 ** -7 * np.abs(want))
+    assert (np.abs(got.float().cpu().numpy() - want) <= bound).all()
+    assert torch.equal(got, threads)
 
 
 # -- rglru and rwkv6 (the model stack's recurrences) -------------------------
