@@ -60,11 +60,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bit for bit, at M = 8, 656 and 8192 (what keeps the bf16
    prefill/decode split exact), beside torch.matmul's and torch.var's
    counts, and ``row_mean`` over 65,600 rows of 4096 (more row tiles than
-   a second grid dimension may number). Then ``flash_attention`` and ``flash_decode`` at every
-   attention shape of the phase and ragged ones (S = 1, sq < sk,
-   sq > sk, windows, not causal, float32; decode lengths 0, 1, partial
-   and full) against their plain versions, with times, bounds and
-   ``scaled_dot_product_attention``'s time as the yardstick; ``rglru`` at
+   a second grid dimension may number). Then ``flash_attention`` and
+   ``flash_decode`` at every attention shape of the phase and ragged ones
+   (S = 1, sq < sk, sq > sk, windows, not causal, float32, rows not
+   16-byte aligned; decode lengths 0, 1, partial and full, live keys
+   across the bf16 kernel's 256-position chunks) against their plain
+   versions, with times, bounds and ``scaled_dot_product_attention``'s
+   time as the yardstick (the decode kernel's block count and its device
+   time, under the profiler, too); ``rglru`` at
    recurrentgemma's [8, 2048, 4096] (from a nonzero h0, a continuation
    split at t = 1000, a ragged shape) and ``rwkv6`` at rwkv6-1.6b's
    [8, 32, 2048, 64] (bf16, and float32 from a nonzero s0, in the model's
@@ -81,7 +84,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``stablelm-12b`` and ``starcoder2-15b`` at full width and 2 layers (a
    prefill and 4 decode steps, each against prefill(S+1)); and card
    against CPU at full width, 2 and 3 layers, float32: the same greedy
-   tokens.
+   tokens (and, as a reading, the CPU's bf16 prefill(S) + decode_step
+   against prefill(S+1)).
 8. Prints the kernels' JSON line, then the device line last.
 
 Launch counts are set to 0 just before each main path and read just after
@@ -350,6 +354,20 @@ def cuda_ms(fn, n):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n
+
+
+def device_ms(fn, n):
+    """Device milliseconds per call of ``fn``: ``n`` calls under the
+    profiler (after a warm-up), every device event summed: what the card
+    spends, where ``cuda_ms`` of a short kernel reads the host's launch
+    rate. Returns (ms per call, {event name: ms per call})."""
+    fn()
+    got = device_profile("device_ms", lambda: [fn() for _ in range(n)])
+    if got is None:
+        return float("nan"), {}
+    busy_s, _, events = got
+    return busy_s * 1e3 / n, {e.key: e.self_device_time_total * 1e-3 / n
+                              for e in events}
 
 
 def matmul_bound(M, K, N, dtype):
@@ -1004,7 +1022,11 @@ def check_flash_attention(dev):
               ("not causal, window", 2, 6, 3, 65, 129, 16, False, 17, f32),
               ("not causal", 1, 2, 1, 200, 77, 8, False, None, bf16),
               ("f32 causal D=256", 2, 16, 1, 130, 130, 256, True, 64, f32),
-              ("f32 causal D=160", 2, 8, 2, 97, 97, 160, True, None, f32)]
+              ("f32 causal D=160", 2, 8, 2, 97, 97, 160, True, None, f32),
+              ("D=36 (rows not 16-byte aligned: plain loads)", 2, 4, 2,
+               150, 700, 36, True, None, bf16),
+              ("sq < sk across chunks, window", 2, 16, 1, 300, 1300, 256,
+               True, 700, bf16)]
     max_err = 0.0
     with ieee_float32():
         for label, B, hq, hkv, sq, sk, d, causal, window, dt in cases:
@@ -1082,6 +1104,7 @@ def check_flash_decode(dev):
 
     from repro_torch.core.precision import ieee_float32
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import blocks as fd_blocks
     from repro_torch.kernels.ref import flash_decode_plain
 
     g = torch.Generator(device=dev).manual_seed(24)
@@ -1124,7 +1147,17 @@ def check_flash_decode(dev):
               ("bf16 D=160 mixed lengths", 8, 32, 8, 130, 160, bf16, None,
                None),
               ("f32 rolled cache", 8, 8, 2, 100, 64, f32, 100, 1037),
-              ("f32 one slot", 3, 4, 4, 1, 64, f32, None, None)]
+              ("f32 one slot", 3, 4, 4, 1, 64, f32, None, None),
+              # the bf16 kernel's chunks: live keys across 256-position
+              # boundaries, plain and rolled, G = 4, 12, 16
+              ("bf16 across chunks, mixed lengths", 8, 32, 8, 1100, 128,
+               bf16, None, None),
+              ("bf16 across chunks, rolled cache", 4, 48, 4, 900, 128,
+               bf16, 900, 2345),
+              ("bf16 MQA G=16 across chunks, rolled cache", 2, 16, 1, 2048,
+               256, bf16, 2048, 4000),
+              ("bf16 D=36 (plain loads), mixed lengths", 8, 8, 2, 600, 36,
+               bf16, None, None)]
     max_err = 0.0
     with ieee_float32():
         for label, B, hq, hkv, S, d, dt, full, last in cases:
@@ -1171,12 +1204,22 @@ def check_flash_decode(dev):
                 bound, by, n_bytes, n_ops = attention_bound(
                     B * hq * d, B * hkv * n_live * d, 2,
                     4 * B * hq * d * n_live, "bfloat16")
+                launched, working = fd_blocks(length, end, S, hq, hkv)
+                kd_ms, k_events = device_ms(
+                    lambda: ops.flash_decode(q, k, v, length, end), 20)
+                ld_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k, v, attn_mask=mask, enable_gqa=True), 20)
+                print(f"flash_decode {arch} [{B}, {hq}/{hkv}, {S}, {d}] "
+                      f"device time per call: kernel {kd_ms:.6f} ms ("
+                      + ", ".join(f"{name[:40]} {t:.6f}"
+                                  for name, t in k_events.items())
+                      + f"), scaled_dot_product_attention {ld_ms:.6f} ms")
                 print(f"flash_decode {arch} q [{B}, {hq}, {d}], cache [{B}, "
                       f"{hkv}, {S}, {d}] bf16, length {n_live}, end {last}: "
                       f"kernel "
                       f"{k_ms:.6f} ms ({n_bytes / k_ms * 1e-9:.3f} TB/s), "
-                      f"{B * hkv} blocks on {n_sm} "
-                      f"SMs, plain {p_ms:.6f} ms, "
+                      f"{working} working blocks of a grid of {launched} on "
+                      f"{n_sm} SMs, plain {p_ms:.6f} ms, "
                       f"scaled_dot_product_attention {l_ms:.6f} ms, bound "
                       f"{bound:.6f} ms by {by} (bytes {n_bytes}, operations "
                       f"{n_ops}); kernel at {bound / k_ms:.4f} of the bound, "
@@ -1728,14 +1771,17 @@ def check_serve_against_cpu(arch, dev, seed):
           f"{t1 - t0:.3f} s, CPU {t2 - t1:.3f} s; greedy tokens over "
           f"{CPU_DECODE} steps equal {same}; prefill logits differ by "
           f"{rel!r} of their max (tolerance {CPU_RTOL})")
-    # a reading, not a gate: the plain product's rows no longer depend on
-    # the row count, but the plain attention versions still sum prefill
-    # and decode in different orders on the CPU
+    # a reading, not a gate: the plain product, the norms' row means and
+    # the plain attention versions (fixed key tiles and chunks, fixed
+    # [PLAIN_ROWS, D] products) sum each row as the row alone would
     cpu = Model(dataclasses.replace(cfg, dtype="bfloat16",
                                     kv_dtype="bfloat16"), device="cpu")
     cpu.load_state_dict(card.state_dict())
-    print(f"serve {arch} at {cfg.num_layers} layers, bf16 on the CPU: "
-          f"{incremental_gap(cpu, toks, SERVE_CACHE)[4]}")
+    t0 = time.perf_counter()
+    _, dec, full, _, line, _ = incremental_gap(cpu, toks, SERVE_CACHE)
+    print(f"serve {arch} at {cfg.num_layers} layers, bf16 on the CPU "
+          f"({time.perf_counter() - t0:.3f} s): {line}; bitwise equal "
+          f"{torch.equal(dec, full)}")
     del card, cpu
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use.
 
-Each source under ``csrc/`` compiles on its own into a shared library with
-a plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so a
-build takes seconds, not minutes). Libraries land in ``build/kernels/`` at
-the repository root, named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads the cached file.
+Each source under ``csrc/`` compiles on its own (with the shared headers
+``csrc/*.cuh`` it includes) into a shared library with a plain C
+interface, loaded with :mod:`ctypes` (no PyTorch headers, so a build takes
+seconds, not minutes). Libraries land in ``build/kernels/`` at the
+repository root, named by a hash of the source, the headers and the flags,
+so an edited source rebuilds and an unchanged one loads the cached file.
 
 Nothing here runs when the package is imported: the CPU tests import every
 module on machines without ``nvcc``.
@@ -57,9 +58,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where kernel ``name``'s library lives, keyed by source and flags."""
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
+    """Where kernel ``name``'s library lives, keyed by its source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    parts = [(CSRC / SOURCES[name]).read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -22,38 +22,67 @@
 // byte, so the operations bound rules (989 TFLOP/s with tensor cores,
 // 67 without). At the serve batch's 82 tokens the bytes bound rules.
 //
-// What the design does about it. A simple and right first kernel, IEEE
-// float32 arithmetic on the CUDA cores (no mma, wgmma or TMA yet). The TPU
-// kernel's sequential KV grid axis becomes a loop inside the block: one
-// 256-thread block per (64-query tile, query head, batch row) keeps the
-// tile's running max m, denominator l and float32 accumulator in
-// registers across the loop. The live key range is computed once from the
-// tile's first and last query position (the causal upper edge, the
-// window's lower edge), so tiles behind the window or past the diagonal
-// cost nothing. Each 32-key tile of K and V is staged in shared memory as
-// float32 (rows padded by one to spread the banks), the query tile stays
-// there for the whole loop (dynamic shared memory: 137 KB at D = 256).
-// Thread (r, c), r = tid / 8, c = tid % 8, owns query rows r and r + 32:
-// their scores against keys c, c + 8, c + 16, c + 24 (eight dots, each q
-// value read once for four keys), the row max by shuffles among the
-// row's eight threads, and the accumulators of output columns c + 8 j,
-// j < DPAD / 8, for both rows (each thread also sums its rows' p).
+// bf16: the tensor cores (attention_mma.cuh, shared with flash_decode.cu).
+// One 256-thread block per (query tile, query head, batch row), the tiles
+// taken longest first (causal). Each warp owns 16 query rows: S = Q K^T by
+// mma.sync m16n8k16 (Q and K through ldmatrix), the online softmax on the
+// C fragments, then P V with p split into two bf16 parts (V through
+// ldmatrix.trans). 64-key tiles of K and V come through two-tile rings
+// in shared memory, filled by 16-byte cp.async copies through the strided
+// head-split views (plain loads where a row is not 16-byte aligned), the
+// next tile's copies in flight while the block works on this one (one
+// barrier a tile); rows padded by 16 bytes against bank conflicts; head
+// dims padded with zeros to 16, 32, 64, 128, 160 or 256. Up to D = 128 a
+// block holds 128 rows, a warp per 16; above (stablelm's 160,
+// recurrentgemma's 256) two warps share 16 rows, each keeping half of the
+// output columns (each computes the same S: the float32 accumulators of
+// 16 rows x 256 columns, for the chunk's partial and the merged total,
+// would be 256 registers a thread), so a block holds 64. The state closes
+// into a partial every 256 key positions and merges into the row's total
+// in chunk order, as flash_decode.cu's blocks do. The live key range of a
+// tile is computed once from its first and last query position (the
+// causal upper edge, the window's lower edge), so tiles behind the window
+// or past the diagonal cost nothing; a warp skips the tiles masked for all
+// its rows, and evaluates no mask on tiles live for all of them.
+//
+// What holds it back (PERF.md, PR 17): p's two parts cost 1.5x the
+// tensor-core work of one P V (a single bf16 p would miss the plain
+// version by 2^-9 of max|v|), and the chunk's partial beside the total
+// takes 128 of a thread's registers at D = 128, so eight warps a SM is
+// the most that fits; a warp's chain of dependent softmax steps is then
+// left largely unhidden. About 0.15 of the card's peak at llama3-8b's
+// 4096-token prefill.
+//
+// float32: a simple and right first kernel on the CUDA cores (IEEE fmaf;
+// no mma, cp.async or TMA). One 256-thread block per (64-query tile, query
+// head, batch row) keeps the tile's running max m, denominator l and
+// float32 accumulator in registers across the key loop. Each 32-key tile of
+// K and V is staged in shared memory (rows padded by one to spread the
+// banks), the query tile stays there for the whole loop (dynamic shared
+// memory: 137 KB at D = 256). Thread (r, c), r = tid / 8, c = tid % 8, owns
+// query rows r and r + 32: their scores against keys c, c + 8, c + 16,
+// c + 24 (eight dots, each q value read once for four keys), the row max
+// by shuffles among the row's eight threads, and the accumulators of
+// output columns c + 8 j, j < DPAD / 8, for both rows (each thread also
+// sums its rows' p).
 //
 // Exactness. Built with --fmad=false; the fused multiply-adds are the
-// explicit fmaf of the dot products and of the p . v sums; expf is the
-// accurate one (no fast-math intrinsics). Against the plain version
-// (ref.py:flash_attention_plain) the result differs only by summation
-// order (about 1e-6 relative in float32, one bf16 ulp of the output in
-// bf16). Against flash_decode.cu it is equal bit for bit: a query row's
-// result is the same arithmetic in the same order in both kernels (the
-// dot in ascending d; 32-key tiles at multiples of 32 in key position,
-// fully masked tiles leaving m, l and the accumulators as they are; the
-// tile's max, then p, the tile's sum of p and the p . v sums in ascending
-// key order). The rows of a query tile never see each other, and the
-// tiles a row reads past its own live keys are masked for it, so a row's
-// result does not depend on Sq either. That, with the matmul kernel's
-// row-independent products, makes the model's decode step equal its
-// prefill of one more token.
+// explicit fmaf of the float32 dot products and p . v sums, and the tensor
+// cores' own; expf is the accurate one (no fast-math intrinsics). Against
+// the plain version (ref.py:flash_attention_plain) the result differs by
+// summation order (about 1e-6 relative in float32) and, in bf16, by p's
+// two-part rounding (2^-18 of it): within 1e-5 max|v| plus one bf16 ulp
+// of the output. Against flash_decode.cu it is equal bit for bit: a query
+// row's result is the same arithmetic in the same order in both kernels
+// (float32: the dot in ascending d, 32-key tiles at multiples of 32 in key
+// position, fully masked tiles leaving m, l and the accumulators as they
+// are, the tile's max, then p, the tile's sum of p and the p . v sums in
+// ascending key order; bf16: the invariants of attention_mma.cuh). The
+// rows of a query tile never see each other, and the tiles a row reads
+// past its own live keys are masked for it, so a row's result does not
+// depend on Sq either. That, with the matmul kernel's row-independent
+// products, makes the model's decode step equal its prefill of one more
+// token.
 //
 // C interface (loaded with ctypes): flash_attention_f32 /
 // flash_attention_bf16 take device pointers q, k, v, out, the sizes B,
@@ -65,6 +94,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
+
+#include <type_traits>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -78,13 +111,7 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 template <int DPAD>
 constexpr int smem_bytes() {
@@ -256,6 +283,218 @@ int launch_d(const T* q, const T* k, const T* v, T* out, int B, int Hq,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16: the tensor cores -------------------------------------------------
+
+constexpr int kMmaThreads = 256;  // eight warps, 16 query rows each
+
+// warps sharing 16 query rows, each keeping DP / WN output columns: at
+// D > 128 the float32 accumulators of all columns (the chunk's and the
+// merged total) would not fit a thread's registers
+template <int DP>
+__host__ __device__ constexpr int col_parts() {
+  return DP > 128 ? 2 : 1;
+}
+
+template <int DP>
+__host__ __device__ constexpr int mma_rows() {
+  return 16 * (kMmaThreads / 32) / col_parts<DP>();
+}
+
+// bf16 tiles: Q, then two K and two V tiles
+template <int DP>
+__host__ __device__ constexpr int mma_smem_bytes() {
+  return (mma_rows<DP>() + 4 * attn::kTile) * attn::pitch<DP>() *
+         static_cast<int>(sizeof(attn::bf16));
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_attention_mma(const attn::bf16* __restrict__ q,
+                    const attn::bf16* __restrict__ k,
+                    const attn::bf16* __restrict__ v,
+                    attn::bf16* __restrict__ out, int Hq, int Hkv, int Sq,
+                    int Sk, int D, int causal, int window, float scale,
+                    Strides sq, Strides sk, Strides sv, Strides so,
+                    int vec) {
+  using attn::bf16;
+  using attn::kTile;
+  constexpr int P = attn::pitch<DP>();
+  constexpr int WN = col_parts<DP>();
+  constexpr int BQ = mma_rows<DP>();
+  constexpr int NT = DP / 8 / WN;  // n8 tiles of output per warp
+  extern __shared__ __align__(16) unsigned char fa_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(fa_smem);   // [BQ][P]
+  bf16* kr = qs + BQ * P;                        // 2 x [kTile][P]
+  bf16* vr = kr + 2 * kTile * P;                 // 2 x [kTile][P]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rt = warp / WN, part = warp % WN;
+  const int i0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* kb = k + b * sk.b + hk * sk.h;
+  const bf16* vb = v + b * sv.b + hk * sv.h;
+
+  // live keys of the tile: [k_begin, k_end)
+  const int q_lo = Sk - Sq + i0;
+  const int q_hi = Sk - Sq + min(i0 + BQ, Sq) - 1;
+  int k_begin = 0, k_end = Sk;
+  if (causal) k_end = max(0, min(Sk, q_hi + 1));
+  if (window > 0) k_begin = max(0, q_lo - window + 1);
+  const int t0 = k_begin / kTile, t1 = (k_end + kTile - 1) / kTile;
+
+  attn::zero_smem(fa_smem, mma_smem_bytes<DP>(), tid, kMmaThreads);
+  __syncthreads();
+  // tile t's K and V in kr[t % 2] and vr[t % 2]; nothing past t1
+  auto load_tile = [&](int t) {
+    if (t >= t1) return;
+    const int j0 = t * kTile;
+    attn::load_rows<DP, kTile, kMmaThreads>(
+        kr + (t & 1) * kTile * P, D, vec, kb, [=](int r) -> const bf16* {
+          return j0 + r < Sk ? kb + (j0 + r) * sk.s : nullptr;
+        }, tid);
+    attn::load_rows<DP, kTile, kMmaThreads>(
+        vr + (t & 1) * kTile * P, D, vec, vb, [=](int r) -> const bf16* {
+          return j0 + r < Sk ? vb + (j0 + r) * sv.s : nullptr;
+        }, tid);
+  };
+  attn::load_rows<DP, BQ, kMmaThreads>(
+      qs, D, vec, qb, [=](int r) -> const bf16* {
+        return i0 + r < Sq ? qb + (i0 + r) * sq.s : nullptr;
+      }, tid);
+  load_tile(t0);
+  attn::cp_async_commit();
+
+  // the rows' total (m, l, acc) and the current chunk's partial
+  float m[2], l[2], acc[NT][4], mc[2], lc[2], accc[NT][4];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    m[hh] = mc[hh] = attn::kMasked;
+    l[hh] = lc[hh] = 0.0f;
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = accc[n][e] = 0.0f;
+
+  const bf16* qw = qs + 16 * rt * P;
+  const int qpos0 = Sk - Sq + i0 + 16 * rt;  // position of the warp's row 0
+  for (int t = t0; t < t1; ++t) {
+    attn::cp_async_wait<0>();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    load_tile(t + 1);  // into tile t - 1's place
+    attn::cp_async_commit();
+    const int j0 = t * kTile;
+    // a tile masked for all the warp's rows would change nothing
+    const bool none = (causal && j0 > qpos0 + 15) ||
+                      (window > 0 && j0 + kTile - 1 <= qpos0 - window);
+    if (!none) {
+      float s[kTile / 8][4];
+      attn::qk_tile<DP>(qw, kr + (t & 1) * kTile * P, s);
+      const bf16* vs = vr + (t & 1) * kTile * P;
+      auto live = [=](int r, int c) {
+        const int kpos = j0 + c, qpos = qpos0 + r;
+        return kpos < Sk && (!causal || kpos <= qpos) &&
+               (window <= 0 || kpos > qpos - window);
+      };
+      // every key of the tile live for all 16 rows: no mask to evaluate
+      const bool full = j0 + kTile <= Sk &&
+                        (!causal || j0 + kTile - 1 <= qpos0) &&
+                        (window <= 0 || j0 > qpos0 + 15 - window);
+      if (full)
+        attn::softmax_pv<DP, NT, true>(s, vs, part * NT, scale, live, mc,
+                                       lc, accc);
+      else
+        attn::softmax_pv<DP, NT, false>(s, vs, part * NT, scale, live, mc,
+                                        lc, accc);
+    }
+    if ((j0 + kTile) % attn::kChunk == 0 || t == t1 - 1) {
+      // close the chunk: merge its partial into the total, start anew
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float e1, e2;
+        attn::merge_scales(m[hh], mc[hh], e1, e2);
+        l[hh] = attn::merge_value(l[hh], e1, lc[hh], e2);
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
+            acc[n][e] = attn::merge_value(acc[n][e], e1, accc[n][e], e2);
+            accc[n][e] = 0.0f;
+          }
+        mc[hh] = attn::kMasked;
+        lc[hh] = 0.0f;
+      }
+    }
+  }
+  attn::cp_async_wait<0>();
+
+  const int cq = (lane & 3) * 2;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = i0 + 16 * rt + (lane >> 2) + 8 * hh;
+    if (i >= Sq) continue;
+    bf16* o = out + b * so.b + h * so.h + i * so.s;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = (part * NT + n) * 8 + cq + e;
+        if (d < D)
+          o[d] = __float2bfloat16_rn(attn::finish(acc[n][2 * hh + e], l[hh]));
+      }
+  }
+}
+
+template <int DP>
+int launch_mma_d(const attn::bf16* q, const attn::bf16* k,
+                 const attn::bf16* v, attn::bf16* out, int B, int Hq,
+                 int Hkv, int Sq, int Sk, int D, int causal, int window,
+                 float scale, Strides sq, Strides sk, Strides sv,
+                 Strides so, cudaStream_t stream) {
+  constexpr int bytes = mma_smem_bytes<DP>();
+  auto kernel = flash_attention_mma<DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = D % 8 == 0 && attn::aligned16(q, sq.s) &&
+                  attn::aligned16(k, sk.s) && attn::aligned16(v, sv.s) &&
+                  sq.b % 8 == 0 && sq.h % 8 == 0 && sk.b % 8 == 0 &&
+                  sk.h % 8 == 0 && sv.b % 8 == 0 && sv.h % 8 == 0;
+  const dim3 grid((Sq + mma_rows<DP>() - 1) / mma_rows<DP>(), Hq, B);
+  kernel<<<grid, kMmaThreads, bytes, stream>>>(q, k, v, out, Hq, Hkv, Sq,
+                                               Sk, D, causal, window, scale,
+                                               sq, sk, sv, so, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_mma(const attn::bf16* q, const attn::bf16* k, const attn::bf16* v,
+               attn::bf16* out, int B, int Hq, int Hkv, int Sq, int Sk,
+               int D, int causal, int window, float scale, Strides sq,
+               Strides sk, Strides sv, Strides so, cudaStream_t s) {
+  switch (attn::padded_dim(D)) {
+    case 16:
+      return launch_mma_d<16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
+                              window, scale, sq, sk, sv, so, s);
+    case 32:
+      return launch_mma_d<32>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
+                              window, scale, sq, sk, sv, so, s);
+    case 64:
+      return launch_mma_d<64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
+                              window, scale, sq, sk, sv, so, s);
+    case 128:
+      return launch_mma_d<128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
+                               window, scale, sq, sk, sv, so, s);
+    case 160:
+      return launch_mma_d<160>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
+                               window, scale, sq, sk, sv, so, s);
+    default:
+      return launch_mma_d<256>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
+                               window, scale, sq, sk, sv, so, s);
+  }
+}
+
 template <typename T>
 int launch(const T* q, const T* k, const T* v, T* out, int B, int Hq,
            int Hkv, int Sq, int Sk, int D, int causal, int window,
@@ -270,17 +509,22 @@ int launch(const T* q, const T* k, const T* v, T* out, int B, int Hq,
   const Strides sv{st_v[0], st_v[1], st_v[2]};
   const Strides so{st_o[0], st_o[1], st_o[2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32)
-    return launch_d<T, 32>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
-                           window, scale, sq, sk, sv, so, s);
-  if (D <= 64)
-    return launch_d<T, 64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
-                           window, scale, sq, sk, sv, so, s);
-  if (D <= 128)
-    return launch_d<T, 128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
+  if constexpr (std::is_same<T, attn::bf16>::value) {
+    return launch_mma(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal, window,
+                      scale, sq, sk, sv, so, s);
+  } else {
+    if (D <= 32)
+      return launch_d<T, 32>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
+                             window, scale, sq, sk, sv, so, s);
+    if (D <= 64)
+      return launch_d<T, 64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
+                             window, scale, sq, sk, sv, so, s);
+    if (D <= 128)
+      return launch_d<T, 128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
+                              window, scale, sq, sk, sv, so, s);
+    return launch_d<T, 256>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
                             window, scale, sq, sk, sv, so, s);
-  return launch_d<T, 256>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
-                          window, scale, sq, sk, sv, so, s);
+  }
 }
 
 }  // namespace

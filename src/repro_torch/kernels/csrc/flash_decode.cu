@@ -24,38 +24,60 @@
 // bound (llama3-8b's 2 x 8 x 4097 x 128 live bf16 keys and values,
 // 16.8 MB: 5 us at 3.35 TB/s).
 //
-// What the design does about it. A simple and right first kernel. The
-// TPU kernel's sequential KV grid axis becomes a loop inside the block:
+// bf16: the tensor cores, split over the cache (attention_mma.cuh, shared
+// with flash_attention.cu). The grid is (chunk, KV head and group of 16
+// query heads, batch row): each block takes one 256-position chunk of its
+// row's live range [end - n, end), from the chunk that holds the first
+// live key, in 64-key tiles through a two-stage ring of 16-byte cp.async
+// copies (rolled-cache slots P % S, read row by row; keys outside the live
+// range are zeros), for up to 16 query heads of one KV head: the G = Hq /
+// Hkv heads of a group are the rows of one m16 instruction tile (4 for
+// llama3-8b, 12 for starcoder2-15b, 16 for recurrentgemma-9b's MQA; the
+// rest zero), so every K and V value is read once per group. Its warps
+// each compute the same S, m and l and add P V into their own output
+// columns. Each block writes its chunk's partial (m, l and the unnormalised
+// float32 accumulator of its rows) to float32 scratch that the wrapper
+// allocates; a second kernel in this file, launched by the same C call,
+// merges a row's partials in chunk order and writes acc / l. llama3-8b's
+// long batch (4097 live keys) runs 2 x 8 x 17 working blocks (a grid of
+// 2 x 8 x 18: the grid takes the most chunks a row of S slots can span,
+// and a block past its row's last chunk returns at once); recurrentgemma-
+// 9b's long batch (a rolled window of 2048) 2 x 1 x 9.
+//
+// float32: a simple and right first kernel on the CUDA cores, unchanged:
 // one 256-thread block per (KV head, batch row) walks the live keys in
 // 32-key tiles in position order, staged in shared memory as float32 with
 // coalesced loads along D, and reads nothing past them. The running max
 // and denominator of the G rows live in shared memory, one warp per row
 // takes a tile's max by shuffles and its sum of p in key order, and each
 // thread keeps up to kAcc float32 accumulators of the [G, D] output in
-// registers.
-// Only B x Hkv blocks run (16 at llama3-8b's long batch, 2 at
-// recurrentgemma-9b's, on 132 SMs): splitting the cache over blocks with
-// a merge pass is the known next step (PERF.md).
+// registers. Only B x Hkv blocks run.
 //
 // Exactness. Built with --fmad=false; the fused multiply-adds are the
-// explicit fmaf of the dots and the p . v sums; expf is the accurate one.
-// Against the plain version (ref.py:flash_decode_plain) the result
-// differs only by summation order. Against flash_attention.cu it is equal
-// bit for bit for the same query row and keys: the tiles start at
-// multiples of 32 in key position (keys before the first live one masked)
-// and every step is the same arithmetic in the same order (see
-// flash_attention.cu).
+// explicit fmaf of the float32 dots and p . v sums, and the tensor cores'
+// own; expf is the accurate one. Against the plain version
+// (ref.py:flash_decode_plain) the result differs by summation order and,
+// in bf16, by p's two-part rounding. Against flash_attention.cu it is
+// equal bit for bit for the same query row and keys: float32 tiles of 32
+// and bf16 tiles of 64 start at multiples of their width in key position
+// (keys before the first live one masked), the bf16 chunks at multiples
+// of 256, and every step is the same arithmetic in the same order (see
+// flash_attention.cu and attention_mma.cuh).
 //
 // C interface (loaded with ctypes): flash_decode_f32 / flash_decode_bf16
 // take device pointers q, k, v, length, end, out, the sizes
 // B, Hq, Hkv, S, D, scale, the element strides of q along (b, h) and of k
-// and v along (b, h, s) as host arrays of long long, and the CUDA stream;
-// they return the cudaError_t of the launch (0 = success). The launch is
-// asynchronous.
+// and v along (b, h, s) as host arrays of long long, flash_decode_bf16
+// then the float32 scratch part_m and part_l [B * Hq * chunks] and
+// part_acc [B * Hq * chunks * D] (chunks = flash_decode_chunks(S)), and
+// the CUDA stream; they return the cudaError_t of the launch (0 =
+// success). The launch is asynchronous.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -66,13 +88,7 @@ constexpr int kAcc = 32;    // accumulators per thread: G * DPAD <= 8192
 constexpr float kMasked = -0.7f * FLT_MAX;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 template <int DPAD>
 int smem_bytes(int G) {
@@ -241,6 +257,238 @@ int launch(const T* q, const T* k, const T* v, const int* length,
                           scale, st_q, st_k, st_v, s);
 }
 
+// ---- bf16: the tensor cores, split over the cache ---------------------------
+
+// chunks a row of S slots can span: the grid's first dimension
+__host__ __device__ inline int chunks(int S) {
+  return S > 0 ? (S + attn::kChunk - 2) / attn::kChunk + 1 : 0;
+}
+
+// warps per block: each owns NT n8 tiles of the output columns
+template <int DP>
+__host__ __device__ constexpr int dec_warps() {
+  return DP >= 64 ? 4 : DP / 16;
+}
+
+template <int DP>
+__host__ __device__ constexpr int dec_smem_bytes() {
+  return (16 + 4 * attn::kTile) * attn::pitch<DP>() *
+         static_cast<int>(sizeof(attn::bf16));
+}
+
+// row b's live positions [lo, hi) and the chunks they span
+struct LiveRange {
+  int lo, hi, first, count;
+};
+
+__device__ __forceinline__ LiveRange live_range(const int* length,
+                                                const int* end, int b,
+                                                int S) {
+  const int n = max(0, min(length[b], S));
+  const int hi = end[b];
+  const int lo = max(0, hi - n);
+  LiveRange r{lo, hi, lo / attn::kChunk, 0};
+  if (hi > lo) r.count = (hi - 1) / attn::kChunk - r.first + 1;
+  return r;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(128)
+flash_decode_mma(const attn::bf16* __restrict__ q,
+                 const attn::bf16* __restrict__ k,
+                 const attn::bf16* __restrict__ v,
+                 const int* __restrict__ length,
+                 const int* __restrict__ end, float* __restrict__ part_m,
+                 float* __restrict__ part_l, float* __restrict__ part_acc,
+                 int Hq, int Hkv, int S, int D, float scale, long long qb_s,
+                 long long qh_s, long long kb_s, long long kh_s,
+                 long long ks_s, long long vb_s, long long vh_s,
+                 long long vs_s, int vec) {
+  using attn::bf16;
+  using attn::kTile;
+  constexpr int P = attn::pitch<DP>();
+  constexpr int NW = dec_warps<DP>();
+  constexpr int NT = DP / 8 / NW;  // n8 tiles of output per warp
+  extern __shared__ __align__(16) unsigned char fd_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(fd_smem);  // [16][P]
+  bf16* ring = qs + 16 * P;  // 2 x (K [kTile][P], V [kTile][P])
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c = blockIdx.x, b = blockIdx.z;
+  const int G = Hq / Hkv, groups = (G + 15) / 16;
+  const int h = blockIdx.y / groups, g0 = (blockIdx.y % groups) * 16;
+  const int rows = min(16, G - g0);
+  const LiveRange lr = live_range(length, end, b, S);
+  if (c >= lr.count) return;
+  const int cc = lr.first + c;  // the chunk's index in key position
+  const int p_lo = max(lr.lo, cc * attn::kChunk);
+  const int p_hi = min(lr.hi, (cc + 1) * attn::kChunk);
+  const int t0 = p_lo / kTile, t1 = (p_hi + kTile - 1) / kTile;
+  const bf16* qb = q + b * qb_s + (h * G + g0) * qh_s;
+  const bf16* kb = k + b * kb_s + h * kh_s;
+  const bf16* vb = v + b * vb_s + h * vh_s;
+
+  attn::zero_smem(fd_smem, dec_smem_bytes<DP>(), tid, 32 * NW);
+  __syncthreads();
+  attn::load_rows<DP, 16, 32 * NW>(
+      qs, D, vec, qb, [=](int r) -> const bf16* {
+        return r < rows ? qb + r * qh_s : nullptr;
+      }, tid);
+  // tile t's K and V in ring[t % 2]; nothing past t1
+  auto load_tile = [&](int t) {
+    if (t >= t1) return;
+    bf16* ks = ring + (t & 1) * 2 * kTile * P;
+    const int j0 = t * kTile;
+    attn::load_rows<DP, kTile, 32 * NW>(
+        ks, D, vec, kb, [=](int r) -> const bf16* {
+          const int pos = j0 + r;
+          return pos >= p_lo && pos < p_hi ? kb + (pos % S) * ks_s
+                                           : nullptr;
+        }, tid);
+    attn::load_rows<DP, kTile, 32 * NW>(
+        ks + kTile * P, D, vec, vb, [=](int r) -> const bf16* {
+          const int pos = j0 + r;
+          return pos >= p_lo && pos < p_hi ? vb + (pos % S) * vs_s
+                                           : nullptr;
+        }, tid);
+  };
+  load_tile(t0);
+  attn::cp_async_commit();
+
+  float m[2] = {attn::kMasked, attn::kMasked}, l[2] = {0.0f, 0.0f};
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  for (int t = t0; t < t1; ++t) {
+    attn::cp_async_wait<0>();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    load_tile(t + 1);  // into tile t - 1's place
+    attn::cp_async_commit();
+    const bf16* ks = ring + (t & 1) * 2 * kTile * P;
+    const int j0 = t * kTile;
+    auto live = [=](int, int col) {
+      const int pos = j0 + col;
+      return pos >= lr.lo && pos < lr.hi;
+    };
+    float s[kTile / 8][4];
+    attn::qk_tile<DP>(qs, ks, s);
+    if (j0 >= lr.lo && j0 + kTile <= lr.hi)  // every key live
+      attn::softmax_pv<DP, NT, true>(s, ks + kTile * P, warp * NT, scale,
+                                     live, m, l, acc);
+    else
+      attn::softmax_pv<DP, NT, false>(s, ks + kTile * P, warp * NT, scale,
+                                      live, m, l, acc);
+  }
+  attn::cp_async_wait<0>();
+
+  // the chunk's partial of the group's rows
+  const int n_chunks = gridDim.x;
+  const int row0 = b * Hq + h * G + g0;
+  const int cq = (lane & 3) * 2;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = (lane >> 2) + 8 * hh;
+    if (r >= rows) continue;
+    const long long slot = static_cast<long long>(row0 + r) * n_chunks + c;
+    if (warp == 0 && (lane & 3) == 0) {
+      part_m[slot] = m[hh];
+      part_l[slot] = l[hh];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = (warp * NT + n) * 8 + cq + e;
+        if (d < D) part_acc[slot * D + d] = acc[n][2 * hh + e];
+      }
+  }
+}
+
+// out[row] = the merge of the row's partials in chunk order, / l
+__global__ void __launch_bounds__(128)
+flash_decode_merge(const float* __restrict__ part_m,
+                   const float* __restrict__ part_l,
+                   const float* __restrict__ part_acc,
+                   const int* __restrict__ length,
+                   const int* __restrict__ end, attn::bf16* __restrict__ out,
+                   int Hq, int S, int D, int n_chunks) {
+  const int row = blockIdx.x, b = row / Hq;
+  const LiveRange lr = live_range(length, end, b, S);
+  const long long base = static_cast<long long>(row) * n_chunks;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float m = attn::kMasked, l = 0.0f, a = 0.0f;
+    for (int c = 0; c < lr.count; ++c) {
+      float e1, e2;
+      attn::merge_scales(m, part_m[base + c], e1, e2);
+      l = attn::merge_value(l, e1, part_l[base + c], e2);
+      a = attn::merge_value(a, e1, part_acc[(base + c) * D + d], e2);
+    }
+    out[static_cast<long long>(row) * D + d] =
+        __float2bfloat16_rn(attn::finish(a, l));
+  }
+}
+
+template <int DP>
+int launch_mma_d(const attn::bf16* q, const attn::bf16* k,
+                 const attn::bf16* v, const int* length, const int* end,
+                 attn::bf16* out, float* part_m, float* part_l,
+                 float* part_acc, int B, int Hq, int Hkv, int S, int D,
+                 float scale, const long long* st_q, const long long* st_k,
+                 const long long* st_v, cudaStream_t stream) {
+  const int n_chunks = chunks(S);
+  if (n_chunks > 0) {
+    constexpr int bytes = dec_smem_bytes<DP>();
+    auto kernel = flash_decode_mma<DP>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int vec = D % 8 == 0 && attn::aligned16(q, st_q[1]) &&
+                    st_q[0] % 8 == 0 && attn::aligned16(k, st_k[2]) &&
+                    st_k[0] % 8 == 0 && st_k[1] % 8 == 0 &&
+                    attn::aligned16(v, st_v[2]) && st_v[0] % 8 == 0 &&
+                    st_v[1] % 8 == 0;
+    const int G = Hq / Hkv;
+    const dim3 grid(n_chunks, Hkv * ((G + 15) / 16), B);
+    kernel<<<grid, 32 * dec_warps<DP>(), bytes, stream>>>(
+        q, k, v, length, end, part_m, part_l, part_acc, Hq, Hkv, S, D,
+        scale, st_q[0], st_q[1], st_k[0], st_k[1], st_k[2], st_v[0],
+        st_v[1], st_v[2], vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  flash_decode_merge<<<B * Hq, 128, 0, stream>>>(
+      part_m, part_l, part_acc, length, end, out, Hq, S, D, n_chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_mma(const attn::bf16* q, const attn::bf16* k, const attn::bf16* v,
+               const int* length, const int* end, attn::bf16* out,
+               float* part_m, float* part_l, float* part_acc, int B, int Hq,
+               int Hkv, int S, int D, float scale, const long long* st_q,
+               const long long* st_k, const long long* st_v, void* stream) {
+  if (B <= 0 || Hq <= 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 || S < 0 ||
+      B > 65535 || Hkv * ((Hq / Hkv + 15) / 16) > 65535 ||
+      static_cast<long long>(B) * Hq > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FD_ARGS                                                           \
+  q, k, v, length, end, out, part_m, part_l, part_acc, B, Hq, Hkv, S, D, \
+      scale, st_q, st_k, st_v, s
+  switch (attn::padded_dim(D)) {
+    case 16: return launch_mma_d<16>(FD_ARGS);
+    case 32: return launch_mma_d<32>(FD_ARGS);
+    case 64: return launch_mma_d<64>(FD_ARGS);
+    case 128: return launch_mma_d<128>(FD_ARGS);
+    case 160: return launch_mma_d<160>(FD_ARGS);
+    default: return launch_mma_d<256>(FD_ARGS);
+  }
+#undef FD_ARGS
+}
+
 }  // namespace
 
 extern "C" int flash_decode_f32(const float* q, const float* k,
@@ -253,13 +501,17 @@ extern "C" int flash_decode_f32(const float* q, const float* k,
                        st_q, st_k, st_v, stream);
 }
 
+extern "C" int flash_decode_chunks(int S) { return chunks(S); }
+
 extern "C" int flash_decode_bf16(const __nv_bfloat16* q,
                                  const __nv_bfloat16* k,
                                  const __nv_bfloat16* v, const int* length,
                                  const int* end, __nv_bfloat16* out, int B,
                                  int Hq, int Hkv, int S, int D, float scale,
                                  const long long* st_q, const long long* st_k,
-                                 const long long* st_v, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, length, end, out, B, Hq, Hkv, S, D,
-                               scale, st_q, st_k, st_v, stream);
+                                 const long long* st_v, float* part_m,
+                                 float* part_l, float* part_acc,
+                                 void* stream) {
+  return launch_mma(q, k, v, length, end, out, part_m, part_l, part_acc, B,
+                    Hq, Hkv, S, D, scale, st_q, st_k, st_v, stream);
 }

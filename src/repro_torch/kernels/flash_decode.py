@@ -2,9 +2,12 @@
 (``csrc/flash_decode.cu``).
 
 Port of the Pallas kernel ``src/repro/kernels/flash_decode.py:
-flash_decode``: one new token per query head against a KV cache, one
-block per (KV head, batch row) with the group's query heads as the rows of
-each product, reading q, k and v through their strides. This module only
+flash_decode``: one new token per query head against a KV cache, reading
+q, k and v through their strides. bf16 runs on the tensor cores, one block
+per (256-position chunk of the live range, KV head and group of up to 16
+query heads, batch row), each writing a partial to float32 scratch that
+:func:`launch` allocates, then a merge kernel (both in one C call); float32
+runs one CUDA-core block per (KV head, batch row). This module only
 launches; :func:`repro_torch.kernels.ops.flash_decode` is the checked
 public wrapper that ``models/model.py`` calls.
 """
@@ -14,6 +17,7 @@ import ctypes
 import torch
 
 from . import build
+from .ref import ATTN_CHUNK
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -21,7 +25,7 @@ _S2 = ctypes.c_longlong * 2
 _S3 = ctypes.c_longlong * 3
 _PLL = ctypes.POINTER(ctypes.c_longlong)  # a host array of strides
 _ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
-             _PLL, _PLL, _PLL, _P]
+             _PLL, _PLL, _PLL]
 _FNS = {}
 
 
@@ -29,12 +33,38 @@ def _fn(dtype: torch.dtype):
     fn = _FNS.get(dtype)
     if fn is None:
         lib = build.load("flash_decode")
-        fn = getattr(lib, {torch.float32: "flash_decode_f32",
-                           torch.bfloat16: "flash_decode_bf16"}[dtype])
-        fn.argtypes = _ARGTYPES
+        if dtype == torch.float32:
+            fn, scratch = lib.flash_decode_f32, []
+        else:  # part_m, part_l, part_acc
+            fn, scratch = lib.flash_decode_bf16, [_P, _P, _P]
+        fn.argtypes = _ARGTYPES + scratch + [_P]
         fn.restype = ctypes.c_int
         _FNS[dtype] = fn
     return fn
+
+
+def chunks(S: int) -> int:
+    """The bf16 kernel's grid along the cache: the most ATTN_CHUNK-position
+    chunks that the live keys of a cache of ``S`` slots can span (the C
+    side's ``flash_decode_chunks``)."""
+    return (S + ATTN_CHUNK - 2) // ATTN_CHUNK + 1 if S > 0 else 0
+
+
+def blocks(length: torch.Tensor, end: torch.Tensor, S: int, Hq: int,
+           Hkv: int):
+    """(launched, working) blocks of the bf16 kernel for ``length`` and
+    ``end`` [B]: the grid, and the blocks whose chunk holds live keys (the
+    others return at once)."""
+    groups = Hkv * -(-(Hq // Hkv) // 16)
+    n = length.long().clamp(0, S)
+    hi = end.long()
+    lo = (hi - n).clamp_min(0)
+    count = torch.where(hi > lo, torch.div(hi - 1, ATTN_CHUNK,
+                                           rounding_mode="floor")
+                        - torch.div(lo, ATTN_CHUNK, rounding_mode="floor")
+                        + 1, 0)
+    return (chunks(S) * groups * length.shape[0],
+            int(count.sum()) * groups)
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -45,15 +75,23 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, Hkv, S, D] (each read through its strides): the last
     n = min(length[b], S) positions before ``end[b]``, position P at slot
     P % S. The caller has checked devices, dtypes, shapes and the unit
-    stride along D; raises if the launch reports a CUDA error (also for a
-    group too wide for the kernel: (Hq / Hkv) x D, D rounded up to a power
-    of two >= 32, above 32 x 256)."""
+    stride along D; raises if the launch reports a CUDA error (also, in
+    float32, for a group too wide for the kernel: (Hq / Hkv) x D, D
+    rounded up to a power of two >= 32, above 32 x 256)."""
     B, Hq, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
+    scratch = []
+    if q.dtype == torch.bfloat16:
+        n = B * Hq * chunks(S)
+        part = torch.empty(n * (2 + D), dtype=torch.float32,
+                           device=q.device)
+        scratch = [part.data_ptr(), part[n:].data_ptr(),
+                   part[2 * n:].data_ptr()]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       length.data_ptr(), end.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, D,
-                       D ** -0.5, _S2(*q.stride()[:2]), _S3(*k.stride()[:3]),
-                       _S3(*v.stride()[:3]), stream)
+                       length.data_ptr(), end.data_ptr(), out.data_ptr(),
+                       B, Hq, Hkv, S, D, D ** -0.5, _S2(*q.stride()[:2]),
+                       _S3(*k.stride()[:3]), _S3(*v.stride()[:3]),
+                       *scratch, stream)
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError_t {err}")

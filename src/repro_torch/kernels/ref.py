@@ -212,18 +212,77 @@ def rwkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 #: the TPU attention kernels' logit for a masked (query, key) pair
 MASKED_LOGIT = -0.7 * torch.finfo(torch.float32).max
+#: key positions per online-softmax step of the bf16 attention kernels
+#: (``kTile`` in ``csrc/attention_mma.cuh``): tiles start at multiples of
+#: it in key position
+ATTN_TILE = 64
+#: key positions per chunk (``kChunk``): a query row's running state is
+#: closed into a partial every ATTN_CHUNK positions, and the partials are
+#: merged in ascending chunk order
+ATTN_CHUNK = 256
 
 
-def _masked_softmax_product(s: torch.Tensor, mask: torch.Tensor,
-                            v: torch.Tensor) -> torch.Tensor:
-    """sum_k softmax(s)[..., k] v[k] over the live keys of ``mask`` (float32
-    scores ``s`` [..., Sq, Sk], ``v`` [..., Sk, D] float32); a row with no
-    live key gives zeros."""
-    s = torch.where(mask, s, MASKED_LOGIT)
-    m = s.amax(-1, keepdim=True)
-    p = torch.where(mask, torch.exp(s - m), 0.0)
-    denom = p.sum(-1, keepdim=True)
-    return (p @ v) / torch.where(denom == 0.0, 1.0, denom)
+def _tile_sum(p: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim (ATTN_TILE keys) in the kernels' fixed order
+    over the mma C-fragment layout: lane t of a quad holds columns 8j + 2t
+    + e and adds them as a tree, (e = 0) + (e = 1) for each j, then
+    neighbouring j in pairs until one is left; then the quad adds (t0 +
+    t1) + (t2 + t3). Returns [..., 1]."""
+    x = p.unflatten(-1, (ATTN_TILE // 8, 4, 2))           # [..., j, t, e]
+    u = x[..., 0] + x[..., 1]                             # [..., j, t]
+    while u.shape[-2] > 1:
+        u = u[..., 0::2, :] + u[..., 1::2, :]
+    s = u[..., 0, :]                                      # [..., t]
+    return ((s[..., 0] + s[..., 1]) + (s[..., 2] + s[..., 3]))[..., None]
+
+
+def _empty_state(rows: torch.Tensor):
+    """(m, l, acc) of no key yet for query rows [..., R, D]."""
+    m = torch.full(rows.shape[:-1] + (1,), MASKED_LOGIT,
+                   dtype=torch.float32, device=rows.device)
+    return m, torch.zeros_like(m), torch.zeros_like(rows)
+
+
+def _tile_step(state, qb, kt, vt, live, scale):
+    """One online-softmax step over a key tile: ``qb`` [..., R, D] query
+    rows, ``kt``/``vt`` [..., T, D] (broadcast over the row blocks),
+    ``live`` [..., R, T]. The kernels' order: scores scaled after the dot,
+    the masked max, p = exp(s - m_new), the tile's sum of p, then acc *
+    alpha plus p @ v. A tile without a live key leaves the state as it
+    is."""
+    m, l, acc = state
+    s = torch.where(live, (qb @ kt.transpose(-1, -2)) * scale, MASKED_LOGIT)
+    m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+    p = torch.where(live, torch.exp(s - m_new), 0.0)
+    alpha = torch.exp(m - m_new)
+    return m_new, alpha * l + _tile_sum(p), acc * alpha + p @ vt
+
+
+def _merge(total, part):
+    """Fold a chunk's partial into the running total: m = max(m, m_c);
+    l and acc as x * exp(m_old - m) + x_c * exp(m_c - m). A chunk without
+    a live key is an exact no-op."""
+    m, l, acc = total
+    mc, lc, accc = part
+    mn = torch.maximum(m, mc)
+    e1, e2 = torch.exp(m - mn), torch.exp(mc - mn)
+    return mn, l * e1 + lc * e2, acc * e1 + accc * e2
+
+
+def _finish(state):
+    _, l, acc = state
+    return acc / torch.where(l == 0.0, 1.0, l)
+
+
+def _row_blocks(x: torch.Tensor) -> torch.Tensor:
+    """[..., rows, D] -> [..., ceil(rows / PLAIN_ROWS), PLAIN_ROWS, D],
+    zero rows padding the last block."""
+    rows = x.shape[-2]
+    pad = -rows % PLAIN_ROWS
+    if pad:
+        x = torch.cat([x, x.new_zeros(x.shape[:-2] + (pad, x.shape[-1]))],
+                      -2)
+    return x.unflatten(-2, (-1, PLAIN_ROWS))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -236,21 +295,50 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qpos`` under ``causal`` and ``j > qpos - window`` under a window.
     Scores ``(q . k) * D^-0.5`` in float32; masked logits are
     :data:`MASKED_LOGIT` and weigh nothing; a row with no live key gives
-    zeros. Returns [B, Hq, Sq, D] in ``q.dtype``."""
+    zeros. Returns [B, Hq, Sq, D] in ``q.dtype``.
+
+    The bf16 kernels' order for a query row, in float32 with p unrounded:
+    key tiles of ATTN_TILE positions at multiples of it, an online softmax
+    over them, a partial closed every ATTN_CHUNK positions and merged in
+    chunk order (:func:`_tile_step`, :func:`_merge`). Every product is a
+    [PLAIN_ROWS, D] block of query rows against one key tile, so a row's
+    result depends neither on Sq nor on the rows beside it, and equals
+    :func:`flash_decode_plain` of the same row bit for bit."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
-    qg = q.float().reshape(b, hkv, g, sq, d)
-    kf = k.float()[:, :, None]                            # [B, Hkv, 1, Sk, D]
-    s = (qg @ kf.transpose(-1, -2)) * (d ** -0.5)         # [B, Hkv, G, Sq, Sk]
-    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (kpos <= qpos)
-    if window is not None:
-        mask = mask & (kpos > qpos - window)
-    out = _masked_softmax_product(s, mask, v.float()[:, :, None])
+    dev = q.device
+    if q.numel() == 0:
+        return torch.zeros_like(q)
+    # rows (head of the group, query) of each KV head, in blocks
+    qb = _row_blocks(q.float().reshape(b, hkv, g * sq, d))
+    r = torch.arange(qb.shape[-3] * PLAIN_ROWS, device=dev)
+    real = (r < g * sq).view(-1, PLAIN_ROWS, 1)          # [nblk, R, 1]
+    qpos = (r % sq + (sk - sq)).view(-1, PLAIN_ROWS, 1)
+    pad = -sk % ATTN_TILE
+    kf, vf = k.float(), v.float()
+    if pad:
+        zeros = kf.new_zeros((b, hkv, pad, d))
+        kf, vf = torch.cat([kf, zeros], 2), torch.cat([vf, zeros], 2)
+    scale = d ** -0.5
+    # skip the keys before the first row's window: no row sees them
+    k_lo = max(0, sk - sq - window + 1) if window is not None else 0
+    total = _empty_state(qb)
+    for c0 in range((k_lo // ATTN_CHUNK) * ATTN_CHUNK, sk, ATTN_CHUNK):
+        part = _empty_state(qb)
+        for j0 in range(max(c0, (k_lo // ATTN_TILE) * ATTN_TILE),
+                        min(c0 + ATTN_CHUNK, sk), ATTN_TILE):
+            kpos = torch.arange(j0, j0 + ATTN_TILE, device=dev)
+            live = real & (kpos < sk)
+            if causal:
+                live = live & (kpos <= qpos)
+            if window is not None:
+                live = live & (kpos > qpos - window)
+            kt = kf[:, :, None, j0:j0 + ATTN_TILE]
+            vt = vf[:, :, None, j0:j0 + ATTN_TILE]
+            part = _tile_step(part, qb, kt, vt, live, scale)
+        total = _merge(total, part)
+    out = _finish(total).flatten(-3, -2)[..., :g * sq, :]
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
@@ -265,20 +353,44 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int the positions max(end[b] - n, 0) .. end[b] - 1, position P at slot
     P % S (a rolled cache). Scores in float32 scaled after the dot; a row
     with n = 0 gives zeros (the reference's oracle gives NaN there).
-    Returns [B, Hq, D] in ``q.dtype``."""
+    Returns [B, Hq, D] in ``q.dtype``.
+
+    :func:`flash_attention_plain`'s order on the key positions: the chunks
+    of ATTN_CHUNK positions from the one holding the first live key, each
+    in ATTN_TILE-key tiles (keys outside the live range weigh nothing and
+    read as zeros), merged in chunk order; the G query heads of a KV head
+    are rows of one [PLAIN_ROWS, D] block."""
     b, hq, d = q.shape
     hkv, s_len = k.shape[1], k.shape[2]
     g = hq // hkv
-    qg = q.float().reshape(b, hkv, g, 1, d)
-    kf = k.float()[:, :, None]                            # [B, Hkv, 1, S, D]
-    s = (qg @ kf.transpose(-1, -2)) * (d ** -0.5)         # [B, Hkv, G, 1, S]
-    slot = torch.arange(s_len, device=q.device)
-    n = (torch.full((b,), s_len, device=q.device) if length is None
-         else length.to(q.device).long().clamp(0, s_len))
-    hi = n if end is None else end.to(q.device).long()
-    # slot j holds position hi - 1 - back, back its distance from the newest
-    back = torch.remainder(hi[:, None] - 1 - slot[None, :], max(s_len, 1))
-    mask = back < torch.minimum(n, hi.clamp_min(0))[:, None]
-    out = _masked_softmax_product(s, mask[:, None, None, None, :],
-                                  v.float()[:, :, None])
+    dev = q.device
+    qb = _row_blocks(q.float().reshape(b, hkv, g, d))    # [B, Hkv, 1, R, D]
+    n = (torch.full((b,), s_len, device=dev) if length is None
+         else length.to(dev).long().clamp(0, s_len))
+    hi = n if end is None else end.to(dev).long()
+    lo = (hi - n).clamp_min(0)
+    n_live = (hi - lo).clamp_min(0)
+    base = torch.div(lo, ATTN_CHUNK, rounding_mode="floor") * ATTN_CHUNK
+    span = torch.where(n_live > 0, hi - base, 0)
+    n_tiles = -(-int(span.max()) // ATTN_TILE) if b else 0
+    kf, vf = k.float(), v.float()
+    rows = torch.arange(b, device=dev)[:, None]
+    scale = d ** -0.5
+    total = part = _empty_state(qb)
+    for i in range(n_tiles):
+        j = i * ATTN_TILE
+        if j % ATTN_CHUNK == 0:
+            part = _empty_state(qb)
+        pos = base[:, None] + j + torch.arange(ATTN_TILE, device=dev)
+        live = (pos >= lo[:, None]) & (pos < hi[:, None])      # [B, T]
+        slot = torch.remainder(pos, max(s_len, 1))
+        kt = torch.where(live[:, None, :, None],
+                         kf[rows, :, slot].transpose(1, 2), 0.0)
+        vt = torch.where(live[:, None, :, None],
+                         vf[rows, :, slot].transpose(1, 2), 0.0)
+        part = _tile_step(part, qb, kt[:, :, None], vt[:, :, None],
+                          live[:, None, None, None, :], scale)
+        if (j + ATTN_TILE) % ATTN_CHUNK == 0 or i == n_tiles - 1:
+            total = _merge(total, part)
+    out = _finish(total)[:, :, 0, :g]
     return out.reshape(b, hq, d).to(q.dtype)

@@ -21,6 +21,8 @@ and from the reference kernel, NaN from the reference's oracle. The CUDA
 kernels run only on a GPU: their cases are marked ``gpu`` and skip here;
 ``chip_smoke.py`` holds them against the plain versions on the card.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -123,6 +125,95 @@ def test_flash_attention_rows_without_keys_give_zeros(ref):
         *(_jax(x, "f32") for x in (qn, kn, vn)), causal=True))
     assert np.all(got[:, :, :7] == 0) and np.isnan(oracle[:, :, :7]).all()
     _assert_close(got[:, :, 7:], oracle[:, :, 7:], "f32")
+
+
+#: (hq, hkv, s, d, causal, window): GQA causal across four chunks, a
+#: window, MQA, not causal
+ROW_CASES = [(8, 2, 1100, 16, True, None), (16, 1, 700, 32, True, 100),
+             (4, 4, 300, 160, False, None), (12, 4, 530, 16, False, 70)]
+
+
+@pytest.mark.parametrize("hq,hkv,s,d,causal,window", ROW_CASES)
+def test_flash_attention_plain_rows_do_not_depend_on_sq(hq, hkv, s, d,
+                                                        causal, window):
+    """A suffix of query rows computed alone (right-aligned, so at the same
+    positions) equals those rows of the full call bit for bit: every
+    product is a fixed [PLAIN_ROWS, D] block against one key tile, so a
+    row's result depends neither on Sq nor on its neighbours (ROADMAP
+    Queue 3 item 10)."""
+    rng = np.random.default_rng(hq * 31 + s + d)
+    q = _normal(rng, (2, hq, s, d), "bf16")[0]
+    k, v = (_normal(rng, (2, hkv, s, d), "bf16")[0] for _ in range(2))
+    full = flash_attention_plain(q, k, v, causal=causal, window=window)
+    for n in (1, 5, 64, 130):
+        part = flash_attention_plain(q[:, :, -n:], k, v, causal=causal,
+                                     window=window)
+        assert torch.equal(part, full[:, :, -n:]), n
+
+
+@pytest.mark.parametrize("cache", ["plain", "rolled"])
+@pytest.mark.parametrize("g", [1, 4, 12, 16])
+@pytest.mark.parametrize("d", [16, 160])
+def test_flash_decode_plain_equals_the_last_row_of_prefill(d, g, cache):
+    """``flash_decode_plain`` of the newest query over a cache equals, bit
+    for bit, the last row of ``flash_attention_plain``'s causal prefill
+    over the same keys: a plain cache of 800 keys, or a rolled cache
+    holding a 850-key window of 1100 (position P at slot P % 850); either
+    way the live keys cross at least three ATTN_CHUNK boundaries. Two batch
+    rows at different lengths."""
+    rng = np.random.default_rng(d * 100 + g * 7 + len(cache))
+    hkv = 2 if g < 16 else 1
+    S, window = (800, None) if cache == "plain" else (1100, 850)
+    n = S if window is None else window
+    for b_len in (S, S - 77):  # the second: a shorter prompt alone
+        q = _normal(rng, (1, hkv * g, b_len, d), "bf16")[0]
+        k, v = (_normal(rng, (1, hkv, b_len, d), "bf16")[0]
+                for _ in range(2))
+        full = flash_attention_plain(q, k, v, causal=True, window=window)
+        live = min(n, b_len)
+        if cache == "plain":
+            kc = torch.cat([k, torch.zeros_like(k[:, :, :5])], 2)
+            vc = torch.cat([v, torch.zeros_like(v[:, :, :5])], 2)
+            got = flash_decode_plain(q[:, :, -1], kc, vc,
+                                     torch.tensor([b_len], dtype=torch.int32))
+        else:
+            slots = torch.tensor([p % n for p in range(b_len - live, b_len)])
+            kc = torch.zeros_like(k[:, :, :n]) if b_len >= n else \
+                torch.zeros((1, hkv, n, d), dtype=k.dtype)
+            vc = torch.zeros_like(kc)
+            kc[:, :, slots] = k[:, :, b_len - live:]
+            vc[:, :, slots] = v[:, :, b_len - live:]
+            got = flash_decode_plain(
+                q[:, :, -1], kc, vc, torch.tensor([live], dtype=torch.int32),
+                torch.tensor([b_len], dtype=torch.int32))
+        assert torch.equal(got, full[:, :, -1]), b_len
+
+
+def test_attention_constants_match_the_kernels():
+    """The plain versions' key tile and chunk are the bf16 kernels'
+    (``csrc/attention_mma.cuh``), and ``flash_decode.chunks(S)`` is the most
+    chunks that the live keys of S slots can span."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels.ref import ATTN_CHUNK, ATTN_TILE
+
+    # the module (the package's own name is the ops wrapper)
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+
+    src = (Path(fd.__file__).parent / "csrc" / "attention_mma.cuh"
+           ).read_text()
+    assert int(re.search(r"kTile = (\d+);", src).group(1)) == ATTN_TILE
+    assert int(re.search(r"kChunk = (\d+);", src).group(1)) == ATTN_CHUNK
+    assert fd.chunks(0) == 0
+    for S in [*range(1, 600), 4112]:
+        most = max((lo + S - 1) // ATTN_CHUNK - lo // ATTN_CHUNK + 1
+                   for lo in range(ATTN_CHUNK))
+        assert fd.chunks(S) == most, S
+    length = torch.tensor([4097, 0, 300], dtype=torch.int32)
+    end = torch.tensor([4097, 9, 1000], dtype=torch.int32)
+    # 17 chunks, none, then positions 700..999 in chunks 2 and 3
+    assert fd.blocks(length, end, 4112, 32, 8) == (3 * 18 * 8, 19 * 8)
 
 
 # -- flash_decode ---------------------------------------------------------------
@@ -371,7 +462,13 @@ def test_cuda_flash_attention_matches_plain_version(dtype):
     for hq, hkv, sq, sk, d, causal, window, _ in ATTN_CASES + [
             (16, 1, 300, 300, 256, True, 64, None),
             (32, 8, 130, 130, 128, True, None, None),
-            (4, 4, 90, 40, 32, True, None, None)]:
+            (4, 4, 90, 40, 32, True, None, None),
+            # across chunks: sq < sk, a window, head dims 160 and 36 (no
+            # 16-byte rows: plain loads), not causal
+            (32, 8, 520, 1100, 128, True, None, None),
+            (16, 1, 800, 800, 256, True, 300, None),
+            (32, 8, 600, 600, 160, True, None, None),
+            (4, 2, 150, 700, 36, False, None, None)]:
         q, k, v = (_normal(rng, (2, s, h, d), dtype)[0].to(dev)
                    .transpose(1, 2) for h, s in ((hq, sq), (hkv, sk),
                                                  (hkv, sk)))
@@ -388,8 +485,17 @@ def test_cuda_flash_attention_matches_plain_version(dtype):
 def test_cuda_flash_decode_matches_plain_version(dtype):
     dev = _cuda()
     rng = np.random.default_rng(47)
+    from repro_torch.kernels import build
+
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    lib = build.load("flash_decode")  # the grid the C side takes
+    for S in (0, 1, 255, 256, 257, 4112):
+        assert lib.flash_decode_chunks(S) == fd.chunks(S), S
     for hq, hkv, s, d, _ in DECODE_CASES + [(16, 1, 2048, 256, None),
-                                            (32, 8, 4112, 128, None)]:
+                                            (32, 8, 4112, 128, None),
+                                            (48, 4, 900, 128, None),
+                                            (32, 8, 1100, 160, None),
+                                            (8, 2, 600, 36, None)]:
         q, k, v = (_normal(rng, shape, dtype)[0].to(dev) for shape in (
             (4, hq, d), (4, hkv, s, d), (4, hkv, s, d)))
         length = torch.tensor([0, 1, s // 2 + 1, s], dtype=torch.int32,
@@ -412,12 +518,22 @@ def test_cuda_decode_equals_attention_of_the_last_row():
     """The kernels' shared arithmetic: flash_decode of a query over keys
     0..S-1 (and over a rolled cache holding a window of them) equals, bit
     for bit, flash_attention's last row of a causal (windowed) prefill of
-    S tokens."""
+    S tokens. The bf16 kernels hold a query row in another row slot of
+    the mma instruction (decode: the group's heads; prefill: the row's
+    place in its tile), so this also checks that the slot does not change
+    a row's bits. llama3-8b's long cache (4097 keys over 17 chunks), G = 4
+    at D = 160, starcoder2-15b's G = 12, recurrentgemma-9b's G = 16 past
+    its 2048-key window, and D = 36 (plain loads)."""
     dev = _cuda()
     rng = np.random.default_rng(53)
     for hq, hkv, S, d, window in [(32, 8, 83, 128, None),
                                   (16, 1, 300, 256, 100),
-                                  (8, 2, 1000, 64, None)]:
+                                  (8, 2, 1000, 64, None),
+                                  (32, 8, 4097, 128, None),
+                                  (32, 8, 700, 160, None),
+                                  (48, 4, 900, 128, None),
+                                  (16, 1, 2304, 256, 2048),
+                                  (8, 2, 600, 36, None)]:
         q, k, v = (_normal(rng, (2, h, S, d), "bf16")[0].to(dev)
                    for h in (hq, hkv, hkv))
         full = ops.flash_attention(q, k, v, causal=True, window=window)
@@ -431,7 +547,11 @@ def test_cuda_decode_equals_attention_of_the_last_row():
         kc[:, :, slots], vc[:, :, slots] = k[:, :, S - n:], v[:, :, S - n:]
         got = ops.flash_decode(q[:, :, -1], kc, vc, length, end)
         torch.cuda.synchronize()
-        assert torch.equal(got, full[:, :, -1])
+        diff = got != full[:, :, -1]
+        assert not bool(diff.any()), (
+            f"{(hq, hkv, S, d, window)}: {int(diff.sum())} of "
+            f"{diff.numel()} differ, max "
+            f"{float((got.float() - full[:, :, -1].float()).abs().max())}")
 
 
 @pytest.mark.gpu

@@ -490,6 +490,28 @@ def test_incremental_decode_matches_full_forward(arch):
                                ref_logits.float().numpy(), **BF16)
 
 
+@pytest.mark.parametrize("arch,s", [("llama3-8b", 24),
+                                    ("recurrentgemma-9b", 12),
+                                    ("recurrentgemma-9b", 40),
+                                    ("stablelm-12b", 24),
+                                    ("starcoder2-15b", 24)])
+def test_bf16_decode_step_equals_prefill_of_one_more_token_bitwise(arch, s):
+    """In bf16 on the CPU, prefill(S) + decode_step equals prefill(S+1) bit
+    for bit: every row of the plain product, of the norms' row means and of
+    the plain attention versions (fixed key tiles and chunks, fixed
+    [PLAIN_ROWS, D] products) is summed as the row alone would be
+    (ROADMAP Queue 3 item 10). recurrentgemma-9b within and past its
+    16-token window (its cache rolled)."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16",
+                              kv_dtype="bfloat16")
+    m = Model(cfg, device="cpu").init(torch.Generator().manual_seed(3))
+    toks = torch.from_numpy(_tokens(cfg, 2, s + 1, 4))
+    full, _ = m.prefill(toks, cache_len=s + 8)
+    _, cache = m.prefill(toks[:, :s], cache_len=s + 8)
+    dec, _ = m.decode_step(cache, toks[:, s], s)
+    assert torch.equal(dec, full)
+
+
 def test_rolling_window_decode_beyond_window():
     """recurrentgemma: decoding far past the window with a rolling cache
     matches a fresh prefill over the whole context."""
