@@ -10,11 +10,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    paths from ``src/repro_torch/kernels/csrc/`` with ``nvcc`` (one
    process per source, all started together).
 2. Kernels against their plain PyTorch versions, on the same inputs:
-   random and hand-built edge inputs (near ties, tied slot clocks,
-   uncapped and infeasible providers, never-used slots, empty and full
-   chains) at the main paths' shapes and ragged ones, compared bit for
-   bit; each kernel's time, its plain version's time and the least time
-   the card could take for the same work.
+   random and hand-built edge inputs (near ties, mask shares 0 to 1, long
+   unmasked runs, demands of 0.0 and -0.0, +-inf and NaN thresholds, tied
+   slot clocks, uncapped and infeasible providers, never-used slots,
+   empty and full chains) at the main paths' shapes and ragged ones,
+   compared bit for bit; each kernel's time, its plain version's time and
+   the least time the card could take for the same work (and
+   ``acd_evict``'s chain floor: the longest row's masked jobs times one
+   dependent step's latency, measured by ``acd_chain_step_probe``).
 3. The uncapped main path: Algorithm 1 over the Fig.-4 grid (image,
    matrix and video x {spt, hcf} x 5 deadlines = 30 scenarios) in one
    ``sweep_scenarios`` call on ``cuda`` at J=512 and J=4096 jobs. The grid
@@ -23,7 +26,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    through the port's DES and must meet the parity contract (placements,
    replicas, providers, segments, start and end exact; cost and makespan
    to a relative 1e-12). The J=512 sweep then runs once more under
-   ``torch.profiler`` to split its wall time into device-busy and idle.
+   ``torch.profiler`` to split its wall time into device-busy and idle,
+   and the J=4096 sweep once more to count the share of masked jobs the
+   engine gives ``acd_evict`` (``acd_mask_share``); the kernel is timed at
+   that share and at 0.8, at J=512 and J=4096.
 4. The congested main path: the same grid on a 3-provider portfolio with
    2-slot concurrency caps per provider and a 0.5 s warm-up / 1 s
    keep-alive scale-to-zero cold-start model (the throughput benchmark's
@@ -39,8 +45,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. The paper's profile -> predict -> schedule path. First ``matmul``
    against its plain version on the card (ragged shapes, transposed views,
    1024^3, bf16; the matrix app's integer ``x @ x.T`` at n = 344 and 496
-   bit for bit, also against the CPU) and its time, bound and
-   ``torch.matmul``'s time at [496]^3 and [4096]^3. Then the matrix app at
+   bit for bit, also against the CPU; every float32 configuration forced
+   on one product per regime, bit for bit alike) and its time, bound and
+   ``torch.matmul``'s time at ``F32_TIMED`` (the MM stage's squares,
+   [4096]^3, the norms' row means at llama3-8b's decode and long
+   prefill). Then the matrix app at
    full width traces 924 jobs on the card (MM through ``matmul``), splits
    them 774/150, fits the ridge models on the card, predicts the test
    jobs, schedules them SPT and HCF at 0.55x the all-private makespan
@@ -178,6 +187,20 @@ INCR_TOL = dict(rtol=2e-2, atol=2e-3)
 #: tolerance |card - cpu| <= CPU_RTOL * max|cpu| (float32 rounding of
 #: d = 2048-4096 dot products in another order, through a few layers)
 CPU_LAYERS = {"rwkv6-1.6b": 2, "recurrentgemma-9b": 3, "llama3-8b": 2}
+#: float32 matmul products timed beside torch.matmul (TF32 off) and the
+#: bound: (label, (M, K, N), reps): dense squares at the MM stage's
+#: smallest and largest n, the stage's own x @ x.T (x.T a view), the
+#: float32 yardstick [4096]^3, and the norms' row means (y >= 0) at
+#: llama3-8b's width: a decode step's 8 tokens and the long batch's
+#: 2 x 4096 ([tokens * 64, 64] @ [64, 1], then [tokens, 64] @ [64, 1])
+F32_TIMED = (("square n=344", (344, 344, 344), 200),
+             ("square n=496", (496, 496, 496), 200),
+             ("MM stage x @ x.T n=496", (496, 496, 496), 200),
+             ("square n=4096", (4096, 4096, 4096), 10),
+             ("row_mean decode level 1", (8 * 64, 64, 1), 200),
+             ("row_mean decode level 2", (8, 64, 1), 200),
+             ("row_mean long prefill level 1", (8192 * 64, 64, 1), 50),
+             ("row_mean long prefill level 2", (8192, 64, 1), 200))
 #: the rows of linear(x [M, K], w) against linear(x[i:i+1], w), bf16, at
 #: the dense projections' widths: the FFN's (4096 -> 14336, 14336 -> 4096),
 #: at the serve phase's row counts (a decode step, the serve batch's
@@ -406,8 +429,11 @@ def matmul_check(label, x, y, got, want):
 def check_matmul(dev):
     """``matmul`` against its plain version on the card (ragged, transposed
     views, 1024^3, bf16; the app's integer x @ x.T bit for bit, also
-    against the CPU), then its time, bound and ``torch.matmul``'s time at
-    [496]^3 and [4096]^3. Returns its entry of the kernels line."""
+    against the CPU; every float32 configuration forced on a product of
+    each regime, bit for bit alike), then the float32 kernel's time, bound
+    and ``torch.matmul``'s time at ``F32_TIMED``. Returns its entry of the
+    kernels line (the MM stage's [496]^3 as its times, every timed shape
+    under "f32")."""
     from repro_torch.core.precision import ieee_float32
 
     # the plain version and the library call in IEEE float32, as the
@@ -417,6 +443,8 @@ def check_matmul(dev):
 
 
 def _check_matmul(dev):
+    import importlib
+
     import numpy as np
     import torch
 
@@ -459,25 +487,63 @@ def _check_matmul(dev):
         if not (same_card and same_cpu):
             raise AssertionError(f"matmul x @ x.T n={n}: not bit for bit")
 
-    rows = {}
-    for n, reps in ((496, 200), (4096, 10)):
-        x, y = normal(n, n), normal(n, n)
+    # every configuration forced on one product per regime: the same bits
+    # (each output one ascending fmaf chain, whatever the plan)
+    mm = importlib.import_module("repro_torch.kernels.matmul")
+    xs, xk = normal(496, 496), normal(4096, 64)
+    for label, x, y in (("large", normal(2100, 301), normal(301, 2093)),
+                        ("small x @ x.T", xs, xs.T),
+                        ("skinny row mean", xk, normal(64, 1).abs())):
+        outs = []
+        for plan in mm.f32_plans(x.shape[0], y.shape[1], x.shape[1],
+                                 x.stride() + y.stride()):
+            out = torch.empty((x.shape[0], y.shape[1]), device=dev)
+            mm.launch(x, y, out, _f32_plan=plan)
+            outs.append(out)
+        err = matmul_check(f"f32 {label} {list(x.shape)} @ {list(y.shape)}",
+                           x, y, outs[0], matmul_plain(x, y))
+        max_err = max(max_err, err)
+        same = all(torch.equal(o, outs[0]) for o in outs)
+        print(f"matmul f32 {label}: {len(outs)} configurations bitwise "
+              f"equal {same}")
+        if not same:
+            raise AssertionError(f"matmul f32 {label}: configurations "
+                                 f"differ")
+
+    timings = []
+    for label, (M, K, N), reps in F32_TIMED:
+        x = normal(M, K)
+        y = (x.T if "x.T" in label else normal(K, N).abs() if N == 1
+             else normal(K, N))
+        err = matmul_check(f"f32 {label}", x, y, ops.matmul(x, y),
+                           matmul_plain(x, y))
+        max_err = max(max_err, err)
         k_ms = cuda_ms(lambda: ops.matmul(x, y), reps)
-        p_ms = cuda_ms(lambda: matmul_plain(x, y), reps)
+        p_ms = cuda_ms(lambda: matmul_plain(x, y), max(1, reps // 10))
         l_ms = cuda_ms(lambda: torch.matmul(x, y), reps)
-        bound, by, n_bytes, n_ops = matmul_bound(n, n, n, "float32")
-        print(f"matmul [{n}, {n}, {n}] f32: kernel {k_ms:.6f} ms "
-              f"({n_ops / k_ms * 1e-9:.3f} TFLOP/s), plain {p_ms:.6f} ms, "
-              f"torch.matmul (TF32 off) {l_ms:.6f} ms, bound "
-              f"{bound:.6f} ms by {by} (bytes {n_bytes}, operations "
-              f"{n_ops}); kernel at {bound / k_ms:.3f} of the bound")
-        rows[n] = (k_ms, p_ms, l_ms, bound, by)
-    k_ms, p_ms, l_ms, bound, by = rows[496]
+        bound, by, n_bytes, n_ops = matmul_bound(M, K, N, "float32")
+        plan = mm.tile_plan_f32(M, N, K, x.stride() + y.stride())
+        print(f"matmul {label} [{M}, {K}] @ [{K}, {N}] f32: kernel "
+              f"{k_ms:.6f} ms ({n_ops / k_ms * 1e-9:.3f} TFLOP/s, "
+              f"{n_bytes / k_ms * 1e-9:.3f} TB/s), plain {p_ms:.6f} ms, "
+              f"torch.matmul (TF32 off) {l_ms:.6f} ms, bound {bound:.6f} ms "
+              f"by {by} (bytes {n_bytes}, operations {n_ops}); kernel at "
+              f"{bound / k_ms:.3f} of the bound, {k_ms / l_ms:.3f}x "
+              f"torch.matmul's time; plan {tuple(plan)}, "
+              f"{mm.f32_blocks(M, N, plan)} blocks")
+        timings.append({"phase": label, "shape": [M, K, N],
+                        "plan": list(plan), "ms": k_ms, "plain_ms": p_ms,
+                        "bound_ms": bound, "bound_by": by,
+                        "library_ms": l_ms})
+        del x, y
+    main = next(t for t in timings if t["phase"] == "square n=496")
     return {"name": "matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/matmul.cu",
             "replaces": "src/repro/kernels/matmul.py:36",
-            "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": l_ms}
+            "max_abs_err": max_err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "f32": timings}
 
 
 def profile_app(name, device="cuda"):
@@ -687,6 +753,56 @@ def check_fit_against_cpu(name, spec, tr, te, pm):
               f" predictions max relative difference {rel!r}")
         if rel > PM_RTOL:
             raise AssertionError(f"{name}: {label} predictions != CPU's")
+
+
+def chain_floor_ms(mask, step_ns):
+    """The acd_evict chain floor of one call: the longest row's masked
+    jobs times one dependent step's latency."""
+    return int(mask.sum(1).max()) * step_ns * 1e-6
+
+
+def acd_mask_share(tasks, J):
+    """The share of masked jobs in the masks the engine gives ``acd_evict``
+    over one uncapped sweep of ``tasks``: a counting pass of its own, the
+    wrapper wrapped here only, the counts summed on the card and read
+    once at the end. Prints it beside the calls' mean longest row."""
+    import types
+
+    import torch
+
+    from repro_torch.core import sweep_scenarios, vectorsim
+    from repro_torch.kernels import ops
+
+    real = ops.acd_evict
+    zero = torch.zeros((), dtype=torch.int64, device="cuda")
+    tally = {"masked": zero, "longest": zero, "jobs": 0, "calls": 0}
+
+    def counting(P, thresh, mask):
+        per_row = mask.sum(1)
+        tally["masked"] = tally["masked"] + per_row.sum()
+        tally["longest"] = tally["longest"] + per_row.max()
+        tally["jobs"] += mask.numel()
+        tally["calls"] += 1
+        return real(P, thresh, mask)
+
+    # the engine's view of ops, with acd_evict counted (ops itself stays)
+    vectorsim._kernel_ops = types.SimpleNamespace(**vars(ops))
+    vectorsim._kernel_ops.acd_evict = counting
+    try:
+        t0 = time.perf_counter()
+        sweep_scenarios(tasks, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        vectorsim._kernel_ops = ops
+    masked, longest = int(tally["masked"]), int(tally["longest"])
+    share = masked / max(tally["jobs"], 1)
+    print(f"acd_evict engine mask share over the uncapped J={J} sweep "
+          f"(counting pass, {wall:.3f} "
+          f"s): {masked} masked of {tally['jobs']} jobs in "
+          f"{tally['calls']} calls = {share:.6f}; longest row per call "
+          f"{longest / max(tally['calls'], 1):.1f} masked jobs on average")
+    return share
 
 
 def check_des(label, tasks, out, pairs, sim_kw, load_fields=False):
@@ -1716,10 +1832,11 @@ def profile_serve(arch, engine, reqs, wall):
     if got is None:
         return
     busy_s, wall_p, dev_events = got
+    # "matmul" sums both dtypes; "matmul_f32" is the norms' row means
     kern = {k: sum(e.self_device_time_total for e in dev_events
                    if k in e.key) * 1e-6
-            for k in ("rwkv6", "rglru", "matmul", "flash_attention",
-                      "flash_decode")}
+            for k in ("rwkv6", "rglru", "matmul", "matmul_f32",
+                      "flash_attention", "flash_decode")}
     print(f"profile serve {arch}: device busy {busy_s:.6f} s of a "
           f"{wall_p:.3f} s profiled wall ({busy_s / wall_p:.4f}); of the "
           f"unprofiled {wall:.3f} s wall {busy_s / wall:.4f} busy, "
@@ -1802,6 +1919,7 @@ def main() -> int:
                                   demo_portfolio, sweep_scenarios)
     from repro_torch.core import vectorsim
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.probe import probe_chain
     from repro_torch.kernels.ref import acd_evict_plain, fifo_dispatch_plain
 
     t_start = time.perf_counter()
@@ -1847,6 +1965,21 @@ def main() -> int:
                 torch.tensor(thresh, dtype=f64, device=dev),
                 torch.ones((B, J), dtype=torch.bool, device=dev))
 
+    def edit_case(B, J, edit):
+        """The compaction's edge inputs, at a mask share of 0.8."""
+        P, thresh, mask = (a.cpu().numpy() for a in random_case(B, J, f64))
+        if edit == "runs":  # stretches of unmasked jobs, across tiles
+            for lo in range(0, J, 1500):
+                mask[:, lo:lo + 1000] = False
+        elif edit == "zeros":
+            P[:, ::3] = 0.0
+            P[:, 1::3] = -0.0
+        else:
+            thresh[:, ::5] = np.inf
+            thresh[:, 1::5] = -np.inf
+            thresh[:, 2::5] = np.nan
+        return tuple(torch.from_numpy(a).to(dev) for a in (P, thresh, mask))
+
     cases = [
         ("main-path f64 [30, 4096]", random_case(30, 4096, f64), True),
         ("main-path f64 [30, 512]", random_case(30, 512, f64), True),
@@ -1856,6 +1989,18 @@ def main() -> int:
         ("ragged f64 [3, 1]", random_case(3, 1, f64, 1.0), False),
         ("empty mask f64 [4, 300]", random_case(4, 300, f64, 0.0), False),
         ("near ties f64 [9, 2049]", near_tie_case(9, 2049), True),
+        ("mask share 0.05 f64 [30, 4096]",
+         random_case(30, 4096, f64, 0.05), None),
+        ("mask share 0.5 f64 [30, 4096]", random_case(30, 4096, f64, 0.5),
+         True),
+        ("mask share 1 f64 [30, 4096]", random_case(30, 4096, f64, 1.0),
+         True),
+        ("long unmasked runs f64 [8, 8192]", edit_case(8, 8192, "runs"),
+         True),
+        ("zero and -0.0 demands f64 [8, 2049]",
+         edit_case(8, 2049, "zeros"), True),
+        ("+-inf and NaN thresholds f64 [8, 2049]",
+         edit_case(8, 2049, "nonfinite"), True),
     ]
     max_err = 0
     for label, (P, thresh, mask), evicts in cases:
@@ -1868,7 +2013,7 @@ def main() -> int:
               f"{int(mask.sum())} masked, max_abs_err {err}")
         if err != 0 or not torch.equal(got, want):
             raise AssertionError(f"acd_evict {label}: kernel != plain")
-        if evicts != bool(got.any()):
+        if evicts is not None and evicts != bool(got.any()):
             raise AssertionError(f"acd_evict {label}: evictions expected "
                                  f"{evicts}, got {bool(got.any())}")
 
@@ -1881,11 +2026,16 @@ def main() -> int:
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / PEAK_OPS_PER_S["float64"] * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    step_clk, step_ns = probe_chain()
+    floor_ms = chain_floor_ms(mask, step_ns)
     print(f"acd_evict [{B}, {J}] f64: kernel {k_ms:.6f} ms "
-          f"({k_ms * 1e6 / J:.3f} ns per element of the serial chain), "
+          f"({k_ms * 1e6 / J:.3f} ns per job of a row), "
           f"plain {p_ms:.3f} ms, bound {bound_ms:.6f} ms "
           f"(bytes {n_bytes} -> {bytes_ms:.6f} ms, ops {n_ops} -> "
-          f"{ops_ms:.6f} ms)")
+          f"{ops_ms:.6f} ms); chain floor {floor_ms:.6f} ms (the longest "
+          f"row's {int(mask.sum(1).max())} masked jobs x {step_ns:.4f} ns, "
+          f"{step_clk:.2f} SM clocks, per dependent float64 step: "
+          f"acd_chain_step_probe), kernel at {floor_ms / k_ms:.3f} of it")
     kernels = [{
         "name": "acd_evict", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/acd_evict.cu",
@@ -1893,7 +2043,8 @@ def main() -> int:
         "max_abs_err": float(max_err), "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None}]
+        "library_ms": None, "chain_floor_ms": floor_ms,
+        "step_ns": step_ns}]
 
     # -- 2b. fifo_dispatch against its plain version --------------------------
     def fifo_case(B, P, J, C, n_pub=None, capped=(True, False, True),
@@ -2042,6 +2193,16 @@ def main() -> int:
         check_des(f"main path J={J}", *outs[J], DES_SCENARIOS, {})
     # where the J=512 sweep's time goes
     profile_sweep("main path J=512", outs[512][0], {}, walls[512])
+    # the engine's own mask share, and the kernel's time at it
+    share = acd_mask_share(fig4_workload(APPS, max(MAIN_J)), max(MAIN_J))
+    kernels[0]["engine_mask_share"] = share
+    for J in MAIN_J:
+        for p_mask in (share, 0.8):
+            P, thresh, mask = random_case(30, J, f64, p_mask)
+            t_ms = cuda_ms(lambda: ops.acd_evict(P, thresh, mask), 50)
+            print(f"acd_evict [30, {J}] f64 at mask share {p_mask:.4f}: "
+                  f"kernel {t_ms:.6f} ms, chain floor "
+                  f"{chain_floor_ms(mask, step_ns):.6f} ms")
 
     # -- 4. the congested main path: caps and cold starts --------------------
     cs = ColdStartModel(warm_up_s=LOAD_WARM_UP_S,

@@ -1,9 +1,10 @@
 """ctypes binding of the CUDA ``acd_evict`` kernel (``csrc/acd_evict.cu``).
 
 Port of the Pallas kernel ``src/repro/kernels/acd_sweep.py:acd_evict``:
-the greedy ACD kept-prefix sweep, one block per queue row. This module
-only launches; :func:`repro_torch.kernels.ops.acd_evict` is the checked
-public wrapper that the engine calls.
+the greedy ACD kept-prefix sweep, one block per queue row, its serial
+chain run over the row's masked jobs only, compacted by the block's other
+warps. This module only launches; :func:`repro_torch.kernels.ops.acd_evict`
+is the checked public wrapper that the engine calls.
 """
 from __future__ import annotations
 
@@ -41,3 +42,23 @@ def launch(P: torch.Tensor, thresh: torch.Tensor, mask: torch.Tensor,
                        out.data_ptr(), B, J, stream)
     if err != 0:
         raise RuntimeError(f"acd_evict launch failed: cudaError_t {err}")
+
+
+def chain_step_probe(pt: torch.Tensor, n: int, out: torch.Tensor,
+                     cycles: torch.Tensor) -> None:
+    """Launch the chain-step probe on the current stream: one thread runs
+    ``n`` x 8 dependent float64 steps on ``pt`` (16 float64 on the card:
+    eight demands, then eight thresholds); ``out`` [1] float64 gets the
+    sum, ``cycles`` [1] int64 the SM clocks the loop took. For the chain
+    floor (``chip_smoke.py``); the engine never calls it."""
+    fn = _FNS.get("probe")
+    if fn is None:
+        fn = build.load("acd_evict").acd_chain_step_probe
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS["probe"] = fn
+    err = fn(pt.data_ptr(), n, out.data_ptr(), cycles.data_ptr(),
+             torch.cuda.current_stream(pt.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"acd chain probe failed: cudaError_t {err}")

@@ -10,30 +10,54 @@
 // y[k, n], accumulated in float32, then stored once (bf16: rounded to
 // nearest even, as torch's .to(bfloat16) does).
 //
-// ---- float32 (matmul_f32): the matrix application's MM stage ----
+// ---- float32 (matmul_f32): the matrix app's MM stage, the norms' row ----
+// ---- means and the float32 model stack's products                    ----
 //
-// Bound on this card. 2*M*N*K float32 operations against
-// (M*K + K*N + M*N) elements moved: at the matrix app's n = 344..496
-// squares that is 81-244 MFLOP against 1.4-3.0 MB, so the operations
-// bound (67 TFLOP/s without the tensor cores) rules at every app shape,
-// 1.2-3.6 us, about three times the bytes bound; a launch costs about as
-// much. At larger squares the operations bound rules further.
+// Bound on this card. 2*M*N*K float32 operations against (M*K + K*N +
+// M*N) elements moved. At the matrix app's n = 344..496 squares that is
+// 81-244 MFLOP against 1.4-3.0 MB, so the operations bound (67 TFLOP/s
+// without the tensor cores) rules, 1.2-3.6 us, about as long as a launch;
+// at [4096]^3 it is 2.05 ms. The norms' row means (N = 1) are bound by
+// bytes: the first level of a 2 x 4096-token prefill's mean reads
+// [524288, 64], 134 MB, 0.040 ms at 3.35 TB/s.
 //
-// Design. A simple and exact kernel, IEEE float32 throughout (no TF32):
-// each 256-thread block owns a 64 x 64 output tile, the tiles numbered
-// along one grid dimension so that any row count launches; each thread
-// keeps a 4 x 4 micro-tile of float32 accumulators in registers; the K
-// loop stages
-// 16-deep slabs of both operands in shared memory (the x slab stored
-// k-major so the inner loop reads four consecutive rows), loading along
-// whichever dimension of each operand has unit stride so the loads
-// coalesce. Bounds checks mask the ragged edges with zeros, so no padded
-// copies are made, as the TPU kernel makes them. Each accumulator sums its
-// K products in ascending k with fmaf. Products of small integers and
-// their partial sums below 2^24 are exact in float32 in any order, so the
-// matrix app's integer x @ x.T equals any other float32 product bit for
-// bit. The file is built with --fmad=false, so the CUDA-core code's one
-// fused multiply-add is the explicit fmaf.
+// The one rule, which no tile plan bends: every output element is a
+// single float32 fmaf chain over k = 0, 1, ..., K16 - 1 in ascending
+// order, starting from 0.0f, where K16 is K rounded up to a multiple of
+// 16 and the steps past K add fmaf(0, 0, acc). No split-K, no tree, no
+// TF32, no tensor cores, no second accumulator. So every plan gives every
+// element the same bits, kernels/matmul.py:tile_plan_f32 may follow M, N
+// and K freely, a row never depends on the row count (the norms' row
+// means, layers.row_mean, rest on that), and products of small integers
+// whose partial sums stay below 2^24 (the matrix app's x @ x.T) are exact.
+// The file is built with --fmad=false, so the one fused multiply-add is
+// the explicit fmaf.
+//
+// Design. tile_plan_f32 picks one compiled configuration (the tiles from a
+// development probe on the H100, kernels/probe.py):
+// - Tile kernels (matmul_f32_tile<BM, BN, TM, TN, S>): a BM x BN output
+//   tile per block, each thread a TM x TN micro-tile made of 4 x 4 groups
+//   a band of rows (columns) apart, so that a warp's float4 reads of
+//   shared memory are broadcasts or consecutive, free of bank conflicts.
+//   16-deep k-slabs of both operands sit k-major in a ring of S stages;
+//   one barrier per slab. y's slab comes by cp.async: 16-byte copies along
+//   n where y has a unit n stride and 16-byte steps, else 4-byte copies
+//   along its unit-stride dimension; the zero fill covers the ragged
+//   edges, so no padded copies are made. A column-major x comes the same
+//   way along m. A row-major x (the common case) is read 16 bytes along k
+//   into registers as the slab before it is computed, and stored
+//   transposed after: on the H100 4-byte cp.async copies that transposed
+//   it as they landed took 1.6x torch.matmul's time at [4096]^3 where a
+//   column-major x took 1.2x (PERF.md §6). Large products take 64 x 128
+//   tiles, 8 x 8 per thread, two blocks a SM (as fast as 128 x 128 at
+//   [4096]^3, faster at a 656-row prefill); the MM stage's small squares
+//   and the decode steps 32 x 64 (or 32 x 32) tiles with a deeper ring.
+// - The skinny kernel (matmul_f32_skinny, N <= 8: every row mean): a block
+//   of 128 threads stages 128 rows of x in 32-deep slabs (16-byte copies
+//   where x has a unit k stride, each row's chunks XOR-swizzled by the row
+//   so that the threads' float4 reads of their own rows are conflict-free)
+//   and y's [32, N] slab beside them, in a ring of three; each thread runs
+//   the chains of its own row.
 //
 // ---- bf16 (matmul_bf16): every weight product of the model stack ----
 //
@@ -82,13 +106,15 @@
 // exact zeros. The TMA and thread-staged paths write the same bytes into
 // shared memory, so they give the same bits.
 //
-// C interface (loaded with ctypes): matmul_f32 takes device pointers x,
-// y, out, the sizes M, N, K, the element strides of x (along M, along K)
-// and of y (along K, along N), and the CUDA stream; matmul_bf16 takes the
-// same and, before the stream, the tile plan (NI, WG, whether y is held
-// K-major) and a flag that stages both operands by threads. Both
-// return the cudaError_t of the launch (0 = success) and launch
-// asynchronously.
+// C interface (loaded with ctypes): both take device pointers x, y, out,
+// the sizes M, N, K and the element strides of x (along M, along K) and
+// of y (along K, along N); then matmul_f32 takes its plan (the
+// configuration's number and how x and y are staged: any staging gives
+// the same bits, 16-byte copies fall back to 4-byte ones where the base
+// or the strides do not allow them) and matmul_bf16 its tile plan (NI,
+// WG, whether y is held K-major) and a flag that stages both operands by
+// threads; last, the CUDA stream. Both return the cudaError_t of the
+// launch (0 = success) and launch asynchronously.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -98,87 +124,427 @@
 
 namespace {
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 16;
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kMicro = 4;
+// ---- shared by both dtypes ---------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-matmul_kernel(const float* __restrict__ x, const float* __restrict__ y,
-              float* __restrict__ out, int M, int N, int K, long long sxm,
-              long long sxk, long long syk, long long syn) {
-  __shared__ float xs[kBK][kBM + 4];  // k-major: xs[k][m]
-  __shared__ float ys[kBK][kBN + 4];  // ys[k][n]
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output columns tx*4 .. tx*4+3 of the tile
-  const int ty = tid / 16;  // output rows ty*4 .. ty*4+3 of the tile
-  // one grid dimension, N tiles fastest: any row count launches (gridDim.y
-  // stops at 65535 tiles, and the norms' row means pass millions of rows)
-  const int tiles_n = (N + kBN - 1) / kBN;
-  const int m0 = static_cast<int>(blockIdx.x / tiles_n) * kBM;
-  const int n0 = static_cast<int>(blockIdx.x % tiles_n) * kBN;
-  // load along the operand's unit-stride dimension when it has one
-  const bool x_k_fast = sxk == 1;
-  const bool y_n_fast = syn == 1 || syk != 1;
+// Sets a kernel's dynamic shared memory limit once per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool (&set)[64]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && set[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess && dev < 64) set[dev] = true;
+  return e;
+}
 
-  float acc[kMicro][kMicro];
-#pragma unroll
-  for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0f;
+// ---- float32 on the CUDA cores -----------------------------------------------
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // each thread stages 4 of the 64 x 16 x-slab and 4 of the 16 x 64
-    // y-slab; elements past an edge load as 0
-#pragma unroll
-    for (int r = 0; r < (kBM * kBK) / kThreads; ++r) {
-      const int e = tid + r * kThreads;
-      const int mm = x_k_fast ? e / kBK : e % kBM;
-      const int kk = x_k_fast ? e % kBK : e / kBM;
+// cp.async copies of 4 or 16 bytes; the bytes past `bytes` are zero-filled
+// (0: nothing is read, the whole copy is zeros)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// How an operand is staged (the C interface's x_mode / y_mode).
+// x: 4-byte copies walking k, 4-byte copies walking m, 16-byte copies
+// along m, 16-byte loads along k (tile kernels: read into registers and
+// stored transposed; the skinny kernel: 16-byte copies of its rows).
+// y: 4-byte copies walking n, 4-byte copies walking k, 16-byte copies
+// along n.
+constexpr int kXAlongK = 0;
+constexpr int kXAlongM = 1;
+constexpr int kXVecM = 2;
+constexpr int kXVecK = 3;
+constexpr int kYAlongN = 0;
+constexpr int kYAlongK = 1;
+constexpr int kYVecN = 2;
+
+struct F32Args {
+  const float* x;
+  const float* y;
+  float* out;
+  long long sxm, sxk, syk, syn;
+  int M, N, K;
+  int x_mode, y_mode;
+};
+
+constexpr int kF32BK = 16;     // k per slab of the tile kernels; K16's unit
+constexpr int kF32GroupM = 8;  // row tiles per group of the raster
+
+// A tile configuration: both slabs k-major, xs[k][BM + 4], ys[k][BN + 4].
+template <int BM, int BN, int TM, int TN, int S>
+struct F32Tile {
+  static constexpr int kTX = BN / TN;  // threads along n
+  static constexpr int kThreads = (BM / TM) * kTX;
+  static constexpr int kBandM = BM * 4 / TM;  // rows between 4-row groups
+  static constexpr int kBandN = BN * 4 / TN;
+  static constexpr int kXS = BM + 4;
+  static constexpr int kYS = BN + 4;
+  static constexpr int kStage = kF32BK * (kXS + kYS);  // floats
+  static constexpr int kSmemBytes = S * kStage * 4;
+  // 16-byte pieces of an x slab each thread loads through registers
+  static constexpr int kXRegs = BM * kF32BK / 4 / kThreads;
+  static_assert(TM % 4 == 0 && TN % 4 == 0 && S >= 2, "tile shape");
+  static_assert(kXRegs * 4 * kThreads == BM * kF32BK, "x slab pieces");
+};
+
+// x's slab [BM, 16] by cp.async into a stage; zeros past M and K.
+template <class T, int BM>
+__device__ __forceinline__ void x_async(float* xs, const F32Args& a, int m0,
+                                        int k0, int tid) {
+  if (a.x_mode == kXVecM) {
+    for (int c = tid; c < BM / 4 * kF32BK; c += T::kThreads) {
+      const int kk = c / (BM / 4), mm = c % (BM / 4) * 4;
       const int gm = m0 + mm, gk = k0 + kk;
-      xs[kk][mm] = (gm < M && gk < K)
-                       ? x[gm * sxm + gk * sxk]
-                       : 0.0f;
+      const int n = gk < a.K ? 4 * max(0, min(4, a.M - gm)) : 0;
+      cp_async16(xs + kk * T::kXS + mm, n ? a.x + gk * a.sxk + gm : a.x, n);
     }
-#pragma unroll
-    for (int r = 0; r < (kBK * kBN) / kThreads; ++r) {
-      const int e = tid + r * kThreads;
-      const int nn = y_n_fast ? e % kBN : e / kBK;
-      const int kk = y_n_fast ? e / kBN : e % kBK;
-      const int gk = k0 + kk, gn = n0 + nn;
-      ys[kk][nn] = (gk < K && gn < N)
-                       ? y[gk * syk + gn * syn]
-                       : 0.0f;
+  } else {
+    const bool along_k = a.x_mode == kXAlongK;
+    for (int e = tid; e < BM * kF32BK; e += T::kThreads) {
+      const int kk = along_k ? e % kF32BK : e / BM;
+      const int mm = along_k ? e / kF32BK : e % BM;
+      const int gm = m0 + mm, gk = k0 + kk;
+      const bool in = gm < a.M && gk < a.K;
+      cp_async4(xs + kk * T::kXS + mm,
+                in ? a.x + gm * a.sxm + gk * a.sxk : a.x, in ? 4 : 0);
     }
-    __syncthreads();
+  }
+}
+
+// x's slab [BM, 16] read 16 bytes along k into registers (x with a unit
+// k stride, 16-byte aligned rows); zeros past M and K.
+template <class T>
+__device__ __forceinline__ void x_load(float4 (&r)[T::kXRegs],
+                                       const F32Args& a, int m0, int k0,
+                                       int tid) {
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[kMicro], b[kMicro];
-#pragma unroll
-      for (int i = 0; i < kMicro; ++i) a[i] = xs[kk][ty * kMicro + i];
-#pragma unroll
-      for (int j = 0; j < kMicro; ++j) b[j] = ys[kk][tx * kMicro + j];
-#pragma unroll
-      for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j)
-          acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  for (int i = 0; i < T::kXRegs; ++i) {
+    const int c = tid + i * T::kThreads;
+    const int gm = m0 + c / 4, gk = k0 + c % 4 * 4;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (gm < a.M) {
+      const float* p = a.x + gm * a.sxm + gk;
+      if (gk + 3 < a.K) {
+        v = *reinterpret_cast<const float4*>(p);
+      } else {
+        if (gk < a.K) v.x = p[0];
+        if (gk + 1 < a.K) v.y = p[1];
+        if (gk + 2 < a.K) v.z = p[2];
+      }
     }
-    __syncthreads();
+    r[i] = v;
+  }
+}
+
+// ... and stored transposed into a stage's k-major x slab.
+template <class T>
+__device__ __forceinline__ void x_store(float* xs,
+                                        const float4 (&r)[T::kXRegs],
+                                        int tid) {
+#pragma unroll
+  for (int i = 0; i < T::kXRegs; ++i) {
+    const int c = tid + i * T::kThreads;
+    float* col = xs + (c % 4 * 4) * T::kXS + c / 4;
+    col[0] = r[i].x;
+    col[T::kXS] = r[i].y;
+    col[2 * T::kXS] = r[i].z;
+    col[3 * T::kXS] = r[i].w;
+  }
+}
+
+// y's slab [16, BN] by cp.async into a stage; zeros past N and K.
+template <class T, int BN>
+__device__ __forceinline__ void y_async(float* ys, const F32Args& a, int n0,
+                                        int k0, int tid) {
+  if (a.y_mode == kYVecN) {
+    for (int c = tid; c < BN / 4 * kF32BK; c += T::kThreads) {
+      const int kk = c / (BN / 4), nn = c % (BN / 4) * 4;
+      const int gn = n0 + nn, gk = k0 + kk;
+      const int n = gk < a.K ? 4 * max(0, min(4, a.N - gn)) : 0;
+      cp_async16(ys + kk * T::kYS + nn, n ? a.y + gk * a.syk + gn : a.y, n);
+    }
+  } else {
+    const bool along_n = a.y_mode != kYAlongK;
+    for (int e = tid; e < BN * kF32BK; e += T::kThreads) {
+      const int nn = along_n ? e % BN : e / kF32BK;
+      const int kk = along_n ? e / BN : e % kF32BK;
+      const int gn = n0 + nn, gk = k0 + kk;
+      const bool in = gn < a.N && gk < a.K;
+      cp_async4(ys + kk * T::kYS + nn,
+                in ? a.y + gk * a.syk + gn * a.syn : a.y, in ? 4 : 0);
+    }
+  }
+}
+
+// The fragments of one k: the thread's TM rows of x and TN columns of y.
+template <class T, int TM, int TN>
+__device__ __forceinline__ void tile_frag(float (&fa)[TM], float (&fb)[TN],
+                                          const float* xs, const float* ys,
+                                          int kk, int ty, int tx) {
+#pragma unroll
+  for (int g = 0; g < TM / 4; ++g) {
+    const float4 v = *reinterpret_cast<const float4*>(
+        xs + kk * T::kXS + g * T::kBandM + ty * 4);
+    fa[4 * g] = v.x, fa[4 * g + 1] = v.y, fa[4 * g + 2] = v.z,
+           fa[4 * g + 3] = v.w;
+  }
+#pragma unroll
+  for (int g = 0; g < TN / 4; ++g) {
+    const float4 v = *reinterpret_cast<const float4*>(
+        ys + kk * T::kYS + g * T::kBandN + tx * 4);
+    fb[4 * g] = v.x, fb[4 * g + 1] = v.y, fb[4 * g + 2] = v.z,
+           fb[4 * g + 3] = v.w;
+  }
+}
+
+// XR: x comes through registers (x_load / x_store), else by cp.async.
+template <int BM, int BN, int TM, int TN, int S, int MINB, bool XR>
+__global__ void __launch_bounds__(F32Tile<BM, BN, TM, TN, S>::kThreads, MINB)
+    matmul_f32_tile(const F32Args a) {
+  using T = F32Tile<BM, BN, TM, TN, S>;
+  extern __shared__ __align__(16) float f32_smem[];
+  const int tid = threadIdx.x;
+  const int tx = tid % T::kTX, ty = tid / T::kTX;
+
+  // grouped raster, N tiles fastest inside a group of kF32GroupM row tiles
+  // (one grid dimension: any row count launches)
+  const int tiles_m = (a.M + BM - 1) / BM;
+  const int tiles_n = (a.N + BN - 1) / BN;
+  const int per_group = kF32GroupM * tiles_n;
+  const int first_m = static_cast<int>(blockIdx.x / per_group) * kF32GroupM;
+  const int group_m = min(tiles_m - first_m, kF32GroupM);
+  const int in_group = static_cast<int>(blockIdx.x % per_group);
+  const int m0 = (first_m + in_group % group_m) * BM;
+  const int n0 = (in_group / group_m) * BN;
+  const int nk = (a.K + kF32BK - 1) / kF32BK;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+  float4 xr[T::kXRegs];
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nk) {
+      float* xs = f32_smem + s * T::kStage;
+      if (XR) {
+        x_load<T>(xr, a, m0, s * kF32BK, tid);
+        x_store<T>(xs, xr, tid);
+      } else {
+        x_async<T, BM>(xs, a, m0, s * kF32BK, tid);
+      }
+      y_async<T, BN>(xs + kF32BK * T::kXS, a, n0, s * kF32BK, tid);
+    }
+    cp_async_commit();
+  }
+  for (int kb = 0; kb < nk; ++kb) {
+    const int nb = kb + S - 1;
+    // x of slab nb into registers now, stored after this slab's products
+    if (XR && nb < nk) x_load<T>(xr, a, m0, nb * kF32BK, tid);
+    cp_async_wait<S - 2>();  // slab kb has landed
+    __syncthreads();         // and every thread is done with slab kb - 1
+    float* next = f32_smem + (nb % S) * T::kStage;
+    if (nb < nk) {
+      if (!XR) x_async<T, BM>(next, a, m0, nb * kF32BK, tid);
+      y_async<T, BN>(next + kF32BK * T::kXS, a, n0, nb * kF32BK, tid);
+    }
+    cp_async_commit();
+    const float* xs = f32_smem + (kb % S) * T::kStage;
+    const float* ys = xs + kF32BK * T::kXS;
+#pragma unroll
+    for (int kk = 0; kk < kF32BK; ++kk) {  // ascending k
+      float fa[TM], fb[TN];
+      tile_frag<T, TM, TN>(fa, fb, xs, ys, kk, ty, tx);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = fmaf(fa[i], fb[j], acc[i][j]);
+    }
+    // stage nb % S was last read in slab kb - 1, before the barrier above;
+    // slab nb reads it after a later one
+    if (XR && nb < nk) x_store<T>(next, xr, tid);
   }
 
+  const bool vec_out =
+      (a.N & 3) == 0 && (reinterpret_cast<uintptr_t>(a.out) & 15) == 0;
 #pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-    const int gm = m0 + ty * kMicro + i;
-    if (gm >= M) continue;
+  for (int gi = 0; gi < TM / 4; ++gi)
 #pragma unroll
-    for (int j = 0; j < kMicro; ++j) {
-      const int gn = n0 + tx * kMicro + j;
-      if (gn < N) out[static_cast<long long>(gm) * N + gn] = acc[i][j];
+    for (int i = 0; i < 4; ++i) {
+      const int gm = m0 + gi * T::kBandM + ty * 4 + i;
+      if (gm >= a.M) continue;
+      float* row = a.out + static_cast<long long>(gm) * a.N;
+#pragma unroll
+      for (int gj = 0; gj < TN / 4; ++gj) {
+        const int gn = n0 + gj * T::kBandN + tx * 4;
+        const int r = gi * 4 + i, c = gj * 4;
+        if (vec_out && gn + 3 < a.N) {
+          *reinterpret_cast<float4*>(row + gn) = make_float4(
+              acc[r][c], acc[r][c + 1], acc[r][c + 2], acc[r][c + 3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (gn + j < a.N) row[gn + j] = acc[r][c + j];
+        }
+      }
+    }
+}
+
+constexpr int kSkRows = 128;  // rows per block, one per thread
+constexpr int kSkBK = 32;     // k per slab: eight 16-byte chunks a row
+constexpr int kSkStages = 3;
+constexpr int kSkMaxN = 8;
+constexpr int kSkStage = kSkRows * kSkBK + kSkBK * kSkMaxN;  // floats
+constexpr int kSkSmemBytes = kSkStages * kSkStage * 4;
+
+// Where element (r, k) of a staged x slab sits: 16-byte chunk k / 4 of
+// row r at chunk (k / 4) ^ (r % 8).
+__device__ __forceinline__ int sk_at(int r, int k) {
+  return r * kSkBK + ((((k >> 2) ^ r) & 7) << 2) + (k & 3);
+}
+
+__device__ __forceinline__ void sk_slab(float* xs, float* ys,
+                                        const F32Args& a, int m0, int k0,
+                                        int tid) {
+  if (a.x_mode == kXVecK) {  // unit k stride, 16-byte aligned rows
+    for (int c = tid; c < kSkRows * kSkBK / 4; c += kSkRows) {
+      const int r = c / (kSkBK / 4), k = c % (kSkBK / 4) * 4;
+      const int gm = m0 + r, gk = k0 + k;
+      const int n = gm < a.M ? 4 * max(0, min(4, a.K - gk)) : 0;
+      cp_async16(xs + sk_at(r, k), n ? a.x + gm * a.sxm + gk : a.x, n);
+    }
+  } else {
+    const bool along_k = a.x_mode == kXAlongK;
+    for (int e = tid; e < kSkRows * kSkBK; e += kSkRows) {
+      const int r = along_k ? e / kSkBK : e % kSkRows;
+      const int k = along_k ? e % kSkBK : e / kSkRows;
+      const int gm = m0 + r, gk = k0 + k;
+      const bool in = gm < a.M && gk < a.K;
+      cp_async4(xs + sk_at(r, k), in ? a.x + gm * a.sxm + gk * a.sxk : a.x,
+                in ? 4 : 0);
     }
   }
+  for (int e = tid; e < kSkBK * kSkMaxN; e += kSkRows) {
+    const int k = e / kSkMaxN, n = e % kSkMaxN;
+    const int gk = k0 + k;
+    const bool in = gk < a.K && n < a.N;
+    cp_async4(ys + e, in ? a.y + gk * a.syk + n * a.syn : a.y, in ? 4 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(kSkRows) matmul_f32_skinny(const F32Args a) {
+  extern __shared__ __align__(16) float f32_smem[];
+  const int tid = threadIdx.x;
+  const int m0 = static_cast<int>(blockIdx.x) * kSkRows;
+  const int k16 = (a.K + kF32BK - 1) / kF32BK * kF32BK;
+  const int nk = (k16 + kSkBK - 1) / kSkBK;
+
+  float acc[kSkMaxN];
+#pragma unroll
+  for (int n = 0; n < kSkMaxN; ++n) acc[n] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kSkStages - 1; ++s) {
+    if (s < nk) {
+      float* xs = f32_smem + s * kSkStage;
+      sk_slab(xs, xs + kSkRows * kSkBK, a, m0, s * kSkBK, tid);
+    }
+    cp_async_commit();
+  }
+  for (int kb = 0; kb < nk; ++kb) {
+    cp_async_wait<kSkStages - 2>();
+    __syncthreads();
+    const int nb = kb + kSkStages - 1;
+    if (nb < nk) {
+      float* xs = f32_smem + (nb % kSkStages) * kSkStage;
+      sk_slab(xs, xs + kSkRows * kSkBK, a, m0, nb * kSkBK, tid);
+    }
+    cp_async_commit();
+    const float* xs = f32_smem + (kb % kSkStages) * kSkStage;
+    const float* ys = xs + kSkRows * kSkBK;
+    const int steps = min(kSkBK, k16 - kb * kSkBK);  // 16 or 32
+#pragma unroll
+    for (int q = 0; q < kSkBK / 4; ++q) {  // ascending k
+      if (4 * q >= steps) break;
+      const float4 v = *reinterpret_cast<const float4*>(xs + sk_at(tid, 4 * q));
+      const float xv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int n = 0; n < kSkMaxN; ++n)
+          if (n < a.N)
+            acc[n] = fmaf(xv[u], ys[(4 * q + u) * kSkMaxN + n], acc[n]);
+    }
+  }
+
+  const int gm = m0 + tid;
+  if (gm < a.M) {
+    float* row = a.out + static_cast<long long>(gm) * a.N;
+#pragma unroll
+    for (int n = 0; n < kSkMaxN; ++n)
+      if (n < a.N) row[n] = acc[n];
+  }
+}
+
+template <int BM, int BN, int TM, int TN, int S, int MINB, bool XR>
+int run_f32_tile(const F32Args& a, cudaStream_t stream) {
+  using T = F32Tile<BM, BN, TM, TN, S>;
+  static bool attr_set[64] = {};
+  auto kernel = matmul_f32_tile<BM, BN, TM, TN, S, MINB, XR>;
+  cudaError_t e = allow_smem(kernel, T::kSmemBytes, attr_set);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks = static_cast<long long>((a.M + BM - 1) / BM) *
+                           ((a.N + BN - 1) / BN);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), T::kThreads, T::kSmemBytes,
+           stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x through registers where it is read 16 bytes along k
+template <int BM, int BN, int TM, int TN, int S, int MINB>
+int run_f32_tile(const F32Args& a, cudaStream_t stream) {
+  return a.x_mode == kXVecK
+             ? run_f32_tile<BM, BN, TM, TN, S, MINB, true>(a, stream)
+             : run_f32_tile<BM, BN, TM, TN, S, MINB, false>(a, stream);
+}
+
+int run_f32_skinny(const F32Args& a, cudaStream_t stream) {
+  static bool attr_set[64] = {};
+  if (a.N > kSkMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = allow_smem(matmul_f32_skinny, kSkSmemBytes, attr_set);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned blocks = static_cast<unsigned>((a.M + kSkRows - 1) / kSkRows);
+  matmul_f32_skinny<<<blocks, kSkRows, kSkSmemBytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -225,10 +591,6 @@ struct Args {
   int x_tma, y_tma;
   int x_rows;  // rows of x a stage loads; the tile's rows past it stay 0
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // The 128-byte TMA swizzle as the hardware applies it to a shared-memory
 // byte address: the 16-byte chunk index (bits 4-6) XOR the 128-byte row
@@ -588,17 +950,9 @@ int run_bf16(Args a, bool force_threads, cudaStream_t stream) {
   if (err != 0) return err;
 
   auto kernel = matmul_bf16_kernel<WG, NI, BKM>;
-  static bool attr_set[64] = {};  // per device
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static bool attr_set[64] = {};
+  const cudaError_t e = allow_smem(kernel, T::kSmemBytes, attr_set);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev >= 64 || !attr_set[dev]) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             T::kSmemBytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < 64) attr_set[dev] = true;
-  }
   const long long blocks =
       static_cast<long long>((a.M + T::kBM - 1) / T::kBM) *
       ((a.N + T::kBN - 1) / T::kBN);
@@ -611,16 +965,30 @@ int run_bf16(Args a, bool force_threads, cudaStream_t stream) {
 
 extern "C" int matmul_f32(const float* x, const float* y, float* out, int M,
                           int N, int K, long long sxm, long long sxk,
-                          long long syk, long long syn, void* stream) {
+                          long long syk, long long syn, int config,
+                          int x_mode, int y_mode, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if (K < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = static_cast<long long>((M + kBM - 1) / kBM) *
-                           ((N + kBN - 1) / kBN);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  matmul_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(x, y, out, M, N, K,
-                                                       sxm, sxk, syk, syn);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  F32Args a{x, y, out, sxm, sxk, syk, syn, M, N, K, x_mode, y_mode};
+  // 16-byte copies only where the strides and the base allow them; any
+  // staging gives the same bits
+  const bool x16 = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool y16 = reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  if (a.x_mode == kXVecK && !(x16 && sxk == 1 && sxm % 4 == 0))
+    a.x_mode = kXAlongK;
+  if (a.x_mode == kXVecM && !(x16 && sxm == 1 && sxk % 4 == 0))
+    a.x_mode = kXAlongM;
+  if (a.y_mode == kYVecN && !(y16 && syn == 1 && syk % 4 == 0))
+    a.y_mode = kYAlongN;
+  // the configurations kernels/matmul.py:F32_CONFIGS numbers
+  switch (config) {
+    case 0: return run_f32_skinny(a, st);
+    case 1: return run_f32_tile<64, 128, 8, 8, 3, 2>(a, st);
+    case 2: return run_f32_tile<32, 64, 4, 4, 4, 1>(a, st);
+    case 3: return run_f32_tile<32, 32, 4, 4, 6, 1>(a, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int matmul_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y,

@@ -958,3 +958,334 @@ def test_cuda_rwkv6_kernel_matches_plain_version(dtype):
                                              op.float().abs()))
             bound = bound + torch.ldexp(torch.ones_like(bound), e - 8)
         assert bool(((o.float() - op.float()).abs() <= bound).all())
+
+
+# -- the float32 kernel's tile plan ------------------------------------------
+
+def _f32_row_mean_products(rows, n):
+    """(M, K, N, strides) of ``layers.row_mean``'s float32 products over
+    ``rows`` rows of ``n`` columns: ``[rows * n / 64, 64] @ [64, 1]`` then
+    ``[rows, n / 64] @ [n / 64, 1]``, or one ``[rows, n] @ [n, 1]``."""
+    from repro_torch.models.layers import ROW_GROUP, row_mean_launches
+
+    if row_mean_launches(n) == 2:
+        g = n // ROW_GROUP
+        return [(rows * g, ROW_GROUP, 1, (ROW_GROUP, 1, 1, 1)),
+                (rows, g, 1, (g, 1, 1, 1))]
+    return [(rows, n, 1, (n, 1, 1, 1))]
+
+
+def _f32_products():
+    """Every float32 product shape the MM stage, the norms' row means and
+    chip_smoke give the kernel: (label, M, K, N, strides)."""
+    from repro_torch.configs import get_config
+
+    out = []
+    for n in (344, 400, 496):  # the matrix app's x @ x.T, x.T a view
+        out.append((f"MM stage n={n}", n, n, n, (n, 1, 1, n)))
+    for n in (496, 1024, 4096):  # chip_smoke's timed squares
+        out.append((f"square {n}", n, n, n, (n, 1, n, 1)))
+    out += [("ragged", 130, 257, 65, (257, 1, 65, 1)),
+            ("transposed views", 200, 300, 150, (1, 200, 1, 300)),
+            ("lone", 1, 1, 1, (1, 1, 1, 1))]
+    for arch in ("rwkv6-1.6b", "recurrentgemma-9b", "llama3-8b",
+                 "stablelm-12b", "starcoder2-15b"):
+        d = get_config(arch).d_model
+        for rows in (1, 8, 656, 8192, 65600):
+            for M, K, N, strides in _f32_row_mean_products(rows, d):
+                out.append((f"{arch} row_mean rows={rows}", M, K, N,
+                            strides))
+    return out
+
+
+F32_PRODUCTS = _f32_products()
+
+
+@pytest.mark.parametrize("case", F32_PRODUCTS,
+                         ids=[f"{c[0]} {c[1]}x{c[2]}x{c[3]}"
+                              for c in F32_PRODUCTS])
+def test_f32_tile_plan_grid_fits(case):
+    """Every product the float32 kernel is given maps to a plan whose grid
+    launches (at least one block, at most 2^31 - 1 on one grid dimension),
+    N <= SKINNY_N to the skinny kernel and nothing else."""
+    _, M, K, N, strides = case
+    mm = _mm_module()
+    plan = mm.tile_plan_f32(M, N, K, strides)
+    assert (plan.regime == "skinny") == (N <= mm.SKINNY_N)
+    assert plan.regime == "skinny" or plan.block in mm.F32_CONFIGS
+    assert 1 <= mm.f32_blocks(M, N, plan) <= 2 ** 31 - 1
+    assert plan.x_load in mm.X_LOADS and plan.y_load in mm.Y_LOADS
+
+
+def test_f32_tile_plan_is_a_function_of_shape_and_strides():
+    """The same shape and strides give the same plan, whatever else holds
+    (no state, no device); each operand loads along its unit stride, with
+    16-byte copies where the strides allow them."""
+    mm = _mm_module()
+    for _, M, K, N, strides in F32_PRODUCTS:
+        assert mm.tile_plan_f32(M, N, K, strides) == mm.tile_plan_f32(
+            int(M), int(N), int(K), tuple(int(s) for s in strides))
+    # the matrix app's x @ x.T: x 16 bytes along k, x.T (strides (1, n))
+    # 4 bytes along k
+    plan = mm.tile_plan_f32(496, 496, 496, (496, 1, 1, 496))
+    assert (plan.x_load, plan.y_load) == ("vec_k", "k")
+    # a column-major x 16 bytes along m, a dense y 16 bytes along n
+    plan = mm.tile_plan_f32(4096, 4096, 4096, (1, 4096, 4096, 1))
+    assert (plan.x_load, plan.y_load) == ("vec_m", "vec_n")
+    # 4-byte copies where a stride breaks the 16-byte steps
+    plan = mm.tile_plan_f32(130, 65, 257, (257, 1, 65, 1))
+    assert (plan.x_load, plan.y_load) == ("k", "n")
+    assert mm.tile_plan_f32(496, 496, 130, (1, 130, 1, 130)) == mm.F32Plan(
+        "small", (32, 64), "m", "k")
+    # the row means: x rows with 16-byte copies along k, unless a row's
+    # stride breaks the 16-byte steps
+    assert mm.tile_plan_f32(512, 1, 64, (64, 1, 1, 1)).x_load == "vec_k"
+    assert mm.tile_plan_f32(8, 1, 66, (66, 1, 1, 1)).x_load == "k"
+    assert mm.tile_plan_f32(8, 1, 64, (1, 8, 1, 1)).x_load == "m"
+
+
+def test_f32_tile_plan_reaches_each_regime():
+    """Large products take the 64 x 128 tile, the MM stage's squares the
+    32 x 64 tile, products too small for half a block per SM of it the
+    32 x 32 tile, N <= 8 the skinny kernel; every configuration is
+    reached."""
+    mm = _mm_module()
+    seen = set()
+    for _, M, K, N, strides in F32_PRODUCTS + [
+            ("", 8, 4096, 14336, (4096, 1, 14336, 1)),
+            ("", 100, 64, 200, (64, 1, 200, 1))]:
+        plan = mm.tile_plan_f32(M, N, K, strides)
+        seen.add("skinny" if plan.regime == "skinny" else plan.block)
+        if plan.regime == "small":
+            blocks = mm.f32_blocks(M, N, plan)
+            assert 2 * blocks >= mm.SMS or plan.block == mm.F32_SMALL[-1]
+            assert _cdiv(M, 128) * _cdiv(N, 128) < 2 * mm.SMS
+    assert seen == set(mm.F32_CONFIGS)
+    assert mm.tile_plan_f32(4096, 4096, 4096,
+                            (4096, 1, 4096, 1)).regime == "large"
+    for n in (344, 496):
+        assert mm.tile_plan_f32(n, n, n, (n, 1, 1, n)).block == (32, 64)
+    assert mm.tile_plan_f32(524288, 1, 64, (64, 1, 1, 1)).regime == "skinny"
+
+
+@pytest.mark.parametrize("M,K,N", [(4096, 4096, 4096), (496, 496, 496),
+                                   (524288, 64, 1), (8, 64, 3)])
+def test_f32_plans_force_every_configuration(M, K, N):
+    """``f32_plans`` gives the plan's own choice first, then each other
+    configuration once (the skinny kernel only for N <= SKINNY_N), every
+    one staging each operand as the strides allow."""
+    mm = _mm_module()
+    strides = (K, 1, N, 1)
+    plans = mm.f32_plans(M, N, K, strides)
+    assert plans[0] == mm.tile_plan_f32(M, N, K, strides)
+    keys = ["skinny" if p.regime == "skinny" else p.block for p in plans]
+    assert len(set(keys)) == len(keys)
+    assert set(keys) == {k for k in mm.F32_CONFIGS
+                         if k != "skinny" or N <= mm.SKINNY_N}
+    for p in plans:
+        assert (p.x_load, p.y_load) == mm.f32_loads(p.regime == "skinny",
+                                                    strides)
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _f32_cases(dev):
+    """(label, x, y) per regime of the float32 kernel, with ragged edges
+    and transposed views, on ``dev``."""
+    g = torch.Generator(device="cpu").manual_seed(41)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    return [("large", normal(2100, 301), normal(301, 2093)),
+            ("large transposed", normal(301, 2100).T, normal(2093, 301).T),
+            ("small", normal(496, 496), normal(496, 496).T),
+            ("small ragged", normal(130, 257), normal(257, 65)),
+            ("small column-major x", normal(257, 130).T, normal(257, 65)),
+            ("skinny N=1", normal(1000, 70), normal(70, 1)),
+            ("skinny N=3 transposed x", normal(70, 1000).T, normal(70, 3)),
+            ("skinny N=8", normal(777, 64), normal(8, 64).T)]
+
+
+def _needs_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (chip_smoke.py runs it)")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c[0] for c in _f32_cases("cpu")])
+def test_cuda_f32_matmul_regimes(case):
+    """Each regime against the plain version within check_matmul's float32
+    bound, and every configuration forced on the same product bit for bit
+    equal to the plan's own choice (one ascending fmaf chain each)."""
+    _needs_gpu()
+    _, x, y = next(c for c in _f32_cases("cuda") if c[0] == case)
+    got = ops.matmul(x, y)
+    want = matmul_plain(x.cpu(), y.cpu()).numpy()
+    bound = _mm_bound(x.cpu().numpy(), y.cpu().numpy())
+    torch.cuda.synchronize()
+    assert (np.abs(got.cpu().numpy() - want) <= bound).all()
+    for plan in _mm_module().f32_plans(x.shape[0], y.shape[1], x.shape[1],
+                                       x.stride() + y.stride()):
+        out = torch.empty_like(got)
+        _mm_module().launch(x, y, out, _f32_plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(out, got), plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["decode", "prefill"])
+def test_cuda_f32_row_mean_products(case):
+    """The norms' two N = 1 products at llama3-8b's width: 8 tokens (a
+    decode step) and the serve batch's 656 prefill rows, against the
+    plain version and the float64 mean."""
+    _needs_gpu()
+    from repro_torch.models.layers import row_mean
+
+    rows = {"decode": 8, "prefill": 656}[case]
+    g = torch.Generator(device="cpu").manual_seed(rows)
+    x = (torch.randn(rows, 4096, generator=g) * 3).cuda()
+    for M, K, N, _ in _f32_row_mean_products(rows, 4096):
+        a = torch.randn(M, K, generator=g).cuda()
+        b = torch.rand(K, N, generator=g).cuda()
+        got = ops.matmul(a, b)
+        torch.cuda.synchronize()
+        bound = _mm_bound(a.cpu().numpy(), b.cpu().numpy())
+        want = matmul_plain(a.cpu(), b.cpu()).numpy()
+        assert (np.abs(got.cpu().numpy() - want) <= bound).all()
+    mean = row_mean(x * x)
+    want = (x.double() ** 2).mean(-1, keepdim=True)
+    assert float((mean.double() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [344, 496])
+def test_cuda_f32_integer_gram_bitwise(n):
+    """The matrix app's x @ x.T on the card, bit for bit the CPU's."""
+    _needs_gpu()
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.integers(0, 10, (n, n)).astype(np.float32))
+    got = ops.matmul(x.cuda(), x.cuda().T).cpu()
+    np.testing.assert_array_equal(got.numpy(),
+                                  matmul_plain(x, x.T).numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", ["skinny", (64, 128), (32, 64),
+                                    (32, 32)])
+def test_cuda_f32_rows_do_not_depend_on_the_row_count(regime):
+    """A row computed alone equals the same row inside 8, 656 and 8192-row
+    products, bit for bit, with the product forced onto each
+    configuration (the row alone takes the plan's own)."""
+    _needs_gpu()
+    mm = _mm_module()
+    g = torch.Generator(device="cpu").manual_seed(43)
+    N = 1 if regime == "skinny" else 96
+    y = torch.randn(4096 if N == 1 else 1000, N, generator=g).cuda()
+    K = y.shape[0]
+    for M in (8, 656, 8192):
+        x = torch.randn(M, K, generator=g).cuda()
+        strides = x.stride() + y.stride()
+        plan = (mm.F32Plan("skinny", (mm.SKINNY_ROWS, N),
+                           *mm.f32_loads(True, strides))
+                if regime == "skinny" else
+                mm.F32Plan("large" if regime == mm.F32_LARGE else "small",
+                           regime, *mm.f32_loads(False, strides)))
+        full = torch.empty(M, N, device="cuda")
+        mm.launch(x, y, full, _f32_plan=plan)
+        for i in sorted({0, 1, M // 2, M - 1}):
+            assert torch.equal(ops.matmul(x[i:i + 1], y)[0], full[i]), (M, i)
+
+
+# -- acd_evict's edge inputs and the compacted chain --------------------------
+
+#: (label, J, mask share, edit) of the edge inputs
+ACD_EDGES = [("share 0", 300, 0.0, None), ("share 0.05", 2049, 0.05, None),
+             ("share 0.5", 1000, 0.5, None), ("share 0.8", 2048, 0.8, None),
+             ("share 1", 1031, 1.0, None),
+             ("long unmasked runs", 2500, 0.8, "runs"),
+             ("zero and -0.0 demands", 700, 0.8, "zeros"),
+             ("+-inf and NaN thresholds", 700, 0.8, "nonfinite"),
+             ("J=1", 1, 1.0, None), ("J=31", 31, 0.8, None)]
+
+
+def _acd_edge(label, J, share, edit, np_dtype, b=3):
+    rng = np.random.default_rng(J * 10 + int(share * 100))
+    P, thresh, mask = _inputs(rng, b, J, np_dtype, share)
+    if edit == "runs":  # whole stretches of unmasked jobs
+        for lo in range(0, J, 600):
+            mask[:, lo:lo + 300] = False
+    elif edit == "zeros":
+        P[:, ::3] = 0.0
+        P[:, 1::3] = -0.0
+    elif edit == "nonfinite":
+        thresh[:, ::5] = np.inf
+        thresh[:, 1::5] = -np.inf
+        thresh[:, 2::5] = np.nan
+    return P, thresh, mask
+
+
+def _compacted(P, thresh, mask):
+    """The kernel's argument, in plain Python: visit the masked jobs only,
+    and at each compute the add beside the compare, then select, so an
+    evicted job adds nothing (not 0.0). Values in the array's dtype."""
+    out = np.zeros(mask.shape, dtype=bool)
+    for b in range(P.shape[0]):
+        s = P.dtype.type(0.0)
+        for j in np.flatnonzero(mask[b]):
+            ev = s > thresh[b, j]
+            kept = s + P[b, j]
+            s = s if ev else kept
+            out[b, j] = ev
+    return out
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("edge", ACD_EDGES, ids=[e[0] for e in ACD_EDGES])
+def test_acd_edge_inputs_match_reference(ref, edge, dtype):
+    """The reference's Pallas kernel (interpret mode) and oracle against
+    the plain version on the edge inputs the CUDA kernel's compaction
+    must survive: mask shares 0 to 1, long unmasked runs, demands of 0.0
+    and -0.0, +-inf and NaN thresholds, tiny rows."""
+    P, thresh, mask = _acd_edge(*edge, DTYPES[dtype][0])
+    got = _plain(P, thresh, mask)
+    oracle, kernel = _reference_versions(ref, P, thresh, mask)
+    np.testing.assert_array_equal(got, oracle)
+    np.testing.assert_array_equal(got, kernel)
+    assert not got[~mask].any()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("edge", ACD_EDGES, ids=[e[0] for e in ACD_EDGES])
+def test_acd_masked_only_compaction_gives_the_same_bits(edge, dtype):
+    """The plain loop over every job (an unmasked or evicted job adding
+    0.0) and the compacted chain over the masked jobs only (adding
+    nothing) give the same evict mask: what the CUDA kernel rests on."""
+    P, thresh, mask = _acd_edge(*edge, DTYPES[dtype][0])
+    np.testing.assert_array_equal(_compacted(P, thresh, mask),
+                                  _plain(P, thresh, mask))
+
+
+#: J of the CUDA edge cases: one job, a ragged warp, one tile and one past
+#: it, four tiles and one past them, eight tiles
+ACD_CUDA_J = (1, 31, 2048, 2049, 4097, 8192)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("J", ACD_CUDA_J)
+def test_cuda_acd_evict_edge_cases(J):
+    """The CUDA kernel bit for bit against the plain version at every
+    mask share and edge input, float64 and float32."""
+    _needs_gpu()
+    for label, _, share, edit in ACD_EDGES:
+        for np_dtype, _ in DTYPES.values():
+            P, thresh, mask = _acd_edge(label, J, share, edit, np_dtype)
+            got = ops.acd_evict(*(torch.from_numpy(a).cuda()
+                                  for a in (P, thresh, mask)))
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          _plain(P, thresh, mask),
+                                          err_msg=f"{label} J={J}")
