@@ -29,7 +29,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``torch.profiler`` to split its wall time into device-busy and idle,
    and the J=4096 sweep once more to count the share of masked jobs the
    engine gives ``acd_evict`` (``acd_mask_share``); the kernel is timed at
-   that share and at 0.8, at J=512 and J=4096.
+   that share and at 0.8, at J=512 and J=4096, and by device time on
+   every 1000th of the engine's own calls, kept from that pass, beside
+   their chain floor.
 4. The congested main path: the same grid on a 3-provider portfolio with
    2-slot concurrency caps per provider and a 0.5 s warm-up / 1 s
    keep-alive scale-to-zero cold-start model (the throughput benchmark's
@@ -47,9 +49,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1024^3, bf16; the matrix app's integer ``x @ x.T`` at n = 344 and 496
    bit for bit, also against the CPU; every float32 configuration forced
    on one product per regime, bit for bit alike) and its time, bound and
-   ``torch.matmul``'s time at ``F32_TIMED`` (the MM stage's squares,
-   [4096]^3, the norms' row means at llama3-8b's decode and long
-   prefill). Then the matrix app at
+   ``torch.matmul``'s time (CUDA events and device time) at
+   ``F32_TIMED`` (the MM stage's squares, [4096]^3, a float32 decode
+   step, the norms' row means at llama3-8b's decode and long prefill).
+   Then the matrix app at
    full width traces 924 jobs on the card (MM through ``matmul``), splits
    them 774/150, fits the ridge models on the card, predicts the test
    jobs, schedules them SPT and HCF at 0.55x the all-private makespan
@@ -190,13 +193,16 @@ CPU_LAYERS = {"rwkv6-1.6b": 2, "recurrentgemma-9b": 3, "llama3-8b": 2}
 #: float32 matmul products timed beside torch.matmul (TF32 off) and the
 #: bound: (label, (M, K, N), reps): dense squares at the MM stage's
 #: smallest and largest n, the stage's own x @ x.T (x.T a view), the
-#: float32 yardstick [4096]^3, and the norms' row means (y >= 0) at
-#: llama3-8b's width: a decode step's 8 tokens and the long batch's
-#: 2 x 4096 ([tokens * 64, 64] @ [64, 1], then [tokens, 64] @ [64, 1])
+#: float32 yardstick [4096]^3, a float32 decode step's [8, 4096] @
+#: [4096, 4096] (the 32 x 64 tile's narrowest grid), and the norms' row
+#: means (y >= 0) at llama3-8b's width: a decode step's 8 tokens and the
+#: long batch's 2 x 4096 ([tokens * 64, 64] @ [64, 1], then
+#: [tokens, 64] @ [64, 1])
 F32_TIMED = (("square n=344", (344, 344, 344), 200),
              ("square n=496", (496, 496, 496), 200),
              ("MM stage x @ x.T n=496", (496, 496, 496), 200),
              ("square n=4096", (4096, 4096, 4096), 10),
+             ("f32 decode", (8, 4096, 4096), 100),
              ("row_mean decode level 1", (8 * 64, 64, 1), 200),
              ("row_mean decode level 2", (8, 64, 1), 200),
              ("row_mean long prefill level 1", (8192 * 64, 64, 1), 50),
@@ -383,14 +389,23 @@ def device_ms(fn, n):
     """Device milliseconds per call of ``fn``: ``n`` calls under the
     profiler (after a warm-up), every device event summed: what the card
     spends, where ``cuda_ms`` of a short kernel reads the host's launch
-    rate. Returns (ms per call, {event name: ms per call})."""
+    rate. Returns (ms per call, {event name: ms per call}); nan where
+    the profiler saw no device time twice (it sometimes misses a whole
+    kernel)."""
     fn()
-    got = device_profile("device_ms", lambda: [fn() for _ in range(n)])
+    got = (device_profile("device_ms", lambda: [fn() for _ in range(n)])
+           or device_profile("device_ms", lambda: [fn() for _ in range(n)]))
     if got is None:
         return float("nan"), {}
     busy_s, _, events = got
     return busy_s * 1e3 / n, {e.key: e.self_device_time_total * 1e-3 / n
                               for e in events}
+
+
+def finite(ms):
+    """``ms`` for the JSON line, None where it was not measured (nan):
+    the line stays valid JSON."""
+    return ms if ms == ms else None
 
 
 def matmul_bound(M, K, N, dtype):
@@ -521,6 +536,9 @@ def _check_matmul(dev):
         k_ms = cuda_ms(lambda: ops.matmul(x, y), reps)
         p_ms = cuda_ms(lambda: matmul_plain(x, y), max(1, reps // 10))
         l_ms = cuda_ms(lambda: torch.matmul(x, y), reps)
+        # device time too: events around calls this short read the host
+        k_dev = device_ms(lambda: ops.matmul(x, y), reps)[0]
+        l_dev = device_ms(lambda: torch.matmul(x, y), reps)[0]
         bound, by, n_bytes, n_ops = matmul_bound(M, K, N, "float32")
         plan = mm.tile_plan_f32(M, N, K, x.stride() + y.stride())
         print(f"matmul {label} [{M}, {K}] @ [{K}, {N}] f32: kernel "
@@ -529,12 +547,15 @@ def _check_matmul(dev):
               f"torch.matmul (TF32 off) {l_ms:.6f} ms, bound {bound:.6f} ms "
               f"by {by} (bytes {n_bytes}, operations {n_ops}); kernel at "
               f"{bound / k_ms:.3f} of the bound, {k_ms / l_ms:.3f}x "
-              f"torch.matmul's time; plan {tuple(plan)}, "
+              f"torch.matmul's time; device time: kernel {k_dev:.6f} ms, "
+              f"torch.matmul {l_dev:.6f} ms, {k_dev / l_dev:.3f}x, kernel "
+              f"at {bound / k_dev:.3f} of the bound; plan {tuple(plan)}, "
               f"{mm.f32_blocks(M, N, plan)} blocks")
         timings.append({"phase": label, "shape": [M, K, N],
                         "plan": list(plan), "ms": k_ms, "plain_ms": p_ms,
                         "bound_ms": bound, "bound_by": by,
-                        "library_ms": l_ms})
+                        "library_ms": l_ms, "device_ms": finite(k_dev),
+                        "library_device_ms": finite(l_dev)})
         del x, y
     main = next(t for t in timings if t["phase"] == "square n=496")
     return {"name": "matmul", "route": "cuda",
@@ -761,11 +782,13 @@ def chain_floor_ms(mask, step_ns):
     return int(mask.sum(1).max()) * step_ns * 1e-6
 
 
-def acd_mask_share(tasks, J):
+def acd_mask_share(tasks, J, keep_every=1000):
     """The share of masked jobs in the masks the engine gives ``acd_evict``
     over one uncapped sweep of ``tasks``: a counting pass of its own, the
     wrapper wrapped here only, the counts summed on the card and read
-    once at the end. Prints it beside the calls' mean longest row."""
+    once at the end. Prints it beside the calls' mean longest row.
+    Returns (share, copies of the (P, thresh, mask) of every
+    ``keep_every``-th call, the first included)."""
     import types
 
     import torch
@@ -776,8 +799,11 @@ def acd_mask_share(tasks, J):
     real = ops.acd_evict
     zero = torch.zeros((), dtype=torch.int64, device="cuda")
     tally = {"masked": zero, "longest": zero, "jobs": 0, "calls": 0}
+    kept = []
 
     def counting(P, thresh, mask):
+        if tally["calls"] % keep_every == 0:
+            kept.append((P.clone(), thresh.clone(), mask.clone()))
         per_row = mask.sum(1)
         tally["masked"] = tally["masked"] + per_row.sum()
         tally["longest"] = tally["longest"] + per_row.max()
@@ -802,7 +828,7 @@ def acd_mask_share(tasks, J):
           f"s): {masked} masked of {tally['jobs']} jobs in "
           f"{tally['calls']} calls = {share:.6f}; longest row per call "
           f"{longest / max(tally['calls'], 1):.1f} masked jobs on average")
-    return share
+    return share, kept
 
 
 def check_des(label, tasks, out, pairs, sim_kw, load_fields=False):
@@ -1919,7 +1945,7 @@ def main() -> int:
                                   demo_portfolio, sweep_scenarios)
     from repro_torch.core import vectorsim
     from repro_torch.kernels import build, ops
-    from repro_torch.kernels.probe import probe_chain
+    from repro_torch.kernels.acd_sweep import chain_step_latency
     from repro_torch.kernels.ref import acd_evict_plain, fifo_dispatch_plain
 
     t_start = time.perf_counter()
@@ -2026,7 +2052,7 @@ def main() -> int:
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / PEAK_OPS_PER_S["float64"] * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    step_clk, step_ns = probe_chain()
+    step_clk, step_ns = chain_step_latency()
     floor_ms = chain_floor_ms(mask, step_ns)
     print(f"acd_evict [{B}, {J}] f64: kernel {k_ms:.6f} ms "
           f"({k_ms * 1e6 / J:.3f} ns per job of a row), "
@@ -2194,8 +2220,28 @@ def main() -> int:
     # where the J=512 sweep's time goes
     profile_sweep("main path J=512", outs[512][0], {}, walls[512])
     # the engine's own mask share, and the kernel's time at it
-    share = acd_mask_share(fig4_workload(APPS, max(MAIN_J)), max(MAIN_J))
+    share, kept = acd_mask_share(fig4_workload(APPS, max(MAIN_J)),
+                                 max(MAIN_J))
     kernels[0]["engine_mask_share"] = share
+    # the kernel on the engine's own inputs, by device time: the calls
+    # kept from the counting pass, each launched once per profiled pass
+    for P, thresh, mask in kept:
+        if not torch.equal(ops.acd_evict(P, thresh, mask),
+                           acd_evict_plain(P, thresh, mask)):
+            raise AssertionError("acd_evict on the engine's inputs: "
+                                 "kernel != plain")
+    e_dev = device_ms(lambda: [ops.acd_evict(*c) for c in kept], 20)[0]
+    e_dev /= len(kept)
+    e_floor = sum(chain_floor_ms(c[2], step_ns) for c in kept) / len(kept)
+    e_rows = [int(c[2].sum(1).max()) for c in kept]
+    print(f"acd_evict on {len(kept)} of the engine's own calls "
+          f"{list(kept[0][0].shape)} (every 1000th of the counting pass): "
+          f"bitwise equal to the plain version; device {e_dev:.6f} ms a "
+          f"call on average, chain floor {e_floor:.6f} ms on average "
+          f"(longest rows {e_rows} masked jobs), kernel at "
+          f"{e_floor / e_dev:.3f} of its floor")
+    kernels[0]["engine_calls_device_ms"] = finite(e_dev)
+    kernels[0]["engine_calls_chain_floor_ms"] = e_floor
     for J in MAIN_J:
         for p_mask in (share, 0.8):
             P, thresh, mask = random_case(30, J, f64, p_mask)

@@ -9,6 +9,7 @@ is the checked public wrapper that the engine calls.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -50,7 +51,7 @@ def chain_step_probe(pt: torch.Tensor, n: int, out: torch.Tensor,
     ``n`` x 8 dependent float64 steps on ``pt`` (16 float64 on the card:
     eight demands, then eight thresholds); ``out`` [1] float64 gets the
     sum, ``cycles`` [1] int64 the SM clocks the loop took. For the chain
-    floor (``chip_smoke.py``); the engine never calls it."""
+    floor (:func:`chain_step_latency`); the engine never calls it."""
     fn = _FNS.get("probe")
     if fn is None:
         fn = build.load("acd_evict").acd_chain_step_probe
@@ -62,3 +63,23 @@ def chain_step_probe(pt: torch.Tensor, n: int, out: torch.Tensor,
              torch.cuda.current_stream(pt.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"acd chain probe failed: cudaError_t {err}")
+
+
+def chain_step_latency(n: int = 1 << 16) -> Tuple[float, float]:
+    """(SM clocks, ns) per dependent float64 step of the chain, from one
+    :func:`chain_step_probe` launch of ``n`` x 8 steps on the current
+    device, timed by CUDA events after a warm-up launch: the step behind
+    ``acd_evict``'s chain floor."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pt = torch.tensor([1e-3] * 8 + [1e300] * 8, dtype=torch.float64,
+                      device=dev)
+    out = torch.empty(1, dtype=torch.float64, device=dev)
+    cycles = torch.empty(1, dtype=torch.int64, device=dev)
+    chain_step_probe(pt, n, out, cycles)
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    chain_step_probe(pt, n, out, cycles)
+    t1.record()
+    torch.cuda.synchronize()
+    steps = 8 * n
+    return int(cycles.item()) / steps, t0.elapsed_time(t1) * 1e6 / steps

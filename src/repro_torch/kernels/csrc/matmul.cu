@@ -33,8 +33,8 @@
 // The file is built with --fmad=false, so the one fused multiply-add is
 // the explicit fmaf.
 //
-// Design. tile_plan_f32 picks one compiled configuration (the tiles from a
-// development probe on the H100, kernels/probe.py):
+// Design. tile_plan_f32 picks one compiled configuration (the tiles timed
+// against each other on the H100: PERF.md §6):
 // - Tile kernels (matmul_f32_tile<BM, BN, TM, TN, S>): a BM x BN output
 //   tile per block, each thread a TM x TN micro-tile made of 4 x 4 groups
 //   a band of rows (columns) apart, so that a warp's float4 reads of
@@ -50,8 +50,8 @@
 //   it as they landed took 1.6x torch.matmul's time at [4096]^3 where a
 //   column-major x took 1.2x (PERF.md §6). Large products take 64 x 128
 //   tiles, 8 x 8 per thread, two blocks a SM (as fast as 128 x 128 at
-//   [4096]^3, faster at a 656-row prefill); the MM stage's small squares
-//   and the decode steps 32 x 64 (or 32 x 32) tiles with a deeper ring.
+//   [4096]^3, faster at a 656-row prefill); every smaller product (the
+//   MM stage's squares, the decode steps) 32 x 64 tiles in four stages.
 // - The skinny kernel (matmul_f32_skinny, N <= 8: every row mean): a block
 //   of 128 threads stages 128 rows of x in 32-deep slabs (16-byte copies
 //   where x has a unit k stride, each row's chunks XOR-swizzled by the row
@@ -986,7 +986,6 @@ extern "C" int matmul_f32(const float* x, const float* y, float* out, int M,
     case 0: return run_f32_skinny(a, st);
     case 1: return run_f32_tile<64, 128, 8, 8, 3, 2>(a, st);
     case 2: return run_f32_tile<32, 64, 4, 4, 4, 1>(a, st);
-    case 3: return run_f32_tile<32, 32, 4, 4, 6, 1>(a, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

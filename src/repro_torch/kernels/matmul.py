@@ -84,14 +84,14 @@ def tile_plan(M: int, N: int, K: int,
 #: the float32 kernel's compiled configurations, numbered as
 #: ``csrc/matmul.cu:matmul_f32`` takes them: the skinny kernel, then the
 #: tile kernels by (block rows, block columns)
-F32_CONFIGS = {"skinny": 0, (64, 128): 1, (32, 64): 2, (32, 32): 3}
+F32_CONFIGS = {"skinny": 0, (64, 128): 1, (32, 64): 2}
 #: N up to which the skinny kernel runs (one row per thread, N chains)
 SKINNY_N = 8
 #: rows a skinny block stages
 SKINNY_ROWS = 128
-#: the large tile, and the small ones from the larger down
+#: the large tile, and the small one
 F32_LARGE = (64, 128)
-F32_SMALL = ((32, 64), (32, 32))
+F32_SMALL = (32, 64)
 #: streaming multiprocessors of the H100 SXM
 SMS = 132
 #: staging codes of the C interface: 4-byte cp.async copies walking the
@@ -128,23 +128,16 @@ def tile_plan_f32(M: int, N: int, K: int,
     strides (x along M, x along K, y along K, y along N), a function of
     these alone. N <= ``SKINNY_N`` (every row mean) runs the skinny kernel.
     A product that gives ``F32_LARGE`` tiles two waves of ``SMS`` blocks
-    takes them; the rest take the first of ``F32_SMALL`` that gives at
-    least a block per two SMs, else the last (on the H100 the 32 x 64 tile
-    was the fastest at the dense squares n = 344 and 496 and at a float32
-    decode step, and within 7% of 64 x 32 on the MM stage's x @ x.T:
-    PERF.md §6). Each operand is loaded along its unit-stride dimension."""
+    takes them; the rest take ``F32_SMALL`` (how the two tiles were
+    chosen on the H100: PERF.md §6). Each operand is loaded along its
+    unit-stride dimension."""
     if N <= SKINNY_N:
         return F32Plan("skinny", (SKINNY_ROWS, N), *f32_loads(True, strides))
     loads = f32_loads(False, strides)
 
-    def blocks(tile):
-        return _cdiv(M, tile[0]) * _cdiv(N, tile[1])
-
-    if blocks(F32_LARGE) >= 2 * SMS:
+    if _cdiv(M, F32_LARGE[0]) * _cdiv(N, F32_LARGE[1]) >= 2 * SMS:
         return F32Plan("large", F32_LARGE, *loads)
-    tile = next((t for t in F32_SMALL if 2 * blocks(t) >= SMS),
-                F32_SMALL[-1])
-    return F32Plan("small", tile, *loads)
+    return F32Plan("small", F32_SMALL, *loads)
 
 
 def f32_loads(skinny: bool, strides: Tuple[int, int, int, int]
@@ -168,8 +161,8 @@ def f32_plans(M: int, N: int, K: int,
               strides: Tuple[int, int, int, int]) -> Tuple[F32Plan, ...]:
     """:func:`tile_plan_f32`'s plan, then every other configuration of
     ``F32_CONFIGS`` forced on the same product (the skinny kernel only for
-    N <= ``SKINNY_N``): what the tests, ``chip_smoke.py`` and the probe
-    hold against each other, bit for bit."""
+    N <= ``SKINNY_N``): what the tests and ``chip_smoke.py`` hold
+    against each other, bit for bit."""
     own = tile_plan_f32(M, N, K, strides)
     plans = [own]
     for key in F32_CONFIGS:

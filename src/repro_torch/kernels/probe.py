@@ -1,8 +1,7 @@
-"""Development probe of the float32 ``matmul`` configurations and of the
-``acd_evict`` chain step, on one NVIDIA GPU.
+"""Development probe of the float32 ``matmul`` kernel against another
+version of it, on one NVIDIA GPU.
 
     python -m repro_torch.kernels.probe [--baseline OLD_MATMUL_CU] [--ptxas]
-        [--variants]
 
 (with ``src`` on ``PYTHONPATH``). It prints the card's name and power
 limit, then:
@@ -10,21 +9,18 @@ limit, then:
 - with ``--ptxas``, each kernel's registers, shared memory and spills as
   ``nvcc -Xptxas -v`` reports them for ``csrc/matmul.cu`` and
   ``csrc/acd_evict.cu``;
-- every float32 configuration of ``kernels/matmul.py:F32_CONFIGS`` forced
-  on a set of products (the MM stage's squares and their integer
-  ``x @ x.T``, [4096]^3, ragged and transposed views, a lone product that
-  rounds to -0.0, the norms' row means at llama3-8b's decode and long
-  prefill, float32 weight products): each bit for bit equal to the plan's
-  own choice, and, with ``--baseline``, to the float32 kernel of another
-  version of ``matmul.cu`` (built from that file with the same flags, its
-  ``matmul_f32`` taking no plan);
-- each configuration's time beside ``torch.matmul``'s (TF32 off) at the
-  timed shapes (CUDA events, warm);
-- the latency of one dependent float64 step of the ``acd_evict`` chain
-  (``acd_chain_step_probe``: SM clocks and ns per step).
+- with ``--baseline``, the float32 kernel of another version of
+  ``matmul.cu`` (built from that file with the same flags, its
+  ``matmul_f32`` taking no plan) against this one on a set of products
+  (the MM stage's squares and their integer ``x @ x.T``, [4096]^3, ragged
+  and transposed views, a lone product that rounds to -0.0, the norms'
+  row means at llama3-8b's decode and long prefill, float32 weight
+  products), bit for bit.
 
-It exits 1 on any mismatch. Nothing here runs when the module is
-imported, and the engine never calls it.
+It exits 1 on any mismatch. ``chip_smoke.py`` holds the configurations
+against each other and times them; this probe only does what needs a
+second build. Nothing here runs when the module is imported, and the
+engine never calls it.
 """
 from __future__ import annotations
 
@@ -37,34 +33,34 @@ from pathlib import Path
 
 import torch
 
-from ..core.precision import ieee_float32
-from . import acd_sweep, build
+from . import build
 
 # the module, not the package's ``matmul`` wrapper of the same name
 mm = importlib.import_module(".matmul", __package__)
 
-#: (label, M, K, N, layout, timed): layout "nn" dense x and y, "nt" y the
+#: (label, M, K, N, layout): layout "nn" dense x and y, "nt" y the
 #: transpose of a dense [N, K], "tt" both transposed views, "gram" the
-#: integer x @ x.T of the matrix app (values 0..9)
+#: integer x @ x.T of the matrix app (values 0..9), "negzero" products
+#: that round to -0.0
 SHAPES = [
-    ("square n=344", 344, 344, 344, "nn", True),
-    ("square n=496", 496, 496, 496, "nn", True),
-    ("MM stage integer x @ x.T n=344", 344, 344, 344, "gram", True),
-    ("MM stage integer x @ x.T n=496", 496, 496, 496, "gram", True),
-    ("square 4096", 4096, 4096, 4096, "nn", True),
-    ("ragged (130, 257, 65)", 130, 257, 65, "nn", False),
-    ("ragged (127, 129, 131)", 127, 129, 131, "nn", False),
-    ("transposed views (200, 300, 150)", 200, 300, 150, "tt", False),
-    ("ragged K=1, -0.0", 3, 1, 5, "negzero", False),
-    ("row_mean decode level 1", 8 * 64, 64, 1, "nn", True),
-    ("row_mean decode level 2", 8, 64, 1, "nn", True),
-    ("row_mean long prefill level 1", 8192 * 64, 64, 1, "nn", True),
-    ("row_mean long prefill level 2", 8192, 64, 1, "nn", True),
-    ("skinny N=3, K=40", 1000, 40, 3, "nn", False),
-    ("N=9, K=80", 300, 80, 9, "nt", False),
-    ("f32 decode [8, 4096] @ [4096, 14336]", 8, 4096, 14336, "nn", True),
-    ("f32 prefill [656, 4096] @ [4096, 14336]", 656, 4096, 14336, "nn",
-     True),
+    ("square n=344", 344, 344, 344, "nn"),
+    ("square n=496", 496, 496, 496, "nn"),
+    ("MM stage integer x @ x.T n=344", 344, 344, 344, "gram"),
+    ("MM stage integer x @ x.T n=496", 496, 496, 496, "gram"),
+    ("square 4096", 4096, 4096, 4096, "nn"),
+    ("ragged (130, 257, 65)", 130, 257, 65, "nn"),
+    ("ragged (127, 129, 131)", 127, 129, 131, "nn"),
+    ("transposed views (200, 300, 150)", 200, 300, 150, "tt"),
+    ("ragged K=1, -0.0", 3, 1, 5, "negzero"),
+    ("row_mean decode level 1", 8 * 64, 64, 1, "nn"),
+    ("row_mean decode level 2", 8, 64, 1, "nn"),
+    ("row_mean long prefill level 1", 8192 * 64, 64, 1, "nn"),
+    ("row_mean long prefill level 2", 8192, 64, 1, "nn"),
+    ("skinny N=3, K=40", 1000, 40, 3, "nn"),
+    ("N=9, K=80", 300, 80, 9, "nt"),
+    ("f32 decode [8, 4096] @ [4096, 14336]", 8, 4096, 14336, "nn"),
+    ("f32 decode [8, 4096] @ [4096, 4096]", 8, 4096, 4096, "nn"),
+    ("f32 prefill [656, 4096] @ [4096, 14336]", 656, 4096, 14336, "nn"),
 ]
 
 
@@ -98,113 +94,30 @@ def _baseline_fn(path: Path):
     return fn
 
 
-def _run_baseline(fn, x, y):
-    out = torch.empty((x.shape[0], y.shape[1]), device=x.device)
-    err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.shape[0],
-             y.shape[1], x.shape[1], *x.stride(), *y.stride(),
-             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"baseline matmul_f32: cudaError_t {err}")
-    return out
-
-
-def _ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def _device_ms(fn, reps):
-    """Device ms per call: ``reps`` calls under the profiler, every device
-    event summed (what the card spends; CUDA events around short calls
-    read the host's launch rate)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total * 1e-3 / reps or float("nan")  # nan: the profiler saw none
-
-
-def _plan_label(plan):
-    return (f"{plan.regime} {plan.block[0]}x{plan.block[1]} "
-            f"x:{plan.x_load} y:{plan.y_load}")
-
-
-def probe_matmul(baseline, timed=True) -> bool:
+def against_baseline(fn) -> bool:
+    """This kernel (its own plan) against the baseline's at ``SHAPES``,
+    bit for bit; prints a line a shape."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     ok = True
-    for label, M, K, N, layout, shape_timed in SHAPES:
+    for label, M, K, N, layout in SHAPES:
         x, y = _inputs(M, K, N, layout, gen, dev)
-        outs = []
-        for plan in mm.f32_plans(M, N, K, x.stride() + y.stride()):
-            out = torch.empty((M, N), device=dev)
-            mm.launch(x, y, out, _f32_plan=plan)
-            outs.append((plan, out))
+        got = torch.empty((M, N), device=dev)
+        mm.launch(x, y, got)
+        base = torch.empty((M, N), device=dev)
+        err = fn(x.data_ptr(), y.data_ptr(), base.data_ptr(), M, N, K,
+                 *x.stride(), *y.stride(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"baseline matmul_f32: cudaError_t {err}")
         torch.cuda.synchronize()
-        same = all(torch.equal(o, outs[0][1]) for _, o in outs)
-        line = (f"probe matmul {label} [{M}, {K}] @ [{K}, {N}] strides "
-                f"{x.stride()} {y.stride()}: {len(outs)} configurations "
-                f"bitwise equal {same}")
+        same = torch.equal(got, base)
         ok &= same
-        if layout == "gram":
-            exact = torch.equal(outs[0][1].cpu(), (x.cpu().double()
-                                                   @ y.cpu().double()).float())
-            line += f"; exact integers {exact}"
-            ok &= exact
-        if layout == "negzero":
-            signs = torch.signbit(outs[0][1]).any().item()
-            line += f"; any -0.0 left {signs}"
-        if baseline is not None:
-            base = _run_baseline(baseline, x, y)
-            torch.cuda.synchronize()
-            same_base = torch.equal(base, outs[0][1])
-            line += f"; bitwise equal to the baseline kernel {same_base}"
-            ok &= same_base
-        print(line)
-        if not (timed and shape_timed):
-            continue
-        reps = 10 if M * N * K > 1e10 else 100
-        lib = _ms(lambda: torch.matmul(x, y), reps)
-        lib_dev = _device_ms(lambda: torch.matmul(x, y), reps)
-        print(f"  torch.matmul: {lib:.6f} ms, device {lib_dev:.6f} ms")
-        for plan, out in outs:
-            t = _ms(lambda: mm.launch(x, y, out, _f32_plan=plan), reps)
-            d = _device_ms(lambda: mm.launch(x, y, out, _f32_plan=plan),
-                           reps)
-            print(f"  {_plan_label(plan)}: {t:.6f} ms, device {d:.6f} ms "
-                  f"({2 * M * N * K / d * 1e-9:.3f} TFLOP/s, "
-                  f"{(M * K + K * N + M * N) * 4 / d * 1e-9:.3f} TB/s), "
-                  f"device {d / lib_dev:.3f}x torch.matmul's; blocks "
-                  f"{mm.f32_blocks(M, N, plan)}")
-        if baseline is not None:
-            d = _device_ms(lambda: _run_baseline(baseline, x, y), reps)
-            print(f"  baseline kernel: device {d:.6f} ms")
+        plan = mm.tile_plan_f32(M, N, K, x.stride() + y.stride())
+        print(f"probe matmul {label} [{M}, {K}] @ [{K}, {N}] strides "
+              f"{x.stride()} {y.stride()}, plan {tuple(plan)}: bitwise "
+              f"equal to the baseline kernel {same}")
     return ok
-
-
-def probe_chain(n=1 << 16):
-    """SM clocks and ns per dependent float64 chain step."""
-    dev = torch.device("cuda", 0)
-    pt = torch.tensor([1e-3] * 8 + [1e300] * 8, dtype=torch.float64,
-                      device=dev)
-    out = torch.empty(1, dtype=torch.float64, device=dev)
-    cycles = torch.empty(1, dtype=torch.int64, device=dev)
-    ms = _ms(lambda: acd_sweep.chain_step_probe(pt, n, out, cycles), 5)
-    steps = 8 * n
-    return int(cycles.item()) / steps, ms * 1e6 / steps
 
 
 def ptxas(names=("matmul", "acd_evict")):
@@ -220,100 +133,6 @@ def ptxas(names=("matmul", "acd_evict")):
                 print(f"ptxas {name}: {line.strip()}")
 
 
-#: tile-kernel variants for --variants: (config number they replace,
-#: template arguments BM, BN, TM, TN, S, MINB)
-VARIANTS = [(1, (64, 128, 8, 8, 3, 2)), (1, (128, 128, 8, 8, 3, 2)),
-            (2, (32, 64, 4, 4, 4, 1)), (2, (32, 64, 4, 4, 6, 1)),
-            (3, (32, 32, 4, 4, 6, 1)), (3, (64, 32, 4, 4, 6, 1))]
-#: (label, M, K, N) the variants are timed at
-VARIANT_SHAPES = [("square 4096", 4096, 4096, 4096),
-                  ("square 4096, x column-major", 4096, 4096, 4096),
-                  ("f32 prefill", 656, 4096, 14336),
-                  ("f32 decode", 8, 4096, 14336),
-                  ("MM stage x @ x.T n=496", 496, 496, 496),
-                  ("MM stage x @ x.T n=344", 344, 344, 344),
-                  ("square 496", 496, 496, 496)]
-def probe_variants():
-    """Build ``csrc/matmul.cu`` once per entry of ``VARIANTS`` (that
-    configuration's template arguments replaced, nothing else), all at
-    once, and time each at ``VARIANT_SHAPES`` by device time, each output
-    bitwise equal to the shipped kernel's."""
-    import re
-
-    src = (build.CSRC / build.SOURCES["matmul"]).read_text()
-    vdir = build.BUILD_DIR / "probe_variants"
-    vdir.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for i, (config, targs) in enumerate(VARIANTS):
-        pat = re.compile(rf"case {config}: return run_f32_tile<[^>]*>")
-        assert pat.search(src), config
-        text = pat.sub(f"case {config}: return run_f32_tile<"
-                       f"{', '.join(map(str, targs))}>", src)
-        cu = vdir / f"v{i}.cu"
-        cu.write_text(text)
-        procs.append(subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
-             "-o", str(vdir / f"v{i}.so"), str(cu)]))
-    for proc in procs:
-        if proc.wait() != 0:
-            raise RuntimeError("a variant did not build")
-    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    for label, M, K, N in VARIANT_SHAPES:
-        x = (torch.randn(K, M, generator=gen, device=dev).T
-             if "column-major" in label
-             else torch.randn(M, K, generator=gen, device=dev))
-        y = x.T if "x.T" in label else torch.randn(K, N, generator=gen,
-                                                   device=dev)
-        want = torch.empty(M, N, device=dev)
-        mm.launch(x, y, want)
-        reps = 10 if M * N * K > 1e10 else 100
-        lib = _device_ms(lambda: torch.matmul(x, y), reps)
-        print(f"probe variants {label} [{M}, {K}] @ [{K}, {N}]: "
-              f"torch.matmul device {lib:.6f} ms")
-        plan = mm.tile_plan_f32(M, N, K, x.stride() + y.stride())
-        for i, (config, targs) in enumerate(VARIANTS):
-            fn = ctypes.CDLL(str(vdir / f"v{i}.so")).matmul_f32
-            fn.argtypes = [P, P, P, I, I, I, I64, I64, I64, I64, I, I, I, P]
-            fn.restype = ctypes.c_int
-            out = torch.empty(M, N, device=dev)
-            args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), M, N, K,
-                    *x.stride(), *y.stride(), config,
-                    mm.X_LOADS[plan.x_load], mm.Y_LOADS[plan.y_load],
-                    torch.cuda.current_stream().cuda_stream)
-
-            def run():
-                if fn(*args) != 0:
-                    raise RuntimeError("variant launch failed")
-
-            d = _device_ms(run, reps)
-            print(f"  variant {targs} (config {config}): device {d:.6f} ms "
-                  f"({2 * M * N * K / d * 1e-9:.3f} TFLOP/s), "
-                  f"{d / lib:.3f}x torch.matmul; bitwise equal "
-                  f"{torch.equal(out, want)}")
-
-
-def probe_acd():
-    """acd_evict at [30, 4096] float64, mask shares 0.05 and 0.8: event
-    and device ms."""
-    from . import ops
-
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(2)
-    for share in (0.05, 0.8):
-        P = torch.rand(30, 4096, generator=gen, device=dev,
-                       dtype=torch.float64) + 0.5
-        thresh = torch.rand(30, 4096, generator=gen, device=dev,
-                            dtype=torch.float64) * 2048
-        mask = torch.rand(30, 4096, generator=gen, device=dev) < share
-        t = _ms(lambda: ops.acd_evict(P, thresh, mask), 50)
-        d = _device_ms(lambda: ops.acd_evict(P, thresh, mask), 50)
-        print(f"probe acd_evict [30, 4096] f64 share {share}: {t:.6f} ms, "
-              f"device {d:.6f} ms; longest row "
-              f"{int(mask.sum(1).max())} masked")
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
@@ -321,8 +140,6 @@ def main(argv=None) -> int:
                          "float32 kernel against, bit for bit")
     ap.add_argument("--ptxas", action="store_true",
                     help="print registers and spills per kernel")
-    ap.add_argument("--variants", action="store_true",
-                    help="time the tile-kernel variants of VARIANTS")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe: needs an NVIDIA GPU", file=sys.stderr)
@@ -330,19 +147,12 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    build.build_all(["matmul", "acd_evict"])
+    build.build_all(["matmul"])
     if args.ptxas:
         ptxas()
-    baseline = _baseline_fn(args.baseline) if args.baseline else None
-    with ieee_float32():  # torch.matmul's yardstick in IEEE float32
-        ok = probe_matmul(baseline, timed=not args.variants)
-    cyc, ns = probe_chain()
-    print(f"probe acd_evict chain step (float64 compare and add, then "
-          f"select; one thread): {cyc:.3f} SM clocks, {ns:.4f} ns per step")
-    probe_acd()
-    if args.variants:
-        with ieee_float32():
-            probe_variants()
+    ok = True
+    if args.baseline is not None:
+        ok = against_baseline(_baseline_fn(args.baseline))
     print(f"probe: {'all bitwise checks passed' if ok else 'MISMATCH'}")
     return 0 if ok else 1
 

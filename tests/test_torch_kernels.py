@@ -1045,10 +1045,9 @@ def test_f32_tile_plan_is_a_function_of_shape_and_strides():
 
 
 def test_f32_tile_plan_reaches_each_regime():
-    """Large products take the 64 x 128 tile, the MM stage's squares the
-    32 x 64 tile, products too small for half a block per SM of it the
-    32 x 32 tile, N <= 8 the skinny kernel; every configuration is
-    reached."""
+    """Large products take the 64 x 128 tile, the MM stage's squares and
+    every other product too small for two waves of it the 32 x 64 tile,
+    N <= 8 the skinny kernel; every configuration is reached."""
     mm = _mm_module()
     seen = set()
     for _, M, K, N, strides in F32_PRODUCTS + [
@@ -1057,9 +1056,9 @@ def test_f32_tile_plan_reaches_each_regime():
         plan = mm.tile_plan_f32(M, N, K, strides)
         seen.add("skinny" if plan.regime == "skinny" else plan.block)
         if plan.regime == "small":
-            blocks = mm.f32_blocks(M, N, plan)
-            assert 2 * blocks >= mm.SMS or plan.block == mm.F32_SMALL[-1]
-            assert _cdiv(M, 128) * _cdiv(N, 128) < 2 * mm.SMS
+            assert plan.block == mm.F32_SMALL
+            assert (_cdiv(M, mm.F32_LARGE[0]) * _cdiv(N, mm.F32_LARGE[1])
+                    < 2 * mm.SMS)
     assert seen == set(mm.F32_CONFIGS)
     assert mm.tile_plan_f32(4096, 4096, 4096,
                             (4096, 1, 4096, 1)).regime == "large"
@@ -1174,8 +1173,7 @@ def test_cuda_f32_integer_gram_bitwise(n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("regime", ["skinny", (64, 128), (32, 64),
-                                    (32, 32)])
+@pytest.mark.parametrize("regime", ["skinny", (64, 128), (32, 64)])
 def test_cuda_f32_rows_do_not_depend_on_the_row_count(regime):
     """A row computed alone equals the same row inside 8, 656 and 8192-row
     products, bit for bit, with the product forced onto each
