@@ -2,13 +2,16 @@
 (``csrc/fifo_dispatch.cu``).
 
 Port of the Pallas kernel ``src/repro/kernels/dispatch.py:fifo_dispatch``:
-the capped FIFO public-dispatch chain, one block per scenario row. This
-module only launches; :func:`repro_torch.kernels.ops.fifo_dispatch` is the
-checked public wrapper that the engine calls.
+the capped FIFO public-dispatch chain, one block per scenario row, its
+chain run by one thread on a slot pool in registers while the block's
+other warps gather and precompute the next tile. This module only
+launches; :func:`repro_torch.kernels.ops.fifo_dispatch` is the checked
+public wrapper that the engine calls.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -18,6 +21,7 @@ _P = ctypes.c_void_p
 _ARGTYPES = ([_P] * 18 + [ctypes.c_int] * 4
              + [ctypes.c_double, ctypes.c_int, _P])
 _FN = []
+_PROBE = []
 
 
 def _fn():
@@ -44,3 +48,46 @@ def launch(order, n_pub, ready, dur, selc, occ, seg, capped, wu, sclk0,
                 stream)
     if err != 0:
         raise RuntimeError(f"fifo_dispatch launch failed: cudaError_t {err}")
+
+
+def chain_step_probe(inp: torch.Tensor, n: int, keep_alive: float,
+                     out: torch.Tensor, cycles: torch.Tensor) -> None:
+    """Launch the chain-step probe on the current stream: one thread runs
+    ``n`` dependent steps of the chain on a 3 x 2 pool in registers, every
+    provider capped, cold starts on, from the 27 float64 of ``inp`` (the
+    pool's clocks and idle stamps, then ready, dur, selc, occ per provider,
+    then wu); ``out`` [7] float64 gets the pool, ``cycles`` [1] int64 the
+    SM clocks the loop took. For the chain floor
+    (:func:`chain_step_latency`); the engine never calls it."""
+    if not _PROBE:
+        fn = build.load("fifo_dispatch").fifo_chain_step_probe
+        fn.argtypes = [_P, ctypes.c_int, ctypes.c_double, _P, _P, _P]
+        fn.restype = ctypes.c_int
+        _PROBE.append(fn)
+    err = _PROBE[0](inp.data_ptr(), n, float(keep_alive), out.data_ptr(),
+                    cycles.data_ptr(),
+                    torch.cuda.current_stream(inp.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fifo chain probe failed: cudaError_t {err}")
+
+
+def chain_step_latency(n: int = 1 << 14) -> Tuple[float, float]:
+    """(SM clocks, ns) per dependent step of the chain (the engine's 3 x 2
+    pool, every provider capped, cold starts on), from one
+    :func:`chain_step_probe` launch of ``n`` steps on the current device,
+    timed by CUDA events after a warm-up launch: the step behind
+    ``fifo_dispatch``'s chain floor."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pool = [0.5, 0.25, 1.0, 0.75, 0.125, 2.0] * 2
+    per_p = [0.0, 1.0, 0.5, 0.1, 0.0, 1.5, 0.6, 0.2, 0.0, 0.8, 0.7, 0.3]
+    inp = torch.tensor(pool + per_p + [0.4, 0.5, 0.6], dtype=torch.float64,
+                       device=dev)
+    out = torch.empty(7, dtype=torch.float64, device=dev)
+    cycles = torch.empty(1, dtype=torch.int64, device=dev)
+    chain_step_probe(inp, n, 1.0, out, cycles)
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    chain_step_probe(inp, n, 1.0, out, cycles)
+    t1.record()
+    torch.cuda.synchronize()
+    return int(cycles.item()) / n, t0.elapsed_time(t1) * 1e6 / n

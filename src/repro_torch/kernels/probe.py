@@ -1,42 +1,63 @@
-"""Development probe of the float32 ``matmul`` kernel against another
-version of it, on one NVIDIA GPU.
+"""Development probe of the port's kernels against other versions of
+them, on one NVIDIA GPU.
 
-    python -m repro_torch.kernels.probe [--baseline OLD_MATMUL_CU] [--ptxas]
+    python -m repro_torch.kernels.probe [--ptxas]
+        [--baseline OLD_MATMUL_CU] [--baseline rwkv6=OLD_RWKV6_CU]
+        [--baseline fifo_dispatch=OLD_FIFO_CU]
 
-(with ``src`` on ``PYTHONPATH``). It prints the card's name and power
-limit, then:
+(with ``src`` on ``PYTHONPATH``; a baseline file is another version of the
+kernel's source, e.g. ``git show <commit>:src/repro_torch/kernels/csrc/
+rwkv6.cu`` written under the ``.gitignore``d ``build/``). It prints the
+card's name and power limit, then:
 
 - with ``--ptxas``, each kernel's registers, shared memory and spills as
-  ``nvcc -Xptxas -v`` reports them for ``csrc/matmul.cu`` and
-  ``csrc/acd_evict.cu``;
-- with ``--baseline``, the float32 kernel of another version of
-  ``matmul.cu`` (built from that file with the same flags, its
-  ``matmul_f32`` taking no plan) against this one on a set of products
-  (the MM stage's squares and their integer ``x @ x.T``, [4096]^3, ragged
-  and transposed views, a lone product that rounds to -0.0, the norms'
-  row means at llama3-8b's decode and long prefill, float32 weight
-  products), bit for bit.
+  ``nvcc -Xptxas -v`` reports them for ``csrc/matmul.cu``,
+  ``csrc/acd_evict.cu``, ``csrc/rwkv6.cu`` and ``csrc/fifo_dispatch.cu``;
+- with a ``matmul`` baseline (a bare path), the float32 kernel of that
+  version (its ``matmul_f32`` taking no plan) against this one on a set of
+  products (the MM stage's squares and their integer ``x @ x.T``,
+  [4096]^3, ragged and transposed views, a lone product that rounds to
+  -0.0, the norms' row means at llama3-8b's decode and long prefill,
+  float32 weight products), bit for bit;
+- with an ``rwkv6`` baseline (a kernel taking no plan), that kernel
+  against this one at ``rwkv_shapes`` (rwkv6-1.6b's [8, 32, 2048, 64], the
+  long batch's [2, 32, 4096, 64], the serve batch's prefill and a decode
+  step from s0): S_T bit for bit, o bit for bit against
+  ``ref.rwkv6_ordered`` (and, as a reading, against the baseline's o,
+  whose order may differ); then both timed in turns (old, new, new, old)
+  by CUDA events and by profiler device time, each call as the engine
+  makes it (o and S_T allocated, the kernel's own ctypes launch: the
+  baseline's as ``kernels/rwkv6.py:launch`` had it with no plan);
+- with a ``fifo_dispatch`` baseline, that kernel against this one at the
+  engine's [30, 3, 4096, 2] (every provider capped, n_pub = J; and random
+  n_pub), cold starts off and on, all seven outputs bit for bit, and both
+  timed in turns by CUDA events and by device time, each call allocating
+  its outputs and launching through the same ctypes signature.
 
-It exits 1 on any mismatch. ``chip_smoke.py`` holds the configurations
-against each other and times them; this probe only does what needs a
-second build. Nothing here runs when the module is imported, and the
-engine never calls it.
+It exits 1 on any mismatch. ``chip_smoke.py`` times the shipped kernels;
+this probe does what needs a second build. Nothing here runs when the
+module is imported, and the engine never calls it.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import importlib
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from . import build
+from . import fifo as _fifo
+from .ref import rwkv6_ordered
 
-# the module, not the package's ``matmul`` wrapper of the same name
+# the modules, not the package's wrappers of the same names
 mm = importlib.import_module(".matmul", __package__)
+_rk = importlib.import_module(".rwkv6", __package__)
 
 #: (label, M, K, N, layout): layout "nn" dense x and y, "nt" y the
 #: transpose of a dense [N, K], "tt" both transposed views, "gram" the
@@ -81,13 +102,20 @@ def _inputs(M, K, N, layout, gen, dev):
     return x, torch.randn(K, N, generator=gen, device=dev)
 
 
-def _baseline_fn(path: Path):
-    """``matmul_f32`` of another version of matmul.cu, built here."""
-    out = build.BUILD_DIR / "probe_baseline_matmul.so"
+def _baseline_lib(name: str, path: Path) -> ctypes.CDLL:
+    """Another version of kernel ``name``'s source, built here with the
+    same flags."""
+    tag = hashlib.sha1(path.read_bytes()).hexdigest()[:12]
+    out = build.BUILD_DIR / f"probe_baseline_{name}_{tag}.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out),
                     str(path)], check=True)
-    fn = ctypes.CDLL(str(out)).matmul_f32
+    return ctypes.CDLL(str(out))
+
+
+def _baseline_fn(path: Path):
+    """``matmul_f32`` of another version of matmul.cu, built here."""
+    fn = _baseline_lib("matmul", path).matmul_f32
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [P, P, P, I, I, I, I64, I64, I64, I64, P]
     fn.restype = ctypes.c_int
@@ -120,7 +148,213 @@ def against_baseline(fn) -> bool:
     return ok
 
 
-def ptxas(names=("matmul", "acd_evict")):
+def _events_ms(fn, n):
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(n):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def _device_ms(fn, n):
+    """Device milliseconds per call: every device event of ``n`` calls
+    under the profiler, summed (nan when the profiler saw none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages())
+    return total * 1e-3 / n if total > 0 else float("nan")
+
+
+def _serve_prompt() -> int:
+    """The longest prompt of chip_smoke's serve batch at rwkv6-1.6b (eight
+    lengths drawn from [8, 96) with numpy's seed 0, each followed by its
+    tokens)."""
+    from repro_torch.configs import get_config
+
+    vocab = get_config("rwkv6-1.6b").vocab_size
+    rng = np.random.default_rng(0)
+    longest = 0
+    for _ in range(8):
+        plen = int(rng.integers(8, 96))
+        rng.integers(0, vocab, plen)
+        longest = max(longest, plen)
+    return longest
+
+
+def rwkv_shapes():
+    """(label, B, T, from s0, reps) of the timed rwkv6 shapes, H = 32 heads
+    of Dk = Dv = 64, bf16."""
+    return [("[8, 32, 2048, 64]", 8, 2048, False, 10),
+            ("long batch [2, 32, 4096, 64]", 2, 4096, False, 10),
+            (f"serve prefill [8, 32, {_serve_prompt()}, 64]", 8,
+             _serve_prompt(), False, 50),
+            ("decode step [8, 32, 1, 64] from s0", 8, 1, True, 200)]
+
+
+def _rwkv_inputs(B, T, with_s0, gen, dev, H=32, D=64):
+    # the model's [B, T, H, D] projections viewed as [B, H, T, D]
+    r, k, v = (torch.randn(B, T, H, D, device=dev, generator=gen)
+               .mul(0.3).to(torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(B, T, H, D, device=dev,
+                                         generator=gen) - 4.0))
+    u = torch.randn(H, D, device=dev, generator=gen) * 0.1
+    s0 = (torch.randn(B, H, D, D, device=dev, generator=gen)
+          if with_s0 else None)
+    return r, k, v, w.transpose(1, 2), u, s0
+
+
+def _rwkv_baseline_fn(path: Path):
+    fn = _baseline_lib("rwkv6", path).rwkv6_bf16
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P] * 8 + [I] * 5 + [P, P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rwkv_against_baseline(fn) -> bool:
+    """This ``rwkv6`` (its own plan) against another version's bf16 kernel
+    at ``rwkv_shapes``: S_T bit for bit, o and S_T against
+    ``ref.rwkv6_ordered``, then both timed in turns."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ok = True
+    for label, B, T, with_s0, reps in rwkv_shapes():
+        args = _rwkv_inputs(B, T, with_s0, gen, dev)
+        r, k, v, w, u, s0 = args
+
+        def old():  # the baseline's own launch: strides, no plan
+            o = torch.empty_like(v)
+            sT = torch.empty((B, 32, 64, 64), device=dev)
+            strides = (ctypes.c_longlong * 15)(*(
+                s for x in (r, k, v, w, o) for s in x.stride()[:3]))
+            err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                     u.data_ptr(), None if s0 is None else s0.data_ptr(),
+                     o.data_ptr(), sT.data_ptr(), B, 32, T, 64, 64,
+                     ctypes.cast(strides, ctypes.c_void_p),
+                     torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"baseline rwkv6: cudaError_t {err}")
+            return o, sT
+
+        def new():
+            o = torch.empty_like(v)
+            sT = torch.empty((B, 32, 64, 64), device=dev)
+            _rk.launch(r, k, v, w, u, s0, o, sT)
+            return o, sT
+
+        (o0, s0_), (o1, s1) = old(), new()
+        om, sm = rwkv6_ordered(*args)
+        torch.cuda.synchronize()
+        same = torch.equal(s0_, s1)  # S_T is elementwise: any order
+        model = torch.equal(o1, om) and torch.equal(s1, sm)
+        ok &= same and model
+        ev = [_events_ms(f, reps) for f in (old, new, new, old)]
+        dv = [_device_ms(f, reps) for f in (old, new, new, old)]
+        plan = _rk.launch_plan(B, 32, 64, _rk._sm_count(0))
+        print(f"probe rwkv6 {label} bf16, plan {tuple(plan)}: S_T "
+              f"bitwise equal to the baseline kernel {same}, o and S_T to "
+              f"ref.rwkv6_ordered {model}, o to the baseline kernel "
+              f"{torch.equal(o0, o1)} (its order may differ); events ms "
+              f"old {ev[0]:.6f} / "
+              f"{ev[3]:.6f}, new {ev[1]:.6f} / {ev[2]:.6f}; device ms old "
+              f"{dv[0]:.6f} / {dv[3]:.6f}, new {dv[1]:.6f} / {dv[2]:.6f}")
+    return ok
+
+
+def _fifo_baseline_fn(path: Path):
+    fn = _baseline_lib("fifo_dispatch", path).fifo_dispatch_f64
+    fn.argtypes = _fifo._ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _fifo_inputs(rng, n_pub=4096, capped=(True, True, True), B=30, P=3,
+                 J=4096, C=2):
+    """The engine's [B, P, J, C] chain inputs on the card, chip_smoke's
+    distributions; n_pub None: random per row."""
+    order = np.stack([rng.permutation(J) for _ in range(B)])
+    npub = rng.integers(0, J + 1, B) if n_pub is None else np.full(B, n_pub)
+    x = [order.astype(np.int32), npub.astype(np.int32),
+         rng.uniform(0.0, 0.01 * J, (B, P, J)),
+         rng.lognormal(0.0, 0.5, (B, P, J)),
+         rng.uniform(0.0, 2.0, (B, P, J)),
+         rng.uniform(0.0, 0.3, (B, P, J)),
+         rng.integers(0, 4, (B, P, J)).astype(np.int32),
+         np.asarray(capped, bool), rng.uniform(0.1, 1.0, P),
+         rng.uniform(0.0, 3.0, (B, P, C))]
+    x.append(np.where(rng.random((B, P, C)) < 0.3, -np.inf, x[-1]))
+    return [torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+            for a in x]
+
+
+def _fifo_outs(B, J, dev):
+    """The seven [B, J] outputs of one call, as ``ops.fifo_dispatch``
+    allocates them."""
+    return tuple(torch.empty((B, J), dtype=dt, device=dev) for dt in (
+        torch.int32, torch.int32, torch.float64, torch.bool, torch.float64,
+        torch.float64, torch.float64))
+
+
+def fifo_against_baseline(fn) -> bool:
+    """This ``fifo_dispatch`` against another version's at the engine's
+    [30, 3, 4096, 2], bit for bit in all seven outputs, both timed in
+    turns by CUDA events and by device time."""
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    B, P, J, C = 30, 3, 4096, 2
+    clk, ns = _fifo.chain_step_latency()
+    print(f"probe fifo_dispatch chain step (3 x 2 pool, cold, every "
+          f"provider capped): {clk:.2f} SM clocks, {ns:.4f} ns; floor at "
+          f"n_pub = {J}: {J * ns * 1e-6:.6f} ms")
+    ok = True
+    for label, n_pub, capped in (("n_pub = J, every provider capped", J,
+                                  (True, True, True)),
+                                 ("random n_pub, provider 1 uncapped",
+                                  None, (True, False, True))):
+        args = _fifo_inputs(rng, n_pub, capped)
+        for cold in (False, True):
+            def old():
+                outs = _fifo_outs(B, J, dev)
+                ptrs = [a.data_ptr() for a in (*args, *outs)]
+                err = fn(*ptrs, B, P, J, C, 1.0, int(cold),
+                         torch.cuda.current_stream().cuda_stream)
+                if err != 0:
+                    raise RuntimeError(f"baseline fifo: cudaError_t {err}")
+                return outs
+
+            def new():
+                outs = _fifo_outs(B, J, dev)
+                _fifo.launch(*args, 1.0, cold, outs)
+                return outs
+
+            a_, b_ = old(), new()
+            torch.cuda.synchronize()
+            same = all(torch.equal(p, q) for p, q in zip(a_, b_))
+            ok &= same
+            ev = [_events_ms(f, 10) for f in (old, new, new, old)]
+            dv = [_device_ms(f, 10) for f in (old, new, new, old)]
+            print(f"probe fifo_dispatch [{B}, {P}, {J}, {C}] {label}, "
+                  f"cold={cold}: bitwise equal to the baseline kernel "
+                  f"{same}; events ms old "
+                  f"{ev[0]:.6f} / {ev[3]:.6f}, new {ev[1]:.6f} / "
+                  f"{ev[2]:.6f}; device ms old {dv[0]:.6f} / {dv[3]:.6f}, "
+                  f"new {dv[1]:.6f} / {dv[2]:.6f}")
+    return ok
+
+
+def ptxas(names=("matmul", "acd_evict", "rwkv6", "fifo_dispatch")):
     for name in names:
         out = build.BUILD_DIR / f"probe_ptxas_{name}.so"
         got = subprocess.run(
@@ -135,9 +369,10 @@ def ptxas(names=("matmul", "acd_evict")):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", type=Path, default=None,
-                    help="another version of csrc/matmul.cu to hold the "
-                         "float32 kernel against, bit for bit")
+    ap.add_argument("--baseline", action="append", default=[],
+                    help="another version of a kernel's source, as "
+                         "NAME=PATH (NAME matmul, rwkv6 or fifo_dispatch; "
+                         "a bare PATH is matmul's)")
     ap.add_argument("--ptxas", action="store_true",
                     help="print registers and spills per kernel")
     args = ap.parse_args(argv)
@@ -147,12 +382,21 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    build.build_all(["matmul"])
+    build.build_all(["matmul", "rwkv6", "fifo_dispatch"])
     if args.ptxas:
         ptxas()
     ok = True
-    if args.baseline is not None:
-        ok = against_baseline(_baseline_fn(args.baseline))
+    for spec in args.baseline:
+        name, _, path = spec.rpartition("=")
+        name = name or "matmul"
+        if name == "matmul":
+            ok &= against_baseline(_baseline_fn(Path(path)))
+        elif name == "rwkv6":
+            ok &= rwkv_against_baseline(_rwkv_baseline_fn(Path(path)))
+        elif name == "fifo_dispatch":
+            ok &= fifo_against_baseline(_fifo_baseline_fn(Path(path)))
+        else:
+            raise SystemExit(f"probe: no baseline for kernel {name!r}")
     print(f"probe: {'all bitwise checks passed' if ok else 'MISMATCH'}")
     return 0 if ok else 1
 

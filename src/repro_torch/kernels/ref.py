@@ -122,6 +122,26 @@ def fifo_dispatch_plain(order: torch.Tensor, n_pub: torch.Tensor,
     return prov_o, seg_o, wait_o, cold_o, start_o, end_o, extra_o
 
 
+def fifo_uncapped_offer(ready: torch.Tensor, dur: torch.Tensor,
+                        selc: torch.Tensor, occ: torch.Tensor,
+                        wu: torch.Tensor
+                        ) -> Tuple[torch.Tensor, ...]:
+    """What the CUDA kernel's worker warps precompute for every (row,
+    provider, job) of an uncapped provider, off the chain
+    (``csrc/fifo_dispatch.cu``): its key, penalty, start and end, which do
+    not depend on the slot pool, by :func:`fifo_dispatch_plain`'s own
+    expressions with the wait 0.0 and the cold flag false, so that the
+    chain only selects among them. ``ready``/``dur``/``selc``/``occ`` [B,
+    P, J], ``wu`` [P]; returns (key, pen, start, end), each [B, P, J].
+    cw = 0.0 * wu is NaN for an infinite wu, and so are the penalty, key,
+    start and end it enters, as in the chain."""
+    w = torch.zeros((), dtype=ready.dtype, device=ready.device)
+    cw = 0.0 * wu[:, None]                                  # [P, 1]
+    pen = occ * (w + cw)
+    start = (ready + w) + cw
+    return selc + pen, pen, start, start + dur
+
+
 #: rows of each float32 product in :func:`matmul_plain`
 PLAIN_ROWS = 64
 
@@ -207,6 +227,45 @@ def rwkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         S = w32[:, :, t, :, None] * S + kv
     if term_sums:
         return o.to(v.dtype), S, sums
+    return o.to(v.dtype), S
+
+
+#: row groups of the CUDA kernel's sum over k (``kGroups`` in
+#: ``csrc/rwkv6.cu``): group q holds the Dk / 4 consecutive rows from
+#: q * Dk / 4
+RWKV_GROUPS = 4
+
+
+def rwkv6_ordered(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor,
+                  s0: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rwkv6_plain` with o summed over k in the CUDA kernel's fixed
+    order (``csrc/rwkv6.cu``): the rows fall into ``RWKV_GROUPS`` groups
+    of Dk / 4 consecutive rows; group q adds its terms for its rows in
+    ascending order to a float32 sum that starts at 0.0, and the group
+    sums p0..p3 add as (p0 + p1) + (p2 + p3). Each addition is one float32
+    operation, so this gives the kernel's o bit for bit on any device; S_T
+    is the plain version's. Same arguments and returns as
+    :func:`rwkv6_plain`."""
+    r32, k32, v32, w32 = (t.float() for t in (r, k, v, w))
+    b, h, t_len, dk = r32.shape
+    dv = v32.shape[-1]
+    S = (torch.zeros((b, h, dk, dv), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float().clone())
+    uu = u.float()[None, :, :, None]                      # [1, H, Dk, 1]
+    o = torch.empty((b, h, t_len, dv), dtype=torch.float32, device=r.device)
+    for t in range(t_len):
+        kv = k32[:, :, t, :, None] * v32[:, :, t, None, :]  # [B, H, Dk, Dv]
+        terms = (S + uu * kv) * r32[:, :, t, :, None]
+        # row q * Dk / 4 + i sits at [q, i]
+        groups = terms.reshape(b, h, RWKV_GROUPS, dk // RWKV_GROUPS, dv)
+        p = torch.zeros((b, h, RWKV_GROUPS, dv), dtype=torch.float32,
+                        device=r.device)
+        for i in range(dk // RWKV_GROUPS):
+            p = p + groups[:, :, :, i]
+        o[:, :, t] = (p[:, :, 0] + p[:, :, 1]) + (p[:, :, 2] + p[:, :, 3])
+        S = w32[:, :, t, :, None] * S + kv
     return o.to(v.dtype), S
 
 

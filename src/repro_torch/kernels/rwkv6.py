@@ -1,16 +1,21 @@
 """ctypes binding of the CUDA ``rwkv6`` kernel (``csrc/rwkv6.cu``).
 
 Port of the Pallas kernel ``src/repro/kernels/rwkv6.py:rwkv6``: the WKV
-recurrence, one block per (batch, head) with each state column in the
-registers of four threads, reading ``r``, ``k``, ``v``, ``w`` and writing ``o`` through
-their strides. This module only launches;
-:func:`repro_torch.kernels.ops.rwkv6` is the checked public wrapper that
-``models/recurrent.py`` calls.
+recurrence, each warp holding one row group (Dk / 4 consecutive rows) of
+a column group's state in its lanes' registers, the group's rows split
+between the two half-warps (the second continuing the first's sum a step
+later), the staged chunks read in 16-byte broadcast loads, the groups'
+sums added per chunk, reading ``r``, ``k``, ``v``, ``w`` and writing ``o``
+through their strides. :func:`launch_plan` cuts a head's columns into
+column groups and blocks; no plan changes a value. This module only
+launches; :func:`repro_torch.kernels.ops.rwkv6` is the checked public
+wrapper that ``models/recurrent.py`` calls.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -18,11 +23,106 @@ from . import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
 #: head sizes Dk the kernel is compiled for, and its largest Dv
 DK_SIZES = (16, 32, 64)
 MAX_DV = 128
+#: columns a lane may hold (the kernel's instantiations), most first: a
+#: lane reuses each staged r, k, w for its columns (3 floats a row and
+#: step against 7 operations a column), and fewer columns give more warps
+#: (four were never faster at the shapes timed: PERF.md §6)
+COLS = (2, 1)
+#: lanes of a half-warp (the columns of a column group, C each), the row
+#: groups of a column group (one a warp), and the most column groups a
+#: block holds (the kernel's launch bound)
+LANES = 16
+ROW_GROUPS = 4
+MAX_GROUPS = 4
+#: streaming multiprocessors of the H100 SXM, the schedulers of one SM,
+#: and the warps a plan wants on each: with one, a warp's own dependent
+#: steps show (PERF.md §6: one column a lane 1.030 ms against two 1.241
+#: at the long batch's 64 heads on the H100)
+SMS = 132
+SCHEDULERS = 4
+WARPS_PER_SCHEDULER = 2
 _FNS = {}
+
+
+class Plan(NamedTuple):
+    """How the kernel cuts one launch: ``cols`` state columns per lane,
+    ``groups`` column groups per block (each ``16 * cols`` columns wide,
+    four warps: one a row group) and ``splits`` column blocks per head.
+    Every plan gives every element the same bits."""
+    cols: int
+    groups: int
+    splits: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _split(heads: int, per_head: int, n_sm: int) -> Tuple[int, int]:
+    """(column groups per block, blocks per head) that keep the busiest
+    SM's warp count lowest (blocks spread evenly over the SMs), the fewest
+    blocks on a tie: every block stages the head's r, k and w again."""
+    best = None
+    for s in range(_cdiv(per_head, MAX_GROUPS), per_head + 1):
+        groups = _cdiv(per_head, s)
+        splits = _cdiv(per_head, groups)
+        load = _cdiv(heads * splits, n_sm) * groups
+        if best is None or load < best[0]:
+            best = (load, groups, splits)
+    return best[1], best[2]
+
+
+def _fits(cols: int, Dv: int) -> bool:
+    """A column group no wider than the head (one column a lane always)."""
+    return cols == 1 or LANES * cols <= Dv
+
+
+def _plan(B: int, H: int, Dv: int, cols: int, n_sm: int) -> Plan:
+    groups, splits = _split(B * H, _cdiv(Dv, LANES * cols), n_sm)
+    return Plan(cols, groups, splits)
+
+
+def launch_plan(B: int, H: int, Dv: int, n_sm: int = SMS) -> Plan:
+    """The plan for ``B * H`` heads of ``Dv`` columns on ``n_sm`` SMs, a
+    function of these alone (never of T, so a prefill and the decode steps
+    after it share it; they would share the bits regardless): the most
+    columns a lane that still give every scheduler ``WARPS_PER_SCHEDULER``
+    warps, else one, then the column split of :func:`_split`."""
+    want = WARPS_PER_SCHEDULER * SCHEDULERS * n_sm
+    cols = next((c for c in COLS if _fits(c, Dv) and B * H * _cdiv(
+        Dv, LANES * c) * ROW_GROUPS >= want), 1)
+    return _plan(B, H, Dv, cols, n_sm)
+
+
+def plans(B: int, H: int, Dv: int, n_sm: int = SMS) -> List[Plan]:
+    """:func:`launch_plan`'s plan, then the other column counts that fit
+    the head, with their own split: what the tests and the development
+    probe hold against one another, bit for bit."""
+    own = launch_plan(B, H, Dv, n_sm)
+    return [own] + [_plan(B, H, Dv, cols, n_sm) for cols in COLS
+                    if cols != own.cols and _fits(cols, Dv)]
+
+
+def plan_columns(plan: Plan, Dv: int) -> List[int]:
+    """Every column the kernel computes under ``plan``, in the order of
+    (block, column group, lane, column) and as the kernel indexes them,
+    the ones at or past ``Dv`` left out: each of 0 .. Dv - 1 must come
+    exactly once."""
+    width = LANES * plan.cols
+    out = []
+    for split in range(plan.splits):
+        c0 = split * plan.groups * width
+        for group in range(plan.groups):
+            for lane in range(LANES):
+                for c in range(plan.cols):
+                    j = c0 + group * width + lane * plan.cols + c
+                    if j < Dv:
+                        out.append(j)
+    return out
 
 
 def _fn(dtype: torch.dtype):
@@ -37,24 +137,40 @@ def _fn(dtype: torch.dtype):
     return fn
 
 
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)  # a decode step's launches repeat it
+def _plan_arg(B: int, H: int, Dv: int, index: int) -> ctypes.Array:
+    """:func:`launch_plan`'s plan on device ``index`` as the kernel takes
+    it (three ints on the host), built once a shape."""
+    return (ctypes.c_int * 3)(*launch_plan(B, H, Dv, _sm_count(index)))
+
+
 def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            w: torch.Tensor, u: torch.Tensor, s0: Optional[torch.Tensor],
-           o: torch.Tensor, sT: torch.Tensor) -> None:
+           o: torch.Tensor, sT: torch.Tensor, *,
+           _plan: Optional[Plan] = None) -> None:
     """Launch the kernel on the current stream: ``o`` [B, H, T, Dv] (any
     strides with a unit last one) and ``sT`` [B, H, Dk, Dv] (dense) get
     the recurrence of ``r``, ``k``, ``w`` [B, H, T, Dk], ``v`` [B, H, T,
     Dv] (read through their strides), ``u`` [H, Dk] and ``s0`` (zeros when
     ``None``). The caller has checked devices, dtypes, shapes and strides;
-    raises if the launch reports a CUDA error."""
+    raises if the launch reports a CUDA error. ``_plan`` replaces
+    :func:`launch_plan`'s (to hold the plans against one another)."""
     B, H, T, Dk = r.shape
     Dv = v.shape[-1]
+    plan = (_plan_arg(B, H, Dv, r.device.index or 0) if _plan is None
+            else (ctypes.c_int * 3)(*_plan))
     strides = (ctypes.c_longlong * 15)(*(
         s for x in (r, k, v, w, o) for s in x.stride()[:3]))
     stream = torch.cuda.current_stream(r.device).cuda_stream
+    # ctypes passes each host array by its address
     err = _fn(r.dtype)(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                        w.data_ptr(), u.data_ptr(),
                        None if s0 is None else s0.data_ptr(), o.data_ptr(),
-                       sT.data_ptr(), B, H, T, Dk, Dv,
-                       ctypes.cast(strides, _P), stream)
+                       sT.data_ptr(), B, H, T, Dk, Dv, strides, plan, stream)
     if err != 0:
         raise RuntimeError(f"rwkv6 launch failed: cudaError_t {err}")

@@ -1287,3 +1287,411 @@ def test_cuda_acd_evict_edge_cases(J):
             np.testing.assert_array_equal(got.cpu().numpy(),
                                           _plain(P, thresh, mask),
                                           err_msg=f"{label} J={J}")
+
+
+# -- rwkv6's redesign: the launch plan and the kernel's order of the k-sum ----
+
+#: (B, H, Dv, SMs) the plan is checked at: rwkv6-1.6b's serve batch and
+#: long batch on the H100, one head, ragged widths, few SMs
+RWKV_PLAN_CASES = [(8, 32, 64, 132), (2, 32, 64, 132), (1, 1, 64, 132),
+                   (1, 2, 40, 132), (3, 5, 100, 16), (8, 32, 128, 132),
+                   (1, 1, 8, 132), (64, 64, 64, 132), (2, 3, 127, 7)]
+
+
+def _rk_module():
+    import importlib
+
+    return importlib.import_module("repro_torch.kernels.rwkv6")
+
+
+@pytest.mark.parametrize("case", RWKV_PLAN_CASES)
+def test_rwkv6_launch_plan_covers_every_column_once(case):
+    """Every plan (the own one and each forced column count) computes each
+    column of 0 .. Dv - 1 exactly once, leaves no block without a column,
+    and fits the kernel's block size."""
+    rk = _rk_module()
+    B, H, Dv, n_sm = case
+    for plan in rk.plans(B, H, Dv, n_sm):
+        assert plan.cols in rk.COLS
+        cols = rk.plan_columns(plan, Dv)
+        assert sorted(cols) == list(range(Dv)), plan
+        width = rk.LANES * plan.cols * plan.groups
+        assert (plan.splits - 1) * width < Dv <= plan.splits * width, plan
+        assert plan.groups <= rk.MAX_GROUPS, plan
+
+
+def test_rwkv6_launch_plan_does_not_depend_on_T():
+    """The plan is a function of (B, H, Dv, SM count): a prefill of any
+    length and the decode steps after it run under one plan."""
+    import inspect
+
+    rk = _rk_module()
+    assert list(inspect.signature(rk.launch_plan).parameters) == [
+        "B", "H", "Dv", "n_sm"]
+    # what the launch passes: the shapes' B, H and Dv, whatever T is
+    for T in (1, 7, 82, 4096):
+        r = torch.empty(2, 32, T, 64)
+        v = torch.empty(2, 32, T, 64)
+        assert rk.launch_plan(r.shape[0], r.shape[1], v.shape[-1]) == \
+            rk.launch_plan(2, 32, 64)
+
+
+def test_rwkv6_launch_plan_fills_the_card():
+    """Few heads split their columns over blocks so every SM gets work;
+    many heads keep one block a head and two columns a lane. Every plan
+    that can gives each scheduler two warps."""
+    rk = _rk_module()
+    long = rk.launch_plan(2, 32, 64, 132)       # the long batch: 64 heads
+    serve = rk.launch_plan(8, 32, 64, 132)      # the serve batch: 256
+    assert long.splits > 1 and 64 * long.splits >= 128
+    assert serve.splits == 1 and serve.cols == 2 and long.cols == 1
+    for plan, heads in ((long, 64), (serve, 256)):
+        warps = heads * plan.splits * plan.groups * rk.ROW_GROUPS
+        assert warps >= 2 * rk.SCHEDULERS * 132 or plan.cols == 1
+
+
+def _rwkv6_case(rng, b, h, t, dk, dv, dtype, with_s0):
+    return [None if z is None else _to_torch(z) for z in
+            _rwkv6_inputs(rng, b, h, t, dk, dv, dtype, with_s0)]
+
+
+def _rwkv6_ordered_np(r, k, v, w, u, s0):
+    """The kernel's order in scalar float32 numpy, one (b, h, t, j) at a
+    time: group q sums its Dk / 4 consecutive rows ascending from 0.0,
+    then (p0 + p1) + (p2 + p3)."""
+    f = np.float32
+    r, k, v, w, u = (np.asarray(x, np.float32) for x in (r, k, v, w, u))
+    B, H, T, Dk = r.shape
+    Dv = v.shape[-1]
+    S = (np.zeros((B, H, Dk, Dv), np.float32) if s0 is None
+         else np.array(s0, np.float32))
+    o = np.zeros((B, H, T, Dv), np.float32)
+    for b in range(B):
+        for hh in range(H):
+            for t in range(T):
+                for j in range(Dv):
+                    p = []
+                    for q in range(4):
+                        acc = f(0.0)
+                        for kk in range(q * Dk // 4, (q + 1) * Dk // 4):
+                            kv = f(k[b, hh, t, kk] * v[b, hh, t, j])
+                            a = f(S[b, hh, kk, j] + f(u[hh, kk] * kv))
+                            acc = f(acc + f(a * r[b, hh, t, kk]))
+                        p.append(acc)
+                    o[b, hh, t, j] = f(f(p[0] + p[1]) + f(p[2] + p[3]))
+                kv = k[b, hh, t][:, None] * v[b, hh, t][None, :]
+                S[b, hh] = w[b, hh, t][:, None] * S[b, hh] + kv
+    return o, S
+
+
+def test_rwkv6_ordered_is_the_stated_order():
+    """``ref.rwkv6_ordered`` is the order the kernel's header states,
+    scalar by scalar."""
+    from repro_torch.kernels.ref import rwkv6_ordered
+
+    rng = np.random.default_rng(51)
+    r, k, v, w, u, s0 = _rwkv6_case(rng, 1, 2, 3, 16, 5, "f32", True)
+    o, sT = rwkv6_ordered(r, k, v, w, u, s0)
+    o_np, s_np = _rwkv6_ordered_np(r, k, v, w, u, s0)
+    np.testing.assert_array_equal(o.numpy(), o_np)
+    np.testing.assert_array_equal(sT.numpy(), s_np)
+
+
+@pytest.mark.parametrize("dtype", REC_DTYPES)
+@pytest.mark.parametrize("b,h,t,dk,dv", [(1, 1, 1, 16, 16), (2, 3, 45, 32, 32),
+                                         (2, 2, 37, 64, 64),
+                                         (1, 2, 33, 64, 40)])
+def test_rwkv6_ordered_within_the_plain_bound(ref, b, h, t, dk, dv, dtype):
+    """The kernel's order of the k-sum against the plain version (torch's
+    order) and the reference's oracle: S_T bit for bit, o within 2 (Dk -
+    1) 2^-24 sum_k |terms| (plus one bf16 ulp of the value in bf16), the
+    bound the card's checks hold the kernel to."""
+    from repro_torch.kernels.ref import rwkv6_ordered
+
+    rng = np.random.default_rng(b * 100 + t + dk + dv)
+    jargs = _rwkv6_inputs(rng, b, h, t, dk, dv, dtype, True)
+    args = [_to_torch(z) for z in jargs]
+    o, sT = rwkv6_ordered(*args)
+    op, sp, sums = rwkv6_plain(*args, term_sums=True)
+    assert o.dtype == op.dtype and torch.equal(sT, sp)
+    bound = 2 * (dk - 1) * 2.0 ** -24 * sums
+    if dtype == "bf16":
+        _, e = torch.frexp(torch.maximum(o.float().abs(), op.float().abs()))
+        bound = bound + torch.ldexp(torch.ones_like(bound), e - 8)
+    assert bool(((o.float() - op.float()).abs() <= bound).all())
+    o_o = torch.from_numpy(np.asarray(ref.kref.rwkv6_ref(*jargs)[0]
+                                      .astype("float32")))
+    if dtype == "bf16":  # one bf16 ulp of either value
+        _, e = torch.frexp(torch.maximum(o.float().abs(), o_o.abs()))
+        bound = 2 * (dk - 1) * 2.0 ** -24 * sums + torch.ldexp(
+            torch.ones_like(bound), e - 8)
+    assert bool(((o.float() - o_o).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype", REC_DTYPES)
+@pytest.mark.parametrize("dk", [16, 32, 64])
+def test_rwkv6_ordered_continuation_is_bitwise(dk, dtype):
+    """prefill(S) in the kernel's order, then one step from its S_T, gives
+    o and S_T bit for bit equal to prefill(S + 1): the order of the sum
+    depends on no length."""
+    from repro_torch.kernels.ref import rwkv6_ordered
+
+    rng = np.random.default_rng(dk)
+    S = 29
+    r, k, v, w, u, s0 = _rwkv6_case(rng, 2, 3, S + 1, dk, dk, dtype, False)
+    o_full, s_full = rwkv6_ordered(r, k, v, w, u)
+    o_pre, s_pre = rwkv6_ordered(r[:, :, :S], k[:, :, :S], v[:, :, :S],
+                                 w[:, :, :S], u)
+    o_step, s_step = rwkv6_ordered(r[:, :, S:], k[:, :, S:], v[:, :, S:],
+                                   w[:, :, S:], u, s_pre)
+    assert torch.equal(torch.cat([o_pre, o_step], 2), o_full)
+    assert torch.equal(s_step, s_full)
+
+
+# -- fifo_dispatch's redesign: the workers' precompute ------------------------
+
+def _fifo_offer(x):
+    from repro_torch.kernels.ref import fifo_uncapped_offer
+
+    return [t.numpy() for t in fifo_uncapped_offer(
+        *(torch.from_numpy(np.ascontiguousarray(x[k]))
+          for k in ("ready", "dur", "selc", "occ", "wu")))]
+
+
+@pytest.mark.parametrize("cold", [False, True])
+@pytest.mark.parametrize("case", ["mixed", "all_uncapped", "inf_wu",
+                                  "nan_ready", "neg_zero_ready"])
+def test_fifo_uncapped_precompute_matches_the_chain(cold, case):
+    """The key, penalty, start and end the kernel's workers precompute for
+    an uncapped provider are what the chain gives a job that lands there:
+    the plain version's outputs for such jobs, bit for bit (NaN where 0 *
+    inf makes one), and with every provider uncapped the chain's provider
+    is the first argmin of the precomputed keys."""
+    rng = np.random.default_rng(61 + cold)
+    x = _fifo_rows(rng, 4, 40, 3, 2, 40, cold)
+    x["capped"] = np.array([True, False, False])
+    if case == "all_uncapped":
+        x["capped"][:] = False
+    elif case == "inf_wu":
+        x["wu"][1] = np.inf
+    elif case == "nan_ready":
+        x["ready"][:, :, ::5] = np.nan
+    elif case == "neg_zero_ready":
+        x["ready"][:, :, ::2] = -0.0
+    prov, _, wait, cold_o, start, end, extra = _fifo_plain(x, cold)
+    key, pen, st, en = _fifo_offer(x)
+    b, j = np.nonzero(~x["capped"][prov])
+    assert b.size  # some jobs land on an uncapped provider
+    p = prov[b, j]
+    np.testing.assert_array_equal(extra[b, j], pen[b, p, j])
+    np.testing.assert_array_equal(start[b, j], st[b, p, j])
+    np.testing.assert_array_equal(end[b, j], en[b, p, j])
+    assert not wait[b, j].any() and not cold_o[b, j].any()
+    if case == "inf_wu":  # 0 * inf: NaN key, the first NaN wins
+        assert np.isnan(key[:, 1]).all() and (prov == 1).all()
+        assert np.isnan(extra).all() and np.isnan(start).all()
+    if case == "all_uncapped":
+        first = np.zeros_like(prov)
+        for bb in range(prov.shape[0]):
+            for jj in range(prov.shape[1]):
+                kk = key[bb, :, jj]
+                nan = np.flatnonzero(np.isnan(kk))
+                first[bb, jj] = nan[0] if nan.size else int(np.argmin(kk))
+        np.testing.assert_array_equal(prov, first)
+
+
+@pytest.mark.parametrize("cold,case", [(False, "nan_ready"),
+                                       (True, "nan_ready"),
+                                       (False, "inf_wu_uncapped")])
+def test_fifo_nonfinite_inputs_match_reference(ref, cold, case):
+    """The plain version against the reference's oracle and Pallas kernel
+    on the inputs the precompute must carry through: NaN ready times, and
+    an infinite wu on an uncapped provider (0 * inf = NaN) where the
+    reference keeps that product (not under cold starts: see the next
+    test)."""
+    rng = np.random.default_rng(71 + cold)
+    x = _fifo_rows(rng, 3, 24, 3, 2, 24, cold)
+    x["capped"] = np.array([True, False, True])
+    if case == "inf_wu_uncapped":
+        x["wu"][1] = np.inf
+    else:
+        x["ready"][:, :, ::3] = np.nan
+    got = _fifo_plain(x, cold)
+    oracle, kernel = _fifo_reference(ref, x, cold)
+    _assert_fifo_equal(got, oracle, "oracle")
+    _assert_fifo_equal(got, kernel, "pallas")
+
+
+def test_fifo_infinite_wu_under_cold_starts_follows_the_des(ref):
+    """Under cold starts an uncapped provider's cold flag is False and its
+    warm-up term 0 * inf is NaN in the DES (``_start_public_capped``:
+    ``selc + occ * (wait + cold * wu)`` in numpy), in the plain version
+    and in the kernel: its key is NaN and, the first NaN, it takes every
+    job. The reference's XLA runs (oracle and Pallas interpret) give 0
+    there instead, and price the other providers: a property of the
+    reference, pinned here (ROADMAP Queue 3 item 12)."""
+    rng = np.random.default_rng(72)
+    x = _fifo_rows(rng, 3, 24, 3, 2, 24, True)
+    x["capped"] = np.array([True, False, True])
+    x["wu"][1] = np.inf
+    got = _fifo_plain(x, True)
+    assert (got[0] == 1).all() and np.isnan(got[4]).all()
+    # the DES's expression for the first job of each row, in numpy
+    for b in range(3):
+        j = x["order"][b, 0]
+        wait = np.where(x["capped"], np.maximum(
+            0.0, x["sclk0"][b].min(1) - x["ready"][b, :, j]), 0.0)
+        cold = np.zeros(3, bool)
+        key = x["selc"][b, :, j] + x["occ"][b, :, j] * (wait + cold * x["wu"])
+        assert int(np.argmin(key)) == 1 and np.isnan(key[1])
+    oracle, kernel = _fifo_reference(ref, x, True)
+    for out in (oracle, kernel):
+        assert np.isfinite(out[4]).all() and not (out[0] == 1).all()
+
+
+# -- the redesigned kernels on the card ---------------------------------------
+
+#: (label, B, H, T, Dk, Dv, dtype, from s0)
+RWKV_CUDA_CASES = [
+    ("split columns [2, 32, 70, 64]", 2, 32, 70, 64, 64, "bf16", True),
+    ("ragged Dv=40", 3, 4, 37, 64, 40, "bf16", True),
+    ("T=1 from s0", 8, 32, 1, 64, 64, "bf16", True),
+    ("T across the chunk ring", 2, 6, 16 * 7 + 5, 32, 32, "f32", True),
+    ("Dk=16 f32 from zeros", 2, 3, 20, 16, 16, "f32", False),
+    ("Dv=36, rows not 16-byte pieces", 2, 3, 19, 64, 36, "bf16", True),
+]
+
+
+def _rwkv6_cuda(args, **kw):
+    return [None if a is None else a.cuda() for a in args]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RWKV_CUDA_CASES, ids=[c[0] for c in
+                                                      RWKV_CUDA_CASES])
+def test_cuda_rwkv6_redesign_cases(case):
+    """S_T bit for bit against the plain version, o bit for bit against
+    ``ref.rwkv6_ordered`` (the kernel's stated order) and within the
+    plain version's bound, under the own plan and every forced plan alike;
+    one launch counted."""
+    _needs_gpu()
+    rk = _rk_module()
+    _, b, h, t, dk, dv, dtype, with_s0 = case
+    rng = np.random.default_rng(b * 1000 + t + dv)
+    args = _rwkv6_cuda(_rwkv6_case(rng, b, h, t, dk, dv, dtype, with_s0))
+    before = ops.rwkv6.launches
+    o, sT = ops.rwkv6(*args)
+    torch.cuda.synchronize()
+    assert ops.rwkv6.launches == before + 1
+    from repro_torch.kernels.ref import rwkv6_ordered
+
+    om, sm = rwkv6_ordered(*args)
+    op, sp, sums = rwkv6_plain(*args, term_sums=True)
+    assert torch.equal(sT, sp) and torch.equal(sT, sm)
+    assert torch.equal(o, om)
+    bound = 2 * (dk - 1) * 2.0 ** -24 * sums
+    if dtype == "bf16":
+        _, e = torch.frexp(torch.maximum(o.float().abs(), op.float().abs()))
+        bound = bound + torch.ldexp(torch.ones_like(bound), e - 8)
+    assert bool(((o.float() - op.float()).abs() <= bound).all())
+    for plan in rk.plans(b, h, dv, torch.cuda.get_device_properties(
+            0).multi_processor_count):
+        o2, s2 = torch.empty_like(o), torch.empty_like(sT)
+        rk.launch(*args, o2, s2, _plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(o2, o) and torch.equal(s2, sT), plan
+
+
+@pytest.mark.gpu
+def test_cuda_rwkv6_unaligned_views():
+    """Views whose rows do not start on 16 bytes (an offset of one element)
+    take the element-by-element staging and give the same bits."""
+    _needs_gpu()
+    rng = np.random.default_rng(83)
+    args = _rwkv6_cuda(_rwkv6_case(rng, 2, 3, 21, 32, 32, "bf16", True))
+    o, sT = ops.rwkv6(*args)
+    shifted = []
+    for a in args[:4]:
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device="cuda")
+        view = buf[1:].view(a.shape)
+        view.copy_(a)
+        shifted.append(view)
+    o2, s2 = ops.rwkv6(*shifted, *args[4:])
+    torch.cuda.synchronize()
+    assert torch.equal(o2, o) and torch.equal(s2, sT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", REC_DTYPES)
+def test_cuda_rwkv6_continuation_is_bitwise(dtype):
+    """prefill(S), then one step from its S_T, equals prefill(S + 1) bit
+    for bit in o and S_T on the card (the model's decode step)."""
+    _needs_gpu()
+    rng = np.random.default_rng(89)
+    S = 82
+    r, k, v, w, u, _ = _rwkv6_cuda(_rwkv6_case(rng, 8, 32, S + 1, 64, 64,
+                                               dtype, False))
+    o_full, s_full = ops.rwkv6(r, k, v, w, u)
+    o_pre, s_pre = ops.rwkv6(r[:, :, :S], k[:, :, :S], v[:, :, :S],
+                             w[:, :, :S], u)
+    o_step, s_step = ops.rwkv6(r[:, :, S:], k[:, :, S:], v[:, :, S:],
+                               w[:, :, S:], u, s_pre)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([o_pre, o_step], 2), o_full)
+    assert torch.equal(s_step, s_full)
+
+
+#: (label, B, P, J, C, n_pub or None, edit)
+FIFO_CUDA_CASES = [
+    ("infinite wu on an uncapped provider", 4, 3, 300, 2, None, "inf_wu"),
+    ("NaN ready", 4, 3, 300, 2, None, "nan_ready"),
+    ("P x C = 3 x 3, pool in shared memory", 7, 3, 1000, 3, None, None),
+    ("P x C = 3 x 4, pool in shared memory", 6, 3, 700, 4, None, None),
+    ("P = 5", 3, 5, 400, 2, None, None),
+    ("P = 4, C = 1", 3, 4, 400, 1, None, None),
+    ("n_pub = 0", 4, 3, 512, 2, 0, None),
+    ("rows shorter than one tile", 5, 3, 50, 2, None, None),
+    ("order entries outside [0, J) and repeated", 4, 3, 600, 2, None,
+     "bad_order"),
+    ("a long row, J = 2^19 + 3", 1, 1, (1 << 19) + 3, 1, 700, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cold", [False, True])
+@pytest.mark.parametrize("case", FIFO_CUDA_CASES,
+                         ids=[c[0] for c in FIFO_CUDA_CASES])
+def test_cuda_fifo_redesign_cases(case, cold):
+    """The CUDA kernel bit for bit against the plain version in all seven
+    outputs on the inputs the register pool, the workers' precompute, the
+    zero fill and the general pool path must each survive."""
+    _needs_gpu()
+    _, B, P, J, C, n_pub, edit = case
+    rng = np.random.default_rng(J + P * 10 + C)
+    x = _fifo_rows(rng, B, J, P, C,
+                   rng.integers(0, J + 1, B) if n_pub is None else n_pub,
+                   cold)
+    x["capped"][0] = True
+    if edit == "inf_wu":
+        x["capped"][1] = False
+        x["wu"][1] = np.inf
+    elif edit == "nan_ready":
+        x["ready"][:, :, ::7] = np.nan
+    elif edit == "bad_order":
+        x["order"][:, ::9] = -1
+        x["order"][:, 1::9] = J + 5
+        x["order"][:, 2::9] = x["order"][:, 3::9]
+    got = ops.fifo_dispatch(*(torch.from_numpy(np.ascontiguousarray(x[k]))
+                              .cuda() for k in _FIFO_ARGS),
+                            x["keep_alive"], cold=cold)
+    torch.cuda.synchronize()
+    if edit == "bad_order":
+        # the kernel skips entries outside [0, J): the plain version on
+        # each row's valid entries among its first n_pub
+        for b in range(B):
+            head = x["order"][b, :x["n_pub"][b]]
+            valid = head[(head >= 0) & (head < J)]
+            x["order"][b] = 0
+            x["order"][b, :valid.size] = valid
+            x["n_pub"][b] = valid.size
+    _assert_fifo_equal([o.cpu().numpy() for o in got], _fifo_plain(x, cold))
