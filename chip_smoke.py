@@ -48,7 +48,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    inside the horizon) with the cold-start model, J=512 on ``cuda``; three
    of its scenarios meet the DES contract, and the J=256 grid agrees
    between the card and the CPU field for field.
-6. The paper's profile -> predict -> schedule path. First ``matmul``
+6. The engine's other options, each path timed with its launch counts
+   set to 0 just before it. Scenario axes: the Fig.-4 grid as five tasks
+   mixing per-task flags (ACD-adaptive, ``adaptive=False``,
+   ``init_phase=False``, an ``offload_mask``, an ``init_window`` over a
+   release stream) in one ``sweep_scenarios`` call at J=512 and J=4096,
+   uncapped and then with ``egress_lookahead`` under the congested load;
+   faults: the Fig.-4 grid at J=512 on the 3-provider portfolio with a
+   failure-rate axis (0, 0.1, 0.3) under the default ``RetryPolicy``
+   (failures, retries, and an abandonment or a fallback must occur); each
+   against the DES on some scenarios and the CPU at J=256, ``acd_evict``
+   launched in each, ``fifo_dispatch`` in the capped one. A paged trace
+   day: ``azure:day=tue,scale=100000`` on the image app, spt, C_max 60 s,
+   4096-job pages (the reference throughput benchmark's streaming point),
+   against the DES on the host under the parity contract, with wall,
+   jobs/s, pages, retries, body steps and ms per body step; then a
+   4096-job day in 512-job pages bit for bit against the monolithic card
+   run and the CPU, and a 1024-job day under the profiler.
+7. The paper's profile -> predict -> schedule path. First ``matmul``
    against its plain version on the card (ragged shapes, transposed views,
    1024^3, bf16; the matrix app's integer ``x @ x.T`` at n = 344 and 496
    bit for bit, also against the CPU; every float32 configuration forced
@@ -67,7 +84,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    jobs' stage outputs agree between card and CPU (MM, EF and RI bit for
    bit, LU with the same pivots), and the card's fits equal the CPU's
    (the same lambdas, predictions to a relative 1e-4).
-7. The model stack's serving path. First the bf16 ``matmul`` kernel
+8. The model stack's serving path. First the bf16 ``matmul`` kernel
    (tensor cores) at the serve shapes: against its plain version at
    M = 8, 656 and 8192 through the FFN's layer views and at M = 8 through
    both heads, each timed beside torch.matmul and its bound; its TMA and
@@ -108,7 +125,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against CPU at full width, 2 and 3 layers, float32: the same greedy
    tokens (and, as a reading, the CPU's bf16 prefill(S) + decode_step
    against prefill(S+1)).
-8. Prints the kernels' JSON line, then the device line last.
+9. Prints the kernels' JSON line, then the device line last.
 
 Launch counts are set to 0 just before each main path and read just after
 it; every kernel of a path must have launched in it.
@@ -143,6 +160,27 @@ LOAD_WARM_UP_S = 0.5
 LOAD_CAP = 2
 LOAD_PROVIDERS = 3
 LOAD_DES_SCENARIOS = ((0, 3), (1, 6), (2, 9))
+#: the scenario-axes path: the Fig.-4 grid as five tasks mixing per-task
+#: flags (ACD-adaptive, adaptive=False, init_phase=False, an offload_mask,
+#: an init_window over a release stream), then the same tasks with
+#: egress_lookahead under the congested load
+AXES_DES_SCENARIOS = ((0, 0), (1, 7), (2, 9), (3, 4), (4, 2))
+#: the paged trace day: the reference throughput benchmark's streaming
+#: point (benchmarks/bench_scheduler_throughput.py measure_azure_point:
+#: one azure day on the image app, spt, C_max 60 s, 4096-job pages), and
+#: a 4096-job day in 512-job pages held against the monolithic run
+DAY_SCALE = 100000
+DAY_CHUNK = 4096
+DAY_C_MAX = 60.0
+SMALL_DAY = (4096, 512)
+#: the day run under the profiler, for the device's idle share (its
+#: post-processing grows with the events: ~100 a body step)
+PROFILED_DAY = (1024, 512)
+#: the fault path: the Fig.-4 grid at J=512 with a failure-rate axis under
+#: the default RetryPolicy
+FAULT_J = 512
+FAULT_RATES = (0.0, 0.1, 0.3)
+FAULT_DES_SCENARIOS = ((0, 1), (1, 17), (2, 26), (0, 29))
 #: job count of the CPU reruns: a J=512 rerun of each path on the CPU (the
 #: plain acd_evict loop) took 46-64 s and put the script at 6 minutes
 CPU_J = 256
@@ -912,14 +950,22 @@ def acd_mask_share(tasks, J, keep_every=1000):
     return share, kept
 
 
+#: task keys that are per-task options of the DES's ``simulate``
+TASK_SIM_KEYS = ("init_phase", "adaptive", "offload_mask", "init_window",
+                 "arrivals")
+
+
 def check_des(label, tasks, out, pairs, sim_kw, load_fields=False):
     """Scenarios of a sweep against the port's DES under the parity
-    contract (queue waits and cold flags exact too, when loaded)."""
+    contract (queue waits and cold flags exact too, when loaded; attempts,
+    failures and abandonment exact under a fault axis, each scenario
+    replaying its own fault model)."""
     import time
 
     import numpy as np
 
-    from repro_torch.core import simulate
+    from repro_torch.core import RetryPolicy, simulate
+    from repro_torch.core.faults import normalize_fault_axis
 
     exact = ("public_mask", "provider", "replica", "segment", "start",
              "end", "completion")
@@ -927,12 +973,19 @@ def check_des(label, tasks, out, pairs, sim_kw, load_fields=False):
         exact += ("queue_wait", "cold")
     for ti, s in pairs:
         task, res = tasks[ti], out[ti]
+        kw = dict(sim_kw, **{k: task[k] for k in TASK_SIM_KEYS if k in task})
+        fields = exact
+        if task.get("faults") is not None:
+            kw["retry"] = kw.get("retry") or RetryPolicy()
+            kw["faults"] = normalize_fault_axis(
+                task["faults"], *task["pred"]["P_private"].shape,
+                kw["retry"])[int(res.fault_idx[s])]
+            fields = exact + ("attempts", "failed", "abandoned")
         t0 = time.perf_counter()
         d = simulate(task["dag"], task["pred"], task["act"],
-                     c_max=float(res.c_max[s]), order=res.orders[s],
-                     **sim_kw)
+                     c_max=float(res.c_max[s]), order=res.orders[s], **kw)
         v = res.scenario(s)
-        bad = [f for f in exact if not same(getattr(v, f), getattr(d, f))]
+        bad = [f for f in fields if not same(getattr(v, f), getattr(d, f))]
         for f in ("cost_usd", "makespan"):
             if not np.isclose(getattr(v, f), getattr(d, f), rtol=1e-12,
                               atol=0):
@@ -944,6 +997,283 @@ def check_des(label, tasks, out, pairs, sim_kw, load_fields=False):
         if bad:
             raise AssertionError(f"{label} {task['name']} scenario {s}: "
                                  f"engine != DES in {bad}")
+
+
+def axes_tasks(apps, J):
+    """The Fig.-4 grid as five tasks mixing per-task flags: image
+    ACD-adaptive (the sweep's defaults), matrix with ``adaptive=False``,
+    video with ``init_phase=False``, image with an ``offload_mask`` over a
+    quarter of its jobs, and matrix with an ``init_window`` of a quarter
+    of its tightest deadline over a release stream spread across half of
+    it."""
+    import numpy as np
+
+    base = {t["name"]: t for t in fig4_workload(apps, J)}
+    img, mat, vid = base["image"], base["matrix"], base["video"]
+    rng = np.random.default_rng(5)
+    c0 = min(mat["c_max_grid"])
+    return [
+        dict(img, name="image adaptive"),
+        dict(mat, name="matrix adaptive=False", adaptive=False),
+        dict(vid, name="video init_phase=False", init_phase=False),
+        dict(img, name="image offload_mask",
+             offload_mask=rng.random(J) < 0.25),
+        dict(mat, name="matrix init_window", init_window=0.25 * c0,
+             arrivals=np.sort(rng.uniform(0.0, 0.5 * c0, J)))]
+
+
+def check_axes_flags(label, tasks, out):
+    """Each task's flag took effect: the offload plan is the mask, no
+    initialization offload without the phase, and none of a job released
+    after the window."""
+    for task, res in zip(tasks, out):
+        n_init = res.n_init_offloaded_jobs
+        if "offload_mask" in task:
+            ok = (n_init == int(task["offload_mask"].sum())).all()
+        elif task.get("init_phase") is False:
+            ok = (n_init == 0).all()
+        elif "init_window" in task:
+            ok = (n_init <= int((task["arrivals"]
+                                 <= task["init_window"]).sum())).all()
+        else:
+            ok = (n_init > 0).any()
+        if not ok:
+            raise AssertionError(f"{label} {task['name']}: initialization "
+                                 f"offloads {n_init.tolist()} do not follow "
+                                 f"the task's flags")
+
+
+def scenario_axes_phase(run_path, load_kw):
+    """The scenario axes on the card: the five-task flag mix uncapped, then
+    with ``egress_lookahead`` under the congested load, at J=512 and
+    J=4096; DES and CPU checks as the main path's. Returns the launch
+    counts of each timed sweep."""
+    from repro_torch.core import APPS
+
+    launches = {}
+    for label, kw in (("axes path", {}),
+                      ("axes lookahead congested path",
+                       dict(load_kw, egress_lookahead=True))):
+        capped = "concurrency" in kw
+        for J in MAIN_J:
+            tasks = axes_tasks(APPS, J)
+            out, _, counts = run_path(label, J, tasks, kw)
+            need = ("acd_evict", "fifo_dispatch") if capped \
+                else ("acd_evict",)
+            if any(counts[k] <= 0 for k in need):
+                raise AssertionError(f"{label} J={J}: a kernel never "
+                                     f"launched: {counts}")
+            launches[(label, J)] = counts
+            check_axes_flags(f"{label} J={J}", tasks, out)
+            check_des(f"{label} J={J}", tasks, out, AXES_DES_SCENARIOS, kw,
+                      load_fields=capped)
+        check_cpu_rerun(f"{label} J={CPU_J}", axes_tasks(APPS, CPU_J), kw)
+    return launches
+
+
+def check_fault_sweep(label, tasks, out, J):
+    """Shapes and finiteness of a faulty sweep, and that the chain ran:
+    failures, retries, and an abandonment or a private fallback."""
+    import numpy as np
+
+    n = 2 * N_DEADLINES * len(FAULT_RATES)
+    for task, res in zip(tasks, out):
+        M = task["dag"].num_stages
+        if res.num_scenarios != n or res.start.shape != (n, J, M):
+            raise AssertionError(f"{label} {task['name']}: bad shapes")
+        if not (np.isfinite(res.makespan).all()
+                and np.isfinite(res.cost_usd).all()):
+            raise AssertionError(f"{label} {task['name']}: non-finite")
+        fallback = ((res.attempts > 0) & ~res.public_mask
+                    & ~res.abandoned[:, :, None])
+        print(f"  {task['name']}: failed attempts {int(res.failed.sum())}, "
+              f"retried stages {int((res.attempts > 1).sum())}, abandoned "
+              f"jobs {int(res.abandoned.sum())}, private fallbacks "
+              f"{int(fallback.sum())}, makespan "
+              f"{res.makespan.min():.3f}..{res.makespan.max():.3f} s, cost "
+              f"{res.cost_usd.min():.6f}..{res.cost_usd.max():.6f} USD")
+    failed = sum(int(r.failed.sum()) for r in out)
+    retried = sum(int((r.attempts > 1).sum()) for r in out)
+    ended = sum(int(r.abandoned.sum()) + int(
+        ((r.attempts > 0) & ~r.public_mask
+         & ~r.abandoned[:, :, None]).sum()) for r in out)
+    if not (failed and retried and ended):
+        raise AssertionError(f"{label}: the attempt chain was not exercised "
+                             f"(failed {failed}, retried {retried}, "
+                             f"abandoned or fallen back {ended})")
+
+
+def faults_phase(run_path):
+    """The fault axis on the card: the Fig.-4 grid at J=512 on the
+    congested path's 3-provider portfolio (uncapped: a failed provider
+    leaves two to retry on) with failure rates ``FAULT_RATES`` under the
+    default RetryPolicy; scenarios against the DES and the grid at J=256
+    against the CPU."""
+    from repro_torch.core import APPS, demo_portfolio
+
+    def tasks_at(J):
+        return [dict(t, faults=list(FAULT_RATES))
+                for t in fig4_workload(APPS, J)]
+
+    kw = dict(portfolio=demo_portfolio(LOAD_PROVIDERS))
+    tasks = tasks_at(FAULT_J)
+    out, _, counts = run_path("fault path", FAULT_J, tasks, kw,
+                              check=check_fault_sweep)
+    if counts["acd_evict"] <= 0:
+        raise AssertionError(f"fault path never launched acd_evict: {counts}")
+    check_des(f"fault path J={FAULT_J}", tasks, out, FAULT_DES_SCENARIOS, kw)
+    check_cpu_rerun(f"fault path J={CPU_J}", tasks_at(CPU_J), kw)
+    return counts
+
+
+def run_day(scale, chunk, device="cuda", engine="vector"):
+    """One ``azure:day=tue`` day on the image app (spt, ``DAY_C_MAX``) in
+    pages of ``chunk`` jobs; returns (result, wall seconds)."""
+    import torch
+
+    from repro_torch.core import APPS, simulate_scenarios
+
+    t0 = time.perf_counter()
+    out = simulate_scenarios(
+        APPS["image"], None, workload=f"azure:day=tue,scale={scale}",
+        c_max_grid=(DAY_C_MAX,), orders=("spt",), chunk_jobs=chunk,
+        engine=engine, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def cpu_day(scale, chunk, path):
+    """``run_day`` on the CPU in a process of its own (one thread), the
+    result fields saved to ``path``: the CPU run overlaps the card's."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.set_num_threads(1)
+    out, wall = run_day(scale, chunk, device="cpu")
+    np.savez(path, wall=wall,
+             **{f: np.asarray(getattr(out, f)) for f in RESULT_FIELDS})
+
+
+def report_day(label, scale, wall, counts):
+    """Print a paged day's wall, rate, pages, body steps and launches;
+    fails when ``acd_evict`` never launched in it."""
+    from repro_torch.core import vectorsim
+
+    stats = vectorsim._LAST_RUN_STATS
+    pages = vectorsim._LAST_PAGE_STATS
+    trips = stats["trips"]
+    steps = sum(sum(t) for t in trips)
+    print(f"{label} azure:day=tue,scale={scale}: {wall:.3f} s on the "
+          f"card, {scale / wall:.1f} jobs/s, {pages['pages']} pages, "
+          f"{pages['retries']} retries, {len(trips)} engine calls "
+          f"(prep {stats['prep_s']:.3f} s, engine "
+          f"{stats['engine_s']:.3f} s, finalize "
+          f"{stats['finalize_s']:.3f} s), {steps} body steps, "
+          f"{stats['engine_s'] * 1e3 / steps:.4f} ms per body step; "
+          f"launches {counts}")
+    print(f"{label}: body steps per stage per engine call {trips}")
+    if counts["acd_evict"] <= 0:
+        raise AssertionError(f"{label} never launched acd_evict")
+
+
+def paged_day_phase():
+    """A paged trace day on the card: ``azure:day=tue,scale=DAY_SCALE`` on
+    the image app in pages of ``DAY_CHUNK`` jobs, against the port's DES
+    on the host (same pages) under the parity contract; then a 4096-job
+    day in 512-job pages bit for bit against the monolithic card run and
+    the CPU (run meanwhile in a process of its own); a 1024-job day under
+    the profiler. Returns the launch counts of both timed paged runs."""
+    import multiprocessing
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu_path = os.path.join(tmp, "cpu_day.npz")
+        proc = multiprocessing.get_context("spawn").Process(
+            target=cpu_day, args=(*SMALL_DAY, cpu_path))
+        proc.start()
+        try:
+            return _paged_days(proc, cpu_path)
+        finally:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+
+
+def _paged_days(proc, cpu_path):
+    """The timed days of ``paged_day_phase``, the CPU's day running in
+    ``proc`` meanwhile."""
+    import types
+
+    import numpy as np
+
+    from repro_torch.core import vectorsim
+    from repro_torch.kernels import ops
+
+    day, report = run_day, report_day
+    exact = ("public_mask", "provider", "replica", "segment", "start",
+             "end", "completion", "n_offloaded_stages",
+             "n_init_offloaded_jobs", "per_stage_offloads")
+    ops.reset_launch_counts()
+    big, wall = day(DAY_SCALE, DAY_CHUNK)
+    counts = ops.launch_counts()
+    report(f"paged day chunk_jobs={DAY_CHUNK}", DAY_SCALE, wall, counts)
+    if not (np.isfinite(big.makespan).all() and np.isfinite(big.end).all()):
+        raise AssertionError("paged day: non-finite result")
+    des, d_wall = day(DAY_SCALE, DAY_CHUNK, device="cpu", engine="des")
+    bad = [f for f in exact if not same(getattr(big, f), getattr(des, f))]
+    bad += [f for f in ("cost_usd", "makespan")
+            if not np.isclose(getattr(big, f), getattr(des, f), rtol=1e-12,
+                              atol=0).all()]
+    print(f"paged day DES on the host: {d_wall:.3f} s; offloaded stages "
+          f"{int(big.n_offloaded_stages[0])} of {big.public_mask.size}, "
+          f"makespan {float(big.makespan[0])!r} vs "
+          f"{float(des.makespan[0])!r}, cost {float(big.cost_usd[0])!r} vs "
+          f"{float(des.cost_usd[0])!r}")
+    if bad:
+        raise AssertionError(f"paged day: engine != DES in {bad}")
+
+    scale, chunk = SMALL_DAY
+    ops.reset_launch_counts()
+    paged, wall = day(scale, chunk)
+    small_counts = ops.launch_counts()
+    report(f"paged day chunk_jobs={chunk}", scale, wall, small_counts)
+    mono, m_wall = day(scale, None)
+    t0 = time.perf_counter()
+    proc.join()
+    if proc.exitcode != 0:
+        raise AssertionError(f"paged day: the CPU run exited "
+                             f"{proc.exitcode}")
+    with np.load(cpu_path) as z:
+        cpu = types.SimpleNamespace(**{f: z[f] for f in RESULT_FIELDS})
+        cpu_wall = float(z["wall"])
+    print(f"paged day azure:day=tue,scale={scale}: monolithic on the card "
+          f"{m_wall:.3f} s, paged on the CPU {cpu_wall:.3f} s (in its own "
+          f"process, {time.perf_counter() - t0:.3f} s waited for it)")
+    for other, name in ((mono, "the monolithic card run"), (cpu, "the CPU")):
+        bad = [f for f in RESULT_FIELDS
+               if not same(getattr(paged, f), getattr(other, f))]
+        if bad:
+            raise AssertionError(f"paged day scale={scale}: paged card run "
+                                 f"!= {name} in {bad}")
+    print(f"paged day scale={scale}: paged card run equal to the "
+          f"monolithic card run and to the CPU in every field")
+    scale, chunk = PROFILED_DAY
+    _, wall = day(scale, chunk)
+    steps = sum(sum(t) for t in vectorsim._LAST_RUN_STATS["trips"])
+    got = device_profile("paged day", lambda: day(scale, chunk))
+    if got is not None:
+        busy_s, wall_p, dev_events = got
+        n_events = sum(e.count for e in dev_events)
+        print(f"profile paged day scale={scale} chunk_jobs={chunk}: device "
+              f"busy {busy_s:.3f} s of a {wall_p:.3f} s profiled wall, "
+              f"{1 - busy_s / wall_p:.3f} idle; of the unprofiled "
+              f"{wall:.3f} s wall {1 - busy_s / wall:.3f} idle; "
+              f"{n_events} device events, {n_events / steps:.1f} per body "
+              f"step ({steps} steps)")
+        print_top_events(dev_events)
+    return counts, small_counts
 
 
 def rglru_bound(B, T, D, with_h0):
@@ -2345,7 +2675,7 @@ def main() -> int:
         "chain_floor_ms": f_floor_ms, "step_ns": fstep_ns})
 
     # -- 3. the uncapped main path ----------------------------------------
-    def run_path(label, J, tasks, sweep_kw):
+    def run_path(label, J, tasks, sweep_kw, check=check_sweep):
         """One sweep on the card, with the launch counts set to 0 just
         before it and read just after it."""
         ops.reset_launch_counts()
@@ -2355,12 +2685,13 @@ def main() -> int:
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
         stats = vectorsim._LAST_RUN_STATS
-        print(f"{label} J={J}: 30 scenarios on {stats['device']} in "
+        n_scen = sum(r.num_scenarios for r in out)
+        print(f"{label} J={J}: {n_scen} scenarios on {stats['device']} in "
               f"{wall:.3f} s (prep {stats['prep_s']:.3f} s, engine "
               f"{stats['engine_s']:.3f} s, finalize "
               f"{stats['finalize_s']:.3f} s); body steps per stage "
               f"{stats['trips']}; launches {counts}")
-        check_sweep(f"{label} J={J}", tasks, out, J)
+        check(f"{label} J={J}", tasks, out, J)
         return out, wall, counts
 
     outs, walls, launches = {}, {}, {}
@@ -2465,7 +2796,14 @@ def main() -> int:
     tasks = fig4_workload(APPS, CPU_J)
     check_cpu_rerun(f"pool path J={CPU_J}", tasks, pool_kw_for(tasks)[1])
 
-    # -- 6. the profiling path: profile -> predict -> schedule -------------
+    # -- 6. the engine's other options: the scenario axes -----------------
+    launches.update(scenario_axes_phase(run_path, load_kw))
+    # -- 6b. the fault axis: the attempt chain -----------------------------
+    launches["faults"] = faults_phase(run_path)
+    # -- 6c. a paged trace day -----------------------------------------------
+    launches["day"], launches["small day"] = paged_day_phase()
+
+    # -- 7. the profiling path: profile -> predict -> schedule -------------
     kernels.append(check_matmul(dev))
     t0 = time.perf_counter()
     ops.reset_launch_counts()
@@ -2510,7 +2848,7 @@ def main() -> int:
     finally:
         torch.set_float32_matmul_precision(precision)
 
-    # -- 7. the serving path: the model stack's kernels ---------------------
+    # -- 8. the serving path: the model stack's kernels ---------------------
     bf16_matmul = check_linear_rows(dev)
     kernels.append(check_flash_attention(dev))
     kernels.append(check_flash_decode(dev))
@@ -2531,7 +2869,7 @@ def main() -> int:
     print(f"serve: phase wall {time.perf_counter() - t0:.3f} s; launches "
           f"in the timed serve batches {serve_launches}")
 
-    # -- 8. result ------------------------------------------------------------
+    # -- 9. result ------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main path of its slice: acd_evict on
     # the uncapped sweeps, fifo_dispatch on the congested ones; matmul on
@@ -2543,6 +2881,13 @@ def main() -> int:
         launches[("main", J)]["acd_evict"] for J in MAIN_J)
     by_name["fifo_dispatch"]["launches"] = sum(
         launches[("load", J)]["fifo_dispatch"] for J in MAIN_J)
+    # and on the paths of the engine's other options, each counted in its
+    # own timed run
+    for name in ("acd_evict", "fifo_dispatch"):
+        by_name[name]["path_launches"] = {
+            (k if isinstance(k, str) else f"{k[0]} J={k[1]}"): c[name]
+            for k, c in launches.items()
+            if k != "profile" and c.get(name, 0) > 0}
     by_name["matmul"]["launches"] = (launches["profile"]["matmul"]
                                      + serve_launches["matmul"])
     by_name["matmul"]["bf16"] = bf16_matmul

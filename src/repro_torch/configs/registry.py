@@ -33,12 +33,12 @@ _MODULES = {
 
 #: the reference's other architectures -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "qwen1.5-32b": ("ROADMAP Queue 1, Next item 1 (its float8_e4m3fn KV "
+    "qwen1.5-32b": ("ROADMAP Queue 1 item 7 (its float8_e4m3fn KV "
                     "cache through the attention kernels)"),
-    "olmoe-1b-7b": "ROADMAP Queue 1, Next item 2 (MoE layers)",
-    "arctic-480b": "ROADMAP Queue 1, Next item 2 (MoE layers)",
-    "whisper-large-v3": "ROADMAP Queue 1, Next item 3 (the encoder-decoder)",
-    "internvl2-76b": "ROADMAP Queue 1, Next item 4 (vision patches)",
+    "olmoe-1b-7b": "ROADMAP Queue 1 item 8 (MoE layers)",
+    "arctic-480b": "ROADMAP Queue 1 item 8 (MoE layers)",
+    "whisper-large-v3": "ROADMAP Queue 1 item 9 (the encoder-decoder)",
+    "internvl2-76b": "ROADMAP Queue 1 item 10 (vision patches)",
 }
 
 ARCHS = tuple(_MODULES)

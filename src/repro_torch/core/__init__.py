@@ -42,8 +42,14 @@ Layout follows the JAX reference package module for module:
     Load-dependent latency: :class:`ColdStartModel`, :class:`PoolTrace`
     and the concurrency-cap normaliser, run by both engines.
 
-``faults`` is copied too: the DES and the argument normalisers use it.
-The MILP bound and trace-derived workloads are not ported yet.
+``faults``
+    Fault injection and recovery: :class:`FaultModel` grids and the
+    :class:`RetryPolicy`, run by both engines.
+``workloads``
+    Trace-derived workloads: ``azure:`` specs sample days of serverless
+    invocations from the reference's committed trace sample.
+
+The MILP bound is not ported yet.
 """
 from .arrivals import (ArrivalProcess, BatchArrivals, MMPPArrivals,
                        PoissonArrivals, TraceArrivals, parse_arrivals,
@@ -58,6 +64,7 @@ from .cost import (CostModel, LAMBDA_COST, PriceTrace, Provider,
                    diurnal_portfolio, lambda_cost, spot_portfolio,
                    stage_costs)
 from .dag import APPS, AppDAG, Stage, image_app, matrix_app, video_app
+from .faults import FaultModel, RetryPolicy, as_fault_model
 from .greedy import (acd_sweep, acd_sweep_torch, init_offload,
                      init_offload_torch, offload_negative_acd,
                      select_provider, select_provider_torch, t_max)
@@ -72,6 +79,8 @@ from .simulator import (SimResult, simulate, simulate_all_private,
 from .vectorsim import (ENGINE_IMPLS, VectorSimResult, resolve_device,
                         resolve_engine_impl, simulate_scenarios,
                         sweep_scenarios)
+from .workloads import (AzureWorkload, day_counts, load_azure_sample,
+                        parse_workload, resolve_workload)
 
 __all__ = [
     "AppDAG", "Stage", "APPS", "matrix_app", "video_app", "image_app",
@@ -92,6 +101,9 @@ __all__ = [
     "coldstart_from_fields", "pool_trace_from_fields",
     "perf_model_from_fields", "ridge_from_fields",
     "ColdStartModel", "PoolTrace",
+    "FaultModel", "RetryPolicy", "as_fault_model",
+    "AzureWorkload", "parse_workload", "resolve_workload", "day_counts",
+    "load_azure_sample",
     "RidgeModel", "fit_ridge", "grid_search_ridge", "mape", "StageModels",
     "AppPerfModel", "fit_app_perf_model", "default_feature_builder",
 ]

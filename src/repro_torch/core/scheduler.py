@@ -114,15 +114,21 @@ class SkedulixScheduler:
         :class:`.arrivals.ArrivalProcess`, a spec string like
         ``"poisson:4.0"``, or an explicit ``[J]`` release-time vector;
         each job then has its own deadline ``release + c_max``.
-        ``workload`` specs are not ported yet and raise. Extra keyword
-        arguments (``engine=``, ``device=``, ``t0=``, flags) forward to
-        :func:`.simulator.simulate`.
+        ``workload`` replaces ``pred`` with a trace-derived spec
+        (:mod:`.workloads`, e.g. ``"azure:day=tue,scale=1e5"``) whose
+        release stream becomes the default arrivals. Extra keyword
+        arguments (``engine=``, ``device=``, ``chunk_jobs=``, ``t0=``,
+        flags) forward to :func:`.simulator.simulate`.
         """
         if workload is not None:
-            raise NotImplementedError(
-                "workload= specs are not ported to repro_torch yet (they "
-                "come with the paging and workloads slice)")
-        if pred is None:
+            if pred is not None:
+                raise ValueError("pass either pred or workload=, not both")
+            from .workloads import resolve_workload
+            pred, act, wl_release = resolve_workload(
+                workload, self.dag, sim_kwargs.get("t0", 0.0))
+            if arrivals is None:
+                arrivals = wl_release
+        elif pred is None:
             pred = self.predict(base_features)
         res = simulate(self.dag, pred, act, c_max=c_max, order=order,
                        cost_model=self.cost_model, portfolio=self.portfolio,
@@ -144,6 +150,11 @@ class SkedulixScheduler:
         replicas=None,
         replica_speeds=None,
         price_traces=None,
+        faults=None,
+        retry=None,
+        workload=None,
+        chunk_jobs: Optional[int] = None,
+        egress_lookahead: bool = False,
         concurrency=None,
         coldstart=None,
         pool_trace=None,
@@ -163,23 +174,33 @@ class SkedulixScheduler:
         against every deadline of the grid; ``replica_speeds`` adds a
         straggler axis — ``{(stage, replica): factor}`` dicts or [M, I]
         slowdown arrays; ``price_traces`` adds a pricing axis — portfolio
-        variants or per-provider :class:`.cost.PriceTrace` lists. All are
+        variants or per-provider :class:`.cost.PriceTrace` lists;
+        ``faults`` adds a reliability axis — :class:`.faults.FaultModel`
+        configs, scalar failure rates or ``None`` entries, recovered
+        under the ``retry`` :class:`.faults.RetryPolicy`. All are
         scenario data in the vector engine: the whole grid is one batched
-        call. ``concurrency``, ``coldstart`` and ``pool_trace`` add
-        load-dependent latency shared by every scenario (per-provider
-        concurrency caps with FIFO queueing, cold starts, a time-varying
-        private pool; see :func:`.vectorsim.simulate_scenarios`). Other
-        keyword arguments forward to
-        :func:`.vectorsim.simulate_scenarios`, which raises
-        ``NotImplementedError`` for the options not ported yet.
+        call.
+
+        ``workload`` replaces ``pred``/``base_features`` with a trace-
+        derived workload spec (:mod:`.workloads`, e.g.
+        ``"azure:day=tue,scale=1e5"``) whose release stream becomes the
+        default arrivals; ``chunk_jobs`` pages the job axis (results equal
+        to the monolithic run's: the knob for days of 10^5 jobs);
+        ``egress_lookahead`` adds the one-edge downstream-egress term to
+        the placement argmin. ``concurrency``, ``coldstart`` and
+        ``pool_trace`` add load-dependent latency shared by every scenario
+        (per-provider concurrency caps with FIFO queueing, cold starts, a
+        time-varying private pool; see :func:`.vectorsim.simulate_scenarios`).
         """
-        if pred is None:
+        if pred is None and workload is None:
             pred = self.predict(base_features)
         return simulate_scenarios(
             self.dag, pred, act, c_max_grid=c_max_grid, orders=orders,
             cost_model=self.cost_model, portfolio=self.portfolio,
             engine=engine, arrivals=arrivals, replicas=replicas,
             replica_speeds=replica_speeds, price_traces=price_traces,
+            faults=faults, retry=retry, workload=workload,
+            chunk_jobs=chunk_jobs, egress_lookahead=egress_lookahead,
             concurrency=concurrency, coldstart=coldstart,
             pool_trace=pool_trace, device=device, **sim_kwargs)
 

@@ -57,10 +57,13 @@ chain is sequential within a scenario row); cold starts carry per-slot
 idle stamps through the private event loop; a pool trace masks each
 private slot by its [on, off) window.
 
-Not in this engine yet (they raise ``NotImplementedError``): fault
-injection, job paging (``chunk_jobs``), trace-derived ``workload`` specs,
-egress lookahead, ``init_window`` and externally supplied offload plans.
-The DES in :mod:`.simulator` covers all of them.
+The reference engine's other options run here too: a fault axis (an
+unrolled attempt chain per offloaded stage), job paging (``chunk_jobs``:
+release-ordered pages with the per-replica clocks carried across them
+and a safety check that grows a page whose work overlaps the next
+page's releases), trace-derived ``workload`` specs, the
+``egress_lookahead`` placement term, ``init_window``, externally
+supplied offload plans and per-task ``init_phase``/``adaptive`` flags.
 """
 from __future__ import annotations
 
@@ -77,6 +80,7 @@ from .coldstart import (as_coldstart, as_pool_trace, norm_concurrency,
 from .cost import (CostModel, EGRESS_GB_PER_S, LAMBDA_COST, PriceTrace,
                    ProviderPortfolio, as_portfolio)
 from .dag import AppDAG
+from .faults import RetryPolicy, max_outage_slots, normalize_fault_axis
 from .greedy import init_offload_torch
 from .priority import ORDERS
 from ..kernels import ops as _kernel_ops
@@ -86,31 +90,6 @@ from ..kernels import ops as _kernel_ops
 #: "pallas" structure); the reference's "loop" and "scan" twins are not
 #: ported yet.
 ENGINE_IMPLS = ("kernel",)
-
-#: Unported options -> the later slice of the port that brings them.
-_UNPORTED = {
-    "faults": "the faults slice",
-    "retry": "the faults slice",
-    "chunk_jobs": "the paging and workloads slice",
-    "workload": "the paging and workloads slice",
-    "egress_lookahead": "the scenario-axes slice",
-    "init_window": "the scenario-axes slice",
-    "offload_mask": "the scenario-axes slice",
-    "init_phase": "the scenario-axes slice (per-task flags)",
-    "adaptive": "the scenario-axes slice (per-task flags)",
-}
-
-
-def _reject_unported(where: str = "", **kw) -> None:
-    """Raise ``NotImplementedError`` for every option in ``kw`` that is set
-    (anything but ``None``/``False``), naming the slice that brings it."""
-    for name, value in kw.items():
-        if value is None or value is False:
-            continue
-        pre = f"{where}: " if where else ""
-        raise NotImplementedError(
-            f"{pre}{name}= is not ported to the PyTorch engine yet; it "
-            f"comes with {_UNPORTED[name]}")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -239,11 +218,14 @@ def _run_stage(a, elig, speed_k, clock0_k, acd_k, P_k, rem_k, dur_k,
     scale-to-zero) pays the warm-up before its run, unscaled by the slot's
     speed.
 
-    Returns (times, replica, cold) in job coordinates: ``times`` holds the
-    dispatch instant of private jobs and ``-(eviction instant) - 1`` of
-    evicted ones (NaN = never exited; this encoding needs ``t0 >= 0``),
-    ``cold`` whether a private dispatch paid the warm-up (all False
-    without ``csd``). Appends the number of body steps to ``trips``.
+    Returns (times, replica, clocks, cold): ``times`` holds, in job
+    coordinates, the dispatch instant of private jobs and ``-(eviction
+    instant) - 1`` of evicted ones (NaN = never exited; this encoding
+    needs ``t0 >= 0``), ``replica`` the slot each private job took,
+    ``clocks`` [B, I] each slot's final busy-until instant (the carry
+    between pages), ``cold`` whether a private dispatch paid the warm-up
+    (all False without ``csd``). Appends the number of body steps to
+    ``trips``.
     """
     B, J = P_k.shape
     dev = P_k.device
@@ -401,7 +383,7 @@ def _run_stage(a, elig, speed_k, clock0_k, acd_k, P_k, rem_k, dur_k,
     trips.append(step)
     cold_j = (coldq.gather(1, inv) if csd is not None
               else torch.zeros((B, J), dtype=torch.bool, device=dev))
-    return times.gather(1, inv), rep.gather(1, inv), cold_j
+    return times.gather(1, inv), rep.gather(1, inv), svr, cold_j
 
 
 def _lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -419,14 +401,30 @@ def _lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
 def _run_engine(a: Dict[str, torch.Tensor], include_transfers: bool,
                 init_mode: int, adaptive: bool, t0: float,
                 trips: List[int],
-                load: Optional["_LoadConfig"] = None
-                ) -> Dict[str, torch.Tensor]:
+                load: Optional["_LoadConfig"] = None,
+                lookahead: bool = False) -> Dict[str, torch.Tensor]:
     """Run every scenario of one shape family; ``a`` holds the [B, ...]
     engine tensors built by :class:`_Task` (stages in topological order,
-    padded to the family's stage count). ``load`` carries the call's
-    concurrency caps, cold-start model and pool-trace flag (``None`` when
-    none is set); ``a`` then also holds the occupancy rates ``occ`` under
-    caps and the slot turn-off instants ``off_pool`` under a pool trace."""
+    padded to the family's stage count).
+
+    ``init_mode`` 0 runs no initialization offload, 1 resolves the
+    capacity-prefix rule over the jobs ``init_elig`` admits, and 2 takes
+    ``init_elig`` as the resolved plan (an ``offload_mask``, or a page of
+    the plan resolved over the whole job axis). ``load`` carries the call's concurrency caps, cold-start
+    model and pool-trace flag (``None`` when none is set); ``a`` then also
+    holds the occupancy rates ``occ`` under caps and the slot turn-off
+    instants ``off_pool`` under a pool trace. With a fault axis ``a``
+    holds the grids ``fail_g``/``delay_g`` [B, J, M, A], the outage
+    windows ``outw`` [B, P, W, 2] and the per-scenario ``kill_frac``,
+    ``okill`` and ``fb_on``; each offloaded stage then runs an attempt
+    chain of A slots (:func:`_attempt_chain`). ``lookahead`` adds the
+    one-edge downstream egress term to the placement argmin.
+
+    Besides the result fields, returns ``qexit`` [B, J, M] (each stage's
+    sign-encoded queue exits, for the pager's safety check) and
+    ``clocks`` [B, M, I] (each stage's final slot clocks, the pager's
+    carry).
+    """
     P_pred, act_priv = a["P_pred"], a["act_priv"]
     pub_a, up_a, down_a, dgb_pred = (a["pub_a"], a["up_a"], a["down_a"],
                                      a["dgb_pred"])
@@ -437,11 +435,13 @@ def _run_engine(a: Dict[str, torch.Tensor], include_transfers: bool,
     speed, clock0 = a["speed"], a["clock0"]
     deadline, release = a["deadline"], a["release"]
     B, J, M = P_pred.shape
-    P = sel_ps.shape[1]
+    P, S_seg = sel_ps.shape[1], sel_ps.shape[2]
     dev = P_pred.device
     f64 = torch.float64
     inf = torch.tensor(float("inf"), dtype=f64, device=dev)
+    nan = torch.tensor(float("nan"), dtype=f64, device=dev)
     zero = torch.zeros((), dtype=f64, device=dev)
+    faulty = "fail_g" in a
     capped = load is not None and load.capped
     cold = load is not None and load.cold
     csd = (load.warm_up_s, load.keep_alive_s, load.scale_to_zero) \
@@ -475,13 +475,12 @@ def _run_engine(a: Dict[str, torch.Tensor], include_transfers: bool,
         rem_l[k] = P_pred[:, :, k] + best
 
     if init_mode == 1:
-        # whole-job predicted demand, summed over stages left to right
-        c_tot = P_pred[:, :, 0]
-        for k in range(1, M):
-            c_tot = c_tot + P_pred[:, :, k]
-        init_elig = a["init_elig"]
-        off = init_offload_torch(torch.where(init_elig, c_tot, zero),
-                                 a["job_keys"], a["capacity"]) & init_elig
+        # jobs outside init_elig (init_window) bring no demand and are
+        # never marked
+        off = _init_offload(P_pred, a["job_keys"], a["capacity"],
+                            a["init_elig"])
+    elif init_mode == 2:
+        off = a["init_elig"]
     else:
         off = torch.zeros((B, J), dtype=torch.bool, device=dev)
 
@@ -496,11 +495,19 @@ def _run_engine(a: Dict[str, torch.Tensor], include_transfers: bool,
     cost_l: List[torch.Tensor] = []
     qwait_l: List[torch.Tensor] = []
     coldm_l: List[torch.Tensor] = []
+    qexit_l: List[torch.Tensor] = []
+    clocks_l: List[torch.Tensor] = []
+    att_l: List[torch.Tensor] = []
+    failc_l: List[torch.Tensor] = []
     xeg_j = torch.zeros((B, J), dtype=f64, device=dev)
+    # lost work of failed attempts and abandonment, per job (faults only)
+    lost_j = torch.zeros((B, J), dtype=f64, device=dev)
+    ab_j = torch.zeros((B, J), dtype=torch.bool, device=dev)
     iota_P = torch.arange(P, device=dev)
     for k in range(M):
         # source stages arrive at the job's release time; downstream stages
-        # whenever their predecessors finish
+        # whenever their predecessors finish (an abandoned predecessor's
+        # +inf end makes the job dead here)
         arr = torch.full((B, J), float("-inf"), dtype=f64, device=dev)
         for u in range(k):
             arr = torch.maximum(arr, torch.where(A[:, u, k, None], end_l[u],
@@ -515,76 +522,137 @@ def _run_engine(a: Dict[str, torch.Tensor], include_transfers: bool,
             forced_k = forced_k | (desc[:, u, k, None] & evict_l[u])
         forced_k = forced_k & ~pinned[:, k, None]
         elig = ~forced_k & ~inert[:, k, None]
-        times_j, rep_j, coldq = _run_stage(
+        if faulty:
+            # dead jobs (abandoned upstream) never enter a queue
+            elig = elig & torch.isfinite(arr)
+        times_j, rep_j, svr_k, coldq = _run_stage(
             arr, elig, speed[:, k], clock0[:, k], ~pinned[:, k],
             P_pred[:, :, k], rem_l[k], act_priv[:, :, k],
             a["stage_keys"][:, :, k], deadline, t0, adaptive, trips,
             off_k=a["off_pool"][:, k] if load is not None and load.pooled
             else None, csd=csd)
+        qexit_l.append(times_j)
+        clocks_l.append(svr_k)
         evicted = times_j < -0.5  # NaN (never exited) compares False
         locpub = forced_k | evicted
         # decision-epoch pricing: the offload epoch is the arrival time when
         # forced public, the eviction instant when ACD-evicted
         tau = torch.where(forced_k, arr, -times_j - 1.0)
-        seg_pj = torch.clamp(
-            (edges_ps[:, :, :, None] <= tau[:, None, None, :]).sum(2) - 1,
-            min=0)                                               # [B, P, J]
-        selc = sel_ps[..., k].gather(2, seg_pj[:, :, None, :])[:, :, 0, :]
-        if include_transfers:
-            # provider-affinity penalty, one predecessor at a time in
-            # ascending topological order (the DES's association)
-            for u in range(k):
-                pen_u = torch.where(
-                    A[:, u, k, None] & loc_l[u],
-                    _gather_ps(eg_ps, prov_l[u], seg_l[u]) * dgb_pred[:, :, u],
-                    zero)
-                selc = selc + torch.where(
-                    iota_P[None, :, None] != prov_l[u][:, None, :],
-                    pen_u[:, None, :], zero)
+
+        def placement_at(tq, k=k):
+            """[B, P, J] selection costs and active segments at epochs
+            ``tq``: the provider-affinity penalty one predecessor at a
+            time in ascending topological order, then (lookahead) one
+            successor term at a time in ascending order, as the DES sums
+            them."""
+            seg_pj = torch.clamp(
+                (edges_ps[:, :, :, None] <= tq[:, None, None, :]).sum(2) - 1,
+                min=0)                                           # [B, P, J]
+            s = sel_ps[..., k].gather(2, seg_pj[:, :, None, :])[:, :, 0, :]
+            if include_transfers:
+                for u in range(k):
+                    pen_u = torch.where(
+                        A[:, u, k, None] & loc_l[u],
+                        _gather_ps(eg_ps, prov_l[u], seg_l[u])
+                        * dgb_pred[:, :, u], zero)
+                    s = s + torch.where(
+                        iota_P[None, :, None] != prov_l[u][:, None, :],
+                        pen_u[:, None, :], zero)
+                if lookahead:
+                    # placing stage k on a candidate commits its successor
+                    # edges to the candidate's egress rate at the epoch's
+                    # segment
+                    eg_cand = eg_ps.gather(2, seg_pj)            # [B, P, J]
+                    for v in range(k + 1, M):
+                        s = s + torch.where(
+                            (A[:, k, v] & ~pinned[:, v])[:, None, None],
+                            eg_cand * dgb_pred[:, :, k][:, None, :], zero)
+            return s, seg_pj
+
         # upload needed iff some input of stage k lives in private storage
         # (or the stage reads the original private input)
+        needs_up = None
         if include_transfers:
             needs_up = torch.zeros((B, J), dtype=torch.bool, device=dev)
             for u in range(k):
                 needs_up = needs_up | (A[:, u, k, None] & ~loc_l[u])
             needs_up = torch.where(has_pred[:, None], needs_up, True)
-        if capped:
-            # concurrency caps: the stage's public dispatches replay in the
-            # DES's event order (offload epoch; forced jobs by job id before
-            # evicted ones by queue rank on ties; public jobs first so the
-            # chain stops at n_pub), each taking every provider's earliest
-            # free FIFO slot, in one fifo_dispatch call for all B rows
-            lm_pj = lat_ps.gather(2, seg_pj)                     # [B, P, J]
-            occ_pj = a["occ"][..., k].gather(2, seg_pj)
-            up_raw = (torch.where(needs_up, up_a[:, :, k], zero)
-                      if include_transfers else
-                      torch.zeros((B, J), dtype=f64, device=dev))
-            ready_pj = tau[:, None, :] + up_raw[:, None, :] * lm_pj
-            dur_pj = pub_a[:, :, k][:, None, :] * lm_pj
-            qrank = _inverse_perm(torch.argsort(a["stage_keys"][:, :, k],
-                                                dim=1, stable=True))
-            order_j = _lexsort((
-                torch.where(forced_k, iota_J, qrank),
-                (~forced_k).to(torch.int64),
-                torch.where(locpub, tau, inf),
-                (~locpub).to(torch.int64)))
-            n_pub = locpub.sum(1)
-            (pidx_k, seg_k, wait_f, coldpub_f, start_pub, end_pub,
-             extra_f) = _kernel_ops.fifo_dispatch(
-                order_j.to(torch.int32), n_pub.to(torch.int32),
-                ready_pj, dur_pj, selc.contiguous(), occ_pj,
-                seg_pj.to(torch.int32), capped_p, wu_p, sclk0, sidle0,
-                load.keep_alive_s if cold else 0.0, cold=cold)
-            pidx_k = pidx_k.to(torch.int64)
-            seg_k = seg_k.to(torch.int64)
+        # private durations run on the assigned replica's speed
+        priv_dur = act_priv[:, :, k] * speed[:, k].gather(
+            1, torch.clamp(rep_j, min=0).to(torch.int64))
+        if faulty:
+            (start, end, succ, pidx_k, seg_k, lm, cost_k, att_cnt,
+             fail_cnt, ab, lost_j) = _attempt_chain(
+                a, k, arr, locpub, tau, times_j, priv_dur, needs_up,
+                placement_at, lost_j)
+            ab_j = ab_j | ab
+            att_l.append(att_cnt)
+            failc_l.append(fail_cnt)
+            # the stage's public set is its successful placements: they
+            # alone bill, move edges and feed the next stages
+            locpub = succ
+            cost_l.append(cost_k)
         else:
-            pidx_k = torch.argmin(selc, dim=1)                   # [B, J]
-            seg_k = seg_pj.gather(1, pidx_k[:, None, :])[:, 0, :]
-        lm = _gather_ps(lat_ps, pidx_k, seg_k)
-        cost_k = cost_ps[..., k].reshape(B, -1, J).gather(
-            1, (pidx_k * sel_ps.shape[2] + seg_k)[:, None, :])[:, 0, :]
-        # billed cost and occupancy extra add as one value per (job, stage)
-        cost_l.append(cost_k + extra_f if capped else cost_k)
+            selc, seg_pj = placement_at(tau)
+            if capped:
+                # concurrency caps: the stage's public dispatches replay
+                # in the DES's event order (offload epoch; forced jobs by
+                # job id before evicted ones by queue rank on ties; public
+                # jobs first so the chain stops at n_pub), each taking
+                # every provider's earliest free FIFO slot, in one
+                # fifo_dispatch call for all B rows
+                lm_pj = lat_ps.gather(2, seg_pj)                 # [B, P, J]
+                occ_pj = a["occ"][..., k].gather(2, seg_pj)
+                up_raw = (torch.where(needs_up, up_a[:, :, k], zero)
+                          if include_transfers else
+                          torch.zeros((B, J), dtype=f64, device=dev))
+                ready_pj = tau[:, None, :] + up_raw[:, None, :] * lm_pj
+                dur_pj = pub_a[:, :, k][:, None, :] * lm_pj
+                qrank = _inverse_perm(torch.argsort(
+                    a["stage_keys"][:, :, k], dim=1, stable=True))
+                order_j = _lexsort((
+                    torch.where(forced_k, iota_J, qrank),
+                    (~forced_k).to(torch.int64),
+                    torch.where(locpub, tau, inf),
+                    (~locpub).to(torch.int64)))
+                n_pub = locpub.sum(1)
+                (pidx_k, seg_k, wait_f, coldpub_f, start_pub, end_pub,
+                 extra_f) = _kernel_ops.fifo_dispatch(
+                    order_j.to(torch.int32), n_pub.to(torch.int32),
+                    ready_pj, dur_pj, selc.contiguous(), occ_pj,
+                    seg_pj.to(torch.int32), capped_p, wu_p, sclk0, sidle0,
+                    load.keep_alive_s if cold else 0.0, cold=cold)
+                pidx_k = pidx_k.to(torch.int64)
+                seg_k = seg_k.to(torch.int64)
+            else:
+                pidx_k = torch.argmin(selc, dim=1)               # [B, J]
+                seg_k = seg_pj.gather(1, pidx_k[:, None, :])[:, 0, :]
+            lm = _gather_ps(lat_ps, pidx_k, seg_k)
+            cost_k = cost_ps[..., k].reshape(B, -1, J).gather(
+                1, (pidx_k * S_seg + seg_k)[:, None, :])[:, 0, :]
+            # billed cost and occupancy extra add as one value per (job,
+            # stage)
+            cost_l.append(cost_k + extra_f if capped else cost_k)
+            # private dispatches pay the warm-up the event loop recorded
+            # (additive, after the dispatch instant)
+            start_priv = (times_j + coldq.to(f64) * load.warm_up_s if cold
+                          else times_j)
+            if capped:
+                start = torch.where(locpub, start_pub, start_priv)
+                end = torch.where(locpub, end_pub, start_priv + priv_dur)
+                qwait_l.append(wait_f)
+                coldm_l.append(coldpub_f | coldq)
+            else:
+                # an uncapped provider is an unbounded warm fleet
+                upk = (torch.where(needs_up, up_a[:, :, k] * lm, zero)
+                       if include_transfers else
+                       torch.zeros((B, J), dtype=f64, device=dev))
+                start = torch.where(locpub, tau + upk, start_priv)
+                end = start + torch.where(locpub, pub_a[:, :, k] * lm,
+                                          priv_dur)
+        if not capped:
+            qwait_l.append(torch.zeros((B, J), dtype=f64, device=dev))
+            coldm_l.append(coldq)
         down_l.append(down_a[:, :, k] * lm)
         # an edge whose endpoints run public on different providers pays
         # the upstream provider's egress on the un-multiplied edge volume
@@ -595,34 +663,13 @@ def _run_engine(a: Dict[str, torch.Tensor], include_transfers: bool,
                 rate_u = _gather_ps(eg_ps, prov_l[u], seg_l[u])
                 xeg_j = xeg_j + torch.where(
                     moved, rate_u * (down_a[:, :, u] * EGRESS_GB_PER_S), zero)
-        # private dispatches pay the warm-up the event loop recorded
-        # (additive, after the dispatch instant)
-        start_priv = (times_j + coldq.to(f64) * load.warm_up_s if cold
-                      else times_j)
-        # private durations run on the assigned replica's speed
-        priv_dur = act_priv[:, :, k] * speed[:, k].gather(
-            1, torch.clamp(rep_j, min=0).to(torch.int64))
-        if capped:
-            start = torch.where(locpub, start_pub, start_priv)
-            end = torch.where(locpub, end_pub, start_priv + priv_dur)
-            qwait_l.append(wait_f)
-            coldm_l.append(coldpub_f | coldq)
-        else:
-            # an uncapped provider is an unbounded warm fleet
-            upk = (torch.where(needs_up, up_a[:, :, k] * lm, zero)
-                   if include_transfers else
-                   torch.zeros((B, J), dtype=f64, device=dev))
-            start = torch.where(locpub, tau + upk, start_priv)
-            end = start + torch.where(locpub, pub_a[:, :, k] * lm, priv_dur)
-            qwait_l.append(torch.zeros((B, J), dtype=f64, device=dev))
-            coldm_l.append(coldq)
         start_l.append(start)
         end_l.append(end)
         loc_l.append(locpub)
         evict_l.append(evicted)
         prov_l.append(pidx_k)
         seg_l.append(seg_k)
-        rep_l.append(torch.where(locpub, -1, rep_j))
+        rep_l.append(torch.where(forced_k | evicted, -1, rep_j))
 
     start = torch.stack(start_l, dim=2)
     end = torch.stack(end_l, dim=2)
@@ -635,22 +682,183 @@ def _run_engine(a: Dict[str, torch.Tensor], include_transfers: bool,
         fin = fin + torch.where(locpub, torch.stack(down_l, dim=2), zero)
     completion = torch.where(sink[:, None, :], fin, -inf).amax(2)
     # per-job cost: stage billing summed left to right over stages, then
-    # the cross-provider egress; scalar totals reduce on the host
+    # the cross-provider egress and (faults) the lost work; scalar totals
+    # reduce on the host, over the assembled job axis of a paged run too
     cost_j = torch.where(loc_l[0], cost_l[0], zero)
     for k in range(1, M):
         cost_j = cost_j + torch.where(loc_l[k], cost_l[k], zero)
     cost_j = cost_j + xeg_j
-    return dict(cost_j=cost_j, init_off=off,
-                public_mask=locpub, start=start, end=end,
-                completion=completion,
-                provider=torch.where(locpub, prov_m, -1),
-                replica=torch.stack(rep_l, dim=2),
-                segment=torch.where(locpub, seg_m, -1),
-                attempts=locpub.to(torch.int64),
-                failed=torch.zeros((B, J, M), dtype=torch.int64, device=dev),
-                abandoned=torch.zeros((B, J), dtype=torch.bool, device=dev),
-                queue_wait=torch.stack(qwait_l, dim=2),
-                cold=torch.stack(coldm_l, dim=2))
+    out = dict(cost_j=cost_j, init_off=off,
+               qexit=torch.stack(qexit_l, dim=2),
+               clocks=torch.stack(clocks_l, dim=1),
+               public_mask=locpub, start=start, end=end,
+               completion=completion,
+               provider=torch.where(locpub, prov_m, -1),
+               replica=torch.stack(rep_l, dim=2),
+               segment=torch.where(locpub, seg_m, -1),
+               attempts=locpub.to(torch.int64),
+               failed=torch.zeros((B, J, M), dtype=torch.int64, device=dev),
+               abandoned=ab_j,
+               queue_wait=torch.stack(qwait_l, dim=2),
+               cold=torch.stack(coldm_l, dim=2))
+    if faulty:
+        # abandoned jobs never complete: NaN completion, NaN stage ends
+        out.update(cost_j=cost_j + lost_j,
+                   end=torch.where(torch.isinf(end), nan, end),
+                   completion=torch.where(ab_j, nan, completion),
+                   attempts=torch.stack(att_l, dim=2),
+                   failed=torch.stack(failc_l, dim=2))
+    return out
+
+
+def _init_offload(P_pred, job_keys, capacity, init_elig):
+    """The capacity-prefix initialization offload [B, J] over the jobs
+    ``init_elig`` admits: whole-job predicted demand summed over stages
+    left to right, the prefix taken on the host (:func:`init_offload_torch`).
+    The engine (``init_mode=1``) and the pager's plan run this one
+    function, so a paged run resolves the monolithic run's mask."""
+    zero = torch.zeros((), dtype=P_pred.dtype, device=P_pred.device)
+    c_tot = P_pred[:, :, 0]
+    for k in range(1, P_pred.shape[2]):
+        c_tot = c_tot + P_pred[:, :, k]
+    return init_offload_torch(torch.where(init_elig, c_tot, zero), job_keys,
+                              capacity) & init_elig
+
+
+def _attempt_chain(a, k: int, arr, locpub, tau, times_j, priv_dur,
+                   needs_up, placement_at, lost_j):
+    """Stage ``k``'s offloaded jobs under the fault axis: the reference's
+    unrolled attempt chain, as the DES's retry events replay it.
+
+    Attempt ``ai`` re-runs the placement argmin at its own epoch over the
+    providers that are feasible, not inside an outage window and not yet
+    failed for this (job, stage); a grid draw fails at ``kill_frac`` of
+    the duration, an outage window opening inside the run reclaims it at
+    the window's start (``okill``); lost work bills pro rata into
+    ``lost_j``; a terminal failure falls back to a dedicated private slot
+    by the deadline (``fb_on``) or abandons the job. A zero grid reuses
+    the fault-free expressions term for term.
+
+    Returns (start, end, succ, provider, segment, latency multiplier,
+    billed cost, attempts, failures, abandoned, lost_j), each [B, J].
+    """
+    fail_k = a["fail_g"][:, :, k, :]                         # [B, J, A]
+    delay_k = a["delay_g"][:, :, k, :]
+    outw = a["outw"]                                         # [B, P, W, 2]
+    lat_ps, cost_ps, pub_a = a["lat_ps"], a["cost_ps"], a["pub_a"]
+    act_priv, deadline = a["act_priv"], a["deadline"]
+    B, J = tau.shape
+    P, S_seg = a["sel_ps"].shape[1], a["sel_ps"].shape[2]
+    A_att, W = fail_k.shape[2], outw.shape[2]
+    dev, f64 = tau.device, torch.float64
+    inf = torch.tensor(float("inf"), dtype=f64, device=dev)
+    nan = torch.tensor(float("nan"), dtype=f64, device=dev)
+    zero = torch.zeros((), dtype=f64, device=dev)
+    iota_P = torch.arange(P, device=dev)
+    kill = a["kill_frac"][:, None]
+    alive = torch.isfinite(arr)
+
+    def masked_placement(tq, mask_pj):
+        s, seg_pj = placement_at(tq)
+        out_pj = ((outw[:, :, :, 0, None] <= tq[:, None, None, :])
+                  & (tq[:, None, None, :] < outw[:, :, :, 1, None])).any(2)
+        s = (s + torch.where(out_pj, inf, zero)
+             + torch.where(mask_pj, inf, zero))
+        return s, seg_pj
+
+    def at(x_pj, p):  # x_pj[b, p[b, j], j]
+        return x_pj.gather(1, p[:, None, :])[:, 0, :]
+
+    mask_pj = torch.zeros((B, P, J), dtype=torch.bool, device=dev)
+    selc_cur, seg_cur = masked_placement(tau, mask_pj)
+    feas0 = torch.isfinite(selc_cur).any(1)
+    chain = alive & locpub
+    nf0 = chain & ~feas0   # nothing dispatchable at the epoch
+    pending = chain & feas0
+    # inputs are staged once, before the first attempt; the upload carries
+    # the first attempt's provider multiplier
+    p0 = torch.argmin(selc_cur, dim=1)
+    lm0 = _gather_ps(lat_ps, p0, at(seg_cur, p0))
+    upk = (torch.where(needs_up, a["up_a"][:, :, k] * lm0, zero)
+           if needs_up is not None
+           else torch.zeros((B, J), dtype=f64, device=dev))
+    t_att, up_cur = tau, upk
+    succ = torch.zeros((B, J), dtype=torch.bool, device=dev)
+    term = torch.zeros_like(succ)
+    p_fin = torch.zeros((B, J), dtype=torch.int64, device=dev)
+    seg_fin = torch.zeros_like(p_fin)
+    e_fin = torch.zeros((B, J), dtype=f64, device=dev)
+    lm_fin = torch.ones((B, J), dtype=f64, device=dev)
+    t_res = torch.zeros_like(e_fin)
+    cost_k = torch.zeros_like(e_fin)
+    att_cnt = torch.zeros_like(p_fin)
+    fail_cnt = torch.zeros_like(p_fin)
+    for ai in range(A_att):
+        p_a = torch.argmin(selc_cur, dim=1)                  # [B, J]
+        sg_a = at(seg_cur, p_a)
+        lm_a = _gather_ps(lat_ps, p_a, sg_a)
+        dur_a = pub_a[:, :, k] * lm_a
+        s_a = t_att + up_cur
+        e_a = s_a + dur_a
+        billed = cost_ps[..., k].reshape(B, -1, J).gather(
+            1, (p_a * S_seg + sg_a)[:, None, :])[:, 0, :]
+        t_gf = torch.where(fail_k[:, :, ai], s_a + kill * dur_a, inf)
+        if W > 0:
+            w_st = outw[:, :, :, 0].gather(
+                1, p_a[:, :, None].expand(B, J, W))          # [B, J, W]
+            cand = torch.where((w_st > s_a[:, :, None])
+                               & (w_st < e_a[:, :, None]), w_st, inf)
+            t_kl = torch.where(a["okill"][:, None], cand.amin(2), inf)
+        else:
+            t_kl = torch.full((B, J), float("inf"), dtype=f64, device=dev)
+        t_f = torch.minimum(t_gf, t_kl)
+        failed_now = pending & torch.isfinite(t_f)
+        ok = pending & ~torch.isfinite(t_f)
+        att_cnt = att_cnt + pending.to(torch.int64)
+        fail_cnt = fail_cnt + failed_now.to(torch.int64)
+        succ = succ | ok
+        p_fin = torch.where(ok, p_a, p_fin)
+        seg_fin = torch.where(ok, sg_a, seg_fin)
+        e_fin = torch.where(ok, e_a, e_fin)
+        lm_fin = torch.where(ok, lm_a, lm_fin)
+        cost_k = cost_k + torch.where(ok, billed, zero)
+        frac = torch.where(dur_a > 0.0, (t_f - s_a) / dur_a, zero)
+        lost_j = lost_j + torch.where(failed_now, billed * frac, zero)
+        mask_pj = mask_pj | (failed_now[:, None, :]
+                             & (iota_P[None, :, None] == p_a[:, None, :]))
+        if ai + 1 < A_att:
+            t_next = t_f + delay_k[:, :, ai + 1]
+            selc_n, seg_n = masked_placement(t_next, mask_pj)
+            feas_n = torch.isfinite(selc_n).any(1)
+            retry = failed_now & (t_next <= deadline) & feas_n
+            term_now = failed_now & ~retry
+            pending = retry
+            t_att = torch.where(retry, t_next, t_att)
+            up_cur = torch.where(retry, zero, up_cur)
+            selc_cur = torch.where(retry[:, None, :], selc_n, selc_cur)
+            seg_cur = torch.where(retry[:, None, :], seg_n, seg_cur)
+        else:
+            term_now = failed_now
+            pending = torch.zeros_like(pending)
+        term = term | term_now
+        t_res = torch.where(term_now, t_f, t_res)
+
+    term_all = term | nf0
+    t_res = torch.where(nf0, tau, t_res)
+    fb = term_all & a["fb_on"][:, None] & (t_res <= deadline)
+    ab = term_all & ~fb
+    # fallback = dedicated nominal-speed private slot at t_res; abandoned
+    # stages never end (+inf) and their descendants inherit the +inf
+    # arrival
+    end_pub = torch.where(succ, e_fin,
+                          torch.where(fb, t_res + act_priv[:, :, k], inf))
+    start_pub = torch.where(fb, t_res, torch.where(nf0, tau, tau + upk))
+    start = torch.where(~alive, nan,
+                        torch.where(locpub, start_pub, times_j))
+    end = torch.where(~alive, inf,
+                      torch.where(locpub, end_pub, times_j + priv_dur))
+    return (start, end, succ, p_fin, seg_fin, lm_fin, cost_k, att_cnt,
+            fail_cnt, ab, lost_j)
 
 
 # -- host-side preparation ---------------------------------------------------
@@ -905,7 +1113,10 @@ class _Task:
                  arrivals: ArrivalsLike = None,
                  replicas=None, replica_speeds=None,
                  price_traces=None, S_seg: Optional[int] = None,
-                 caps=None, coldstart=None, pool=None, where: str = ""):
+                 faults=None, retry=None, init_window=None, W: int = 0,
+                 caps=None, coldstart=None, pool=None,
+                 offload_mask=None, init_override=None,
+                 adaptive_override=None, where: str = ""):
         from .simulator import _with_transfer_defaults
 
         act = act if act is not None else pred
@@ -931,18 +1142,26 @@ class _Task:
         trace_cfgs = [pf] if price_traces is None else list(price_traces)
         self.n_segments = (_max_segment_bound(trace_cfgs) if S_seg is None
                            else int(S_seg))
-        self.grid = [(b, o, float(c), r, g, tr)
+        # fault axis: a normalized list of FaultModel (every entry padded
+        # to the sweep's attempt budget) or None, the fault-free axis
+        fault_cfgs = [None] if faults is None else list(faults)
+        self.faulty = faults is not None
+        self.grid = [(b, o, float(c), r, g, tr, f)
                      for b in range(B) for o in orders for c in c_max_grid
                      for r in range(len(repl_cfgs))
                      for g in range(len(speed_cfgs))
-                     for tr in range(len(trace_cfgs))]
+                     for tr in range(len(trace_cfgs))
+                     for f in range(len(fault_cfgs))]
         self.S = len(self.grid)
-        self.orders_out = tuple(o for (_, o, _, _, _, _) in self.grid)
-        self.c_max_out = np.array([c for (_, _, c, _, _, _) in self.grid])
-        self.batch_out = np.array([b for (b, _, _, _, _, _) in self.grid])
+        self.orders_out = tuple(o for (_, o, _, _, _, _, _) in self.grid)
+        self.c_max_out = np.array([c for (_, _, c, _, _, _, _) in self.grid])
+        self.batch_out = np.array([b for (b, _, _, _, _, _, _) in self.grid])
         self.repl_out = np.stack([repl_cfgs[r]
-                                  for (_, _, _, r, _, _) in self.grid])
-        self.trace_out = np.array([tr for (_, _, _, _, _, tr) in self.grid])
+                                  for (_, _, _, r, _, _, _) in self.grid])
+        self.trace_out = np.array(
+            [tr for (_, _, _, _, _, tr, _) in self.grid])
+        self.fault_out = np.array(
+            [f for (_, _, _, _, _, _, f) in self.grid])
         self.t0 = float(t0)
         # exogenous release stream (None = batch at t0); per-job absolute
         # deadlines are release + C_max
@@ -970,7 +1189,7 @@ class _Task:
         sel_bt: Dict[Tuple[int, int], np.ndarray] = {}
         cost_bt: Dict[Tuple[int, int], np.ndarray] = {}
         iota_P = np.arange(self.n_providers)
-        for b in sorted({b for (b, _, _, _, _, _) in self.grid}):
+        for b in sorted({b for (b, _, _, _, _, _, _) in self.grid}):
             down_pred = pred["download"][b] if include_transfers else None
             down_act = act["download"][b] if include_transfers else None
             for tr, tpf in enumerate(trace_cfgs):
@@ -990,14 +1209,14 @@ class _Task:
                                   for k in range(M)], axis=1),
                         key_fn(pred["P_private"][b], H, None))
         stage_keys = np.stack([uniq[(b, o, tr)][0]
-                               for (b, o, _, _, _, tr) in self.grid])
+                               for (b, o, _, _, _, tr, _) in self.grid])
         job_keys = np.stack([uniq[(b, o, tr)][1]
-                             for (b, o, _, _, _, tr) in self.grid])
+                             for (b, o, _, _, _, tr, _) in self.grid])
         bsel = self.batch_out
         sel_p = np.stack([sel_bt[(b, tr)]
-                          for (b, _, _, _, _, tr) in self.grid])
+                          for (b, _, _, _, _, tr, _) in self.grid])
         cost_p = np.stack([cost_bt[(b, tr)]
-                           for (b, _, _, _, _, tr) in self.grid])
+                           for (b, _, _, _, _, tr, _) in self.grid])
         lat_by_tr = [tpf.latency_mults_seg(S_seg) for tpf in trace_cfgs]
         eg_by_tr = [tpf.egress_seg(S_seg) for tpf in trace_cfgs]
         edges_by_tr = [tpf.segment_edges(S_seg) for tpf in trace_cfgs]
@@ -1039,12 +1258,40 @@ class _Task:
                     for r in range(len(repl_cfgs))
                     for g in range(len(speed_cfgs))}
         speed = np.stack([sp_by_rg[(r, g)]
-                          for (_, _, _, r, g, _) in self.grid])
+                          for (_, _, _, r, g, _, _) in self.grid])
         # capacity T_max = sum_k I_k * C_max follows the scenario's own
         # replica config (raw counts, as in the DES's t_max)
         capacity = np.array([float(repl_cfgs[r].sum()) * c
-                             for (_, _, c, r, _, _) in self.grid])
+                             for (_, _, c, r, _, _, _) in self.grid])
         S = self.S
+
+        # per-task scheduling-flag overrides (None = the sweep's
+        # init_phase/adaptive): a policy comparison mixes e.g. an
+        # ACD-adaptive task and a fixed-placement baseline in one sweep
+        self.init_override = (None if init_override is None
+                              else bool(init_override))
+        self.adaptive_override = (None if adaptive_override is None
+                                  else bool(adaptive_override))
+        # an externally decided offload plan ([J] bool) replaces the
+        # capacity-prefix rule and rides init_elig into the init_mode=2
+        # engine path (the one pages of a resolved plan take)
+        pre = f"{where}: " if where else ""
+        if offload_mask is not None:
+            if init_window is not None:
+                raise ValueError(f"{pre}offload_mask and init_window are "
+                                 f"mutually exclusive")
+            offload_mask = np.asarray(offload_mask, dtype=bool)
+            if offload_mask.shape != (self.J,):
+                raise ValueError(
+                    f"{pre}offload_mask must have shape ({self.J},), got "
+                    f"{offload_mask.shape}")
+            init_elig = offload_mask
+        else:
+            # windowed init offload: only jobs released within the window
+            # compete for the capacity budget
+            init_elig = (np.ones(self.J, dtype=bool) if init_window is None
+                         else rel <= self.t0 + float(init_window))
+        self.mask = offload_mask
 
         # load-dependent latency (caps, cold starts, pool traces): per-call
         # configs shared by every scenario; caps read occupancy rates per
@@ -1066,7 +1313,7 @@ class _Task:
                 return out
 
             load_args["occ"] = np.stack([pad_occ(occ_by_tr[tr])
-                                         for (_, _, _, _, _, tr)
+                                         for (_, _, _, _, _, tr, _)
                                          in self.grid])
         if pooled:
             on_w, off_w = pool
@@ -1098,6 +1345,31 @@ class _Task:
                 warm_up_s=cs.warm_up_s if cold else 0.0,
                 keep_alive_s=cs.keep_alive_s if cold else np.inf,
                 scale_to_zero=bool(cold and cs.scale_to_zero))
+        fault_args: Dict[str, np.ndarray] = {}
+        if self.faulty:
+            rt = retry if retry is not None else RetryPolicy()
+            fo = self.fault_out
+
+            def pad_stage_mid(v, fill):
+                # [S, J, M, A] -> [S, J, M_pad, A], stages in topo order
+                out = np.full(v.shape[:2] + (M_pad,) + v.shape[3:], fill,
+                              dtype=v.dtype)
+                out[:, :, :M] = v[:, :, topo]
+                return out
+
+            fault_args = dict(
+                fail_g=pad_stage_mid(np.stack(
+                    [cfg.fail for cfg in fault_cfgs])[fo], False),
+                delay_g=pad_stage_mid(np.stack(
+                    [rt.delays(cfg.jitter) for cfg in fault_cfgs])[fo], 0.0),
+                outw=np.stack([cfg.outage_windows(self.n_providers,
+                                                  num_slots=int(W))
+                               for cfg in fault_cfgs])[fo],
+                kill_frac=np.array([cfg.kill_frac
+                                    for cfg in fault_cfgs])[fo],
+                okill=np.array([cfg.outage_kills for cfg in fault_cfgs],
+                               dtype=bool)[fo],
+                fb_on=np.full(S, bool(rt.private_fallback)))
         self.args = dict(
             P_pred=pad_cols(pred["P_private"][bsel]),
             act_priv=pad_cols(act["P_private"][bsel]),
@@ -1108,17 +1380,17 @@ class _Task:
             cost_ps=pad_cols(cost_p),
             sel_ps=pad_cols(sel_p),
             lat_ps=np.stack([lat_by_tr[tr]
-                             for (_, _, _, _, _, tr) in self.grid]),
+                             for (_, _, _, _, _, tr, _) in self.grid]),
             eg_ps=np.stack([eg_by_tr[tr]
-                            for (_, _, _, _, _, tr) in self.grid]),
+                            for (_, _, _, _, _, tr, _) in self.grid]),
             edges_ps=np.stack([edges_by_tr[tr]
-                               for (_, _, _, _, _, tr) in self.grid]),
+                               for (_, _, _, _, _, tr, _) in self.grid]),
             stage_keys=pad_cols(stage_keys),
             job_keys=job_keys,
             deadline=rel[None, :] + self.c_max_out[:, None],
             capacity=capacity,
             release=np.broadcast_to(rel, (S, self.J)),
-            init_elig=np.ones((S, self.J), dtype=bool),
+            init_elig=np.broadcast_to(init_elig, (S, self.J)),
             A=np.broadcast_to(A, (S,) + A.shape),
             desc=np.broadcast_to(desc, (S,) + desc.shape),
             sink=np.broadcast_to(sink, (S,) + sink.shape),
@@ -1126,7 +1398,38 @@ class _Task:
             inert=np.broadcast_to(inert, (S,) + inert.shape),
             speed=speed,
             clock0=clock0,
-            **load_args)
+            **load_args, **fault_args)
+
+    #: engine args with a job axis (name -> axis), sliced by the pager
+    _PAGE_J_AXES = dict(P_pred=1, act_priv=1, pub_a=1, up_a=1, down_a=1,
+                        dgb_pred=1, cost_ps=3, sel_ps=3, stage_keys=1,
+                        job_keys=1, deadline=1, release=1, init_elig=1,
+                        fail_g=1, delay_g=1)
+
+    def eff_modes(self, init_phase: bool, adaptive: bool) -> Tuple[int, bool]:
+        """(engine init_mode, adaptive) for this task under the sweep's
+        defaults: per-task overrides win, and an offload mask runs the
+        precomputed-plan path (``init_mode=2``)."""
+        ip = init_phase if self.init_override is None else self.init_override
+        ad = adaptive if self.adaptive_override is None \
+            else self.adaptive_override
+        mode = 2 if self.mask is not None else (1 if ip else 0)
+        return mode, bool(ad)
+
+    def page_args(self, idx: np.ndarray, init_mask: np.ndarray,
+                  clocks: np.ndarray) -> Dict[str, np.ndarray]:
+        """One page of jobs (ascending job ids ``idx``) out of the full
+        args: ``init_mask`` [S, n] is the page's slice of the plan
+        resolved over the whole job axis (the ``init_mode=2`` path's
+        ``init_elig``), ``clocks`` [S, M_pad, I_max] the slot clocks the
+        previous pages left. Pages are not padded: the engine has no
+        compile cache to key on a page size."""
+        out = {name: (v if name not in self._PAGE_J_AXES
+                      else np.take(v, idx, axis=self._PAGE_J_AXES[name]))
+               for name, v in self.args.items()}
+        out["init_elig"] = init_mask
+        out["clock0"] = clocks
+        return out
 
     def pack(self, out: Dict[str, np.ndarray]) -> VectorSimResult:
         """Slice this task's scenarios out of a (possibly concatenated)
@@ -1152,7 +1455,7 @@ class _Task:
             attempts=out["attempts"][:, :, inv],
             failed=out["failed"][:, :, inv],
             abandoned=out["abandoned"],
-            fault_idx=np.zeros(self.S, dtype=np.int64),
+            fault_idx=self.fault_out.copy(),
             queue_wait=out["queue_wait"][:, :, inv],
             cold=out["cold"][:, :, inv])
 
@@ -1164,6 +1467,8 @@ def _to_device(args: Dict[str, np.ndarray],
     for name, x in args.items():
         x = np.ascontiguousarray(x, dtype=bool if x.dtype == bool
                                  else np.float64)
+        if not x.flags.writeable:  # a broadcast view: torch needs a copy
+            x = x.copy()
         out[name] = torch.from_numpy(x).to(device)
     return out
 
@@ -1172,14 +1477,27 @@ def _finalize(task: _Task, out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """Host-side canonical reductions of the engine's per-job outputs.
 
     Scalar fields (makespan, cost_usd, the offload counters) reduce over
-    the canonical job order in numpy, never as a parallel device sum.
+    the canonical job order in numpy, never as a parallel device sum, so a
+    paged run, which assembles the very same per-job arrays page by page,
+    sums the same floats in the same order as a monolithic one. Under
+    faults the makespan spans the jobs that were not abandoned.
     """
-    out["makespan"] = out["completion"].max(axis=1) - task.t0
+    comp = out["completion"]
+    if task.faulty:
+        ok = ~out["abandoned"]
+        safe = np.where(ok, np.where(np.isnan(comp), -np.inf, comp),
+                        -np.inf)
+        out["makespan"] = np.where(ok.any(axis=1),
+                                   safe.max(axis=1) - task.t0, 0.0)
+    else:
+        out["makespan"] = comp.max(axis=1) - task.t0
     locpub = out["public_mask"]
     out["cost_usd"] = out.pop("cost_j").sum(axis=1)
     out["n_offloaded_stages"] = locpub.sum(axis=(1, 2))
     out["n_init_offloaded_jobs"] = out.pop("init_off").sum(axis=1)
     out["per_stage_offloads"] = locpub.sum(axis=1)
+    out.pop("qexit", None)
+    out.pop("clocks", None)
     return out
 
 
@@ -1188,10 +1506,116 @@ def _finalize(task: _Task, out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 #: observability for ``chip_smoke.py``, not part of the result API
 _LAST_RUN_STATS: Dict[str, object] = {}
 
+#: most recent paged run's committed pages and safety retries (the
+#: reference's counters, for the streaming tests and chip_smoke)
+_LAST_PAGE_STATS: Dict[str, int] = {}
+
+
+def _engine_call(task: _Task, args: Dict[str, np.ndarray], dev,
+                 include_transfers: bool, init_mode: int, adaptive: bool,
+                 lookahead: bool) -> Dict[str, np.ndarray]:
+    """One engine call on ``dev``; its per-stage body steps join
+    ``_LAST_RUN_STATS["trips"]``."""
+    trips: List[int] = []
+    with torch.no_grad():
+        out_t = _run_engine(_to_device(args, dev), include_transfers,
+                            init_mode, adaptive, task.t0, trips,
+                            load=task.load, lookahead=lookahead)
+        out = {k: v.cpu().numpy() for k, v in out_t.items()}
+    _LAST_RUN_STATS["trips"].append(trips)
+    return out
+
+
+def _host_init_offload(task: _Task) -> np.ndarray:
+    """The capacity-prefix init-offload mask [S, J] over the whole job
+    axis, resolved on the host by the engine's own function
+    (:func:`_init_offload`), so a paged run starts from the monolithic
+    run's plan."""
+    a = _to_device({k: task.args[k] for k in ("P_pred", "job_keys",
+                                               "capacity", "init_elig")},
+                   torch.device("cpu"))
+    return _init_offload(a["P_pred"], a["job_keys"], a["capacity"],
+                         a["init_elig"]).numpy()
+
+
+def _run_paged(task: _Task, dev, include_transfers: bool, init_mode: int,
+               adaptive: bool, lookahead: bool,
+               chunk: int) -> Dict[str, np.ndarray]:
+    """Page the job axis through engine calls of about ``chunk`` jobs.
+
+    Jobs page in release order (whole tied-release groups per page, page
+    members in ascending job order); each page starts from the previous
+    pages' final slot clocks. The decomposition is checked, not assumed:
+    if a committed job's queue exit (dispatch or eviction instant, at any
+    stage) lands at or after the next page's first release, the two pages
+    could have shared a stage queue, and the page grows to the stream's
+    next quiet point and runs again (a saturated page is the monolithic
+    run, so the fallback is always exact). The initialization offload, a
+    rule over the whole job axis, resolves on the host before any page.
+    """
+    S, J = task.S, task.J
+    rel = task.release
+    order = np.argsort(rel, kind="stable")
+    rel_sorted = rel[order]
+    if init_mode == 2:
+        off_full = np.broadcast_to(task.mask, (S, J)).copy()
+    elif init_mode == 1:
+        off_full = _host_init_offload(task)
+    else:
+        off_full = np.zeros((S, J), dtype=bool)
+    page_mode = 2 if init_mode else 0
+    bufs: Optional[Dict[str, np.ndarray]] = None
+    clocks = task.args["clock0"]
+    pos, size = 0, int(chunk)
+    n_pages = n_retries = 0
+    while pos < J:
+        end = min(pos + size, J)
+        # never split a tied-release group across pages: an epoch's jobs
+        # admit together before the sweep
+        while end < J and rel_sorted[end] == rel_sorted[end - 1]:
+            end += 1
+        idx = np.sort(order[pos:end])
+        T_next = rel_sorted[end] if end < J else np.inf
+        out = _engine_call(task, task.page_args(idx, off_full[:, idx],
+                                                clocks),
+                           dev, include_transfers, page_mode, adaptive,
+                           lookahead)
+        qx = out["qexit"]
+        with np.errstate(invalid="ignore"):
+            exit_t = np.where(qx < -0.5, -qx - 1.0, qx)
+            unsafe = bool(np.any(exit_t >= T_next))  # NaN compares False
+        if unsafe and end < J:
+            # grow the page to the next quiet point: every job released
+            # before the latest in-page queue exit shares the page
+            t_quiet = float(np.nanmax(exit_t))
+            size = int(np.searchsorted(rel_sorted, t_quiet,
+                                       side="right")) - pos
+            n_retries += 1
+            continue
+        if bufs is None:
+            bufs = {name: np.empty((S, J) + v.shape[2:], dtype=v.dtype)
+                    for name, v in out.items() if name != "clocks"}
+        for name, v in out.items():
+            if name != "clocks":
+                bufs[name][:, idx] = v
+        clocks = out["clocks"]
+        pos, size = end, int(chunk)
+        n_pages += 1
+    assert bufs is not None
+    _LAST_PAGE_STATS.update(pages=n_pages, retries=n_retries)
+    return bufs
+
+
+def _is_paged(task: _Task, chunk_jobs: Optional[int]) -> bool:
+    """Whether ``chunk_jobs`` pages this task: a release stream longer
+    than one page (a batch at ``t0`` always runs whole)."""
+    return (chunk_jobs is not None and task.release is not None
+            and int(chunk_jobs) < task.J)
+
 
 def simulate_scenarios(
     dag: AppDAG,
-    pred: Dict[str, np.ndarray],
+    pred: Optional[Dict[str, np.ndarray]],
     act: Optional[Dict[str, np.ndarray]] = None,
     c_max_grid: Sequence[float] = (60.0,),
     orders: Sequence[str] = ("spt",),
@@ -1223,13 +1647,33 @@ def simulate_scenarios(
 
     ``pred``/``act`` values are [J, M] (shared) or [B, J, M] (a batch of
     latency draws); the scenario axis enumerates ``batch x orders x
-    c_max_grid x replicas x replica_speeds x price_traces`` in C order.
-    ``portfolio`` generalizes the public cloud to N providers,
+    c_max_grid x replicas x replica_speeds x price_traces x faults`` in C
+    order. ``portfolio`` generalizes the public cloud to N providers,
     ``arrivals`` injects an exogenous release stream shared by every
     scenario (``None`` is the batch at ``t0``), ``replicas`` is an
     autoscaling axis of per-stage count vectors, ``replica_speeds`` a
     straggler axis of ``{(stage, replica): factor}`` dicts or [M, I]
     arrays, and ``price_traces`` a pricing axis of portfolio variants.
+
+    ``faults`` is a reliability axis (:class:`.faults.FaultModel` entries,
+    scalar failure rates drawn at seed = their axis index, or ``None``
+    entries; a bare model or rate is a one-point axis) recovered under
+    ``retry`` (a :class:`.faults.RetryPolicy`, the default one when
+    omitted): each offloaded stage runs a bounded attempt chain.
+    ``init_window`` restricts the initialization offload to jobs released
+    within that many seconds of ``t0``. ``offload_mask`` ([J] bool) is an
+    externally decided plan replacing the capacity-prefix rule (not with
+    ``init_window``). ``egress_lookahead`` adds the one-edge downstream
+    egress term to the placement argmin.
+
+    ``chunk_jobs`` pages a release stream's job axis through engine
+    calls of about that many jobs, the slot clocks carried across pages
+    and every page checked against the next page's releases (a page
+    whose work overlaps them grows): the result equals the monolithic
+    run's. ``workload`` is a :mod:`.workloads` spec (e.g.
+    ``"azure:day=tue,scale=1e5"``) deriving ``pred``/``act`` and the
+    release stream from the committed trace sample; pass ``pred=None``
+    with it.
 
     ``concurrency``/``coldstart``/``pool_trace`` add load-dependent
     latency (:mod:`.coldstart`): per-provider concurrency caps with FIFO
@@ -1244,28 +1688,28 @@ def simulate_scenarios(
     ``engine="vector"`` (the default) runs the batched torch engine on
     ``device`` (``"cuda"`` unless given; a CPU run must pass
     ``device="cpu"``). ``engine="des"`` replays the grid serially through
-    the reference simulator (:func:`.simulator.simulate`), which also
-    accepts the per-call options this engine does not port yet
-    (``init_window``, ``chunk_jobs``, ``egress_lookahead``,
-    ``offload_mask``); the vector engine raises ``NotImplementedError``
-    for them. The ``faults`` axis (with ``retry``) and ``workload`` specs
-    raise in both engines.
+    the discrete-event simulator (:func:`.simulator.simulate`), with the
+    same result layout.
     """
     from .simulator import _with_transfer_defaults, simulate
+    from .workloads import resolve_workload
 
     resolve_engine_impl(engine_impl)  # fail fast on bad impl, any engine
-    _reject_unported(workload=workload)
-    # the load-config checks of both engines (the replicas-axis x
-    # pool_trace exclusion is a grid-level check), before any rejection
-    # of an unported option they also cover
-    validate_load_kwargs(
-        np.isfinite(norm_concurrency(
-            concurrency, as_portfolio(portfolio, cost_model))).any(),
-        as_coldstart(coldstart), as_pool_trace(pool_trace),
-        faulty=faults is not None, chunk_jobs=chunk_jobs,
-        replicas_axis=replicas is not None)
-    _reject_unported(faults=faults, retry=retry)
+    if workload is not None:
+        if pred is not None:
+            raise ValueError("pass either pred or workload=, not both")
+        pred, act, wl_release = resolve_workload(workload, dag, t0)
+        if arrivals is None:
+            arrivals = wl_release
     if engine == "des":
+        # the load-config checks of both engines (the replicas-axis x
+        # pool_trace exclusion is a grid-level check)
+        validate_load_kwargs(
+            np.isfinite(norm_concurrency(
+                concurrency, as_portfolio(portfolio, cost_model))).any(),
+            as_coldstart(coldstart), as_pool_trace(pool_trace),
+            faulty=faults is not None, chunk_jobs=chunk_jobs,
+            replicas_axis=replicas is not None)
         act_d = act if act is not None else pred
         _validate_workload_axes(pred, act_d)
         pred_d = _with_transfer_defaults(pred)
@@ -1289,11 +1733,15 @@ def simulate_scenarios(
                  for k in range(dag.num_stages) for i in range(I_max)
                  if sp[k, i] != 1.0} or None
                 for sp in speed_cfgs]
-        grid = [(b, o, float(c), r, g, tr)
+        retry_eff = retry if faults is None else (retry or RetryPolicy())
+        fault_cfgs = normalize_fault_axis(faults, J, dag.num_stages,
+                                          retry_eff) or [None]
+        grid = [(b, o, float(c), r, g, tr, f)
                 for b in range(B) for o in orders for c in c_max_grid
                 for r in range(len(repl_cfgs))
                 for g in range(len(speed_cfgs))
-                for tr in range(len(trace_cfgs))]
+                for tr in range(len(trace_cfgs))
+                for f in range(len(fault_cfgs))]
         sims = [simulate(dags[r], {k: v[b] for k, v in pred_d.items()},
                          {k: v[b] for k, v in act_d.items()},
                          c_max=c, order=o, cost_model=cost_model,
@@ -1301,12 +1749,12 @@ def simulate_scenarios(
                          init_phase=init_phase, adaptive=adaptive, t0=t0,
                          portfolio=trace_cfgs[tr], arrivals=release,
                          replica_slowdown=slow[g],
-                         init_window=init_window,
-                         chunk_jobs=chunk_jobs,
+                         faults=fault_cfgs[f], retry=retry_eff,
+                         init_window=init_window, chunk_jobs=chunk_jobs,
                          egress_lookahead=egress_lookahead,
                          concurrency=concurrency, coldstart=coldstart,
                          pool_trace=pool_trace, offload_mask=offload_mask)
-                for (b, o, c, r, g, tr) in grid]
+                for (b, o, c, r, g, tr, f) in grid]
         return VectorSimResult(
             makespan=np.array([r.makespan for r in sims]),
             cost_usd=np.array([r.cost_usd for r in sims]),
@@ -1320,39 +1768,41 @@ def simulate_scenarios(
             per_stage_offloads=np.stack([r.per_stage_offloads for r in sims]),
             provider=np.stack([r.provider for r in sims]),
             deadline=np.array([r.deadline for r in sims]),
-            orders=tuple(o for (_, o, _, _, _, _) in grid),
-            c_max=np.array([c for (_, _, c, _, _, _) in grid]),
-            batch_idx=np.array([b for (b, _, _, _, _, _) in grid]),
+            orders=tuple(o for (_, o, _, _, _, _, _) in grid),
+            c_max=np.array([c for (_, _, c, _, _, _, _) in grid]),
+            batch_idx=np.array([b for (b, _, _, _, _, _, _) in grid]),
             release=None if release is None
             else np.broadcast_to(release, (len(grid), J)).copy(),
             replica=np.stack([r.replica for r in sims]),
             replicas=np.stack(
-                [repl_cfgs[r] for (_, _, _, r, _, _) in grid]),
+                [repl_cfgs[r] for (_, _, _, r, _, _, _) in grid]),
             segment=np.stack([r.segment for r in sims]),
-            trace_idx=np.array([tr for (_, _, _, _, _, tr) in grid]),
+            trace_idx=np.array([tr for (_, _, _, _, _, tr, _) in grid]),
             attempts=np.stack([r.attempts for r in sims]),
             failed=np.stack([r.failed for r in sims]),
             abandoned=np.stack([r.abandoned for r in sims]),
-            fault_idx=np.zeros(len(grid), dtype=np.int64),
+            fault_idx=np.array([f for (_, _, _, _, _, _, f) in grid]),
             queue_wait=np.stack([r.queue_wait for r in sims]),
             cold=np.stack([r.cold for r in sims]))
     if engine != "vector":
         raise ValueError(f"unknown engine {engine!r}")
-    _reject_unported(init_window=init_window, chunk_jobs=chunk_jobs,
-                     egress_lookahead=egress_lookahead,
-                     offload_mask=offload_mask)
     return sweep_scenarios(
         [dict(dag=dag, pred=pred, act=act, c_max_grid=c_max_grid,
               orders=orders, arrivals=arrivals, replicas=replicas,
-              replica_speeds=replica_speeds, price_traces=price_traces)],
+              replica_speeds=replica_speeds, price_traces=price_traces,
+              faults=faults, offload_mask=offload_mask)],
         cost_model=cost_model, include_transfers=include_transfers,
         init_phase=init_phase, adaptive=adaptive, t0=t0,
-        portfolio=portfolio, concurrency=concurrency, coldstart=coldstart,
+        portfolio=portfolio, retry=retry, init_window=init_window,
+        chunk_jobs=chunk_jobs, egress_lookahead=egress_lookahead,
+        concurrency=concurrency, coldstart=coldstart,
         pool_trace=pool_trace, engine_impl=engine_impl, device=device)[0]
 
 
 _TASK_KEYS = {"dag", "pred", "act", "c_max_grid", "orders", "arrivals",
-              "replicas", "replica_speeds", "price_traces", "name"}
+              "replicas", "replica_speeds", "price_traces", "faults",
+              "workload", "offload_mask", "init_phase", "adaptive",
+              "init_window", "name"}
 
 
 def sweep_scenarios(
@@ -1364,56 +1814,39 @@ def sweep_scenarios(
     t0: float = 0.0,
     engine: str = "vector",
     portfolio: Optional[ProviderPortfolio] = None,
+    retry=None,
+    init_window: Optional[float] = None,
+    chunk_jobs: Optional[int] = None,
+    egress_lookahead: bool = False,
     concurrency=None,
     coldstart=None,
     pool_trace=None,
     engine_impl: Optional[str] = None,
     device=None,
-    **unported,
 ) -> List[VectorSimResult]:
     """Run several scenario grids — e.g. a whole Fig.-4 figure, one task per
     application — as one batched sweep.
 
-    Each task is a dict with keys ``dag``, ``pred``, optional ``act``,
-    ``c_max_grid``, ``orders``, ``arrivals``, ``replicas``,
-    ``replica_speeds`` and ``price_traces`` (the axes of
-    :func:`simulate_scenarios`); results come back in task order. Every
-    task pads to the sweep's common stage count (inert stages), replica
-    bound (absent slots) and segment bound (segments that never
-    activate); tasks with a common job count run as one batched engine
-    call on ``device`` (``"cuda"`` unless given). ``concurrency``,
-    ``coldstart`` and ``pool_trace`` (see :func:`simulate_scenarios`) are
-    per-call and bind every task; a pool trace provisions each task's
-    pool at the trace's per-stage maximum. ``engine="des"`` replays each
-    task through :func:`simulate_scenarios` with ``engine="des"``.
-    Options this engine does not port yet raise ``NotImplementedError``.
+    Each task is a dict with keys ``dag``, ``pred`` (or a ``workload``
+    spec), optional ``act``, ``c_max_grid``, ``orders``, ``arrivals``,
+    ``replicas``, ``replica_speeds``, ``price_traces`` and ``faults``
+    (the axes of :func:`simulate_scenarios`), and may override the
+    sweep's scheduling flags per task: ``init_phase``, ``adaptive``,
+    ``init_window`` and ``offload_mask``. Results come back in task order.
+    Every task pads to the sweep's common stage count (inert stages),
+    replica bound (absent slots) and segment bound (segments that never
+    activate); tasks with a common job count and the same effective
+    flags run as one batched engine call on ``device`` (``"cuda"`` unless
+    given), and a task that ``chunk_jobs`` pages runs alone, page by
+    page. ``retry``, ``chunk_jobs``, ``egress_lookahead``,
+    ``concurrency``, ``coldstart`` and ``pool_trace`` (see
+    :func:`simulate_scenarios`) are per-call and bind every task; a pool
+    trace provisions each task's pool at the trace's per-stage maximum.
+    ``engine="des"`` replays each task through :func:`simulate_scenarios`
+    with ``engine="des"``.
     """
-    # load-dependent latency configs: per-call, shared by every task (caps
-    # bind per provider, which every price trace shares); the reference's
-    # exclusions come before the rejection of unported options
-    cs = as_coldstart(coldstart)
-    ptr = as_pool_trace(pool_trace)
-    caps_vec = norm_concurrency(concurrency, as_portfolio(portfolio,
-                                                          cost_model))
-    caps_eff = caps_vec if np.isfinite(caps_vec).any() else None
-    validate_load_kwargs(
-        caps_eff is not None, cs, ptr,
-        faulty=any(t.get("faults") is not None for t in tasks),
-        chunk_jobs=unported.get("chunk_jobs"),
-        replicas_axis=any(t.get("replicas") is not None for t in tasks))
-    _reject_unported(**{k: v for k, v in unported.items()
-                        if k in _UNPORTED})
-    extra = set(unported) - set(_UNPORTED)
-    if extra:
-        raise TypeError(f"sweep_scenarios: unexpected keyword(s) "
-                        f"{sorted(extra)}")
     for i, t in enumerate(tasks):
-        # a per-task flag is unported whatever its value: False would
-        # otherwise be dropped silently
-        _reject_unported(where=f"tasks[{i}]",
-                         **{k: True for k in t
-                            if k in _UNPORTED and t[k] is not None})
-        bad = set(t) - _TASK_KEYS - set(_UNPORTED)
+        bad = set(t) - _TASK_KEYS
         if bad:
             raise ValueError(f"tasks[{i}]: unknown task keys {sorted(bad)}")
     if engine == "des":
@@ -1421,12 +1854,17 @@ def sweep_scenarios(
             t["dag"], t.get("pred"), t.get("act"),
             t.get("c_max_grid", (60.0,)), t.get("orders", ("spt",)),
             cost_model=cost_model, include_transfers=include_transfers,
-            init_phase=init_phase, adaptive=adaptive, t0=t0, engine="des",
+            init_phase=t.get("init_phase", init_phase),
+            adaptive=t.get("adaptive", adaptive), t0=t0, engine="des",
             portfolio=portfolio, arrivals=t.get("arrivals"),
             replicas=t.get("replicas"),
             replica_speeds=t.get("replica_speeds"),
-            price_traces=t.get("price_traces"), concurrency=concurrency,
-            coldstart=coldstart, pool_trace=pool_trace)
+            price_traces=t.get("price_traces"), faults=t.get("faults"),
+            retry=retry, init_window=t.get("init_window", init_window),
+            chunk_jobs=chunk_jobs, egress_lookahead=egress_lookahead,
+            workload=t.get("workload"), concurrency=concurrency,
+            coldstart=coldstart, pool_trace=pool_trace,
+            offload_mask=t.get("offload_mask"))
             for t in tasks]
     if engine != "vector":
         raise ValueError(f"unknown engine {engine!r}")
@@ -1434,13 +1872,78 @@ def sweep_scenarios(
         # the engine sign-encodes eviction times as -t - 1, so the clock
         # must stay non-negative (the DES has no such restriction)
         raise ValueError("engine='vector' requires t0 >= 0")
+    if chunk_jobs is not None and int(chunk_jobs) < 1:
+        raise ValueError(f"chunk_jobs must be >= 1, got {chunk_jobs}")
     impl = resolve_engine_impl(engine_impl)
     dev = resolve_device(device)
     _LAST_RUN_STATS.clear()
     t_prep = time.perf_counter()
+    prepped = _prep_sweep(tasks, cost_model, include_transfers, t0,
+                          portfolio, retry, init_window, chunk_jobs,
+                          concurrency, coldstart, pool_trace)
+    _LAST_RUN_STATS.update(prep_s=time.perf_counter() - t_prep, impl=impl,
+                           device=str(dev), engine_s=0.0, finalize_s=0.0,
+                           trips=[])
+
+    results: List[Optional[VectorSimResult]] = [None] * len(prepped)
+    # tasks of one shape family (job count, fault and load flags,
+    # effective scheduling flags) run as one call (the scenario lanes are
+    # independent, so the split is result-invariant); a paged task runs
+    # alone; empty tasks need no engine at all
+    groups: Dict[tuple, List[int]] = {}
+    for i, p in enumerate(prepped):
+        if p.J == 0:
+            results[i] = _empty_result(p)
+            continue
+        ld = p.load
+        fam = (p.J, p.faulty, p.eff_modes(bool(init_phase), bool(adaptive)),
+               None if ld is None else (ld.capped, ld.cold, ld.pooled, ld.C))
+        if _is_paged(p, chunk_jobs):
+            fam = ("paged", i)
+        groups.setdefault(fam, []).append(i)
+    for grp in groups.values():
+        ps = [prepped[i] for i in grp]
+        mode, adapt = ps[0].eff_modes(bool(init_phase), bool(adaptive))
+        t_run = time.perf_counter()
+        if _is_paged(ps[0], chunk_jobs):
+            out = _run_paged(ps[0], dev, bool(include_transfers), mode,
+                             adapt, bool(egress_lookahead), int(chunk_jobs))
+        else:
+            fused = {name: np.concatenate([p.args[name] for p in ps])
+                     for name in ps[0].args}
+            out = _engine_call(ps[0], fused, dev, bool(include_transfers),
+                               mode, adapt, bool(egress_lookahead))
+        t_done = time.perf_counter()
+        lo = 0
+        for i, p in zip(grp, ps):
+            sub = {k: v[lo:lo + p.S] for k, v in out.items()}
+            results[i] = p.pack(_finalize(p, sub))
+            lo += p.S
+        _LAST_RUN_STATS["engine_s"] += t_done - t_run
+        _LAST_RUN_STATS["finalize_s"] += time.perf_counter() - t_done
+    return results
+
+
+def _prep_sweep(tasks, cost_model, include_transfers, t0, portfolio, retry,
+                init_window, chunk_jobs, concurrency, coldstart,
+                pool_trace) -> List[_Task]:
+    """Validate and normalize a sweep's tasks into engine-ready
+    :class:`_Task` bundles padded to one shape family."""
     M_pad = max(t["dag"].num_stages for t in tasks)
-    base_pf = as_portfolio(portfolio, cost_model)
     tasks = [dict(t) for t in tasks]
+    base_pf = as_portfolio(portfolio, cost_model)
+    any_faulty = any(t.get("faults") is not None for t in tasks)
+    retry_eff = (retry or RetryPolicy()) if any_faulty else retry
+    # load-dependent latency configs: per-call, shared by every task (caps
+    # bind per provider, which every price trace shares)
+    cs = as_coldstart(coldstart)
+    ptr = as_pool_trace(pool_trace)
+    caps_vec = norm_concurrency(concurrency, base_pf)
+    caps_eff = caps_vec if np.isfinite(caps_vec).any() else None
+    validate_load_kwargs(
+        caps_eff is not None, cs, ptr, faulty=any_faulty,
+        chunk_jobs=chunk_jobs,
+        replicas_axis=any(t.get("replicas") is not None for t in tasks))
     for i, t in enumerate(tasks):
         if ptr is not None:
             # provision the pool at the trace's per-stage maximum and mask
@@ -1450,66 +1953,49 @@ def sweep_scenarios(
             t["dag"] = t["dag"].with_replicas(
                 ptr.materialize(M_t).max(axis=0))
             t["_pool"] = (on_t, off_t)
+        if t.get("workload") is not None:
+            from .workloads import resolve_workload
+            if t.get("pred") is not None:
+                raise ValueError(
+                    f"tasks[{i}]: pass either pred or workload=, not both")
+            t["pred"], t["act"], wl_release = resolve_workload(
+                t["workload"], t["dag"], t0)
+            if t.get("arrivals") is None:
+                t["arrivals"] = wl_release
         if t.get("replicas") is not None:
             t["replicas"] = _norm_replica_axis(t["replicas"], t["dag"],
                                                where=f"tasks[{i}]")
         t["price_traces"] = _norm_trace_axis(t.get("price_traces"), base_pf,
                                              where=f"tasks[{i}]")
+        if t.get("faults") is not None:
+            J_t = int(np.asarray(t["pred"]["P_private"]).shape[-2])
+            t["faults"] = normalize_fault_axis(
+                t["faults"], J_t, t["dag"].num_stages, retry_eff,
+                where=f"tasks[{i}]")
     I_max = max(_max_replica_bound(t["dag"], t.get("replicas"))
                 for t in tasks)
     S_seg = max(_max_segment_bound(t["price_traces"]) for t in tasks)
-    prepped = [_Task(t["dag"], t["pred"], t.get("act"),
-                     t.get("c_max_grid", (60.0,)),
-                     t.get("orders", ("spt",)), cost_model, t0, M_pad,
-                     I_max=I_max, portfolio=portfolio,
-                     include_transfers=bool(include_transfers),
-                     arrivals=t.get("arrivals"),
-                     replicas=t.get("replicas"),
-                     replica_speeds=t.get("replica_speeds"),
-                     price_traces=t["price_traces"], S_seg=S_seg,
-                     caps=caps_eff, coldstart=cs, pool=t.get("_pool"),
-                     where=f"tasks[{i}]")
-               for i, t in enumerate(tasks)]
-    _LAST_RUN_STATS.update(prep_s=time.perf_counter() - t_prep, impl=impl,
-                           device=str(dev), engine_s=0.0, finalize_s=0.0,
-                           trips=[])
-
-    results: List[Optional[VectorSimResult]] = [None] * len(prepped)
-    # tasks of one shape family (job count and load flags) run as one
-    # call (the scenario lanes are independent, so the split is result-
-    # invariant); empty tasks need no engine at all
-    groups: Dict[tuple, List[int]] = {}
-    for i, p in enumerate(prepped):
-        if p.J == 0:
-            results[i] = _empty_result(p)
-            continue
-        ld = p.load
-        fam = (p.J,) if ld is None else (p.J, ld.capped, ld.cold,
-                                         ld.pooled, ld.C)
-        groups.setdefault(fam, []).append(i)
-    init_mode = 1 if init_phase else 0
-    for grp in groups.values():
-        ps = [prepped[i] for i in grp]
-        t_run = time.perf_counter()
-        fused = {name: np.concatenate([p.args[name] for p in ps])
-                 for name in ps[0].args}
-        trips: List[int] = []
-        with torch.no_grad():
-            out_t = _run_engine(_to_device(fused, dev),
-                                bool(include_transfers), init_mode,
-                                bool(adaptive), float(t0), trips,
-                                load=ps[0].load)
-            out = {k: v.cpu().numpy() for k, v in out_t.items()}
-        t_done = time.perf_counter()
-        lo = 0
-        for i, p in zip(grp, ps):
-            sub = {k: v[lo:lo + p.S] for k, v in out.items()}
-            results[i] = p.pack(_finalize(p, sub))
-            lo += p.S
-        _LAST_RUN_STATS["engine_s"] += t_done - t_run
-        _LAST_RUN_STATS["finalize_s"] += time.perf_counter() - t_done
-        _LAST_RUN_STATS["trips"].append(trips)
-    return results
+    # the outage-window bound of the sweep's shape family (the attempt
+    # bound is the retry policy's, every fault model padded to it)
+    W = max([max_outage_slots(t["faults"]) for t in tasks
+             if t.get("faults") is not None] or [0])
+    return [_Task(t["dag"], t["pred"], t.get("act"),
+                  t.get("c_max_grid", (60.0,)),
+                  t.get("orders", ("spt",)), cost_model, t0, M_pad,
+                  I_max=I_max, portfolio=portfolio,
+                  include_transfers=bool(include_transfers),
+                  arrivals=t.get("arrivals"),
+                  replicas=t.get("replicas"),
+                  replica_speeds=t.get("replica_speeds"),
+                  price_traces=t["price_traces"], S_seg=S_seg,
+                  faults=t.get("faults"), retry=retry_eff,
+                  init_window=t.get("init_window", init_window), W=W,
+                  caps=caps_eff, coldstart=cs, pool=t.get("_pool"),
+                  offload_mask=t.get("offload_mask"),
+                  init_override=t.get("init_phase"),
+                  adaptive_override=t.get("adaptive"),
+                  where=f"tasks[{i}]")
+            for i, t in enumerate(tasks)]
 
 
 def _empty_result(p: _Task) -> VectorSimResult:
@@ -1533,6 +2019,6 @@ def _empty_result(p: _Task) -> VectorSimResult:
         attempts=np.zeros((p.S, 0, p.M), dtype=np.int64),
         failed=np.zeros((p.S, 0, p.M), dtype=np.int64),
         abandoned=np.zeros((p.S, 0), dtype=bool),
-        fault_idx=np.zeros(p.S, dtype=np.int64),
+        fault_idx=p.fault_out.copy(),
         queue_wait=np.zeros((p.S, 0, p.M)),
         cold=np.zeros((p.S, 0, p.M), dtype=bool))

@@ -46,12 +46,12 @@ def unported_parts(cfg: ModelConfig) -> List[str]:
     (empty when the config runs)."""
     out = []
     if cfg.num_experts:
-        out.append("MoE layers (ROADMAP Queue 1, Next item 2)")
+        out.append("MoE layers (ROADMAP Queue 1 item 8)")
     if cfg.is_encdec:
-        out.append("the encoder and cross-attention (ROADMAP Queue 1, Next "
-                   "item 3)")
+        out.append("the encoder and cross-attention (ROADMAP Queue 1 "
+                   "item 9)")
     if cfg.vision_patches:
-        out.append("vision patches (ROADMAP Queue 1, Next item 4)")
+        out.append("vision patches (ROADMAP Queue 1 item 10)")
     return out
 
 

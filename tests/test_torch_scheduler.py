@@ -62,13 +62,22 @@ def test_schedule_and_baselines_match_reference(ref):
                    s_r.baseline_all_private(pred, act))
 
 
-def test_unported_inputs_raise():
+def test_workload_and_faults_inputs_match_reference(ref):
+    """``schedule(workload=)`` and ``schedule_sweep(faults=)`` run in the
+    port as in the reference; a missing perf model raises its error."""
     sched = pc.SkedulixScheduler(pc.APPS["matrix"])
-    # no perf model attached: the reference's error
     with pytest.raises(ValueError, match="no perf model attached"):
         sched.schedule_sweep((10.0,), base_features=np.ones((4, 3)))
-    with pytest.raises(NotImplementedError, match="workload"):
-        sched.schedule(10.0, workload="azure:day=tue,scale=100")
-    pred, act = workload(pc.APPS["matrix"], J, 0)
-    with pytest.raises(NotImplementedError, match="faults"):
-        sched.schedule_sweep((10.0,), pred=pred, device="cpu", faults=0.1)
+    s_r, s_p, dag = _schedulers(ref, "video", True)
+    spec = "azure:day=mon,scale=40,horizon=300"
+    want = s_r.schedule(15.0, workload=spec)
+    got = s_p.schedule(15.0, workload=spec)
+    assert_bitwise(got.result, want.result)
+    assert got.summary() == want.summary()
+    pred, act = workload(dag, J, 0)
+    kw = dict(pred=pred, act=act, c_max_grid=grid_for(dag, pred),
+              faults=[None, 0.1])
+    want = s_r.schedule_sweep(engine_impl="pallas", **kw)
+    got = s_p.schedule_sweep(device="cpu", **kw)
+    assert_bitwise(got, want)
+    np.testing.assert_array_equal(got.fault_idx, want.fault_idx)

@@ -31,7 +31,7 @@ import torch
 
 import repro_torch.core as pc
 from repro_torch.core import convert, vectorsim as pvs
-from tests.test_torch_harness import (assert_bitwise, assert_parity,
+from tests.test_torch_harness import (FIELDS, assert_bitwise, assert_parity,
                                       grid_for, reference, workload)
 
 J = 17
@@ -268,29 +268,47 @@ def test_empty_job_axis():
     assert (out.makespan == 0).all() and (out.cost_usd == 0).all()
 
 
-UNPORTED = {
+#: the engine's options beyond the base grid, one each (the full suites
+#: are tests/test_torch_scenario_axes.py, test_torch_streaming.py and
+#: test_torch_faults.py)
+OPTIONS = {
     "faults": dict(faults=0.2),
-    "chunk_jobs": dict(chunk_jobs=8),
-    "workload": dict(workload="azure:day=tue,scale=100"),
+    "chunk_jobs": dict(chunk_jobs=8, arrivals="STREAM"),
+    "workload": dict(workload="azure:day=tue,scale=100,horizon=900"),
     "egress_lookahead": dict(egress_lookahead=True),
-    "init_window": dict(init_window=1.0),
-    "offload_mask": dict(offload_mask=np.zeros(J, dtype=bool)),
+    "init_window": dict(init_window=1.0, arrivals="STREAM"),
+    "offload_mask": dict(offload_mask=np.arange(J) % 3 == 0),
 }
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_options_raise(name):
-    dag = pc.APPS["video"]
-    pred, act = workload(dag, J, 0)
+@pytest.mark.parametrize("name", sorted(OPTIONS))
+def test_options_match_reference(ref, name):
+    """Each option runs in the port's engine, bit for bit the reference's
+    and within the parity contract of the DES."""
+    dag_r, dag_p = _dag_pair(ref, "video")
+    pred, act = workload(dag_r, J, 0)
+    kw = dict(OPTIONS[name])
+    if kw.get("arrivals") == "STREAM":
+        kw["arrivals"] = (np.arange(J) // 4) * 300.0 + np.linspace(0, 2, J)
     if name == "workload":
         pred = act = None
-    with pytest.raises(NotImplementedError, match=name):
-        pc.simulate_scenarios(dag, pred, act, device="cpu",
-                              **UNPORTED[name])
+    pf_r = ref.cost.demo_portfolio(3)
+    pf_p = convert.portfolio_from_fields(dataclasses.asdict(pf_r))
+    call = dict(c_max_grid=(8.0, 20.0), orders=("spt", "hcf"), **kw)
+    got = pc.simulate_scenarios(dag_p, pred, act, portfolio=pf_p,
+                                device="cpu", **call)
+    want = ref.vectorsim.simulate_scenarios(dag_r, pred, act, portfolio=pf_r,
+                                            engine_impl="pallas", **call)
+    assert_bitwise(got, want, fields=FIELDS + ("fault_idx",))
+    des = pc.simulate_scenarios(dag_p, pred, act, portfolio=pf_p,
+                                engine="des", **call)
+    assert_parity(got, des)
+    if name == "faults":
+        assert got.failed.sum() > 0
 
 
 #: load options with an option the reference excludes them with: the
-#: reference's ValueError comes before any NotImplementedError
+#: reference's ValueError
 LOAD_EXCLUSIONS = {
     "faults": (dict(faults=0.2, concurrency=2), "faults"),
     "chunk_jobs": (dict(chunk_jobs=8, coldstart=0.5), "chunk_jobs"),
@@ -312,15 +330,28 @@ def test_load_option_exclusions_raise(name):
 
 @pytest.mark.parametrize("key", ["init_phase", "adaptive", "offload_mask",
                                  "faults"])
-def test_unported_task_keys_raise(key):
-    dag = pc.APPS["matrix"]
-    pred, act = workload(dag, J, 0)
-    task = dict(dag=dag, pred=pred, act=act, **{key: False})
-    with pytest.raises(NotImplementedError, match=key):
-        pc.sweep_scenarios([task], device="cpu")
-    with pytest.raises(NotImplementedError, match="chunk_jobs"):
-        pc.sweep_scenarios([dict(dag=dag, pred=pred)], device="cpu",
-                           chunk_jobs=4)
+def test_task_keys_match_reference(ref, key):
+    """A per-task key beside a task without it, in one sweep: both tasks
+    equal the reference's."""
+    value = {"init_phase": False, "adaptive": False,
+             "offload_mask": np.arange(J) % 2 == 0, "faults": [None, 0.3]}
+    pf_r = ref.cost.demo_portfolio(3)
+    pf_p = convert.portfolio_from_fields(dataclasses.asdict(pf_r))
+
+    def tasks(side):
+        dag = _dag_pair(ref, "matrix")[side]
+        pred, act = workload(dag, J, 0)
+        return [_task(dag, pred, act, **{key: value[key]}),
+                _task(dag, pred, act)]
+
+    want = ref.vectorsim.sweep_scenarios(tasks(0), portfolio=pf_r,
+                                         engine_impl="pallas")
+    got = pc.sweep_scenarios(tasks(1), portfolio=pf_p, device="cpu")
+    des = pc.sweep_scenarios(tasks(1), portfolio=pf_p, engine="des")
+    for i in range(2):
+        assert_bitwise(got[i], want[i], fields=FIELDS + ("fault_idx",),
+                       where=f"task {i}")
+        assert_parity(got[i], des[i], where=f"task {i}")
 
 
 def test_bad_arguments_raise():
