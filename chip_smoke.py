@@ -22,7 +22,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. The uncapped main path: Algorithm 1 over the Fig.-4 grid (image,
    matrix and video x {spt, hcf} x 5 deadlines = 30 scenarios) in one
    ``sweep_scenarios`` call on ``cuda`` at J=512 and J=4096 jobs. The grid
-   at J=256 runs on the card and on the CPU and must agree field for
+   at J=128 runs on the card and on the CPU and must agree field for
    field; three scenarios of each timed grid (J=512 and J=4096) replay
    through the port's DES and must meet the parity contract (placements,
    replicas, providers, segments, start and end exact; cost and makespan
@@ -37,34 +37,50 @@ Phases, each of which fails the run (non-zero exit, no result line):
    2-slot concurrency caps per provider and a 0.5 s warm-up / 1 s
    keep-alive scale-to-zero cold-start model (the throughput benchmark's
    ``--coldstart 0.5`` point), at J=512 and J=4096 on ``cuda``. Queue waits
-   and cold starts must occur; the J=256 grid agrees between the card and
+   and cold starts must occur; the J=128 grid agrees between the card and
    the CPU field for field; three scenarios of each timed grid meet the
    DES contract, queue waits and cold flags exact; the J=512 sweep runs
-   once more under the profiler. One more, untimed sweep of each grid
-   keeps the inputs of its every ``fifo_dispatch`` call, and each call is
+   once more under the profiler. One more, untimed sweep of the J=4096
+   grid keeps the inputs of its every ``fifo_dispatch`` call, and each is
    then held against its plain version and timed by CUDA events beside
    its chain floor.
 5. A pool trace (one private replica per stage, two from a breakpoint
    inside the horizon) with the cold-start model, J=512 on ``cuda``; three
-   of its scenarios meet the DES contract, and the J=256 grid agrees
+   of its scenarios meet the DES contract, and the J=128 grid agrees
    between the card and the CPU field for field.
 6. The engine's other options, each path timed with its launch counts
    set to 0 just before it. Scenario axes: the Fig.-4 grid as five tasks
    mixing per-task flags (ACD-adaptive, ``adaptive=False``,
    ``init_phase=False``, an ``offload_mask``, an ``init_window`` over a
-   release stream) in one ``sweep_scenarios`` call at J=512 and J=4096,
+   release stream) in one ``sweep_scenarios`` call at J=512 and J=1024,
    uncapped and then with ``egress_lookahead`` under the congested load;
    faults: the Fig.-4 grid at J=512 on the 3-provider portfolio with a
    failure-rate axis (0, 0.1, 0.3) under the default ``RetryPolicy``
    (failures, retries, and an abandonment or a fallback must occur); each
-   against the DES on some scenarios and the CPU at J=256, ``acd_evict``
+   against the DES on some scenarios and the CPU at J=128, ``acd_evict``
    launched in each, ``fifo_dispatch`` in the capped one. A paged trace
-   day: ``azure:day=tue,scale=100000`` on the image app, spt, C_max 60 s,
+   day: ``azure:day=tue,scale=50000`` on the image app, spt, C_max 60 s,
    4096-job pages (the reference throughput benchmark's streaming point),
    against the DES on the host under the parity contract, with wall,
    jobs/s, pages, retries, body steps and ms per body step; then a
    4096-job day in 512-job pages bit for bit against the monolithic card
-   run and the CPU, and a 1024-job day under the profiler.
+   run and the CPU, and a 1024-job day under the profiler. The serving
+   scheduler (llama3-8b on a 2/4/2 pod with ``elastic_portfolio(3)``
+   overflow, the H100 latency model): the ridge fit on the card against
+   the CPU's; ``compare_policies`` (six policies x faults {none, 0.3}) at
+   the policy bench's ``--jobs 512`` point, at its ``poisson:8.0`` and at
+   ``poisson:32.0`` (the bench's load on the H100's faster pod), each
+   against the DES in every scenario and the bench's Fig.-4 ordering, and
+   at J=256 against the CPU field for field; ``serve_online`` over 4096
+   requests at 32/s under 2-slot caps, cold starts and three queue-wait
+   samples (queue waits, cold starts and ``fifo_dispatch`` must occur)
+   against the DES; the autoscaling (8 pod sizings), spot (3 markets) and
+   reliability (rates 0, 0.1, 0.3) frontiers over 4 deadlines at J=512,
+   each's Pareto mask and three scenarios against the DES;
+   ``plan_batch_torch`` at J=4096 bit for bit numpy's ``init_offload``;
+   ``python -m repro_torch.launch.serve --execute-smoke`` in a process of
+   its own. Each part prints its wall, scenarios per second, policy time,
+   engine calls, body steps, ms per body step and launches.
 7. The paper's profile -> predict -> schedule path. First ``matmul``
    against its plain version on the card (ragged shapes, transposed views,
    1024^3, bf16; the matrix app's integer ``x @ x.T`` at n = 344 and 496
@@ -83,7 +99,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    matrix jobs are traced once more under the profiler. The first
    jobs' stage outputs agree between card and CPU (MM, EF and RI bit for
    bit, LU with the same pivots), and the card's fits equal the CPU's
-   (the same lambdas, predictions to a relative 1e-4).
+   (the same lambdas, predictions to a relative 1e-4). Fig. 3's quick
+   pass: the appendix MILP (scipy's HiGHS on the host, 20 s limit) on the
+   first 12 video test jobs against the card's SPT and HCF schedules,
+   each equal to the DES, with the cost ratios.
 8. The model stack's serving path. First the bf16 ``matmul`` kernel
    (tensor cores) at the serve shapes: against its plain version at
    M = 8, 656 and 8192 through the FFN's layer views and at M = 8 through
@@ -128,7 +147,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 9. Prints the kernels' JSON line, then the device line last.
 
 Launch counts are set to 0 just before each main path and read just after
-it; every kernel of a path must have launched in it.
+it; every kernel of a path must have launched in it. Each phase prints its
+wall (``phase wall ...``).
 
 Needs a CUDA device (exits 1 without one) and the repository's ``src/``
 beside it; imports nothing of JAX.
@@ -152,6 +172,11 @@ PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
 N_DEADLINES = 5
 ORDERS = ("spt", "hcf")
 MAIN_J = (512, 4096)
+#: job counts of the scenario-axes sweeps: at J=4096 they took ~200 s of
+#: a 1,319 s run on a slow host, past the 1,200 s a run may take; the
+#: J=4096 scale stays timed and DES-checked on the main and congested
+#: paths
+AXES_J = (512, 1024)
 DES_SCENARIOS = ((0, 0), (1, 7), (2, 9))  # (task, scenario) pairs
 #: the congested path: the throughput benchmark's ``--coldstart 0.5``
 #: point (2-slot caps per provider of demo_portfolio(3), a W-second
@@ -167,9 +192,11 @@ LOAD_DES_SCENARIOS = ((0, 3), (1, 6), (2, 9))
 AXES_DES_SCENARIOS = ((0, 0), (1, 7), (2, 9), (3, 4), (4, 2))
 #: the paged trace day: the reference throughput benchmark's streaming
 #: point (benchmarks/bench_scheduler_throughput.py measure_azure_point:
-#: one azure day on the image app, spt, C_max 60 s, 4096-job pages), and
-#: a 4096-job day in 512-job pages held against the monolithic run
-DAY_SCALE = 100000
+#: one azure day on the image app, spt, C_max 60 s, 4096-job pages) cut
+#: from 10^5 to 5 x 10^4 jobs for the 1,200 s a run may take (79 s and a
+#: 19 s DES at 10^5 on a slow host), and a 4096-job day in 512-job pages
+#: held against the monolithic run
+DAY_SCALE = 50000
 DAY_CHUNK = 4096
 DAY_C_MAX = 60.0
 SMALL_DAY = (4096, 512)
@@ -181,9 +208,46 @@ PROFILED_DAY = (1024, 512)
 FAULT_J = 512
 FAULT_RATES = (0.0, 0.1, 0.3)
 FAULT_DES_SCENARIOS = ((0, 1), (1, 17), (2, 26), (0, 29))
+#: the serving scheduler (llama3-8b on serving_dag's 2/4/2 pod with
+#: elastic_portfolio(3) overflow): benchmarks/bench_policies.py's --jobs 512
+#: point (its build_stream, SLA, replan interval, six policies and fault
+#: axis) at the bench's rate and at 4x it: the H100 latency model serves
+#: faster than the reference's, so at 8 req/s the pod is lightly loaded
+#: and Alg. 1 offloads nothing; at 32 its decode stage is overloaded (the
+#: phase prints the offered load; the CPU rerun runs at the loaded rate)
+SCHED_ARCH = "llama3-8b"
+SCHED_PROVIDERS = 3
+SCHED_J = 512
+SCHED_SLA_S = 4.0
+SCHED_REPLAN_S = 0.5
+SCHED_RATES = (8.0, 32.0)
+SCHED_FAULTS = (None, 0.3)
+SCHED_POLICIES = ("skedulix", "private", "public", "random", "noah",
+                  "costanalysis")
+#: congested online serving: 4096 requests at the bench's load under the
+#: congested path's caps and cold starts, with three observed per-stage
+#: public queue-wait samples (seconds) folded into the predictions
+ONLINE_J = 4096
+ONLINE_RATE = 32.0
+ONLINE_QUEUE_WAITS = ((0.0, 0.05, 0.0), (0.1, 0.2, 0.0), (0.05, 0.1, 0.0))
+#: the three frontiers at J=512 (bench_hybrid_serving.py's stream), each
+#: over deadlines at these fractions of the pod's mean private work
+FRONTIER_J = 512
+FRONTIER_DEADLINES = (0.25, 0.5, 1.0, 2.0)
+AUTOSCALE_GRID = tuple((p, d, 1) for p in (1, 2) for d in (1, 2, 4, 8))
+RELIABILITY_RATES = (0.0, 0.1, 0.3)
+#: Alg. 1's initialization plan on the card against numpy's
+PLAN_J = 4096
+#: Fig. 3's quick pass (benchmarks/fig3_optimal_vs_greedy.py): the MILP on
+#: the first 12 video test jobs against the SPT/HCF greedy schedules
+FIG3_JOBS = 12
+FIG3_TIME_LIMIT_S = 20.0
 #: job count of the CPU reruns: a J=512 rerun of each path on the CPU (the
-#: plain acd_evict loop) took 46-64 s and put the script at 6 minutes
-CPU_J = 256
+#: plain acd_evict loop) took 46-64 s and put the script at 6 minutes; at
+#: J=256 the eight reruns took 82 s of a 979 s run, so the engine's paths
+#: rerun at 128 and the serving scheduler's comparison at 256
+CPU_J = 128
+SCHED_CPU_J = 256
 #: the profiling path: every app at full width (scale 1.0); the matrix app
 #: with the paper's trace counts (benchmarks/common.py FULL_COUNTS), video
 #: and image with the benchmark's quick counts (QUICK_COUNTS)
@@ -962,41 +1026,28 @@ def check_des(label, tasks, out, pairs, sim_kw, load_fields=False):
     replaying its own fault model)."""
     import time
 
-    import numpy as np
-
     from repro_torch.core import RetryPolicy, simulate
     from repro_torch.core.faults import normalize_fault_axis
 
-    exact = ("public_mask", "provider", "replica", "segment", "start",
-             "end", "completion")
-    if load_fields:
-        exact += ("queue_wait", "cold")
     for ti, s in pairs:
         task, res = tasks[ti], out[ti]
         kw = dict(sim_kw, **{k: task[k] for k in TASK_SIM_KEYS if k in task})
-        fields = exact
-        if task.get("faults") is not None:
+        faulty = task.get("faults") is not None
+        if faulty:
             kw["retry"] = kw.get("retry") or RetryPolicy()
             kw["faults"] = normalize_fault_axis(
                 task["faults"], *task["pred"]["P_private"].shape,
                 kw["retry"])[int(res.fault_idx[s])]
-            fields = exact + ("attempts", "failed", "abandoned")
         t0 = time.perf_counter()
         d = simulate(task["dag"], task["pred"], task["act"],
                      c_max=float(res.c_max[s]), order=res.orders[s], **kw)
         v = res.scenario(s)
-        bad = [f for f in fields if not same(getattr(v, f), getattr(d, f))]
-        for f in ("cost_usd", "makespan"):
-            if not np.isclose(getattr(v, f), getattr(d, f), rtol=1e-12,
-                              atol=0):
-                bad.append(f)
         print(f"{label} DES {task['name']} {res.orders[s]} "
               f"c_max={res.c_max[s]:.3f}: {time.perf_counter() - t0:.3f} s, "
               f"cost {float(v.cost_usd)!r} vs {float(d.cost_usd)!r}, "
               f"makespan {float(v.makespan)!r} vs {float(d.makespan)!r}")
-        if bad:
-            raise AssertionError(f"{label} {task['name']} scenario {s}: "
-                                 f"engine != DES in {bad}")
+        check_contract(f"{label} {task['name']} scenario {s}", v, d,
+                       faulty=faulty, loaded=load_fields)
 
 
 def axes_tasks(apps, J):
@@ -1045,8 +1096,8 @@ def check_axes_flags(label, tasks, out):
 
 def scenario_axes_phase(run_path, load_kw):
     """The scenario axes on the card: the five-task flag mix uncapped, then
-    with ``egress_lookahead`` under the congested load, at J=512 and
-    J=4096; DES and CPU checks as the main path's. Returns the launch
+    with ``egress_lookahead`` under the congested load, at each of
+    ``AXES_J``; DES and CPU checks as the main path's. Returns the launch
     counts of each timed sweep."""
     from repro_torch.core import APPS
 
@@ -1055,7 +1106,7 @@ def scenario_axes_phase(run_path, load_kw):
                       ("axes lookahead congested path",
                        dict(load_kw, egress_lookahead=True))):
         capped = "concurrency" in kw
-        for J in MAIN_J:
+        for J in AXES_J:
             tasks = axes_tasks(APPS, J)
             out, _, counts = run_path(label, J, tasks, kw)
             need = ("acd_evict", "fifo_dispatch") if capped \
@@ -1274,6 +1325,363 @@ def _paged_days(proc, cpu_path):
               f"step ({steps} steps)")
         print_top_events(dev_events)
     return counts, small_counts
+
+
+def sched_stats(label, wall, n_scen, counts, policy_s=None):
+    """Print one serving-scheduler part's wall, scenarios per second,
+    policy time (``compare_policies``' record), engine calls, body steps,
+    ms per body step (the engine's record of its last sweep) and kernel
+    launches; fails when ``acd_evict`` never launched."""
+    from repro_torch.core import vectorsim
+
+    stats = vectorsim._LAST_RUN_STATS
+    steps = sum(sum(t) for t in stats["trips"])
+    per_step = stats["engine_s"] * 1e3 / steps if steps else float("nan")
+    print(f"{label}: {n_scen} scenarios on {stats['device']} in {wall:.3f} s"
+          f" ({n_scen / wall:.3f} scenarios/s; policy_s "
+          f"{'n/a' if policy_s is None else f'{policy_s:.6f}'}, prep "
+          f"{stats['prep_s']:.3f} s, engine {stats['engine_s']:.3f} s, "
+          f"finalize {stats['finalize_s']:.3f} s), {len(stats['trips'])} "
+          f"engine calls, {steps} body steps, {per_step:.4f} ms per body "
+          f"step; launches {counts}")
+    if counts["acd_evict"] <= 0:
+        raise AssertionError(f"{label}: acd_evict never launched")
+
+
+def check_contract(label, got, des, faulty=False, loaded=False):
+    """A result (batched or one run) against the DES under the parity
+    contract: placements, replicas, providers, segments, start, end and
+    completion exact (attempts, failures and abandonment under faults;
+    queue waits and cold flags under load); cost and makespan to a
+    relative 1e-12."""
+    import numpy as np
+
+    exact = ("public_mask", "provider", "replica", "segment", "start",
+             "end", "completion")
+    if faulty:
+        exact += ("attempts", "failed", "abandoned")
+    if loaded:
+        exact += ("queue_wait", "cold")
+    bad = [f for f in exact if not same(getattr(got, f), getattr(des, f))]
+    bad += [f for f in ("cost_usd", "makespan")
+            if not np.allclose(getattr(got, f), getattr(des, f), rtol=1e-12,
+                               atol=0)]
+    if bad:
+        raise AssertionError(f"{label}: engine != DES in {bad}")
+
+
+def policy_comparison(sched, rate, J, device):
+    """compare_policies at the bench's point on ``device`` (the DES when
+    None); the report, the wall, the launch counts and the policy time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import policies
+
+    rng = np.random.default_rng(0)  # bench_policies.build_stream
+    plen, ntok = rng.integers(64, 2048, J), rng.integers(16, 256, J)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = sched.compare_policies(
+        plen, ntok, SCHED_POLICIES, sla_s=SCHED_SLA_S,
+        arrivals=f"poisson:{rate}", replan_every_s=SCHED_REPLAN_S,
+        use_ridge=False, faults=list(SCHED_FAULTS),
+        engine="vector" if device is not None else "des")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return (rep, time.perf_counter() - t0, ops.launch_counts(),
+            policies._LAST_POLICY_STATS["policy_s"])
+
+
+def check_fig4_ordering(label, rep):
+    """The bench's Fig.-4 ordering: hybrid at <= half the public spend with
+    its attainment within 0.05 of public's and at or above private's, and
+    the private pool at $0."""
+    hyb, pub, priv = rep["skedulix"], rep["public"], rep["private"]
+    ok = (hyb["cost_usd"] <= 0.5 * pub["cost_usd"]
+          and hyb["sla"] >= pub["sla"] - 0.05
+          and hyb["sla"] >= priv["sla"] - 1e-9
+          and priv["cost_usd"] == 0.0)
+    print(f"{label}: Fig.-4 ordering {'holds' if ok else 'BROKEN'}: hybrid "
+          f"${hyb['cost_usd']:.6f} "
+          f"({100 * hyb['cost_usd'] / max(pub['cost_usd'], 1e-12):.2f}% of "
+          f"public ${pub['cost_usd']:.6f}) at SLA {hyb['sla']:.4f} (public "
+          f"{pub['sla']:.4f}, private {priv['sla']:.4f})")
+    if not ok:
+        raise AssertionError(f"{label}: Fig.-4 ordering broken")
+
+
+def serving_scheduler_phase():
+    """The serving scheduler on the card: the policy comparison, congested
+    online serving, the three frontiers and Alg. 1's initialization plan,
+    each against the DES (and the comparison against the CPU), then the
+    serving launcher in a process of its own. Returns the launch counts of
+    each timed part."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ColdStartModel, init_offload
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (HybridServingScheduler,
+                                     elastic_portfolio, pareto_mask,
+                                     plan_batch_torch, spot_elastic_traces)
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SCHED_ARCH)
+    pf = elastic_portfolio(SCHED_PROVIDERS)
+    sched = HybridServingScheduler(cfg, portfolio=pf, device="cuda")
+    cpu = HybridServingScheduler(cfg, portfolio=pf, device="cpu")
+    launches = {}
+
+    # the set-up: the ridge fit on the card, against the CPU's
+    t0 = time.perf_counter()
+    pm = sched.fit_perf_models(n_train=256, seed=0)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    feats = np.stack(build_serve_features(64), 1)
+    got, want = pm.predict(feats), cpu.fit_perf_models(256, 0).predict(feats)
+    rel = max(float(np.max(np.abs(got[k] - want[k])
+                           / np.maximum(np.abs(want[k]), 1e-30)))
+              for k in PRED_KEYS)
+    lams = [(s.private.lam, s.public.lam) for s in pm.stages]
+    print(f"serving scheduler: {SCHED_ARCH} ridge fit on 256 traces on the "
+          f"card in {t_fit:.3f} s, lambdas {lams}; predictions against the "
+          f"CPU fit max relative difference {rel!r}")
+    if rel > PM_RTOL:
+        raise AssertionError("serving scheduler: card fit != CPU fit")
+
+    # the policy comparison: six policies x a fault axis, one sweep
+    rng = np.random.default_rng(0)
+    mean_s = sched.lat.latencies(rng.integers(64, 2048, SCHED_J),
+                                 rng.integers(16, 256, SCHED_J),
+                                 None)["P_private"].mean(axis=0)
+    for rate in SCHED_RATES:
+        label = f"serving policies poisson:{rate} J={SCHED_J}"
+        load = rate * mean_s / sched.dag.replicas
+        print(f"{label}: offered load per private stage (rate x mean "
+              f"predicted latency / replicas) {np.round(load, 4).tolist()}")
+        rep, wall, counts, policy_s = policy_comparison(sched, rate,
+                                                        SCHED_J, "cuda")
+        sched_stats(label, wall, int(rep.cost_usd.size), counts, policy_s)
+        launches[label] = counts
+        print(rep.table())
+        check_fig4_ordering(label, rep)
+        t0 = time.perf_counter()
+        des, _, _, _ = policy_comparison(sched, rate, SCHED_J, None)
+        for name, v, d in zip(rep.policies, rep.results, des.results):
+            check_contract(f"{label} {name}", v, d, faulty=True)
+        print(f"{label}: all {int(rep.cost_usd.size)} scenarios meet the DES "
+              f"contract (DES on the host {time.perf_counter() - t0:.3f} s)")
+    rate, J = SCHED_RATES[-1], SCHED_CPU_J
+    small, _, _, _ = policy_comparison(sched, rate, J, "cuda")
+    t0 = time.perf_counter()
+    on_cpu, _, _, _ = policy_comparison(cpu, rate, J, "cpu")
+    bad = [f"{name} {f}" for name, g, c in zip(
+        small.policies, small.results, on_cpu.results)
+        for f in RESULT_FIELDS if not same(getattr(g, f), getattr(c, f))]
+    bad += [f for f in ("cost_usd", "sla", "makespan", "offload_frac",
+                        "abandoned_frac")
+            if not same(getattr(small, f), getattr(on_cpu, f))]
+    print(f"serving policies poisson:{rate} J={J}: rerun on the CPU in "
+          f"{time.perf_counter() - t0:.3f} s")
+    if bad:
+        raise AssertionError(f"serving policies J={J}: cuda != cpu in {bad}")
+    print(f"serving policies poisson:{rate} J={J}: cuda and cpu results "
+          f"equal in every field")
+
+    # congested online serving: caps, cold starts, queue-wait telemetry
+    rng = np.random.default_rng(1)
+    plen, ntok = rng.integers(64, 2048, ONLINE_J), rng.integers(16, 256,
+                                                                ONLINE_J)
+    cs = ColdStartModel(warm_up_s=LOAD_WARM_UP_S,
+                        keep_alive_s=2.0 * LOAD_WARM_UP_S, scale_to_zero=True)
+    okw = dict(sla_s=SCHED_SLA_S, replan_every_s=SCHED_REPLAN_S,
+               use_ridge=False, concurrency=LOAD_CAP, coldstart=cs,
+               stage_queue_waits=[np.array(q) for q in ONLINE_QUEUE_WAITS])
+    arr = f"poisson:{ONLINE_RATE}"
+    label = f"serving online {arr} J={ONLINE_J} congested"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    on = sched.serve_online(plen, ntok, arr, **okw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    sched_stats(label, wall, 1, counts)
+    launches[label] = counts
+    r = on.result
+    n_wait = int((np.nan_to_num(r.queue_wait) > 0).sum())
+    summ = on.summary()
+    print(f"{label}: offload {summ['offload_frac']:.4f}, SLA "
+          f"{summ['sla_attainment']:.4f}, cost {summ['cost_usd']!r} USD, "
+          f"p95 latency {summ['p95_latency_s']:.3f} s, {n_wait} queue "
+          f"waits (total {float(np.nansum(r.queue_wait)):.3f} s), "
+          f"{int(r.cold.sum())} cold starts")
+    if counts["fifo_dispatch"] <= 0 or not n_wait or not r.cold.any():
+        raise AssertionError(f"{label}: fifo_dispatch, queue waits or cold "
+                             f"starts missing")
+    t0 = time.perf_counter()
+    des = sched.serve_online(plen, ntok, arr, engine="des", **okw)
+    check_contract(label, r, des.result, loaded=True)
+    print(f"{label}: meets the DES contract (DES on the host "
+          f"{time.perf_counter() - t0:.3f} s)")
+
+    # the frontiers: pod sizings, spot markets, fault rates x deadlines
+    rng = np.random.default_rng(1)  # bench_hybrid_serving.py's stream
+    plen, ntok = rng.integers(128, 4096, FRONTIER_J), rng.integers(
+        32, 512, FRONTIER_J)
+    tot = float(sched.lat.latencies(plen, ntok, None)["P_private"].sum()
+                / sched.dag.replicas.sum())
+    grid = tuple(tot * f for f in FRONTIER_DEADLINES)
+    traces = spot_elastic_traces(SCHED_PROVIDERS, horizon_s=tot)
+    frontiers = (
+        ("autoscale", "autoscale_frontier",
+         [np.array(c) for c in AUTOSCALE_GRID], "replicas"),
+        ("spot", "spot_frontier", traces, "trace_idx"),
+        ("reliability", "reliability_frontier", list(RELIABILITY_RATES),
+         "fault_idx"))
+    for name, method, axis, idx in frontiers:
+        label = f"serving {name} frontier J={FRONTIER_J}"
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fr = getattr(sched, method)(plen, ntok, axis, grid, use_ridge=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        sched_stats(label, wall, fr.num_scenarios, counts)
+        launches[label] = counts
+        cost = fr.total_usd if name == "autoscale" else fr.cost_usd
+        front = fr.frontier()
+        c, q = cost[front], fr.sla[front]
+        dominated = [i for i in range(len(front))
+                     if ((c <= c[i]) & (q >= q[i])
+                         & ((c < c[i]) | (q > q[i]))).any()]
+        if not (len(front) and not dominated and same(
+                fr.pareto, pareto_mask(cost, fr.sla))):
+            raise AssertionError(f"{label}: bad Pareto mask")
+        print(f"{label}: {fr.num_scenarios} scenarios, {len(front)} on the "
+              f"frontier (mutually non-dominated)")
+        print(fr.table())
+        # three scenarios against the DES: the first three axis entries at
+        # the second deadline (the whole market and fault axes: a failure
+        # rate's draws are seeded by its index in the axis)
+        sub = axis[:3]
+        t0 = time.perf_counter()
+        des = getattr(sched, method)(plen, ntok, sub, grid[1:2],
+                                     use_ridge=False, engine="des")
+        for s in range(des.num_scenarios):
+            key = np.asarray(getattr(des, idx)[s])
+            hit = [i for i in range(fr.num_scenarios)
+                   if same(np.asarray(getattr(fr, idx)[i]), key)
+                   and fr.c_max[i] == des.c_max[s]]
+            if len(hit) != 1:
+                raise AssertionError(f"{label}: DES scenario {s} not found")
+            check_contract(f"{label} scenario {hit[0]}",
+                           fr.result.scenario(hit[0]),
+                           des.result.scenario(s),
+                           faulty=name == "reliability")
+        print(f"{label}: {des.num_scenarios} scenarios meet the DES contract "
+              f"(DES on the host {time.perf_counter() - t0:.3f} s)")
+
+    # Alg. 1's initialization plan on the card, against numpy's
+    pred, _ = sched._pred_act(*build_serve_features(PLAN_J), seed=1,
+                              use_ridge=False)
+    P = pred["P_private"]
+    keys = P.sum(1)
+    for frac in (0.1, 0.5, 0.9):
+        cap = float(P.sum() * frac)
+        t0 = time.perf_counter()
+        mask = plan_batch_torch(torch.from_numpy(P).to(sched.device),
+                                torch.from_numpy(keys).to(sched.device),
+                                cap)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = init_offload(P.sum(1), keys, cap)
+        print(f"serving plan_batch_torch J={PLAN_J} capacity {frac} of the "
+              f"work: {int(mask.sum())} offloaded, {wall * 1e3:.3f} ms")
+        if not same(mask.cpu().numpy(), want):
+            raise AssertionError("plan_batch_torch != numpy init_offload")
+
+    # the serving launcher, in a process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         SCHED_ARCH, "--requests", "64", "--execute-smoke"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    print(proc.stdout.rstrip())
+    print(f"serving launcher: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.3f} s")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError("python -m repro_torch.launch.serve failed")
+    print(f"serving scheduler: phase wall {time.perf_counter() - t_phase:.3f}"
+          f" s")
+    return launches
+
+
+def build_serve_features(J):
+    """(prompt lengths, new tokens) of ``J`` requests, seeded: the ranges of
+    the launcher and bench_hybrid_serving.py."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    return rng.integers(128, 4096, J), rng.integers(32, 512, J)
+
+
+def fig3_part(run):
+    """Fig. 3's quick pass on the card's video profile: the appendix MILP
+    (HiGHS, host) on the first ``FIG3_JOBS`` test jobs at the bench's
+    deadline against SPT and HCF greedy schedules swept on the card
+    (``acd_evict``), each equal to the DES. Prints the cost ratios.
+    Returns the sweep's launch counts."""
+    import torch
+
+    from repro_torch.core import simulate_all_public, solve_milp
+    from repro_torch.kernels import ops
+
+    spec, sched = run["spec"], run["sched"]
+    J = FIG3_JOBS
+    pred_all = run["pm"].predict(run["te"]["base_features"])
+    p = {k: pred_all[k][:J] for k in PRED_KEYS}
+    a = {k: v[:J] for k, v in run["act"].items()}
+    pub = simulate_all_public(spec.dag, p, a)
+    priv_time = p["P_private"].sum() / spec.dag.replicas.sum()
+    c_max = float(max(priv_time * 0.75, pub.makespan * 1.3))
+    t0 = time.perf_counter()
+    m = solve_milp(spec.dag, a["P_private"], a["P_public"], c_max,
+                   a["upload"], a["download"], time_limit_s=FIG3_TIME_LIMIT_S)
+    t_milp = time.perf_counter() - t0
+    print(f"fig3 video J={J}: C_max {c_max:.3f} s; MILP status {m.status}, "
+          f"feasible {m.feasible}, cost {m.cost_usd!r} USD, bound "
+          f"{m.objective_bound!r}, gap {m.mip_gap:.4f}, {t_milp:.3f} s on "
+          f"the host (limit {FIG3_TIME_LIMIT_S} s); all-public cost "
+          f"{pub.cost_usd!r} USD, makespan {pub.makespan:.3f} s")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sweep = sched.schedule_sweep([c_max], pred=p, act=a, orders=ORDERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for s, order in enumerate(sweep.orders):
+        g = sweep.scenario(s)
+        d = sched.schedule(c_max, pred=p, act=a, order=order).result
+        check_contract(f"fig3 video {order}", g, d)
+        ratio = (f"{g.cost_usd / m.cost_usd:.3f}x the MILP's"
+                 if m.feasible and m.cost_usd > 0 else "the MILP's is 0")
+        print(f"fig3 video {order.upper()}: cost {float(g.cost_usd)!r} USD "
+              f"({ratio}), makespan {float(g.makespan):.3f} s, met "
+              f"{bool(g.met_deadline)}; equal to the DES")
+        if m.feasible and g.met_deadline and \
+                g.cost_usd < m.objective_bound - 1e-9:
+            raise AssertionError(f"fig3 video {order}: greedy below the "
+                                 f"MILP's lower bound")
+    print(f"fig3 video: 2 greedy schedules on the card in {wall:.3f} s; "
+          f"launches {counts}")
+    if counts["acd_evict"] <= 0:
+        raise AssertionError("fig3: acd_evict never launched")
+    return counts
 
 
 def rglru_bound(B, T, D, with_h0):
@@ -2428,6 +2836,13 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+    t_lap = [t_start]
+
+    def lap(name):
+        """Print the wall since the previous phase ended."""
+        now = time.perf_counter()
+        print(f"phase wall {name}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
 
     # -- 1. environment and build -------------------------------------------
     smi = subprocess.run(
@@ -2445,6 +2860,7 @@ def main() -> int:
         print(f"build: {name} {build.BUILD_SECONDS[name]:.2f} s "
               f"-> {os.path.relpath(path, ROOT)}")
 
+    lap("1 environment and build")
     # -- 2. kernel against plain version ------------------------------------
     rng = np.random.default_rng(0)
     f64, f32 = torch.float64, torch.float32
@@ -2674,6 +3090,7 @@ def main() -> int:
         "library_ms": None, "device_ms": finite(fk_dev),
         "chain_floor_ms": f_floor_ms, "step_ns": fstep_ns})
 
+    lap("2 kernels against their plain versions")
     # -- 3. the uncapped main path ----------------------------------------
     def run_path(label, J, tasks, sweep_kw, check=check_sweep):
         """One sweep on the card, with the launch counts set to 0 just
@@ -2739,6 +3156,7 @@ def main() -> int:
                   f"kernel {t_ms:.6f} ms, chain floor "
                   f"{chain_floor_ms(mask, step_ns):.6f} ms")
 
+    lap("3 uncapped main path")
     # -- 4. the congested main path: caps and cold starts --------------------
     cs = ColdStartModel(warm_up_s=LOAD_WARM_UP_S,
                         keep_alive_s=2.0 * LOAD_WARM_UP_S, scale_to_zero=True)
@@ -2766,11 +3184,12 @@ def main() -> int:
     profile_sweep("congested path J=512", louts[512][0], load_kw,
                   lwalls[512])
     # the kernel on the engine's own inputs: every call of one more sweep
-    # of each grid, kept (the timed sweeps above ran unwrapped)
+    # of the J=4096 grid, kept (the timed sweeps above ran unwrapped)
     kernels[1]["engine_calls"] = fifo_engine_calls(
-        [(J, c) for J in MAIN_J
-         for c in keep_fifo_calls(louts[J][0], load_kw)], fstep_ns)
+        [(max(MAIN_J), c) for c in keep_fifo_calls(louts[max(MAIN_J)][0],
+                                                   load_kw)], fstep_ns)
 
+    lap("4 congested main path")
     # -- 5. a pool trace with cold starts --------------------------------------
     def pool_kw_for(tasks):
         """The second replica of every stage turns on a quarter of the way
@@ -2796,13 +3215,20 @@ def main() -> int:
     tasks = fig4_workload(APPS, CPU_J)
     check_cpu_rerun(f"pool path J={CPU_J}", tasks, pool_kw_for(tasks)[1])
 
+    lap("5 pool trace")
     # -- 6. the engine's other options: the scenario axes -----------------
     launches.update(scenario_axes_phase(run_path, load_kw))
+    lap("6 scenario axes")
     # -- 6b. the fault axis: the attempt chain -----------------------------
     launches["faults"] = faults_phase(run_path)
+    lap("6b faults")
     # -- 6c. a paged trace day -----------------------------------------------
     launches["day"], launches["small day"] = paged_day_phase()
+    lap("6c paged day")
+    # -- 6d. the serving scheduler -------------------------------------------
+    launches.update(serving_scheduler_phase())
 
+    lap("6d serving scheduler")
     # -- 7. the profiling path: profile -> predict -> schedule -------------
     kernels.append(check_matmul(dev))
     t0 = time.perf_counter()
@@ -2834,6 +3260,8 @@ def main() -> int:
     profiled = {"matrix": mx}
     for name in ("video", "image"):
         profiled[name] = profile_app(name)
+    # Fig. 3 of the serving-scheduler phase, on the video profile's jobs
+    launches["fig3"] = fig3_part(profiled["video"])
     # card against CPU with TF32 turned on for the process, as a user may
     # turn it on: the port keeps its float32 products and convolutions in
     # IEEE float32 in its own scope, so they must agree all the same
@@ -2848,6 +3276,7 @@ def main() -> int:
     finally:
         torch.set_float32_matmul_precision(precision)
 
+    lap("7 profiling path and Fig. 3")
     # -- 8. the serving path: the model stack's kernels ---------------------
     bf16_matmul = check_linear_rows(dev)
     kernels.append(check_flash_attention(dev))
@@ -2869,6 +3298,7 @@ def main() -> int:
     print(f"serve: phase wall {time.perf_counter() - t0:.3f} s; launches "
           f"in the timed serve batches {serve_launches}")
 
+    lap("8 serving path")
     # -- 9. result ------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main path of its slice: acd_evict on

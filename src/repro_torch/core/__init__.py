@@ -48,8 +48,10 @@ Layout follows the JAX reference package module for module:
 ``workloads``
     Trace-derived workloads: ``azure:`` specs sample days of serverless
     invocations from the reference's committed trace sample.
-
-The MILP bound is not ported yet.
+``milp``
+    The exact bounds on the host: the appendix MILP on scipy's HiGHS
+    (:func:`solve_milp`, the Fig.-3 optimum), Johnson's F2||Cmax makespan
+    and the single-stage knapsack bound.
 """
 from .arrivals import (ArrivalProcess, BatchArrivals, MMPPArrivals,
                        PoissonArrivals, TraceArrivals, parse_arrivals,
@@ -68,6 +70,8 @@ from .faults import FaultModel, RetryPolicy, as_fault_model
 from .greedy import (acd_sweep, acd_sweep_torch, init_offload,
                      init_offload_torch, offload_negative_acd,
                      select_provider, select_provider_torch, t_max)
+from .milp import (MilpResult, johnson_makespan, knapsack_lower_bound,
+                   solve_milp)
 from .perfmodel import (AppPerfModel, RidgeModel, StageModels,
                         default_feature_builder, fit_app_perf_model,
                         fit_ridge, grid_search_ridge, mape)
@@ -92,6 +96,7 @@ __all__ = [
     "init_offload", "init_offload_torch", "acd_sweep", "acd_sweep_torch",
     "offload_negative_acd", "select_provider", "select_provider_torch",
     "t_max",
+    "MilpResult", "solve_milp", "johnson_makespan", "knapsack_lower_bound",
     "ORDERS", "spt_key", "hcf_key", "sort_queue",
     "SkedulixScheduler", "BatchReport",
     "SimResult", "simulate", "simulate_all_public", "simulate_all_private",

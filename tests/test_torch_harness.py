@@ -10,6 +10,8 @@ test bodies only, never while a module is imported: the reference must not
 sit in ``sys.modules`` while pytest collects other files.
 """
 import ast
+import dataclasses
+import importlib
 import os
 import subprocess
 import sys
@@ -141,6 +143,49 @@ def assert_bitwise_or_des(port, ref, des, where=""):
                                    err_msg=f"{where} {fld}")
 
 
+def twin(x):
+    """The reference's twin of a port object (an arrival process, fault
+    model, retry policy, cold-start model, policy, ...): the class of the
+    same name in the reference's module, built from the same fields (a
+    dataclass) or the same attributes. Lists and tuples map element-wise;
+    anything not of the port passes through."""
+    if isinstance(x, (list, tuple)) and not dataclasses.is_dataclass(x):
+        return type(x)(twin(v) for v in x)
+    mod = type(x).__module__
+    if isinstance(x, type) or not mod.startswith("repro_torch."):
+        return x
+    cls = getattr(importlib.import_module(
+        mod.replace("repro_torch", "repro", 1)), type(x).__name__)
+    if dataclasses.is_dataclass(x):
+        return cls(**{f.name: getattr(x, f.name)
+                      for f in dataclasses.fields(x)})
+    out = object.__new__(cls)
+    out.__dict__.update(vars(x))
+    return out
+
+
+def held_online(ps, rs, plen, ntok, arrivals, engine="vector", **kw):
+    """``serve_online`` of a port scheduler ``ps`` and a reference one
+    ``rs`` on one stream (every other argument twinned): the DES field for
+    field; the engine bit for bit or, where the reference fuses a time,
+    equal to the port's DES (``assert_bitwise_or_des``). Returns the
+    port's report."""
+    rep = ps.serve_online(plen, ntok, arrivals, engine=engine, **kw)
+    want = rs.serve_online(plen, ntok, twin(arrivals), engine=engine,
+                           **{k: twin(v) for k, v in kw.items()})
+    np.testing.assert_array_equal(rep.release, want.release)
+    np.testing.assert_array_equal(rep.admitted, want.admitted)
+    assert rep.mode == want.mode
+    if engine == "des":
+        assert_bitwise(rep.result, want.result)
+        assert rep.summary() == want.summary()
+    else:
+        des = ps.serve_online(plen, ntok, arrivals, engine="des", **kw)
+        assert_parity(rep.result, des.result)
+        assert_bitwise_or_des(rep.result, want.result, des.result)
+    return rep
+
+
 def _imported_modules(path: Path):
     """Absolute module names imported by a Python source file."""
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -165,7 +210,9 @@ def test_port_sources_import_neither_jax_nor_reference():
 def test_import_repro_torch_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.apps, "
             "repro_torch.core.perfmodel, repro_torch.kernels.build, "
-            "repro_torch.configs, repro_torch.models, repro_torch.serving; "
+            "repro_torch.configs, repro_torch.models, repro_torch.serving, "
+            "repro_torch.core.milp, repro_torch.training, "
+            "repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
