@@ -80,7 +80,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``plan_batch_torch`` at J=4096 bit for bit numpy's ``init_offload``;
    ``python -m repro_torch.launch.serve --execute-smoke`` in a process of
    its own. Each part prints its wall, scenarios per second, policy time,
-   engine calls, body steps, ms per body step and launches.
+   engine calls, body steps, ms per body step and launches. The engine
+   twins: the Fig.-4 grid at J=512, uncapped and congested, under each
+   inner loop (``engine_impl`` ``kernel``, ``scan`` and ``loop``) on the
+   card, equal field for field, the twins with no kernel launched, each
+   with its wall, body steps and ms per body step; their DES scenarios
+   under the contract and their J=128 grids against the CPU; how many of
+   the ``scan`` twin's prefix elements ``torch.cumsum`` on the card would
+   give otherwise than the host's sequential sum (a reading, over its
+   first 1000 ACD rounds); and a repeated ``kernel`` sweep that hits the
+   prep cache (``prep_s``, ``plan_s``).
 7. The paper's profile -> predict -> schedule path. First ``matmul``
    against its plain version on the card (ragged shapes, transposed views,
    1024^3, bf16; the matrix app's integer ``x @ x.T`` at n = 344 and 496
@@ -1119,6 +1128,172 @@ def scenario_axes_phase(run_path, load_kw):
             check_des(f"{label} J={J}", tasks, out, AXES_DES_SCENARIOS, kw,
                       load_fields=capped)
         check_cpu_rerun(f"{label} J={CPU_J}", axes_tasks(APPS, CPU_J), kw)
+    return launches
+
+
+#: the scan twin's ACD rounds whose prefixes are also taken on the card
+CUMSUM_PROBE_CALLS = 1000
+
+
+def twin_stats(label, wall, counts):
+    """Print one twin's wall, body steps and ms per body step (the engine's
+    record of the sweep just run); returns the three."""
+    from repro_torch.core import vectorsim
+
+    stats = vectorsim._LAST_RUN_STATS
+    steps = sum(sum(t) for t in stats["trips"])
+    print(f"{label}: impl {stats['impl']}, wall {wall:.3f} s, {steps} body "
+          f"steps, {stats['engine_s'] * 1e3 / steps:.4f} ms per body step "
+          f"of engine time ({wall * 1e3 / steps:.4f} of wall); launches "
+          f"{counts}")
+    return wall, steps, stats["engine_s"] * 1e3 / steps
+
+
+def check_cpu_cumsum_sequential():
+    """``torch.cumsum`` of CPU float64 rows on this host equals a sequential
+    left-to-right loop: the property the twins' host prefixes rest on."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.lognormal(0.0, 2.0, (30, 4096))
+                         * rng.choice([1e-6, 1.0, 1e6], (30, 4096)))
+    acc = torch.zeros(30, dtype=torch.float64)
+    want = torch.empty_like(x)
+    for j in range(x.shape[1]):
+        acc = acc + x[:, j]
+        want[:, j] = acc
+    if not torch.equal(torch.cumsum(x, 1), want):
+        raise AssertionError("torch.cumsum on the host is not sequential")
+    print("torch.cumsum of CPU float64 rows [30, 4096] on this host equals "
+          "the sequential loop bit for bit")
+
+
+def cumsum_probe(tasks, budget):
+    """One more, untimed ``scan`` sweep of ``tasks`` on the card. For its
+    first ``budget`` ACD rounds, the two demand prefixes the twin takes on
+    the host are also taken by ``torch.cumsum`` on the card: prints how
+    many prefix elements differ, the largest difference, and how many
+    evict/leftover decisions the card's prefixes would have changed. A
+    reading only: the engine always uses the host's."""
+    import torch
+
+    from repro_torch.core import sweep_scenarios, vectorsim
+
+    real = vectorsim._acd_twin
+    rec = dict(calls=0, elems=0, diff=0, max_diff=0.0, flips=0)
+
+    def probe(P_q, q1, m, thresh, certain):
+        out = real(P_q, q1, m, thresh, certain)
+        if certain and P_q.is_cuda and rec["calls"] < budget:
+            rec["calls"] += 1
+            contrib = torch.where(q1, P_q, torch.zeros((), dtype=P_q.dtype,
+                                                       device=P_q.device))
+            host = contrib.cpu()
+            pe_h = torch.cumsum(host, 1) - host
+            pe_d = torch.cumsum(contrib, 1) - contrib
+            # the second prefix over the host's violators on both sides
+            viol = m.cpu() & (pe_h > thresh.cpu())
+            vc_h = torch.where(viol, host, torch.zeros((), dtype=host.dtype))
+            vc_d = vc_h.to(P_q.device)
+            for h, d in ((pe_h, pe_d), (torch.cumsum(vc_h, 1) - vc_h,
+                                        torch.cumsum(vc_d, 1) - vc_d)):
+                d = d.cpu()
+                rec["elems"] += h.numel()
+                rec["diff"] += int((d != h).sum())
+                rec["max_diff"] = max(rec["max_diff"],
+                                      float((d - h).abs().max()))
+            alt = vectorsim._acd_round(contrib, thresh, m, certain)
+            rec["flips"] += int((alt.cpu() != out.cpu()).sum())
+        return out
+
+    vectorsim._acd_twin = probe
+    try:
+        sweep_scenarios(tasks, device="cuda", engine_impl="scan")
+    finally:
+        vectorsim._acd_twin = real
+    print(f"cumsum probe (scan twin's rows, first {rec['calls']} ACD rounds "
+          f"of an uncapped J={tasks[0]['pred']['P_private'].shape[0]} "
+          f"sweep): torch.cumsum on the card differs from the host's "
+          f"sequential prefix in {rec['diff']} of {rec['elems']} prefix "
+          f"elements, largest difference {rec['max_diff']!r}; the card's "
+          f"prefixes would have changed {rec['flips']} evict/leftover "
+          f"decisions")
+    return rec
+
+
+def engine_twins_phase(run_path, load_kw):
+    """The vector engine's three inner loops on one grid: the Fig.-4 grid
+    at ``MAIN_J[0]`` uncapped and congested under ``kernel``, ``scan`` and
+    ``loop`` on the card, equal field for field; the twins launch no
+    kernel. Then the DES contract on the twins' scenarios, the twins at
+    ``CPU_J`` on the CPU against the card, the ``cumsum`` reading, and a
+    repeated ``kernel`` sweep that hits the prep cache. Returns the
+    ``kernel`` sweeps' launch counts."""
+    from repro_torch.core import APPS, vectorsim
+
+    t_phase = time.perf_counter()
+    check_cpu_cumsum_sequential()
+    J = MAIN_J[0]
+    tasks = fig4_workload(APPS, J)
+    launches, table = {}, {}
+    for load, kw in (("uncapped", {}), ("congested", load_kw)):
+        outs = {}
+        for impl in ("kernel", "scan", "loop"):
+            label = f"engine twins {load} {impl}"
+            # every timed sweep misses the prep cache, whatever ran before
+            vectorsim._PREP_CACHE.clear()
+            outs[impl], wall, counts = run_path(
+                label, J, tasks, dict(kw, engine_impl=impl))
+            stats = vectorsim._LAST_RUN_STATS
+            if impl == "kernel" and load == "uncapped":
+                first = (stats["prep_s"], stats["plan_s"])
+            table[(load, impl)] = twin_stats(label, wall, counts)
+            need = ("acd_evict", "fifo_dispatch") if kw else ("acd_evict",)
+            if impl == "kernel":
+                if any(counts[k] <= 0 for k in need):
+                    raise AssertionError(f"{label}: a kernel never "
+                                         f"launched: {counts}")
+                launches[f"twins {load} kernel J={J}"] = counts
+            elif counts["acd_evict"] or counts["fifo_dispatch"]:
+                raise AssertionError(f"{label}: a twin launched a kernel: "
+                                     f"{counts}")
+        for impl in ("scan", "loop"):
+            for task, a, b in zip(tasks, outs[impl], outs["kernel"]):
+                bad = [f for f in RESULT_FIELDS
+                       if not same(getattr(a, f), getattr(b, f))]
+                if bad:
+                    raise AssertionError(f"engine twins {load} "
+                                         f"{task['name']}: {impl} != "
+                                         f"kernel in {bad}")
+            check_des(f"engine twins {load} {impl} J={J}", tasks,
+                      outs[impl],
+                      LOAD_DES_SCENARIOS if kw else DES_SCENARIOS, kw,
+                      load_fields=bool(kw))
+        print(f"engine twins {load} J={J}: loop, scan and kernel equal in "
+              f"every field")
+        for impl in ("scan", "loop"):
+            check_cpu_rerun(f"engine twins {load} {impl} J={CPU_J}",
+                            fig4_workload(APPS, CPU_J),
+                            dict(kw, engine_impl=impl))
+    for load in ("uncapped", "congested"):
+        k_wall, k_steps, k_ms = table[(load, "kernel")]
+        print(f"engine twins {load} J={J}: "
+              + "; ".join(f"{impl} {w:.3f} s, {n} steps, {ms:.4f} ms a "
+                          f"step ({w / k_wall:.3f}x the kernel's wall, "
+                          f"{n / k_steps:.3f}x its steps)"
+                          for impl in ("kernel", "scan", "loop")
+                          for w, n, ms in (table[(load, impl)],)))
+    cumsum_probe(tasks, CUMSUM_PROBE_CALLS)
+    _, _, counts = run_path("engine twins uncapped kernel repeated", J,
+                            tasks, dict(engine_impl="kernel"))
+    stats = vectorsim._LAST_RUN_STATS
+    print(f"engine twins prep cache: first kernel sweep prep_s "
+          f"{first[0]:.6f} plan_s {first[1]:.6f}; repeated identical sweep "
+          f"prep_s {stats['prep_s']:.6f} plan_s {stats['plan_s']:.6f}")
+    if stats["plan_s"] != 0.0:
+        raise AssertionError("the repeated sweep missed the prep cache")
+    print(f"engine twins: phase wall {time.perf_counter() - t_phase:.3f} s")
     return launches
 
 
@@ -3229,6 +3404,9 @@ def main() -> int:
     launches.update(serving_scheduler_phase())
 
     lap("6d serving scheduler")
+    # -- 6e. the engine twins: loop, scan and kernel on one grid -----------
+    launches.update(engine_twins_phase(run_path, load_kw))
+    lap("engine twins")
     # -- 7. the profiling path: profile -> predict -> schedule -------------
     kernels.append(check_matmul(dev))
     t0 = time.perf_counter()

@@ -362,7 +362,7 @@ def test_bad_arguments_raise():
     with pytest.raises(ValueError, match="engine"):
         pc.simulate_scenarios(dag, pred, act, engine="warp", device="cpu")
     with pytest.raises(ValueError, match="engine_impl"):
-        pc.simulate_scenarios(dag, pred, act, engine_impl="scan",
+        pc.simulate_scenarios(dag, pred, act, engine_impl="vectorized",
                               device="cpu")
     with pytest.raises(ValueError, match=r"act\['P_public'\]"):
         pc.simulate_scenarios(dag, pred,
