@@ -81,7 +81,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``python -m repro_torch.launch.serve --execute-smoke`` in a process of
    its own. Each part prints its wall, scenarios per second, policy time,
    engine calls, body steps, ms per body step and launches. The engine
-   twins: the Fig.-4 grid at J=512, uncapped and congested, under each
+   twins: the Fig.-4 grid at J=256 (``TWINS_J``), uncapped and congested,
+   under each
    inner loop (``engine_impl`` ``kernel``, ``scan`` and ``loop``) on the
    card, equal field for field, the twins with no kernel launched, each
    with its wall, body steps and ms per body step; their DES scenarios
@@ -152,7 +153,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    prefill and 4 decode steps, each bit for bit prefill(S+1)); and card
    against CPU at full width, 2 and 3 layers, float32: the same greedy
    tokens (and, as a reading, the CPU's bf16 prefill(S) + decode_step
-   against prefill(S+1)).
+   against prefill(S+1)). Before the serve batches, ``flash_decode`` on
+   float8_e4m3fn caches (cast by ``layers.to_kv``, a few elements past 448
+   so that NaNs occur) at qwen1.5-32b's decode shapes, bf16 and float32 q,
+   each bit for bit the kernel on the widened caches and within tolerance
+   of the plain version, timed at [2, 40, 4112, 128] beside the bf16
+   kernel and SDPA on the widened caches; and ``to_kv`` on the card equal
+   to the CPU's on all 65,536 bf16 patterns and a float32 sample.
+   8b. qwen1.5-32b at full width and 64 layers, its bf16 weights drawn on
+   the card (no other model resident; the memory reckoning and
+   ``mem_get_info`` printed first), its fp8 cache: the serve batch and a
+   2 x 2048-token long batch (cache 2064), launches exact, logits finite,
+   first tokens the prefill's argmax, peak memory, and prefill(S) +
+   decode_step against prefill(S+1) as a reading (prefill attends the
+   unrounded K/V); the same weights with a bf16 cache, each of
+   SHORT_DECODE steps bit for bit prefill(S+1); card against CPU at 2
+   layers in float32 with a float32 cache.
 9. Prints the kernels' JSON line, then the device line last.
 
 Launch counts are set to 0 just before each main path and read just after
@@ -187,6 +203,12 @@ MAIN_J = (512, 4096)
 #: paths
 AXES_J = (512, 1024)
 DES_SCENARIOS = ((0, 0), (1, 7), (2, 9))  # (task, scenario) pairs
+#: the engine twins' grid: 256 jobs, not MAIN_J[0], for the run's time
+#: (on an H100 the phase took 53-57 s of 856-916 s at J=512, and the
+#: qwen1.5-32b phase needs the room); the kernel body is timed at J=512
+#: and 4096 on the main paths, the twins against it by
+#: tools/time_engine_twins.py
+TWINS_J = 256
 #: the congested path: the throughput benchmark's ``--coldstart 0.5``
 #: point (2-slot caps per provider of demo_portfolio(3), a W-second
 #: warm-up with a 2W keep-alive window, scale-to-zero pools)
@@ -294,8 +316,13 @@ SERVE_CACHE = 192
 #: its full-attention cache (long documents, RAG contexts)
 LONG_BATCH = 2
 LONG = {"rwkv6-1.6b": (4096, 4112), "recurrentgemma-9b": (2304, 2048),
-        "llama3-8b": (4096, 4112)}
-#: the architectures served at full width and depth
+        "llama3-8b": (4096, 4112), "qwen1.5-32b": (2048, 2064)}
+#: qwen1.5-32b's long batch is 2 x 2048 tokens: its bf16 weights take
+#: 65.56 GiB of the card's 80, and check_serve_logits holds a second fp8
+#: cache (2 x 2064 slots: 2.52 GiB each over 64 layers; 2 x 4112 would
+#: take 5.02 GiB each)
+#: the architectures served at full width and depth (QWEN in a phase of
+#: its own, after the others are freed)
 SERVED = ("rwkv6-1.6b", "recurrentgemma-9b", "llama3-8b")
 #: dense architectures run at full width and SHORT_LAYERS layers: one
 #: prefill and SHORT_DECODE decode steps, each held against prefill(S+1)
@@ -312,7 +339,8 @@ INCR_TOL = dict(rtol=2e-2, atol=2e-3)
 #: depth (one super-block of recurrentgemma), decode steps, and the logits'
 #: tolerance |card - cpu| <= CPU_RTOL * max|cpu| (float32 rounding of
 #: d = 2048-4096 dot products in another order, through a few layers)
-CPU_LAYERS = {"rwkv6-1.6b": 2, "recurrentgemma-9b": 3, "llama3-8b": 2}
+CPU_LAYERS = {"rwkv6-1.6b": 2, "recurrentgemma-9b": 3, "llama3-8b": 2,
+              "qwen1.5-32b": 2}
 #: float32 matmul products timed beside torch.matmul (TF32 off) and the
 #: bound: (label, (M, K, N), reps): dense squares at the MM stage's
 #: smallest and largest n, the stage's own x @ x.T (x.T a view), the
@@ -1224,7 +1252,7 @@ def cumsum_probe(tasks, budget):
 
 def engine_twins_phase(run_path, load_kw):
     """The vector engine's three inner loops on one grid: the Fig.-4 grid
-    at ``MAIN_J[0]`` uncapped and congested under ``kernel``, ``scan`` and
+    at ``TWINS_J`` uncapped and congested under ``kernel``, ``scan`` and
     ``loop`` on the card, equal field for field; the twins launch no
     kernel. Then the DES contract on the twins' scenarios, the twins at
     ``CPU_J`` on the CPU against the card, the ``cumsum`` reading, and a
@@ -1234,7 +1262,7 @@ def engine_twins_phase(run_path, load_kw):
 
     t_phase = time.perf_counter()
     check_cpu_cumsum_sequential()
-    J = MAIN_J[0]
+    J = TWINS_J
     tasks = fig4_workload(APPS, J)
     launches, table = {}, {}
     for load, kw in (("uncapped", {}), ("congested", load_kw)):
@@ -2428,6 +2456,255 @@ def check_flash_decode(dev):
             "bound_ms": bound, "bound_by": by, "library_ms": l_ms}
 
 
+#: qwen1.5-32b's decode shapes for the fp8 cache checks: the serve batch's
+#: cache (cache_len SERVE_CACHE), the long batch's (QWEN_LONG), and the
+#: kernel timed alone at a 4097-key cache of 4112 slots (the other dense
+#: configs' long-batch cache, past what the full model's long batch fits)
+QWEN = "qwen1.5-32b"
+QWEN_TIMED = (2, 4112, 4097)
+#: elements of each fp8 test cache set past 448 before the cast, so the
+#: cast gives NaN there (XLA's astype; torch's own .to saturates)
+KV8_NAN_ELEMS = 3
+
+
+def fp8_caches(B, hkv, S, d, dev, g, n_big=KV8_NAN_ELEMS, width=None):
+    """k, v [B, Hkv, S, d] float8_e4m3fn caches cast by ``layers.to_kv``
+    from random bf16 values (|x| up to ~4 * 2), ``n_big`` elements of each
+    set past 448 (to +-500 and -1000: NaN after the cast); ``width`` > d
+    makes each a [..., :d] view of a wider cache (rows not 16-byte
+    aligned)."""
+    import torch
+
+    from repro_torch.models.layers import to_kv
+
+    out = []
+    for _ in range(2):
+        x = (torch.randn(B, hkv, S, width or d, device=dev, generator=g)
+             * 2.0).to(torch.bfloat16)
+        idx = torch.randint(0, x.numel(), (n_big,), device=dev,
+                            generator=g)
+        big = torch.tensor([500.0, -500.0, -1000.0], device=dev)
+        x.view(-1)[idx] = big.repeat(n_big // 3 + 1)[:n_big].to(x.dtype)
+        out.append(to_kv(x, torch.float8_e4m3fn)[..., :d])
+    return out
+
+
+def kv8_check(label, got, wid, want, v8):
+    """The fp8 kernel's ``got`` against the same kernel on the widened
+    caches (``wid``): NaN where it has NaN and, elsewhere, the same bits;
+    and against the plain version (``want``): NaN where it has NaN, the
+    rest within attn_check's tolerance (ATTN_RTOL * max|v| over v's finite
+    values, plus one bf16 ulp of a bf16 output). Raises on a miss; returns
+    (max abs error against the plain version, NaN elements)."""
+    import torch
+
+    torch.cuda.synchronize()
+    nan = torch.isnan(got)
+    ints = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    same_bits = bool(torch.equal(nan, torch.isnan(wid))) and bool(
+        (got.view(ints) == wid.view(ints))[~nan].all())
+    same_nan = bool(torch.equal(nan, torch.isnan(want)))
+    vf = v8.float()
+    v_max = float(vf[torch.isfinite(vf)].abs().max())
+    ok = nan.numel() == 0 or not bool(nan.all())
+    err = (got.float() - want.float()).abs()[~nan]
+    bound = ATTN_RTOL * v_max + torch.zeros_like(err)
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(got.float().abs(),
+                                         want.float().abs())[~nan])
+        bound = bound + torch.ldexp(torch.ones_like(bound), e - 8)
+    within = bool((err <= bound).all())
+    e_max = float(err.max()) if err.numel() else 0.0
+    worst = float((err / bound).max()) if err.numel() else 0.0
+    print(f"{label}: bit for bit the kernel on the widened caches "
+          f"{same_bits}; NaN pattern of the plain version {same_nan} "
+          f"({int(nan.sum())} of {nan.numel()} NaN); max_abs_err "
+          f"{e_max!r}, worst |err| / tolerance {worst:.4f}")
+    if not (same_bits and same_nan and within and ok
+            and got.dtype == want.dtype and got.shape == want.shape):
+        raise AssertionError(f"{label}: fp8 kernel check failed")
+    return e_max, int(nan.sum())
+
+
+def check_flash_decode_kv8(dev):
+    """``flash_decode`` on float8_e4m3fn caches (``layers.to_kv``, a few
+    elements past 448 so that NaNs occur) at qwen1.5-32b's decode shapes
+    (the serve and long batches' caches and [2, 40, 4112, 128]; lengths 0,
+    1, partial and full, and as the model calls it, with ``end``), under
+    bf16 and float32 q, plus GQA, a rolled cache and rows that are not
+    16-byte aligned: each bit for bit the kernel on the widened caches and
+    within tolerance of the plain version. Then at [2, 40, 4112, 128],
+    length 4097: the fp8 kernel's time, the bf16 kernel's on the widened
+    caches, the plain version's, ``scaled_dot_product_attention``'s on the
+    widened caches with a mask of the live slots, and the bound (fp8 K/V
+    bytes). Returns the fp8 reading for flash_decode's kernels entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import ieee_float32
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_decode_plain
+
+    cfg = get_config(QWEN)
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    g = torch.Generator(device=dev).manual_seed(25)
+    bf16, f32 = torch.bfloat16, torch.float32
+    s_serve = longest_prompt(QWEN)
+    long_p, long_c = LONG[QWEN]
+    B_t, S_t, n_t = QWEN_TIMED
+
+    def lengths(B, S, full):
+        if full is not None:
+            return torch.full((B,), full, dtype=torch.int32, device=dev)
+        pick = [0, 1, S // 2 + 3, S, S - 1, 65, 64, 257]
+        return torch.tensor([min(pick[i % len(pick)], S) for i in range(B)],
+                            dtype=torch.int32, device=dev)
+
+    # (label, B, Hq, Hkv, S, D, q dtype, length of every row (None:
+    # mixed), end of every row (None: the first length slots), width of
+    # the cache rows (None: D))
+    cases = []
+    for dt in (bf16, f32):
+        name = str(dt)[6:]
+        cases += [
+            (f"{QWEN} serve decode, {name} q", SERVE_REQUESTS, hq, hkv,
+             SERVE_CACHE, d, dt, s_serve + 1, s_serve + 1, None),
+            (f"{QWEN} serve cache, mixed lengths, {name} q", SERVE_REQUESTS,
+             hq, hkv, SERVE_CACHE, d, dt, None, None, None),
+            (f"{QWEN} long decode, {name} q", LONG_BATCH, hq, hkv, long_c,
+             d, dt, long_p + 1, long_p + 1, None),
+            (f"timed cache, mixed lengths, {name} q", B_t, hq, hkv, S_t,
+             d, dt, None, None, None),
+            (f"timed cache, length {n_t}, {name} q", B_t, hq, hkv, S_t, d,
+             dt, n_t, n_t, None)]
+    cases += [("GQA G=4 across chunks, rolled cache, bf16 q", 4, 32, 8,
+               900, 128, bf16, 900, 2345, None),
+              ("rows not 16-byte aligned (plain loads), bf16 q", 8, 8, 2,
+               600, 128, bf16, None, None, 136),
+              ("D=40 (plain loads), mixed lengths, bf16 q", 8, 8, 2, 300,
+               40, bf16, None, None, None),
+              ("G=16 D=256, mixed lengths, float32 q", 4, 16, 1, 300, 256,
+               f32, None, None, None)]
+    max_err, n_nan = 0.0, 0
+    with ieee_float32():
+        for label, B, hq_, hkv_, S, d_, dt, full, last, width in cases:
+            q = head_split(B, 1, hq_, d_, dt, dev, g)[:, :, 0]
+            k8, v8 = fp8_caches(B, hkv_, S, d_, dev, g, width=width)
+            length = lengths(B, S, full)
+            end = (None if last is None else torch.full(
+                (B,), last, dtype=torch.int32, device=dev))
+            got = ops.flash_decode(q, k8, v8, length, end)
+            wid = ops.flash_decode(q, k8.to(dt), v8.to(dt), length, end)
+            want = flash_decode_plain(q, k8, v8, length, end)
+            zero = length == 0
+            if bool(zero.any()) and bool(got[zero].abs().max() != 0):
+                raise AssertionError(f"flash_decode fp8 {label}: length 0 "
+                                     f"did not give zeros")
+            e, n = kv8_check(f"flash_decode fp8 K/V {label} [{B}, {hq_}/"
+                             f"{hkv_}, {S}, {d_}] lengths "
+                             f"{length.tolist()} end {last}", got, wid,
+                             want, v8)
+            max_err, n_nan = max(max_err, e), n_nan + n
+            del q, k8, v8, got, wid, want
+    if n_nan == 0:
+        raise AssertionError("flash_decode fp8: no NaN reached an output")
+
+    # timed at [2, 40, 4112, 128], length 4097, as the model calls it
+    q = head_split(B_t, 1, hq, d, bf16, dev, g)[:, :, 0]
+    k8, v8 = fp8_caches(B_t, hkv, S_t, d, dev, g, n_big=0)
+    kb, vb = k8.to(bf16), v8.to(bf16)
+    length = lengths(B_t, S_t, n_t)
+    end = length.clone()
+    k_ms = cuda_ms(lambda: ops.flash_decode(q, k8, v8, length, end), 50)
+    w_ms = cuda_ms(lambda: ops.flash_decode(q, kb, vb, length, end), 50)
+    p_ms = cuda_ms(lambda: flash_decode_plain(q, k8, v8, length, end), 5)
+    mask = (torch.arange(S_t, device=dev)[None, :]
+            < length[:, None])[:, None, None, :]
+    q4 = q[:, :, None]
+    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, kb, vb, attn_mask=mask, enable_gqa=True), 50)
+    kd_ms, k_events = device_ms(
+        lambda: ops.flash_decode(q, k8, v8, length, end), 20)
+    wd_ms, _ = device_ms(lambda: ops.flash_decode(q, kb, vb, length, end),
+                         20)
+    n_bytes = 2 * B_t * hq * d * 2 + 2 * B_t * hkv * n_t * d
+    n_ops = 4 * B_t * hq * d * n_t
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    bound, by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                        else "operations")
+    w_bound = (n_bytes + 2 * B_t * hkv * n_t * d) / HBM_BYTES_PER_S * 1e3
+    print(f"flash_decode fp8 K/V q [{B_t}, {hq}, {d}] bf16, cache [{B_t}, "
+          f"{hkv}, {S_t}, {d}] float8_e4m3fn, length {n_t}: kernel "
+          f"{k_ms:.6f} ms ({n_bytes / k_ms * 1e-9:.3f} TB/s; device "
+          f"{kd_ms:.6f} ms: "
+          + ", ".join(f"{name[:40]} {t:.6f}" for name, t in k_events.items())
+          + f"), the bf16 kernel on the widened caches {w_ms:.6f} ms "
+          f"(device {wd_ms:.6f}; its bound {w_bound:.6f} ms), plain "
+          f"{p_ms:.6f} ms, scaled_dot_product_attention on the widened "
+          f"caches {l_ms:.6f} ms, bound {bound:.6f} ms by {by} (bytes "
+          f"{n_bytes}, operations {n_ops}); kernel at {bound / k_ms:.4f} of "
+          f"the bound, {k_ms / w_ms:.3f}x the bf16 kernel, "
+          f"{k_ms / l_ms:.3f}x the library call")
+    del q, k8, v8, kb, vb
+    torch.cuda.empty_cache()
+    return {"kv_dtype": "float8_e4m3fn", "shape": [B_t, hkv, S_t, d],
+            "length": n_t, "max_abs_err": max_err, "ms": k_ms,
+            "device_ms": finite(kd_ms), "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": l_ms,
+            "bf16_widened_ms": w_ms, "bf16_widened_device_ms": finite(wd_ms),
+            "bf16_widened_bound_ms": w_bound}
+
+
+def check_kv_cast(dev):
+    """``layers.to_kv`` on the card against the CPU, uint8 views equal: all
+    65,536 bf16 bit patterns and a float32 sample (10^6 values across
+    magnitudes 2^-20 .. 2^10, and 448, 464, 466, 480, +-inf, NaN, the fp8
+    subnormals and their ties). Prints whether bf16 casts take torch's own
+    cast on each device, and what torch's CUDA ``.to`` gives above 448
+    (torch's CPU cast saturates there where XLA's gives NaN)."""
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.models.layers import to_kv
+
+    fp8, u8 = torch.float8_e4m3fn, torch.uint8
+    bits = torch.arange(65536, dtype=torch.int32).to(torch.int16)
+    xb = bits.view(torch.bfloat16)
+    g = torch.Generator().manual_seed(26)
+    sample = (torch.randn(1_000_000, generator=g)
+              * torch.exp2(torch.randint(-20, 10, (1_000_000,),
+                                         generator=g).float()))
+    edge = torch.tensor([448.0, 456.0, 464.0, 464.00003, 466.0, 480.0,
+                         float("inf"), float("nan"), 2.0 ** -9, 2.0 ** -10,
+                         3 * 2.0 ** -10, 2.0 ** -6, 0.0, 1e-45])
+    xf = torch.cat([sample, edge, -edge])
+    ok = True
+    for label, x in (("bf16 bit patterns", xb), ("float32 sample", xf)):
+        host = to_kv(x, fp8).view(u8)
+        card = to_kv(x.to(dev), fp8).view(u8).cpu()
+        torch_cast = x.to(dev).to(fp8).view(u8).cpu()
+        same = bool(torch.equal(host, card))
+        ok = ok and same
+        diff = torch_cast != card
+        xs = x[diff].float()
+        print(f"to_kv {label}: card == CPU in all {x.numel()} {same}; "
+              f"torch's CUDA .to(float8_e4m3fn) differs in {int(diff.sum())}"
+              f" (|x| from {float(xs.abs().min()) if diff.any() else 0!r})")
+    print(f"to_kv: bf16 casts take torch's own cast on the card "
+          f"{layers._bf16_cast_is_xla(dev)}, on the CPU "
+          f"{layers._bf16_cast_is_xla(torch.device('cpu'))} (where it "
+          f"equals XLA's on every bf16 input)")
+    probe = torch.tensor([448.0, 464.0, 466.0, 480.0, 1e4, float("inf"),
+                          -float("inf"), float("nan")], device=dev)
+    print("torch's CUDA .to(float8_e4m3fn) of "
+          f"{probe.tolist()}: {[hex(int(b)) for b in probe.to(fp8).view(u8)]}"
+          f"; to_kv: {[hex(int(b)) for b in to_kv(probe, fp8).view(u8)]}")
+    if not ok:
+        raise AssertionError("to_kv: the card's cast differs from the CPU's")
+
+
 def check_linear_rows(dev):
     """The bf16 matmul kernel (tensor cores) on the serving path, and the
     repair of the bf16 prefill/decode gap. Against its plain version
@@ -2650,7 +2927,10 @@ def check_serve_logits(label, model, reqs, outs, cache_len):
     """The engine's batch once more by hand: finite logits, the engine's
     first tokens the prefill's argmax, and prefill(S) + decode_step within
     INCR_TOL of prefill(S+1), every logit (the reference suite's check, at
-    the full config in its working dtype). Returns the line's reading."""
+    the full config in its working dtype), bit for bit in bf16. Where the
+    cache has another dtype than the activations (qwen1.5-32b's fp8), the
+    decode step reads K/V that prefill(S+1) attends unrounded, so the gap
+    is a reading, not a gate. Returns the line's reading."""
     import torch
 
     toks = torch.from_numpy(padded(reqs)).to(model.device)
@@ -2669,9 +2949,12 @@ def check_serve_logits(label, model, reqs, outs, cache_len):
           f" bitwise equal {bitwise}")
     # in bf16 every kernel and row mean keeps one order per row whatever
     # the length, so the decode step is prefill(S+1)'s bits
-    if not (finite and same_first and ok
-            and (bitwise or model.cfg.dtype != "bfloat16")):
+    same_cache = model.cfg.kv_dtype == model.cfg.dtype
+    if not (finite and same_first and (ok or not same_cache)
+            and (bitwise or model.cfg.dtype != "bfloat16"
+                 or not same_cache)):
         raise AssertionError(f"serve {label}: logits check failed")
+    return line, gap
 
 
 def check_incremental_float32(arch, dev, seed):
@@ -2759,7 +3042,11 @@ def serve_full(arch, dev, seed):
     long batch where it has one) with every kernel's launch count, the
     logits checks, the decode step with fused activations, and for rwkv6
     and llama3-8b a profiler pass. Returns ({kernel: launches in the timed
-    batches}, {batch label: (completions, wall)})."""
+    batches}, {batch label: (completions, wall)}). An architecture whose
+    cache has another dtype than its activations (qwen1.5-32b's fp8) also
+    runs the same weights with a cache in the activations' dtype
+    (:func:`decode_against_prefill`, bit for bit)."""
+    import dataclasses
     import gc
 
     import torch
@@ -2770,6 +3057,8 @@ def serve_full(arch, dev, seed):
 
     cfg = get_config(arch)
     kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    if arch == QWEN:
+        memory_reckoning(arch, cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device=dev).init(
@@ -2799,8 +3088,18 @@ def serve_full(arch, dev, seed):
         runs[label] = (outs, wall)
         if arch in ("rwkv6-1.6b", "llama3-8b"):
             profile_serve(arch, engine, reqs, wall)
-        if label == "batch":
+        if label == "batch" and arch != QWEN:
             time_activations(arch, engine, reqs)
+        elif label == "batch":
+            time_kv_cast(arch, engine, reqs)
+        print(f"serve {arch} {label}: peak device memory so far "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    if cfg.kv_dtype != cfg.dtype:
+        # the same weights with a cache in the activations' dtype: each
+        # decode step prefill(S+1)'s bits again
+        model.cfg = dataclasses.replace(cfg, kv_dtype=cfg.dtype)
+        decode_against_prefill(f"{arch}, {cfg.dtype} cache", model)
+        model.cfg = cfg
     print(f"serve {arch}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     del model, engine
@@ -2809,23 +3108,18 @@ def serve_full(arch, dev, seed):
     return launches, runs
 
 
-def serve_short(arch, dev, seed):
-    """A dense architecture at full width and SHORT_LAYERS layers, bf16:
-    the serve batch's prefill and SHORT_DECODE greedy decode steps, each
-    step's logits held against the card's own prefill of the tokens so far
-    at INCR_TOL, every kernel's launches counted. Returns the launches."""
-    import dataclasses
-    import gc
-
+def decode_against_prefill(label, model):
+    """The serve batch's prefill and SHORT_DECODE greedy decode steps on
+    ``model`` (bf16), each step's logits bit for bit (and within INCR_TOL
+    of) the card's own prefill of the tokens so far, every kernel's
+    launches counted against ``expected_launches``. Raises on a miss;
+    returns the launches."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import Model
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=SHORT_LAYERS)
-    model = Model(cfg, device=dev).init(
-        torch.Generator(device=dev).manual_seed(seed))
+    cfg = model.cfg
+    dev = model.device
     reqs = serve_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, SHORT_DECODE,
                           SERVE_SEED)
     toks = torch.from_numpy(padded(reqs)).to(dev)
@@ -2853,18 +3147,79 @@ def serve_short(arch, dev, seed):
         readings.append(f"{int(bad.sum())} beyond (max abs diff "
                         f"{float((d - f).abs().max())!r}, bitwise equal "
                         f"{torch.equal(dec, full)})")
-    print(f"serve {arch} at {SHORT_LAYERS} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads, "
-          f"head_dim {cfg.hd}: prefill {S} tokens + {SHORT_DECODE} decode "
-          f"steps in {wall:.3f} s; each step against prefill(S+1) at "
+    print(f"serve {label} at {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} KV "
+          f"heads, head_dim {cfg.hd}: prefill {S} tokens + {SHORT_DECODE} "
+          f"decode steps in {wall:.3f} s; each step against prefill(S+1) at "
           f"INCR_TOL: {'; '.join(readings)}; launches {counts}")
-    del model, cache
+    del cache
+    if not ok:
+        raise AssertionError(f"serve {label}: decode steps != prefill(S+1)"
+                             f" (launches expected {want})")
+    return counts
+
+
+def serve_short(arch, dev, seed):
+    """A dense architecture at full width and SHORT_LAYERS layers, bf16:
+    :func:`decode_against_prefill`. Returns the launches."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=SHORT_LAYERS)
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    try:
+        return decode_against_prefill(arch, model)
+    finally:
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def memory_reckoning(arch, cfg):
+    """Prints what the full config takes on the card, from its parameter
+    shapes (a model on the meta device) and its caches, beside
+    ``torch.cuda.mem_get_info``, before its weights are drawn; raises if
+    another model is still resident (over 1 GiB allocated)."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.models.layers import dtype_of
+
+    meta = Model(cfg, device="meta")
+    n_params = sum(p.numel() for p in meta.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in meta.parameters())
+    kv = torch.empty((), dtype=dtype_of(cfg.kv_dtype)).element_size()
+    per_slot = 2 * cfg.num_kv_heads * cfg.hd * len(cfg.attn_layers) * kv
+    gib = 2 ** 30
+    caches = "; ".join(
+        f"{label} {B} x {c} slots {B * c * per_slot / gib:.3f} GiB"
+        for label, B, c in (("serve batch", SERVE_REQUESTS, SERVE_CACHE),
+                            ("long batch", LONG_BATCH, LONG[arch][1]),
+                            ("a 2 x 4112 batch", 2, 4112)))
+    print(f"serve {arch} memory reckoning: {n_params} parameters, "
+          f"{n_bytes} bytes ({n_bytes / 1e9:.3f} GB, {n_bytes / gib:.3f} "
+          f"GiB); a {cfg.kv_dtype} cache of {per_slot} bytes a request and "
+          f"slot over {len(cfg.attn_layers)} layers: {caches} "
+          f"(check_serve_logits holds two at once)")
+    del meta
     gc.collect()
     torch.cuda.empty_cache()
-    if not ok:
-        raise AssertionError(f"serve {arch}: short run failed (launches "
-                             f"expected {want})")
-    return counts
+    free, total = torch.cuda.mem_get_info()
+    held = torch.cuda.memory_allocated()
+    print(f"serve {arch}: before the draw torch.cuda.mem_get_info "
+          f"{free} of {total} bytes free ({free / gib:.3f} of "
+          f"{total / gib:.3f} GiB); {held} bytes allocated by this process")
+    if held > gib:
+        raise AssertionError(f"serve {arch}: {held} bytes still "
+                             f"allocated before the draw")
 
 
 def time_activations(arch, engine, reqs, n=3):
@@ -2906,6 +3261,49 @@ def time_activations(arch, engine, reqs, n=3):
           f"fused {med['fused']:.3f} (runs "
           f"{', '.join(f'{x:.3f}' for x in per_step['fused'])}): the "
           f"expansion costs {med['ported'] - med['fused']:.3f} ms per step")
+
+
+def time_kv_cast(arch, engine, reqs, n=2):
+    """The fp8-cache decode step with its bf16 K/V rows cast by torch's own
+    kernel (``layers.to_kv``'s path on a device where that cast equals
+    XLA's on every bf16 input) against the cast on the float32 bits
+    (``layers._to_e4m3fn``, ~15 elementwise ops a call, two calls a
+    layer): ``n`` ``generate_batch`` calls each, alternating, the same
+    tokens required; prints each one's median decode ms per step."""
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.models import layers
+
+    dev = engine.model.device
+    if not layers._bf16_cast_is_xla(dev):
+        print(f"serve {arch} K/V cast: torch's cast differs from XLA's on "
+              f"this card; every cast takes the float32-bit path")
+        return
+    steps = max(r.max_new_tokens for r in reqs)
+    per_step, tokens = {"torch": [], "bits": []}, {}
+    try:
+        for _ in range(n):
+            for name, fast in (("torch", True), ("bits", False)):
+                layers._BF16_CAST_IS_XLA[dev] = fast
+                outs = engine.generate_batch(reqs)
+                per_step[name].append(outs[0].decode_s / steps * 1e3)
+                tokens[name] = [c.tokens for c in outs]
+    finally:
+        layers._BF16_CAST_IS_XLA[dev] = True
+    same = all(np.array_equal(a, b)
+               for a, b in zip(tokens["torch"], tokens["bits"]))
+    med = {k: statistics.median(v) for k, v in per_step.items()}
+    print(f"serve {arch} K/V cast: decode ms per step, torch's cast "
+          f"{med['torch']:.3f} (runs "
+          f"{', '.join(f'{x:.3f}' for x in per_step['torch'])}), the "
+          f"float32-bit cast {med['bits']:.3f} (runs "
+          f"{', '.join(f'{x:.3f}' for x in per_step['bits'])}): "
+          f"{med['bits'] - med['torch']:.3f} ms per step; the same tokens "
+          f"{same}")
+    if not same:
+        raise AssertionError(f"serve {arch}: the two casts' tokens differ")
 
 
 def profile_serve(arch, engine, reqs, wall):
@@ -3459,6 +3857,8 @@ def main() -> int:
     bf16_matmul = check_linear_rows(dev)
     kernels.append(check_flash_attention(dev))
     kernels.append(check_flash_decode(dev))
+    kv8 = check_flash_decode_kv8(dev)
+    check_kv_cast(dev)
     kernels.append(check_rglru(dev))
     kernels.append(check_rwkv6(dev))
     t0 = time.perf_counter()
@@ -3477,6 +3877,15 @@ def main() -> int:
           f"in the timed serve batches {serve_launches}")
 
     lap("8 serving path")
+    # -- 8b. qwen1.5-32b at full width and depth, its fp8 cache ------------
+    t0 = time.perf_counter()
+    qwen_launches, _ = serve_full(QWEN, dev, 40)
+    for k, n in qwen_launches.items():
+        serve_launches[k] = serve_launches.get(k, 0) + n
+    check_serve_against_cpu(QWEN, dev, 41)
+    print(f"serve {QWEN}: phase wall {time.perf_counter() - t0:.3f} s; "
+          f"launches in its timed batches {qwen_launches}")
+    lap("8b qwen1.5-32b")
     # -- 9. result ------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main path of its slice: acd_evict on
@@ -3501,7 +3910,12 @@ def main() -> int:
     by_name["matmul"]["bf16"] = bf16_matmul
     for name in ("flash_attention", "flash_decode", "rglru", "rwkv6"):
         by_name[name]["launches"] = serve_launches[name]
+    # the fp8 reading: flash_decode's launches on qwen1.5-32b's fp8 caches
+    by_name["flash_decode"]["kv8"] = dict(
+        kv8, launches=qwen_launches["flash_decode"])
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if qwen_launches["flash_decode"] <= 0:
+        missing.append("flash_decode (float8_e4m3fn caches)")
     if missing or len(kernels) != 7:
         raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")

@@ -2,8 +2,9 @@
 
 ``ARCHS`` lists the architectures the port can run: the recurrent and
 hybrid ones (``rwkv6-1.6b``, ``recurrentgemma-9b``) and the dense ones
-whose attention, norms and FFNs it has (``llama3-8b``, ``stablelm-12b``,
-``starcoder2-15b``). The reference registers five more;
+(``llama3-8b``, ``stablelm-12b``, ``starcoder2-15b``, and ``qwen1.5-32b``
+with its ``float8_e4m3fn`` KV cache). The reference registers four more,
+the MoE, encoder-decoder and vision ones;
 :func:`get_config` and :func:`get_smoke_config` name the ROADMAP item that
 brings each of them.
 
@@ -20,8 +21,8 @@ import dataclasses
 from typing import Dict
 
 from ..models.config import ModelConfig
-from . import (llama3_8b, recurrentgemma_9b, rwkv6_1_6b, stablelm_12b,
-               starcoder2_15b)
+from . import (llama3_8b, qwen1_5_32b, recurrentgemma_9b, rwkv6_1_6b,
+               stablelm_12b, starcoder2_15b)
 
 _MODULES = {
     "llama3-8b": llama3_8b,
@@ -29,12 +30,11 @@ _MODULES = {
     "rwkv6-1.6b": rwkv6_1_6b,
     "stablelm-12b": stablelm_12b,
     "starcoder2-15b": starcoder2_15b,
+    "qwen1.5-32b": qwen1_5_32b,
 }
 
 #: the reference's other architectures -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "qwen1.5-32b": ("ROADMAP Queue 1 item 7 (its float8_e4m3fn KV "
-                    "cache through the attention kernels)"),
     "olmoe-1b-7b": "ROADMAP Queue 1 item 8 (MoE layers)",
     "arctic-480b": "ROADMAP Queue 1 item 8 (MoE layers)",
     "whisper-large-v3": "ROADMAP Queue 1 item 9 (the encoder-decoder)",

@@ -157,14 +157,16 @@ def _leaves(tree, prefix: str = ""):
 
 
 def tensor_from_array(a, device=None) -> torch.Tensor:
-    """A numpy array as a tensor on ``device``; bfloat16 arrays (numpy's
-    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects) cross as
-    their 16-bit patterns."""
+    """A numpy array as a tensor on ``device``; bfloat16 and float8_e4m3fn
+    arrays (``ml_dtypes`` types, which ``torch.from_numpy`` rejects) cross
+    as their 16- and 8-bit patterns."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:  # torch.from_numpy needs a writable buffer
         a = a.copy()
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(a)
     return t.to(device)

@@ -3,8 +3,10 @@
 // :88).
 //
 // What it computes. q is [B, Hq, D] (one new token per head), k and v
-// [B, Hkv, S, D] caches, all float32 or all bf16, each read through its
-// own element strides (unit stride along D); length is [B] int32 on the
+// [B, Hkv, S, D] caches, all float32 or all bf16, or k and v both
+// float8_e4m3fn under a float32 or bf16 q (a model's fp8 KV cache), each
+// read through its own element strides (unit stride along D); length is
+// [B] int32 on the
 // device, and so is end. Row b has n = min(max(length[b], 0), S) live
 // keys: the key positions max(end[b] - n, 0) .. end[b] - 1, position P
 // stored at slot P % S (the model's caches, rolled for a sliding window).
@@ -53,6 +55,23 @@
 // thread keeps up to kAcc float32 accumulators of the [G, D] output in
 // registers. Only B x Hkv blocks run.
 //
+// fp8 K/V (the _kv8 entry points). The cache is widened exactly on load
+// and nothing else changes: e4m3 -> half (cvt.f16x2.e4m3x2) -> bf16 or
+// float32 loses no bit, so the kernel on fp8 caches equals, bit for bit,
+// the same kernel on the caches widened first (k.to(bf16) / k.float()),
+// and rounds neither q nor p to fp8 (the TPU kernel's astype(float32); the
+// fp8 tensor-core mma would round both). bf16 q: each 64-key tile's fp8 K
+// and V rows are staged by 16-byte cp.async copies into a two-stage byte
+// ring (a D = 128 row is 128 B, 8 copies; rows 16-byte aligned when the
+// strides are multiples of 16 elements), and after the barrier that sees
+// a tile land one pass widens it, 8 elements a thread-step, into the one
+// bf16 K/V tile that qk_tile / softmax_pv read; a second barrier publishes
+// it. Without that alignment (or D % 16 != 0) the pass widens element by
+// element from global memory. float32 q: the CUDA-core kernel widens each
+// element to float32 as it stages the tile. fp8 halves the bytes that
+// bound the call: qwen1.5-32b's 2 x 40 x 4097 x 128 live keys and values
+// are 83.9 MB, 25 us at 3.35 TB/s (50 us in bf16).
+//
 // Exactness. Built with --fmad=false; the fused multiply-adds are the
 // explicit fmaf of the float32 dots and p . v sums, and the tensor cores'
 // own; expf is the accurate one. Against the plain version
@@ -65,7 +84,9 @@
 // flash_attention.cu and attention_mma.cuh).
 //
 // C interface (loaded with ctypes): flash_decode_f32 / flash_decode_bf16
-// take device pointers q, k, v, length, end, out, the sizes
+// (and flash_decode_f32_kv8 / flash_decode_bf16_kv8, the same arguments
+// with k and v float8_e4m3fn) take device pointers q, k, v, length, end,
+// out, the sizes
 // B, Hq, Hkv, S, D, scale, the element strides of q along (b, h) and of k
 // and v along (b, h, s) as host arrays of long long, flash_decode_bf16
 // then the float32 scratch part_m and part_l [B * Hq * chunks] and
@@ -74,12 +95,43 @@
 // success). The launch is asynchronous.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <float.h>
+
+#include <type_traits>
 
 #include "attention_mma.cuh"
 
 namespace {
+
+// one float8_e4m3fn element (its bits), the fp8 caches' element type
+struct e4m3 {
+  unsigned char bits;
+};
+static_assert(sizeof(e4m3) == 1, "fp8 elements are bytes");
+
+// e4m3 -> half is exact, and so is half -> float and -> bf16
+__device__ __forceinline__ float widen(e4m3 x) {
+  return __half2float(
+      __half(__nv_cvt_fp8_to_halfraw(x.bits, __NV_E4M3)));
+}
+
+// 8 fp8 elements (a uint2, the first in the low byte) -> 8 bf16 (a uint4)
+__device__ __forceinline__ uint4 widen8(uint2 w) {
+  uint32_t out[4];
+  const uint32_t in[2] = {w.x, w.y};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2 h = __half2(__nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(in[i / 2] >> (16 * (i % 2))),
+        __NV_E4M3));
+    const float2 f = __half22float2(h);
+    out[i] = attn::bf16x2(f.x, f.y);
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -88,6 +140,7 @@ constexpr int kAcc = 32;    // accumulators per thread: G * DPAD <= 8192
 constexpr float kMasked = -0.7f * FLT_MAX;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(e4m3 v) { return widen(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
 template <int DPAD>
@@ -96,10 +149,10 @@ int smem_bytes(int G) {
           3 * G) * static_cast<int>(sizeof(float));
 }
 
-template <typename T, int DPAD>
+template <typename T, typename KV, int DPAD>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ length,
+flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                    const KV* __restrict__ v, const int* __restrict__ length,
                     const int* __restrict__ end, T* __restrict__ out, int G,
                     int S, int D, float scale, long long qb_s,
                     long long qh_s, long long kb_s, long long kh_s,
@@ -122,8 +175,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n = max(0, min(length[b], S));
   const int hi = end[b];  // live positions [lo, hi)
   const int lo = max(0, hi - n);
-  const T* kb = k + b * kb_s + h * kh_s;
-  const T* vb = v + b * vb_s + h * vh_s;
+  const KV* kb = k + b * kb_s + h * kh_s;
+  const KV* vb = v + b * vb_s + h * vh_s;
 
   for (int e = tid; e < G * DPAD; e += kThreads) {
     const int g = e / DPAD, d = e % DPAD;
@@ -214,8 +267,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DPAD>
-int launch_d(const T* q, const T* k, const T* v, const int* length,
+template <typename T, typename KV, int DPAD>
+int launch_d(const T* q, const KV* k, const KV* v, const int* length,
              const int* end, T* out, int B, int Hq, int Hkv, int S, int D,
              float scale, const long long* st_q, const long long* st_k,
              const long long* st_v, cudaStream_t stream) {
@@ -223,7 +276,7 @@ int launch_d(const T* q, const T* k, const T* v, const int* length,
   if (G * DPAD > kAcc * kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   const int bytes = smem_bytes<DPAD>(G);
-  auto kernel = flash_decode_kernel<T, DPAD>;
+  auto kernel = flash_decode_kernel<T, KV, DPAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -234,8 +287,8 @@ int launch_d(const T* q, const T* k, const T* v, const int* length,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const T* q, const T* k, const T* v, const int* length,
+template <typename T, typename KV>
+int launch(const T* q, const KV* k, const KV* v, const int* length,
            const int* end, T* out, int B, int Hq, int Hkv, int S, int D,
            float scale, const long long* st_q, const long long* st_k,
            const long long* st_v, void* stream) {
@@ -245,16 +298,16 @@ int launch(const T* q, const T* k, const T* v, const int* length,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 32)
-    return launch_d<T, 32>(q, k, v, length, end, out, B, Hq, Hkv, S, D,
-                           scale, st_q, st_k, st_v, s);
+    return launch_d<T, KV, 32>(q, k, v, length, end, out, B, Hq, Hkv, S, D,
+                               scale, st_q, st_k, st_v, s);
   if (D <= 64)
-    return launch_d<T, 64>(q, k, v, length, end, out, B, Hq, Hkv, S, D,
-                           scale, st_q, st_k, st_v, s);
+    return launch_d<T, KV, 64>(q, k, v, length, end, out, B, Hq, Hkv, S, D,
+                               scale, st_q, st_k, st_v, s);
   if (D <= 128)
-    return launch_d<T, 128>(q, k, v, length, end, out, B, Hq, Hkv, S, D,
-                            scale, st_q, st_k, st_v, s);
-  return launch_d<T, 256>(q, k, v, length, end, out, B, Hq, Hkv, S, D,
-                          scale, st_q, st_k, st_v, s);
+    return launch_d<T, KV, 128>(q, k, v, length, end, out, B, Hq, Hkv, S,
+                                D, scale, st_q, st_k, st_v, s);
+  return launch_d<T, KV, 256>(q, k, v, length, end, out, B, Hq, Hkv, S, D,
+                              scale, st_q, st_k, st_v, s);
 }
 
 // ---- bf16: the tensor cores, split over the cache ---------------------------
@@ -270,10 +323,63 @@ __host__ __device__ constexpr int dec_warps() {
   return DP >= 64 ? 4 : DP / 16;
 }
 
-template <int DP>
+// bf16 K/V: q [16][P] and a two-stage ring of K and V tiles; fp8 K/V: q,
+// one bf16 K and V tile, and a two-stage byte ring of the fp8 K and V rows
+template <int DP, bool kKV8>
 __host__ __device__ constexpr int dec_smem_bytes() {
-  return (16 + 4 * attn::kTile) * attn::pitch<DP>() *
-         static_cast<int>(sizeof(attn::bf16));
+  return (16 + (kKV8 ? 2 : 4) * attn::kTile) * attn::pitch<DP>() *
+             static_cast<int>(sizeof(attn::bf16)) +
+         (kKV8 ? 4 * attn::kTile * DP : 0);
+}
+
+// kTile fp8 rows into dst ([kTile][DP] bytes) by 16-byte cp.async copies:
+// row r from row_src(r), zeros where it returns nullptr (D % 16 == 0)
+template <int DP, int NTHREADS, typename RowSrc>
+__device__ __forceinline__ void stage_rows8(unsigned char* dst, int D,
+                                            const e4m3* any,
+                                            RowSrc row_src, int tid) {
+  constexpr int NCH = DP / 16;  // 16-byte chunks of a padded row
+#pragma unroll
+  for (int e0 = 0; e0 < attn::kTile * NCH; e0 += NTHREADS) {
+    const int e = e0 + tid, r = e / NCH, c = e % NCH;
+    if ((attn::kTile * NCH) % NTHREADS != 0 && e >= attn::kTile * NCH) break;
+    if (c * 16 >= D) continue;
+    const e4m3* src = row_src(r);
+    attn::cp_async16(reinterpret_cast<attn::bf16*>(dst + r * DP + c * 16),
+                     reinterpret_cast<const attn::bf16*>(
+                         src ? src + c * 16 : any),
+                     src ? 16 : 0);
+  }
+}
+
+// the staged rows ([kTile][DP] bytes) widened into a bf16 tile ([kTile][DP]
+// at pitch DP + 8), columns 0 .. D - 1, 8 a step
+template <int DP, int NTHREADS>
+__device__ __forceinline__ void widen_rows8(attn::bf16* dst,
+                                            const unsigned char* src, int D,
+                                            int tid) {
+  constexpr int P = attn::pitch<DP>();
+  constexpr int NCH = DP / 8;
+#pragma unroll 4
+  for (int e = tid; e < attn::kTile * NCH; e += NTHREADS) {
+    const int r = e / NCH, c = e % NCH;
+    if (c * 8 >= D) continue;
+    *reinterpret_cast<uint4*>(dst + r * P + c * 8) =
+        widen8(*reinterpret_cast<const uint2*>(src + r * DP + c * 8));
+  }
+}
+
+// kTile fp8 rows widened from global memory element by element (rows not
+// 16-byte aligned), zeros where row_src returns nullptr
+template <int DP, int NTHREADS, typename RowSrc>
+__device__ __forceinline__ void widen_rows_plain(attn::bf16* dst, int D,
+                                                 RowSrc row_src, int tid) {
+  constexpr int P = attn::pitch<DP>();
+  for (int e = tid; e < attn::kTile * D; e += NTHREADS) {
+    const int r = e / D, d = e - r * D;
+    const e4m3* src = row_src(r);
+    dst[r * P + d] = __float2bfloat16_rn(src ? widen(src[d]) : 0.0f);
+  }
 }
 
 // row b's live positions [lo, hi) and the chunks they span
@@ -292,11 +398,11 @@ __device__ __forceinline__ LiveRange live_range(const int* length,
   return r;
 }
 
-template <int DP>
+template <int DP, typename KV>
 __global__ void __launch_bounds__(128)
 flash_decode_mma(const attn::bf16* __restrict__ q,
-                 const attn::bf16* __restrict__ k,
-                 const attn::bf16* __restrict__ v,
+                 const KV* __restrict__ k,
+                 const KV* __restrict__ v,
                  const int* __restrict__ length,
                  const int* __restrict__ end, float* __restrict__ part_m,
                  float* __restrict__ part_l, float* __restrict__ part_acc,
@@ -306,12 +412,17 @@ flash_decode_mma(const attn::bf16* __restrict__ q,
                  long long vs_s, int vec) {
   using attn::bf16;
   using attn::kTile;
+  constexpr bool kKV8 = std::is_same<KV, e4m3>::value;
   constexpr int P = attn::pitch<DP>();
   constexpr int NW = dec_warps<DP>();
   constexpr int NT = DP / 8 / NW;  // n8 tiles of output per warp
   extern __shared__ __align__(16) unsigned char fd_smem[];
   bf16* qs = reinterpret_cast<bf16*>(fd_smem);  // [16][P]
-  bf16* ring = qs + 16 * P;  // 2 x (K [kTile][P], V [kTile][P])
+  // bf16: 2 x (K [kTile][P], V [kTile][P]); fp8: one K and V tile
+  bf16* ring = qs + 16 * P;
+  // fp8: 2 x (K [kTile][DP], V [kTile][DP]) bytes, as they arrive
+  unsigned char* stage =
+      reinterpret_cast<unsigned char*>(ring + (kKV8 ? 2 : 4) * kTile * P);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int c = blockIdx.x, b = blockIdx.z;
@@ -325,32 +436,58 @@ flash_decode_mma(const attn::bf16* __restrict__ q,
   const int p_hi = min(lr.hi, (cc + 1) * attn::kChunk);
   const int t0 = p_lo / kTile, t1 = (p_hi + kTile - 1) / kTile;
   const bf16* qb = q + b * qb_s + (h * G + g0) * qh_s;
-  const bf16* kb = k + b * kb_s + h * kh_s;
-  const bf16* vb = v + b * vb_s + h * vh_s;
+  const KV* kb = k + b * kb_s + h * kh_s;
+  const KV* vb = v + b * vb_s + h * vh_s;
+  // the cache rows of tile t's keys (nullptr outside the chunk's range)
+  auto k_row = [=](int t) {
+    return [=](int r) -> const KV* {
+      const int pos = t * kTile + r;
+      return pos >= p_lo && pos < p_hi ? kb + (pos % S) * ks_s : nullptr;
+    };
+  };
+  auto v_row = [=](int t) {
+    return [=](int r) -> const KV* {
+      const int pos = t * kTile + r;
+      return pos >= p_lo && pos < p_hi ? vb + (pos % S) * vs_s : nullptr;
+    };
+  };
 
-  attn::zero_smem(fd_smem, dec_smem_bytes<DP>(), tid, 32 * NW);
+  attn::zero_smem(fd_smem, dec_smem_bytes<DP, kKV8>(), tid, 32 * NW);
   __syncthreads();
   attn::load_rows<DP, 16, 32 * NW>(
       qs, D, vec, qb, [=](int r) -> const bf16* {
         return r < rows ? qb + r * qh_s : nullptr;
       }, tid);
-  // tile t's K and V in ring[t % 2]; nothing past t1
+  // bf16: tile t's K and V into ring[t % 2]; fp8: its rows into stage[t %
+  // 2] (vec; else nothing: widen_tile reads them); nothing past t1
   auto load_tile = [&](int t) {
     if (t >= t1) return;
-    bf16* ks = ring + (t & 1) * 2 * kTile * P;
-    const int j0 = t * kTile;
-    attn::load_rows<DP, kTile, 32 * NW>(
-        ks, D, vec, kb, [=](int r) -> const bf16* {
-          const int pos = j0 + r;
-          return pos >= p_lo && pos < p_hi ? kb + (pos % S) * ks_s
-                                           : nullptr;
-        }, tid);
-    attn::load_rows<DP, kTile, 32 * NW>(
-        ks + kTile * P, D, vec, vb, [=](int r) -> const bf16* {
-          const int pos = j0 + r;
-          return pos >= p_lo && pos < p_hi ? vb + (pos % S) * vs_s
-                                           : nullptr;
-        }, tid);
+    if constexpr (kKV8) {
+      if (vec) {
+        unsigned char* st = stage + (t & 1) * 2 * kTile * DP;
+        stage_rows8<DP, 32 * NW>(st, D, kb, k_row(t), tid);
+        stage_rows8<DP, 32 * NW>(st + kTile * DP, D, vb, v_row(t), tid);
+      }
+    } else {
+      bf16* ks = ring + (t & 1) * 2 * kTile * P;
+      attn::load_rows<DP, kTile, 32 * NW>(ks, D, vec, kb, k_row(t), tid);
+      attn::load_rows<DP, kTile, 32 * NW>(ks + kTile * P, D, vec, vb,
+                                          v_row(t), tid);
+    }
+  };
+  // fp8: tile t widened into the bf16 tile (its stage has landed and every
+  // warp is done with tile t - 1)
+  auto widen_tile = [&](int t) {
+    if constexpr (kKV8) {
+      if (vec) {
+        const unsigned char* st = stage + (t & 1) * 2 * kTile * DP;
+        widen_rows8<DP, 32 * NW>(ring, st, D, tid);
+        widen_rows8<DP, 32 * NW>(ring + kTile * P, st + kTile * DP, D, tid);
+      } else {
+        widen_rows_plain<DP, 32 * NW>(ring, D, k_row(t), tid);
+        widen_rows_plain<DP, 32 * NW>(ring + kTile * P, D, v_row(t), tid);
+      }
+    }
   };
   load_tile(t0);
   attn::cp_async_commit();
@@ -367,7 +504,11 @@ flash_decode_mma(const attn::bf16* __restrict__ q,
     __syncthreads();  // tile t landed; every warp is done with tile t - 1
     load_tile(t + 1);  // into tile t - 1's place
     attn::cp_async_commit();
-    const bf16* ks = ring + (t & 1) * 2 * kTile * P;
+    if constexpr (kKV8) {
+      widen_tile(t);
+      __syncthreads();  // the widened tile, for every warp
+    }
+    const bf16* ks = ring + (kKV8 ? 0 : (t & 1) * 2 * kTile * P);
     const int j0 = t * kTile;
     auto live = [=](int, int col) {
       const int pos = j0 + col;
@@ -431,25 +572,30 @@ flash_decode_merge(const float* __restrict__ part_m,
   }
 }
 
-template <int DP>
-int launch_mma_d(const attn::bf16* q, const attn::bf16* k,
-                 const attn::bf16* v, const int* length, const int* end,
+template <int DP, typename KV>
+int launch_mma_d(const attn::bf16* q, const KV* k,
+                 const KV* v, const int* length, const int* end,
                  attn::bf16* out, float* part_m, float* part_l,
                  float* part_acc, int B, int Hq, int Hkv, int S, int D,
                  float scale, const long long* st_q, const long long* st_k,
                  const long long* st_v, cudaStream_t stream) {
   const int n_chunks = chunks(S);
   if (n_chunks > 0) {
-    constexpr int bytes = dec_smem_bytes<DP>();
-    auto kernel = flash_decode_mma<DP>;
+    constexpr bool kKV8 = std::is_same<KV, e4m3>::value;
+    constexpr int bytes = dec_smem_bytes<DP, kKV8>();
+    auto kernel = flash_decode_mma<DP, KV>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int vec = D % 8 == 0 && attn::aligned16(q, st_q[1]) &&
-                    st_q[0] % 8 == 0 && attn::aligned16(k, st_k[2]) &&
-                    st_k[0] % 8 == 0 && st_k[1] % 8 == 0 &&
-                    attn::aligned16(v, st_v[2]) && st_v[0] % 8 == 0 &&
-                    st_v[1] % 8 == 0;
+    // 16-byte copies: 8 bf16 or 16 fp8 elements
+    constexpr int kv_vec = kKV8 ? 16 : 8;
+    auto rows16 = [](const void* p, const long long* st) {
+      return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+             st[0] % kv_vec == 0 && st[1] % kv_vec == 0 &&
+             st[2] % kv_vec == 0;
+    };
+    const int vec = D % kv_vec == 0 && attn::aligned16(q, st_q[1]) &&
+                    st_q[0] % 8 == 0 && rows16(k, st_k) && rows16(v, st_v);
     const int G = Hq / Hkv;
     const dim3 grid(n_chunks, Hkv * ((G + 15) / 16), B);
     kernel<<<grid, 32 * dec_warps<DP>(), bytes, stream>>>(
@@ -464,7 +610,8 @@ int launch_mma_d(const attn::bf16* q, const attn::bf16* k,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_mma(const attn::bf16* q, const attn::bf16* k, const attn::bf16* v,
+template <typename KV>
+int launch_mma(const attn::bf16* q, const KV* k, const KV* v,
                const int* length, const int* end, attn::bf16* out,
                float* part_m, float* part_l, float* part_acc, int B, int Hq,
                int Hkv, int S, int D, float scale, const long long* st_q,
@@ -479,12 +626,12 @@ int launch_mma(const attn::bf16* q, const attn::bf16* k, const attn::bf16* v,
   q, k, v, length, end, out, part_m, part_l, part_acc, B, Hq, Hkv, S, D, \
       scale, st_q, st_k, st_v, s
   switch (attn::padded_dim(D)) {
-    case 16: return launch_mma_d<16>(FD_ARGS);
-    case 32: return launch_mma_d<32>(FD_ARGS);
-    case 64: return launch_mma_d<64>(FD_ARGS);
-    case 128: return launch_mma_d<128>(FD_ARGS);
-    case 160: return launch_mma_d<160>(FD_ARGS);
-    default: return launch_mma_d<256>(FD_ARGS);
+    case 16: return launch_mma_d<16, KV>(FD_ARGS);
+    case 32: return launch_mma_d<32, KV>(FD_ARGS);
+    case 64: return launch_mma_d<64, KV>(FD_ARGS);
+    case 128: return launch_mma_d<128, KV>(FD_ARGS);
+    case 160: return launch_mma_d<160, KV>(FD_ARGS);
+    default: return launch_mma_d<256, KV>(FD_ARGS);
   }
 #undef FD_ARGS
 }
@@ -501,6 +648,19 @@ extern "C" int flash_decode_f32(const float* q, const float* k,
                        st_q, st_k, st_v, stream);
 }
 
+extern "C" int flash_decode_f32_kv8(const float* q, const void* k,
+                                    const void* v, const int* length,
+                                    const int* end, float* out, int B,
+                                    int Hq, int Hkv, int S, int D,
+                                    float scale, const long long* st_q,
+                                    const long long* st_k,
+                                    const long long* st_v, void* stream) {
+  return launch<float, e4m3>(q, static_cast<const e4m3*>(k),
+                             static_cast<const e4m3*>(v), length, end, out,
+                             B, Hq, Hkv, S, D, scale, st_q, st_k, st_v,
+                             stream);
+}
+
 extern "C" int flash_decode_chunks(int S) { return chunks(S); }
 
 extern "C" int flash_decode_bf16(const __nv_bfloat16* q,
@@ -514,4 +674,19 @@ extern "C" int flash_decode_bf16(const __nv_bfloat16* q,
                                  void* stream) {
   return launch_mma(q, k, v, length, end, out, part_m, part_l, part_acc, B,
                     Hq, Hkv, S, D, scale, st_q, st_k, st_v, stream);
+}
+
+extern "C" int flash_decode_bf16_kv8(const __nv_bfloat16* q, const void* k,
+                                     const void* v, const int* length,
+                                     const int* end, __nv_bfloat16* out,
+                                     int B, int Hq, int Hkv, int S, int D,
+                                     float scale, const long long* st_q,
+                                     const long long* st_k,
+                                     const long long* st_v, float* part_m,
+                                     float* part_l, float* part_acc,
+                                     void* stream) {
+  return launch_mma(q, static_cast<const e4m3*>(k),
+                    static_cast<const e4m3*>(v), length, end, out, part_m,
+                    part_l, part_acc, B, Hq, Hkv, S, D, scale, st_q, st_k,
+                    st_v, stream);
 }

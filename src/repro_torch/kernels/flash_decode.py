@@ -3,11 +3,13 @@
 
 Port of the Pallas kernel ``src/repro/kernels/flash_decode.py:
 flash_decode``: one new token per query head against a KV cache, reading
-q, k and v through their strides. bf16 runs on the tensor cores, one block
-per (256-position chunk of the live range, KV head and group of up to 16
-query heads, batch row), each writing a partial to float32 scratch that
-:func:`launch` allocates, then a merge kernel (both in one C call); float32
-runs one CUDA-core block per (KV head, batch row). This module only
+q, k and v through their strides; float8_e4m3fn caches are widened
+exactly on load (the ``_kv8`` entry points). bf16 runs on the tensor
+cores, one block per (256-position chunk of the live range, KV head and
+group of up to 16 query heads, batch row), each writing a partial to
+float32 scratch that :func:`launch` allocates, then a merge kernel (both
+in one C call); float32 runs one CUDA-core block per (KV head, batch
+row). This module only
 launches; :func:`repro_torch.kernels.ops.flash_decode` is the checked
 public wrapper that ``models/model.py`` calls.
 """
@@ -29,17 +31,22 @@ _ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
 _FNS = {}
 
 
-def _fn(dtype: torch.dtype):
-    fn = _FNS.get(dtype)
+def _fn(q_dtype: torch.dtype, kv_dtype: torch.dtype):
+    """The C entry point for q's and the caches' dtypes: ``_f32`` /
+    ``_bf16``, with ``_kv8`` for float8_e4m3fn caches."""
+    fn = _FNS.get((q_dtype, kv_dtype))
     if fn is None:
         lib = build.load("flash_decode")
-        if dtype == torch.float32:
-            fn, scratch = lib.flash_decode_f32, []
-        else:  # part_m, part_l, part_acc
-            fn, scratch = lib.flash_decode_bf16, [_P, _P, _P]
+        name = ("flash_decode_f32" if q_dtype == torch.float32
+                else "flash_decode_bf16")
+        if kv_dtype == torch.float8_e4m3fn:
+            name += "_kv8"
+        fn = getattr(lib, name)
+        # bf16: the scratch part_m, part_l, part_acc
+        scratch = [] if q_dtype == torch.float32 else [_P, _P, _P]
         fn.argtypes = _ARGTYPES + scratch + [_P]
         fn.restype = ctypes.c_int
-        _FNS[dtype] = fn
+        _FNS[q_dtype, kv_dtype] = fn
     return fn
 
 
@@ -72,7 +79,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            out: torch.Tensor) -> None:
     """Launch the kernel on the current stream: ``out`` [B, Hq, D] (dense)
     gets the attention of ``q`` [B, Hq, D] over the live keys of ``k``/``v``
-    [B, Hkv, S, D] (each read through its strides): the last
+    [B, Hkv, S, D] (q's dtype or float8_e4m3fn, each read through its
+    strides): the last
     n = min(length[b], S) positions before ``end[b]``, position P at slot
     P % S. The caller has checked devices, dtypes, shapes and the unit
     stride along D; raises if the launch reports a CUDA error (also, in
@@ -88,10 +96,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scratch = [part.data_ptr(), part[n:].data_ptr(),
                    part[2 * n:].data_ptr()]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       length.data_ptr(), end.data_ptr(), out.data_ptr(),
-                       B, Hq, Hkv, S, D, D ** -0.5, _S2(*q.stride()[:2]),
-                       _S3(*k.stride()[:3]), _S3(*v.stride()[:3]),
-                       *scratch, stream)
+    err = _fn(q.dtype, k.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+        end.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, D, D ** -0.5,
+        _S2(*q.stride()[:2]), _S3(*k.stride()[:3]), _S3(*v.stride()[:3]),
+        *scratch, stream)
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError_t {err}")

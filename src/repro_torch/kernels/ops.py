@@ -199,10 +199,11 @@ _ATTN_DTYPES = (torch.float32, torch.bfloat16)
 ATTN_MAX_D = 256
 
 
-def _check_attn(name, q, k, v, q_dims) -> None:
+def _check_attn(name, q, k, v, q_dims, kv8=False) -> None:
     """q has ``q_dims`` dims ([B, Hq, (Sq,) D]), k and v [B, Hkv, S, D]:
-    one device, one dtype (float32 or bfloat16), Hq a multiple of Hkv, a
-    unit stride along D."""
+    one device, one dtype (float32 or bfloat16; with ``kv8`` also k and v
+    both ``float8_e4m3fn`` under either q), Hq a multiple of Hkv, a unit
+    stride along D."""
     _check_tensors(name, q=q, k=k, v=v)
     if q.dim() != q_dims or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name}: q must be {q_dims}-D and k, v 4-D, got "
@@ -218,10 +219,13 @@ def _check_attn(name, q, k, v, q_dims) -> None:
     Hkv = k.shape[1]
     if Hkv < 1 or Hq % Hkv != 0:
         raise ValueError(f"{name}: Hq={Hq} is not a multiple of Hkv={Hkv}")
-    if q.dtype not in _ATTN_DTYPES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
+    kv_ok = k.dtype == v.dtype and (k.dtype == q.dtype or (
+        kv8 and k.dtype == torch.float8_e4m3fn))
+    if q.dtype not in _ATTN_DTYPES or not kv_ok:
+        also = (" (or k and v both float8_e4m3fn)" if kv8 else "")
         raise TypeError(f"{name}: q, k and v must all be float32 or all "
-                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+                        f"bfloat16{also}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     for arg, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1 and t.shape[-1] > 1:
             raise ValueError(f"{name}: {arg} must have a unit stride along "
@@ -271,15 +275,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  length: torch.Tensor,
                  end: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One new token per query head against a KV cache: ``q`` [B, Hq, D],
-    ``k``/``v`` [B, Hkv, S, D] (float32 or bfloat16, any strides with a
-    unit last one), ``length`` [B] int32 on q's device: row b has n =
+    ``k``/``v`` [B, Hkv, S, D] (q's dtype, float32 or bfloat16, or both
+    ``float8_e4m3fn``, widened exactly on load; any strides with a unit
+    last one), ``length`` [B] int32 on q's device: row b has n =
     min(length[b], S) live keys, cache slots 0 .. n-1 (the TPU kernel's
     mask), or with ``end`` [B] int32 the key positions ``end[b] - n`` ..
     ``end[b] - 1``, position P at slot P % S (the model's rolling cache,
     walked in position order); a row with n = 0 gives zeros -> [B, Hq, D]
     in ``q.dtype``. CPU tensors run :func:`.ref.flash_decode_plain`; CUDA
     tensors run the CUDA kernel (``csrc/flash_decode.cu``)."""
-    _check_attn("flash_decode", q, k, v, 3)
+    _check_attn("flash_decode", q, k, v, 3, kv8=True)
     ints = dict(length=length) if end is None else dict(length=length,
                                                         end=end)
     _check_tensors("flash_decode", q=q, **ints)

@@ -410,9 +410,12 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row b has n = min(max(length[b], 0), S) live keys, cache slots 0 .. n-1
     (the TPU kernel's mask ``j < min(length[b], S)``), or with ``end`` [B]
     int the positions max(end[b] - n, 0) .. end[b] - 1, position P at slot
-    P % S (a rolled cache). Scores in float32 scaled after the dot; a row
-    with n = 0 gives zeros (the reference's oracle gives NaN there).
-    Returns [B, Hq, D] in ``q.dtype``.
+    P % S (a rolled cache). ``k``/``v`` may be ``float8_e4m3fn`` caches
+    under a bf16 or float32 q: they widen to float32 exactly and nothing
+    else is rounded (the TPU kernel's ``astype(float32)``), so the result
+    equals the one on ``k``/``v`` widened first. Scores in float32 scaled
+    after the dot; a row with n = 0 gives zeros (the reference's oracle
+    gives NaN there). Returns [B, Hq, D] in ``q.dtype``.
 
     :func:`flash_attention_plain`'s order on the key positions: the chunks
     of ATTN_CHUNK positions from the one holding the first live key, each

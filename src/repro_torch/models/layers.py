@@ -52,6 +52,67 @@ def dtype_of(name: str) -> torch.dtype:
     return dt
 
 
+#: float32 bit patterns: 2^-6 (e4m3fn's least normal) and 464 (the tie
+#: between 448, its largest finite value, and 480, one step past it)
+_E4M3_MIN_NORMAL = 0x3C800000
+_E4M3_TIE_464 = 0x43E80000
+#: device -> whether torch's own bf16 -> float8_e4m3fn cast there equals
+#: _to_e4m3fn on every bf16 input
+_BF16_CAST_IS_XLA: Dict[torch.device, bool] = {}
+
+
+def _to_e4m3fn(x: torch.Tensor) -> torch.Tensor:
+    """XLA's cast to float8_e4m3fn on x's float32 bits, with integer and
+    exact float ops only (the same bits on every device)."""
+    a = x.float()
+    bits = a.view(torch.int32)
+    mag = bits & 0x7FFFFFFF
+    sign = (bits >> 24) & 0x80
+    # normal range: keep 3 mantissa bits, ties to even (a carry moves the
+    # exponent), then rebias 127 -> 7
+    m = mag.clamp_max(_E4M3_TIE_464 + 1)
+    enc = ((m + (0x7FFFF + ((m >> 20) & 1))) >> 20) - ((127 - 7) << 3)
+    # below 2^-6: multiples of 2^-9, ties to even; 8 is the least normal
+    sub = torch.round(a.abs() * 512.0).to(torch.int32)
+    enc = torch.where(mag < _E4M3_MIN_NORMAL, sub, enc)
+    enc = torch.where(mag > _E4M3_TIE_464, 0x7F, enc)
+    return (enc | sign).to(torch.uint8).view(torch.float8_e4m3fn)
+
+
+def _bf16_cast_is_xla(device: torch.device) -> bool:
+    """Whether ``Tensor.to(float8_e4m3fn)`` of bf16 on ``device`` gives
+    :func:`_to_e4m3fn`'s bits on all 65,536 bf16 patterns: checked once
+    per device (one sync), so a bf16 cast may take torch's single kernel
+    where it is the same function. torch's CPU cast saturates to +-448;
+    its CUDA cast has given NaN there."""
+    same = _BF16_CAST_IS_XLA.get(device)
+    if same is None:
+        pat = torch.arange(-32768, 32768, dtype=torch.int32,
+                           device=device).to(torch.int16).view(
+                               torch.bfloat16)
+        same = _BF16_CAST_IS_XLA[device] = bool(torch.equal(
+            pat.to(torch.float8_e4m3fn).view(torch.uint8),
+            _to_e4m3fn(pat).view(torch.uint8)))
+    return same
+
+
+def to_kv(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to a KV cache's storage ``dtype`` as XLA's ``astype``
+    casts it. For ``float8_e4m3fn``: round to nearest even from x's own
+    value (bf16 and float32 widen to float32 exactly, so there is one
+    rounding); a |x| that rounds above 448 (|x| > 464), +-inf and NaN
+    become NaN with x's sign (0x7f / 0xff), where torch's CPU cast
+    saturates to +-448. The CPU and the card give the same bits whatever
+    their torch build's cast does: :func:`_to_e4m3fn`, or for bf16 torch's
+    own cast where it was found equal on every bf16 input. Other dtypes:
+    ``x.to``."""
+    if dtype != torch.float8_e4m3fn:
+        return x.to(dtype)
+    if x.dtype == torch.bfloat16 and _bf16_cast_is_xla(x.device):
+        return x.to(dtype)
+    return _to_e4m3fn(x)
+
+
 # -- norms ---------------------------------------------------------------
 
 _FILLS: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
@@ -315,7 +376,7 @@ def decode_attention(
     _, hkv, s, _ = k_cache.shape
     group = hq // hkv
     scale = d ** -0.5
-    qg = (q.reshape(b, hkv, group, d) * scale).to(k_cache.dtype)
+    qg = to_kv(q.reshape(b, hkv, group, d) * scale, k_cache.dtype)
     logits = torch.einsum("bhgd,bhsd->bhgs", qg.float(), k_cache.float())
     kpos = torch.arange(s, device=q.device)
     valid = kpos <= pos
@@ -324,7 +385,7 @@ def decode_attention(
     logits = torch.where(valid, logits, -1e30)
     m = logits.amax(-1, keepdim=True)
     p = torch.exp(logits - m)
-    out = torch.einsum("bhgs,bhsd->bhgd", p.to(k_cache.dtype).float(),
+    out = torch.einsum("bhgs,bhsd->bhgd", to_kv(p, k_cache.dtype).float(),
                        v_cache.float())
     out = out / p.sum(-1, keepdim=True)
     return out.reshape(b, hq, d).to(q.dtype)
@@ -333,8 +394,9 @@ def decode_attention(
 def cache_update(cache: torch.Tensor, new: torch.Tensor,
                  slot: int) -> torch.Tensor:
     """cache [B,H,S,D] <- new [B,H,D] at position ``slot``, in place (the
-    reference's dynamic-update-slice; the caller owns the cache)."""
-    cache[:, :, slot] = new.to(cache.dtype)
+    reference's dynamic-update-slice, cast as its ``astype`` casts:
+    :func:`to_kv`; the caller owns the cache)."""
+    cache[:, :, slot] = to_kv(new, cache.dtype)
     return cache
 
 

@@ -21,6 +21,12 @@ Modes:
             place and returns them (the reference's engine donates its
             cache the same way).
 
+The caches hold K/V in ``cfg.kv_dtype`` (qwen1.5-32b's
+``float8_e4m3fn``), cast as the reference's ``astype`` casts
+(:func:`.layers.to_kv`). Prefill attends the K/V before the cast and decode
+reads the cache, the reference's order, so under an fp8 cache prefill(S) +
+decode_step is not prefill(S+1) bit for bit.
+
 Training (``loss_fn``) is not ported yet. The encoder and cross-attention,
 MoE layers and vision patches are not either: a config that needs them
 raises.
@@ -37,7 +43,7 @@ from .config import ModelConfig
 from ..kernels import ops as kops
 from .layers import (Init, Params, apply_norm, attention_apply, attn_init,
                      cache_update, dtype_of, ffn_apply, ffn_init, init_norm,
-                     linear, rope)
+                     linear, rope, to_kv)
 from .recurrent import (rglru_block, rglru_init, rglru_state_init,
                         rwkv6_block, rwkv6_init, rwkv6_state_init)
 
@@ -187,7 +193,8 @@ def _right_align_cache(cfg: ModelConfig, kt: torch.Tensor, vt: torch.Tensor,
         k_sl = torch.nn.functional.pad(kt, pad)
         v_sl = torch.nn.functional.pad(vt, pad)
     kd = dtype_of(cfg.kv_dtype)
-    return {"k": k_sl.to(kd).contiguous(), "v": v_sl.to(kd).contiguous()}
+    return {"k": to_kv(k_sl, kd).contiguous(),
+            "v": to_kv(v_sl, kd).contiguous()}
 
 
 def _layer_apply(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,

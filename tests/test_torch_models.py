@@ -19,8 +19,10 @@ through both. Tolerances:
 The smoke configs run: rwkv6 (2 layers, d 64, head 16), recurrentgemma
 (5 layers, d 64, window 16: one super-block of rglru, rglru, attn and two
 remainder rglru layers), and the dense llama3 (2 layers, d 64, 8 heads
-over 2 KV heads, rmsnorm, SwiGLU), stablelm (layernorm, SwiGLU) and
-starcoder2 (layernorm, qkv bias, plain GELU FFN).
+over 2 KV heads, rmsnorm, SwiGLU), stablelm (layernorm, SwiGLU),
+starcoder2 (layernorm, qkv bias, plain GELU FFN) and qwen (4 heads over 4
+KV heads, qkv bias, rmsnorm, SwiGLU; here with a cache in its working
+dtype; its fp8 cache is ``tests/test_torch_fp8_cache.py``'s).
 
 The port's model runs its attention through the ``flash_attention`` /
 ``flash_decode`` kernels (their plain versions here: scores scaled after
@@ -63,7 +65,7 @@ GAP_OF_SCALE = 0.025
 DTYPES = ("float32", "bfloat16")
 #: every architecture the port serves
 SERVED = ("rwkv6-1.6b", "recurrentgemma-9b", "llama3-8b", "stablelm-12b",
-          "starcoder2-15b")
+          "starcoder2-15b", "qwen1.5-32b")
 
 
 def tol(dtype):
