@@ -59,12 +59,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (failures, retries, and an abandonment or a fallback must occur); each
    against the DES on some scenarios and the CPU at J=128, ``acd_evict``
    launched in each, ``fifo_dispatch`` in the capped one. A paged trace
-   day: ``azure:day=tue,scale=50000`` on the image app, spt, C_max 60 s,
+   day: ``azure:day=tue,scale=25000`` on the image app, spt, C_max 60 s,
    4096-job pages (the reference throughput benchmark's streaming point),
    against the DES on the host under the parity contract, with wall,
    jobs/s, pages, retries, body steps and ms per body step; then a
-   4096-job day in 512-job pages bit for bit against the monolithic card
-   run and the CPU, and a 1024-job day under the profiler. The serving
+   1024-job day in 512-job pages bit for bit against the monolithic card
+   run and the CPU, and the same day again under the profiler. The serving
    scheduler (llama3-8b on a 2/4/2 pod with ``elastic_portfolio(3)``
    overflow, the H100 latency model): the ridge fit on the card against
    the CPU's; ``compare_policies`` (six policies x faults {none, 0.3}) at
@@ -93,8 +93,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    prep cache (``prep_s``, ``plan_s``).
 7. The paper's profile -> predict -> schedule path. First ``matmul``
    against its plain version on the card (ragged shapes, transposed views,
-   1024^3, bf16; the matrix app's integer ``x @ x.T`` at n = 344 and 496
-   bit for bit, also against the CPU; every float32 configuration forced
+   1024^3, bf16, the MoE routers' float32 [tokens, d] @ [d, E] at phase
+   8c's token counts; the matrix app's integer ``x @ x.T`` at n = 344 and
+   496 bit for bit, also against the CPU; every float32 configuration forced
    on one product per regime, bit for bit alike) and its time, bound and
    ``torch.matmul``'s time (CUDA events and device time) at
    ``F32_TIMED`` (the MM stage's squares, [4096]^3, a float32 decode
@@ -169,6 +170,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    unrounded K/V); the same weights with a bf16 cache, each of
    SHORT_DECODE steps bit for bit prefill(S+1); card against CPU at 2
    layers in float32 with a float32 cache.
+   8c. MoE, once qwen1.5-32b is freed: the bf16 ``matmul`` at both MoE
+   configs' expert products, each through the last expert's view of a
+   stacked [E, K, N] parameter, at every slot row count of the phase's
+   forwards (``moe_rows``: 8, 104, 656 and 1296 for olmoe, 8, 16 and 656
+   for arctic, whose dense FFN takes the same shapes), against its plain
+   version and timed, every row bit for bit the row computed alone;
+   olmoe-1b-7b at full width and 16
+   layers (64 experts, top-8), its serve batch and a 2 x 4080-token long
+   batch (groups of 340, 54 slots an expert: pairs are dropped), launches
+   exact (a router product and three products an
+   expert, every layer and forward), a profiler pass, prefill(S) +
+   decode_step against prefill(S+1) a reading at the shipped capacity
+   factor 1.25 and bit for bit at E/k (nothing dropped); the ``scatter``
+   dispatch's serve batch beside the ``einsum`` one (they compute other
+   functions: a reading); card against CPU at 2 layers in float32. Then
+   arctic-480b at full width and 2 of its 35 layers (128 experts, top-2,
+   a dense residual FFN, 56 heads over 8 KV heads): the serve batch, the
+   same gates, card against CPU at its smoke config.
 9. Prints the kernels' JSON line, then the device line last.
 
 Launch counts are set to 0 just before each main path and read just after
@@ -224,16 +243,15 @@ AXES_DES_SCENARIOS = ((0, 0), (1, 7), (2, 9), (3, 4), (4, 2))
 #: the paged trace day: the reference throughput benchmark's streaming
 #: point (benchmarks/bench_scheduler_throughput.py measure_azure_point:
 #: one azure day on the image app, spt, C_max 60 s, 4096-job pages) cut
-#: from 10^5 to 5 x 10^4 jobs for the 1,200 s a run may take (79 s and a
-#: 19 s DES at 10^5 on a slow host), and a 4096-job day in 512-job pages
-#: held against the monolithic run
-DAY_SCALE = 50000
+#: for the 1,200 s a run may take, from 10^5 to 5 x 10^4 jobs (79 s and a
+#: 19 s DES at 10^5 on a slow host) and to 2.5 x 10^4 (48.4 s at 5 x 10^4),
+#: and a 1024-job day in 512-job pages held against the monolithic run
+#: and the CPU (4096 jobs before: 34.9 s waited for the CPU's day; 2048:
+#: 30.4 s); 1024 jobs in 512-job pages still take two pages
+DAY_SCALE = 25000
 DAY_CHUNK = 4096
 DAY_C_MAX = 60.0
-SMALL_DAY = (4096, 512)
-#: the day run under the profiler, for the device's idle share (its
-#: post-processing grows with the events: ~100 a body step)
-PROFILED_DAY = (1024, 512)
+SMALL_DAY = (1024, 512)
 #: the fault path: the Fig.-4 grid at J=512 with a failure-rate axis under
 #: the default RetryPolicy
 FAULT_J = 512
@@ -316,7 +334,8 @@ SERVE_CACHE = 192
 #: its full-attention cache (long documents, RAG contexts)
 LONG_BATCH = 2
 LONG = {"rwkv6-1.6b": (4096, 4112), "recurrentgemma-9b": (2304, 2048),
-        "llama3-8b": (4096, 4112), "qwen1.5-32b": (2048, 2064)}
+        "llama3-8b": (4096, 4112), "qwen1.5-32b": (2048, 2064),
+        "olmoe-1b-7b": (4080, 4096)}
 #: qwen1.5-32b's long batch is 2 x 2048 tokens: its bf16 weights take
 #: 65.56 GiB of the card's 80, and check_serve_logits holds a second fp8
 #: cache (2 x 2064 slots: 2.52 GiB each over 64 layers; 2 x 4112 would
@@ -329,6 +348,16 @@ SERVED = ("rwkv6-1.6b", "recurrentgemma-9b", "llama3-8b")
 SHORT = ("stablelm-12b", "starcoder2-15b")
 SHORT_LAYERS = 2
 SHORT_DECODE = 4
+#: the MoE phase (8c): olmoe-1b-7b at full width and depth (13.84 GB of
+#: bf16 weights), its long batch inside OLMoE's 4,096-token context;
+#: arctic-480b at full width and ARCTIC_LAYERS of its 35 layers (55.36 GB;
+#: three would take 82.6 GB, the whole model about 13 cards), its
+#: card-against-CPU check at its smoke config (2 full layers in float32
+#: would take 110 GB of host memory)
+OLMOE = "olmoe-1b-7b"
+ARCTIC = "arctic-480b"
+MOE = (OLMOE, ARCTIC)
+ARCTIC_LAYERS = 2
 #: prefill(S) + decode_step == prefill(S+1): the reference suite's own
 #: tolerance (tests/test_models.py:88-90), held at the full configs in
 #: bf16 and in float32. Every weight product goes through the matmul
@@ -340,7 +369,7 @@ INCR_TOL = dict(rtol=2e-2, atol=2e-3)
 #: tolerance |card - cpu| <= CPU_RTOL * max|cpu| (float32 rounding of
 #: d = 2048-4096 dot products in another order, through a few layers)
 CPU_LAYERS = {"rwkv6-1.6b": 2, "recurrentgemma-9b": 3, "llama3-8b": 2,
-              "qwen1.5-32b": 2}
+              "qwen1.5-32b": 2, "olmoe-1b-7b": 2}
 #: float32 matmul products timed beside torch.matmul (TF32 off) and the
 #: bound: (label, (M, K, N), reps): dense squares at the MM stage's
 #: smallest and largest n, the stage's own x @ x.T (x.T a view), the
@@ -614,6 +643,7 @@ def _check_matmul(dev):
     import numpy as np
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import matmul_plain
 
@@ -636,6 +666,13 @@ def _check_matmul(dev):
               normal(257, 65, dtype=torch.bfloat16)),
              ("bf16 (512, 512, 512)", normal(512, 512, dtype=torch.bfloat16),
               normal(512, 512, dtype=torch.bfloat16))]
+    # the MoE routers' float32 products, at phase 8c's token counts
+    for arch in MOE:
+        cfg = get_config(arch)
+        d, E = cfg.d_model, cfg.num_experts
+        for tokens in sorted({t for t, _ in moe_rows(arch).values()}):
+            cases.append((f"{arch} router ({tokens}, {d}, {E})",
+                          normal(tokens, d), normal(d, E) * d ** -0.5))
     for label, x, y in cases:
         err = matmul_check(label, x, y, ops.matmul(x, y), matmul_plain(x, y))
         if x.dtype == torch.float32:
@@ -1435,10 +1472,11 @@ def report_day(label, scale, wall, counts):
 def paged_day_phase():
     """A paged trace day on the card: ``azure:day=tue,scale=DAY_SCALE`` on
     the image app in pages of ``DAY_CHUNK`` jobs, against the port's DES
-    on the host (same pages) under the parity contract; then a 4096-job
-    day in 512-job pages bit for bit against the monolithic card run and
-    the CPU (run meanwhile in a process of its own); a 1024-job day under
-    the profiler. Returns the launch counts of both timed paged runs."""
+    on the host (same pages) under the parity contract; then a
+    ``SMALL_DAY`` day in 512-job pages bit for bit against the monolithic
+    card run and the CPU (run meanwhile in a process of its own), then
+    under the profiler. Returns the launch counts of both timed paged
+    runs."""
     import multiprocessing
     import tempfile
 
@@ -1490,9 +1528,10 @@ def _paged_days(proc, cpu_path):
 
     scale, chunk = SMALL_DAY
     ops.reset_launch_counts()
-    paged, wall = day(scale, chunk)
+    paged, small_wall = day(scale, chunk)
     small_counts = ops.launch_counts()
-    report(f"paged day chunk_jobs={chunk}", scale, wall, small_counts)
+    report(f"paged day chunk_jobs={chunk}", scale, small_wall, small_counts)
+    steps = sum(sum(t) for t in vectorsim._LAST_RUN_STATS["trips"])
     mono, m_wall = day(scale, None)
     t0 = time.perf_counter()
     proc.join()
@@ -1513,9 +1552,8 @@ def _paged_days(proc, cpu_path):
                                  f"!= {name} in {bad}")
     print(f"paged day scale={scale}: paged card run equal to the "
           f"monolithic card run and to the CPU in every field")
-    scale, chunk = PROFILED_DAY
-    _, wall = day(scale, chunk)
-    steps = sum(sum(t) for t in vectorsim._LAST_RUN_STATS["trips"])
+    # the same day under the profiler, for the device's idle share (its
+    # post-processing grows with the events: ~100 a body step)
     got = device_profile("paged day", lambda: day(scale, chunk))
     if got is not None:
         busy_s, wall_p, dev_events = got
@@ -1523,7 +1561,7 @@ def _paged_days(proc, cpu_path):
         print(f"profile paged day scale={scale} chunk_jobs={chunk}: device "
               f"busy {busy_s:.3f} s of a {wall_p:.3f} s profiled wall, "
               f"{1 - busy_s / wall_p:.3f} idle; of the unprofiled "
-              f"{wall:.3f} s wall {1 - busy_s / wall:.3f} idle; "
+              f"{small_wall:.3f} s wall {1 - busy_s / small_wall:.3f} idle; "
               f"{n_events} device events, {n_events / steps:.1f} per body "
               f"step ({steps} steps)")
         print_top_events(dev_events)
@@ -2198,12 +2236,13 @@ def head_split(B, S, H, D, dt, dev, g):
 
 
 def attention_shapes():
-    """The serve phase's attention shapes: (arch, B, Hq, Hkv, D, window,
-    serve prompt, serve cache, long prompt or None, long cache)."""
+    """The serve phases' attention shapes: (arch, Hq, Hkv, D, window,
+    serve prompt, long prompt or None, long cache or None); the MoE phase's
+    too (olmoe-1b-7b's 16/16 heads, arctic-480b's 56/8)."""
     from repro_torch.configs import get_config
 
     out = []
-    for arch in ("recurrentgemma-9b", "llama3-8b") + SHORT:
+    for arch in ("recurrentgemma-9b", "llama3-8b") + SHORT + MOE:
         cfg = get_config(arch)
         long_p, long_c = LONG.get(arch, (None, None))
         out.append((arch, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
@@ -2705,6 +2744,39 @@ def check_kv_cast(dev):
         raise AssertionError("to_kv: the card's cast differs from the CPU's")
 
 
+def bf16_timed(label, phase, x, w, reps):
+    """One bf16 ``matmul`` x @ w against its plain version (check_matmul's
+    bf16 bound), timed ``reps`` times beside its plain version,
+    torch.matmul and its bound; call under ``ieee_float32`` (the plain
+    version's float32 products). Returns its entry of matmul's "bf16"
+    timings."""
+    import importlib
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_plain
+
+    mm = importlib.import_module("repro_torch.kernels.matmul")
+    err = matmul_check(label, x, w, ops.matmul(x, w), matmul_plain(x, w))
+    M, K = x.shape
+    N = w.shape[1]
+    k_ms = cuda_ms(lambda: ops.matmul(x, w), reps)
+    p_ms = cuda_ms(lambda: matmul_plain(x, w), reps)
+    l_ms = cuda_ms(lambda: torch.matmul(x, w), reps)
+    bound, by, n_bytes, n_ops = matmul_bound(M, K, N, "bfloat16")
+    plan = mm.tile_plan(M, N, K, w.stride())
+    print(f"matmul {label} bf16: kernel {k_ms:.6f} ms, plain {p_ms:.6f} "
+          f"ms, torch.matmul {l_ms:.6f} ms, bound {bound:.6f} ms by {by} "
+          f"(bytes {n_bytes}, operations {n_ops}); kernel at "
+          f"{bound / k_ms:.3f} of the bound, {k_ms / l_ms:.2f}x "
+          f"torch.matmul's time; plan {tuple(plan)}")
+    return {"phase": phase, "shape": [M, K, N],
+            "y_strides": list(w.stride()), "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": l_ms}
+
+
 def check_linear_rows(dev):
     """The bf16 matmul kernel (tensor cores) on the serving path, and the
     repair of the bf16 prefill/decode gap. Against its plain version
@@ -2729,7 +2801,6 @@ def check_linear_rows(dev):
 
     from repro_torch.core.precision import ieee_float32
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import matmul_plain
     from repro_torch.models.layers import linear, row_mean
 
     mm = importlib.import_module("repro_torch.kernels.matmul")
@@ -2741,25 +2812,6 @@ def check_linear_rows(dev):
     def normal(*shape, scale=1.0):
         return (torch.randn(*shape, device=dev, generator=g) * scale).to(bf16)
 
-    def timed(label, phase, x, w, reps):
-        err = matmul_check(label, x, w, ops.matmul(x, w), matmul_plain(x, w))
-        M, K = x.shape
-        N = w.shape[1]
-        k_ms = cuda_ms(lambda: ops.matmul(x, w), reps)
-        p_ms = cuda_ms(lambda: matmul_plain(x, w), reps)
-        l_ms = cuda_ms(lambda: torch.matmul(x, w), reps)
-        bound, by, n_bytes, n_ops = matmul_bound(M, K, N, "bfloat16")
-        plan = mm.tile_plan(M, N, K, w.stride())
-        print(f"matmul {label} bf16: kernel {k_ms:.6f} ms, plain {p_ms:.6f} "
-              f"ms, torch.matmul {l_ms:.6f} ms, bound {bound:.6f} ms by {by} "
-              f"(bytes {n_bytes}, operations {n_ops}); kernel at "
-              f"{bound / k_ms:.3f} of the bound, {k_ms / l_ms:.2f}x "
-              f"torch.matmul's time; plan {tuple(plan)}")
-        return {"phase": phase, "shape": [M, K, N],
-                "y_strides": list(w.stride()), "max_abs_err": err,
-                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                "bound_by": by, "library_ms": l_ms}
-
     timings = []
     with ieee_float32():
         for K, N in ROWS_SHAPES:
@@ -2767,15 +2819,15 @@ def check_linear_rows(dev):
             for m, phase, reps in zip(rows, ("decode", "prefill",
                                              "long prefill"), (50, 20, 5)):
                 x = normal(m, K)
-                timings.append(timed(f"serve [{m}, {K}] @ layer view [{K}, "
-                                     f"{N}]", phase, x, w, reps))
+                timings.append(bf16_timed(f"serve [{m}, {K}] @ layer view "
+                                          f"[{K}, {N}]", phase, x, w, reps))
             del w, x
         for label, d, V, tied in HEADS:
             w = normal(V, d).T if tied else normal(d, V, scale=d ** -0.5)
             x = normal(SERVE_REQUESTS, d)
-            timings.append(timed(f"{label} [{SERVE_REQUESTS}, {d}] @ "
-                                 f"{list(w.shape)} strides {w.stride()}",
-                                 "decode head", x, w, 20))
+            timings.append(bf16_timed(f"{label} [{SERVE_REQUESTS}, {d}] @ "
+                                      f"{list(w.shape)} strides {w.stride()}",
+                                      "decode head", x, w, 20))
         # the two staging paths: the same bytes in shared memory
         K, N = ROWS_SHAPES[0]
         for label, x, y in (
@@ -2929,8 +2981,10 @@ def check_serve_logits(label, model, reqs, outs, cache_len):
     INCR_TOL of prefill(S+1), every logit (the reference suite's check, at
     the full config in its working dtype), bit for bit in bf16. Where the
     cache has another dtype than the activations (qwen1.5-32b's fp8), the
-    decode step reads K/V that prefill(S+1) attends unrounded, so the gap
-    is a reading, not a gate. Returns the line's reading."""
+    decode step reads K/V that prefill(S+1) attends unrounded, and where
+    an MoE layer may drop pairs (capacity factor below E/k) a prefill
+    drops pairs that a decode step does not: there the gap is a reading,
+    not a gate. Returns the line's reading."""
     import torch
 
     toks = torch.from_numpy(padded(reqs)).to(model.device)
@@ -2949,12 +3003,101 @@ def check_serve_logits(label, model, reqs, outs, cache_len):
           f" bitwise equal {bitwise}")
     # in bf16 every kernel and row mean keeps one order per row whatever
     # the length, so the decode step is prefill(S+1)'s bits
-    same_cache = model.cfg.kv_dtype == model.cfg.dtype
-    if not (finite and same_first and (ok or not same_cache)
-            and (bitwise or model.cfg.dtype != "bfloat16"
-                 or not same_cache)):
+    exact = model.cfg.kv_dtype == model.cfg.dtype and not may_drop(model.cfg)
+    if not (finite and same_first and (ok or not exact)
+            and (bitwise or model.cfg.dtype != "bfloat16" or not exact)):
         raise AssertionError(f"serve {label}: logits check failed")
     return line, gap
+
+
+def moe_rows(arch):
+    """The rows an MoE layer of ``arch`` gives ``matmul`` in phase 8c:
+    {forward: (tokens, slot rows)} for a decode step, the serve batch's
+    prefill, that prefill at capacity factor E/k (nothing dropped) and the
+    long batch's prefill where the architecture has one. The router (and
+    arctic's dense FFN) takes the tokens, each expert product its
+    B * (S / group_len) * capacity slot rows."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity, group_len
+
+    cfg = get_config(arch)
+    no_drops = dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+    S = longest_prompt(arch)
+    forwards = [("decode", cfg, SERVE_REQUESTS, 1),
+                ("prefill", cfg, SERVE_REQUESTS, S),
+                ("prefill E/k", no_drops, SERVE_REQUESTS, S)]
+    if arch in LONG:
+        forwards.append(("long prefill", cfg, LONG_BATCH, LONG[arch][0]))
+    out = {}
+    for label, c, B, s in forwards:
+        gl = group_len(c, s)
+        out[label] = (B * s, B * (s // gl) * capacity(c, gl))
+    return out
+
+
+#: reps of the MoE products' timings, by forward
+MOE_REPS = {"decode": 50, "prefill": 20, "prefill E/k": 10,
+            "long prefill": 5}
+
+
+def check_moe_products(dev):
+    """The bf16 ``matmul`` at both MoE configs' expert products:
+    [rows, d] @ w_up[e] (w_gate's shape too) and [rows, ff] @ w_down[e],
+    each ``w[e]`` the last expert's view of a stacked [E, K, N] parameter,
+    at every slot row count of :func:`moe_rows` (arctic's dense FFN takes
+    the same shapes at the E/k prefill's rows, its token count): against
+    the plain version and timed (:func:`bf16_timed`), and every row of
+    ``linear(x, w[e])`` bit for bit the row computed alone. Returns the
+    timings for matmul's "bf16" entry."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import ieee_float32
+    from repro_torch.models.layers import linear
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    bf16 = torch.bfloat16
+    timings = []
+    for arch in MOE:
+        cfg = get_config(arch)
+        E = cfg.num_experts
+        for K, N in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+            stacked = torch.empty((E, K, N), dtype=bf16, device=dev)
+            w = stacked[E - 1]  # only this expert's weights are read
+            w.copy_(torch.randn(K, N, device=dev, generator=g) * K ** -0.5)
+            for label, (_, m) in moe_rows(arch).items():
+                x = torch.randn(m, K, device=dev, generator=g).to(bf16)
+                with ieee_float32():
+                    timings.append(bf16_timed(
+                        f"{arch} expert {label} [{m}, {K}] @ expert view "
+                        f"[{K}, {N}] of [{E}, {K}, {N}]", f"moe {label}", x,
+                        w, MOE_REPS[label]))
+                full = linear(x, w)
+                same = sum(torch.equal(linear(x[i:i + 1], w)[0], full[i])
+                           for i in range(m))
+                print(f"linear rows {arch} expert [{m}, {K}] @ [{K}, {N}] "
+                      f"bf16: {same} of {m} rows bitwise equal to the row "
+                      f"alone")
+                if same != m:
+                    raise AssertionError(f"linear {arch} expert [{m}, {K}] "
+                                         f"@ [{K}, {N}]: rows depend on the "
+                                         f"row count")
+            del stacked, w, x, full
+            gc.collect()
+            torch.cuda.empty_cache()
+    return timings
+
+
+def may_drop(cfg):
+    """Whether an MoE layer of ``cfg`` may drop (token, choice) pairs: its
+    capacity factor is below E/k."""
+    return bool(cfg.num_experts) and (cfg.capacity_factor
+                                      < cfg.num_experts / cfg.top_k)
 
 
 def check_incremental_float32(arch, dev, seed):
@@ -3015,17 +3158,24 @@ def expected_launches(cfg, new):
     decode steps): the recurrence kernels and both attention kernels once
     per layer of their kind and forward (flash_attention in the prefill,
     flash_decode in each decode step), matmul once per weight product (the
-    mixer's, the FFN's two or three, the head) and per row mean of a norm
+    mixer's, the FFN's two or three, the head), per row mean of a norm
     (``layers.row_mean``: one mean per rmsnorm, two per layernorm and per
-    rwkv6 group norm; two norms a layer and the final one)."""
+    rwkv6 group norm; two norms a layer and the final one) and, in an MoE
+    layer, ``moe.moe_launches``: the router product and two or three
+    products per expert (every slot computed), beside the dense FFN where
+    ``dense_residual`` is set."""
     from repro_torch.models.layers import row_mean_launches
+    from repro_torch.models.moe import moe_launches
 
     kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
     n_attn = kinds.count("attn")
     per_norm = ((1 if cfg.norm == "rmsnorm" else 2)
                 * row_mean_launches(cfg.d_model))
+    dense_ffn = not cfg.num_experts or cfg.dense_residual
     per_forward = (sum(MIXER_PRODUCTS[k] for k in kinds)
-                   + (3 if cfg.glu else 2) * cfg.num_layers + 1
+                   + (3 if cfg.glu else 2) * cfg.num_layers * dense_ffn
+                   + (moe_launches(cfg) * cfg.num_layers
+                      if cfg.num_experts else 0) + 1
                    + per_norm * (2 * cfg.num_layers + 1)
                    + 2 * row_mean_launches(cfg.rwkv_head_dim)
                    * kinds.count("rwkv6"))
@@ -3036,16 +3186,20 @@ def expected_launches(cfg, new):
             "rwkv6": kinds.count("rwkv6") * (1 + new)}
 
 
-def serve_full(arch, dev, seed):
-    """One architecture's full config on the card (weights drawn from a
-    seeded generator there): a warm-up batch, then the timed batch (and the
-    long batch where it has one) with every kernel's launch count, the
-    logits checks, the decode step with fused activations, and for rwkv6
-    and llama3-8b a profiler pass. Returns ({kernel: launches in the timed
-    batches}, {batch label: (completions, wall)}). An architecture whose
-    cache has another dtype than its activations (qwen1.5-32b's fp8) also
-    runs the same weights with a cache in the activations' dtype
-    (:func:`decode_against_prefill`, bit for bit)."""
+def serve_full(arch, dev, seed, layers=None):
+    """One architecture's full config on the card (``layers`` of its layers
+    where given; weights drawn from a seeded generator there): a warm-up
+    batch, then the timed batch (and the long batch where it has one) with
+    every kernel's launch count, the logits checks, the decode step with
+    fused activations (dense and recurrent configs), and for rwkv6 and
+    llama3-8b a profiler pass (olmoe-1b-7b: its serve batch only).
+    Returns ({kernel: launches in the timed batches}, {batch label:
+    (completions, wall)}). An
+    architecture whose cache has another dtype than its activations
+    (qwen1.5-32b's fp8) also runs the same weights with a cache in the
+    activations' dtype, and an MoE one at capacity factor E/k
+    (:func:`decode_against_prefill`, bit for bit), and its serve batch
+    through the ``scatter`` dispatch (:func:`scatter_batch`)."""
     import dataclasses
     import gc
 
@@ -3056,8 +3210,10 @@ def serve_full(arch, dev, seed):
     from repro_torch.serving import InferenceEngine
 
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
-    if arch == QWEN:
+    if arch in (QWEN, ARCTIC):
         memory_reckoning(arch, cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3086,12 +3242,15 @@ def serve_full(arch, dev, seed):
             launches[k] = launches.get(k, 0) + n
         check_serve_logits(f"{arch} {label}", model, reqs, outs, cache_len)
         runs[label] = (outs, wall)
-        if arch in ("rwkv6-1.6b", "llama3-8b"):
+        if arch in ("rwkv6-1.6b", "llama3-8b") or (arch == OLMOE
+                                                    and label == "batch"):
             profile_serve(arch, engine, reqs, wall)
-        if label == "batch" and arch != QWEN:
-            time_activations(arch, engine, reqs)
-        elif label == "batch":
+        if label == "batch" and arch == QWEN:
             time_kv_cast(arch, engine, reqs)
+        elif label == "batch" and cfg.num_experts:
+            scatter_batch(arch, engine, reqs, outs)
+        elif label == "batch":
+            time_activations(arch, engine, reqs)
         print(f"serve {arch} {label}: peak device memory so far "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
     if cfg.kv_dtype != cfg.dtype:
@@ -3100,12 +3259,52 @@ def serve_full(arch, dev, seed):
         model.cfg = dataclasses.replace(cfg, kv_dtype=cfg.dtype)
         decode_against_prefill(f"{arch}, {cfg.dtype} cache", model)
         model.cfg = cfg
+    if may_drop(cfg):
+        # at capacity E/k nothing drops: each decode step prefill(S+1)'s
+        # bits again
+        model.cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+        decode_against_prefill(f"{arch}, capacity factor E/k = "
+                               f"{model.cfg.capacity_factor:g}", model)
+        model.cfg = cfg
     print(f"serve {arch}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     del model, engine
     gc.collect()
     torch.cuda.empty_cache()
     return launches, runs
+
+
+def scatter_batch(arch, engine, reqs, einsum_outs):
+    """The serve batch through the ``scatter`` dispatch, its launches
+    counted against ``expected_launches`` (the same as ``einsum``'s). The
+    two paths compute other functions (``einsum`` weights each kept
+    expert by the token's summed kept gates, ``scatter`` by its own gate:
+    ROADMAP Queue 3 item 17), so their greedy tokens are compared as a
+    reading only; the scatter prefill's logits must be finite."""
+    import numpy as np
+    import torch
+
+    model = engine.model
+    model.moe_dispatch = "scatter"
+    try:
+        outs, counts, _ = serve_batch(f"{arch} batch, scatter dispatch",
+                                      engine, reqs)
+        toks = torch.from_numpy(padded(reqs)).to(model.device)
+        ls, _ = model.prefill(toks, cache_len=engine.cache_len)
+    finally:
+        model.moe_dispatch = "einsum"
+    want = expected_launches(model.cfg, max(r.max_new_tokens for r in reqs))
+    same = sum(int(np.sum(a.tokens == b.tokens))
+               for a, b in zip(outs, einsum_outs))
+    total = sum(a.tokens.size for a in outs)
+    finite = bool(torch.isfinite(ls).all())
+    print(f"serve {arch} scatter against einsum (a reading: other "
+          f"functions): {same} of {total} greedy tokens equal; scatter "
+          f"prefill logits finite {finite}")
+    if counts != want or not finite:
+        raise AssertionError(f"serve {arch} scatter: launches {counts}, "
+                             f"expected {want}; finite {finite}")
 
 
 def decode_against_prefill(label, model):
@@ -3199,11 +3398,12 @@ def memory_reckoning(arch, cfg):
     kv = torch.empty((), dtype=dtype_of(cfg.kv_dtype)).element_size()
     per_slot = 2 * cfg.num_kv_heads * cfg.hd * len(cfg.attn_layers) * kv
     gib = 2 ** 30
+    batches = [("serve batch", SERVE_REQUESTS, SERVE_CACHE)]
+    if arch in LONG:
+        batches.append(("long batch", LONG_BATCH, LONG[arch][1]))
     caches = "; ".join(
         f"{label} {B} x {c} slots {B * c * per_slot / gib:.3f} GiB"
-        for label, B, c in (("serve batch", SERVE_REQUESTS, SERVE_CACHE),
-                            ("long batch", LONG_BATCH, LONG[arch][1]),
-                            ("a 2 x 4112 batch", 2, 4112)))
+        for label, B, c in batches + [("a 2 x 4112 batch", 2, 4112)])
     print(f"serve {arch} memory reckoning: {n_params} parameters, "
           f"{n_bytes} bytes ({n_bytes / 1e9:.3f} GB, {n_bytes / gib:.3f} "
           f"GiB); a {cfg.kv_dtype} cache of {per_slot} bytes a request and "
@@ -3330,9 +3530,10 @@ def profile_serve(arch, engine, reqs, wall):
     print_top_events(dev_events, 8)
 
 
-def check_serve_against_cpu(arch, dev, seed):
-    """The architecture at full width and CPU_LAYERS depth in float32, the
-    same weights on the card and the CPU (drawn on the card, copied): the
+def check_serve_against_cpu(arch, dev, seed, smoke=False):
+    """The architecture at full width and CPU_LAYERS depth (or at its smoke
+    config) in float32, the same weights on the card and the CPU (drawn on
+    the card, copied): the
     engine's greedy tokens over CPU_DECODE steps equal, prefill logits
     within CPU_RTOL of their scale; float32 products in IEEE float32. Then,
     as a reading, the CPU's bf16 prefill(S) + decode_step against
@@ -3343,13 +3544,14 @@ def check_serve_against_cpu(arch, dev, seed):
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core.precision import ieee_float32
     from repro_torch.models import Model
     from repro_torch.serving import InferenceEngine
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=CPU_LAYERS[arch],
-                              dtype="float32", kv_dtype="float32")
+    cfg = (get_smoke_config(arch) if smoke else dataclasses.replace(
+        get_config(arch), num_layers=CPU_LAYERS[arch]))
+    cfg = dataclasses.replace(cfg, dtype="float32", kv_dtype="float32")
     card = Model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(seed))
     cpu = Model(cfg, device="cpu")
@@ -3367,7 +3569,7 @@ def check_serve_against_cpu(arch, dev, seed):
     t2 = time.perf_counter()
     same = all(np.array_equal(g.tokens, w.tokens) for g, w in zip(got, want))
     rel = float((lc.cpu() - lh).abs().max() / lh.abs().max())
-    print(f"serve {arch} at {cfg.num_layers} layers, float32: card "
+    print(f"serve {cfg.name} at {cfg.num_layers} layers, float32: card "
           f"{t1 - t0:.3f} s, CPU {t2 - t1:.3f} s; greedy tokens over "
           f"{CPU_DECODE} steps equal {same}; prefill logits differ by "
           f"{rel!r} of their max (tolerance {CPU_RTOL})")
@@ -3379,7 +3581,7 @@ def check_serve_against_cpu(arch, dev, seed):
     cpu.load_state_dict(card.state_dict())
     t0 = time.perf_counter()
     _, dec, full, _, line, _ = incremental_gap(cpu, toks, SERVE_CACHE)
-    print(f"serve {arch} at {cfg.num_layers} layers, bf16 on the CPU "
+    print(f"serve {cfg.name} at {cfg.num_layers} layers, bf16 on the CPU "
           f"({time.perf_counter() - t0:.3f} s): {line}; bitwise equal "
           f"{torch.equal(dec, full)}")
     del card, cpu
@@ -3886,6 +4088,23 @@ def main() -> int:
     print(f"serve {QWEN}: phase wall {time.perf_counter() - t0:.3f} s; "
           f"launches in its timed batches {qwen_launches}")
     lap("8b qwen1.5-32b")
+    # -- 8c. MoE: olmoe-1b-7b at full width and depth, arctic-480b's layers --
+    t0 = time.perf_counter()
+    bf16_matmul.extend(check_moe_products(dev))
+    moe_counts = {}
+    for seed, (arch, layers) in enumerate(((OLMOE, None),
+                                           (ARCTIC, ARCTIC_LAYERS))):
+        t1 = time.perf_counter()
+        counts, _ = serve_full(arch, dev, 50 + seed, layers=layers)
+        print(f"serve {arch}: {time.perf_counter() - t1:.3f} s")
+        for k, n in counts.items():
+            moe_counts[k] = moe_counts.get(k, 0) + n
+            serve_launches[k] = serve_launches.get(k, 0) + n
+    check_serve_against_cpu(OLMOE, dev, 52)
+    check_serve_against_cpu(ARCTIC, dev, 53, smoke=True)
+    print(f"serve MoE: phase wall {time.perf_counter() - t0:.3f} s; "
+          f"launches in its timed batches {moe_counts}")
+    lap("8c MoE")
     # -- 9. result ------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main path of its slice: acd_evict on
@@ -3913,9 +4132,12 @@ def main() -> int:
     # the fp8 reading: flash_decode's launches on qwen1.5-32b's fp8 caches
     by_name["flash_decode"]["kv8"] = dict(
         kv8, launches=qwen_launches["flash_decode"])
+    by_name["matmul"]["moe_launches"] = moe_counts["matmul"]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if qwen_launches["flash_decode"] <= 0:
         missing.append("flash_decode (float8_e4m3fn caches)")
+    missing += [f"{k} (MoE)" for k in ("matmul", "flash_attention",
+                                       "flash_decode") if moe_counts[k] <= 0]
     if missing or len(kernels) != 7:
         raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")

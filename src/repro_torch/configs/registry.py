@@ -1,12 +1,12 @@
 """Architecture registry of the port, and the assigned input shapes.
 
 ``ARCHS`` lists the architectures the port can run: the recurrent and
-hybrid ones (``rwkv6-1.6b``, ``recurrentgemma-9b``) and the dense ones
+hybrid ones (``rwkv6-1.6b``, ``recurrentgemma-9b``), the dense ones
 (``llama3-8b``, ``stablelm-12b``, ``starcoder2-15b``, and ``qwen1.5-32b``
-with its ``float8_e4m3fn`` KV cache). The reference registers four more,
-the MoE, encoder-decoder and vision ones;
-:func:`get_config` and :func:`get_smoke_config` name the ROADMAP item that
-brings each of them.
+with its ``float8_e4m3fn`` KV cache) and the MoE ones (``olmoe-1b-7b``,
+``arctic-480b`` with its dense residual FFN). The reference registers two
+more, the encoder-decoder and vision ones; :func:`get_config` and
+:func:`get_smoke_config` name the ROADMAP item that brings each of them.
 
 Shapes (per the assignment):
   train_4k     seq 4,096   global_batch 256   (training)
@@ -21,8 +21,8 @@ import dataclasses
 from typing import Dict
 
 from ..models.config import ModelConfig
-from . import (llama3_8b, qwen1_5_32b, recurrentgemma_9b, rwkv6_1_6b,
-               stablelm_12b, starcoder2_15b)
+from . import (arctic_480b, llama3_8b, olmoe_1b_7b, qwen1_5_32b,
+               recurrentgemma_9b, rwkv6_1_6b, stablelm_12b, starcoder2_15b)
 
 _MODULES = {
     "llama3-8b": llama3_8b,
@@ -31,12 +31,12 @@ _MODULES = {
     "stablelm-12b": stablelm_12b,
     "starcoder2-15b": starcoder2_15b,
     "qwen1.5-32b": qwen1_5_32b,
+    "olmoe-1b-7b": olmoe_1b_7b,
+    "arctic-480b": arctic_480b,
 }
 
 #: the reference's other architectures -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "olmoe-1b-7b": "ROADMAP Queue 1 item 8 (MoE layers)",
-    "arctic-480b": "ROADMAP Queue 1 item 8 (MoE layers)",
     "whisper-large-v3": "ROADMAP Queue 1 item 9 (the encoder-decoder)",
     "internvl2-76b": "ROADMAP Queue 1 item 10 (vision patches)",
 }

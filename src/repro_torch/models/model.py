@@ -21,15 +21,19 @@ Modes:
             place and returns them (the reference's engine donates its
             cache the same way).
 
+MoE layers (``cfg.num_experts``) replace the FFN with :func:`.moe.moe_apply`
+(``Model(moe_dispatch=...)`` picks its ``einsum`` or ``scatter`` path, the
+reference's two functions), beside a dense FFN where ``cfg.dense_residual``
+is set (arctic-480b).
+
 The caches hold K/V in ``cfg.kv_dtype`` (qwen1.5-32b's
 ``float8_e4m3fn``), cast as the reference's ``astype`` casts
 (:func:`.layers.to_kv`). Prefill attends the K/V before the cast and decode
 reads the cache, the reference's order, so under an fp8 cache prefill(S) +
 decode_step is not prefill(S+1) bit for bit.
 
-Training (``loss_fn``) is not ported yet. The encoder and cross-attention,
-MoE layers and vision patches are not either: a config that needs them
-raises.
+Training (``loss_fn``) is not ported yet. The encoder and cross-attention
+and vision patches are not either: a config that needs them raises.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from ..kernels import ops as kops
 from .layers import (Init, Params, apply_norm, attention_apply, attn_init,
                      cache_update, dtype_of, ffn_apply, ffn_init, init_norm,
                      linear, rope, to_kv)
+from .moe import DISPATCHES, moe_apply, moe_init
 from .recurrent import (rglru_block, rglru_init, rglru_state_init,
                         rwkv6_block, rwkv6_init, rwkv6_state_init)
 
@@ -51,8 +56,6 @@ def unported_parts(cfg: ModelConfig) -> List[str]:
     """What of ``cfg`` the port cannot run yet, each with its ROADMAP item
     (empty when the config runs)."""
     out = []
-    if cfg.num_experts:
-        out.append("MoE layers (ROADMAP Queue 1 item 8)")
     if cfg.is_encdec:
         out.append("the encoder and cross-attention (ROADMAP Queue 1 "
                    "item 9)")
@@ -75,7 +78,10 @@ def _layer_init(cfg: ModelConfig, kind: str) -> Params:
         p["mixer"] = rwkv6_init(cfg, dt)
     else:
         raise ValueError(kind)
-    p["ffn"] = ffn_init(cfg, cfg.d_model, cfg.d_ff, dt)
+    if cfg.num_experts:
+        p["moe"] = moe_init(cfg, dt)
+    if not cfg.num_experts or cfg.dense_residual:
+        p["ffn"] = ffn_init(cfg, cfg.d_model, cfg.d_ff, dt)
     return p
 
 
@@ -199,7 +205,8 @@ def _right_align_cache(cfg: ModelConfig, kt: torch.Tensor, vt: torch.Tensor,
 
 def _layer_apply(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  positions: torch.Tensor, mode: str, cache: Optional[Params],
-                 pos: Optional[int], cache_len: int
+                 pos: Optional[int], cache_len: int,
+                 moe_dispatch: str = "einsum"
                  ) -> Tuple[torch.Tensor, Params]:
     h = apply_norm(cfg, p["norm1"], x)
     if kind == "attn":
@@ -215,8 +222,13 @@ def _layer_apply(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         out, new_cache = rwkv6_block(cfg, p["mixer"], h, cache)
     x = x + out
     h2 = apply_norm(cfg, p["norm2"], x)
-    x = x + ffn_apply(cfg, p["ffn"], h2)
-    return x, new_cache
+    if cfg.num_experts:
+        out2 = moe_apply(cfg, p["moe"], h2, moe_dispatch)
+        if cfg.dense_residual:
+            out2 = out2 + ffn_apply(cfg, p["ffn"], h2)
+    else:
+        out2 = ffn_apply(cfg, p["ffn"], h2)
+    return x + out2, new_cache
 
 
 # -- the model ---------------------------------------------------------------
@@ -228,16 +240,22 @@ class Model(nn.Module):
     The parameters are allocated uninitialised: :meth:`init` draws them
     (the reference's distributions and scales) or
     ``load_state_dict`` / ``convert.model_params_from_fields`` fills
-    them."""
+    them. ``moe_dispatch`` picks the MoE layers' path (``"einsum"``, the
+    reference's default, or ``"scatter"``)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None,
+                 moe_dispatch: str = "einsum"):
         super().__init__()
         missing = unported_parts(cfg)
         if missing:
             raise NotImplementedError(
                 f"{cfg.name}: not ported to repro_torch yet: "
                 + "; ".join(missing))
+        if moe_dispatch not in DISPATCHES:
+            raise ValueError(f"moe_dispatch must be one of {DISPATCHES}, "
+                             f"got {moe_dispatch!r}")
         self.cfg = cfg
+        self.moe_dispatch = moe_dispatch
         dev = resolve_device(device)
         dt = dtype_of(cfg.dtype)
         d, V = cfg.d_model, cfg.vocab_size
@@ -322,7 +340,7 @@ class Model(nn.Module):
                 x, c_out = _layer_apply(
                     cfg, cfg.block_pattern[si],
                     self.scan_layers[slot].tree(bi), x, positions, mode,
-                    c_in, pos, cache_len)
+                    c_in, pos, cache_len, self.moe_dispatch)
                 if decode:  # write back into the stacked caches
                     for k, t in c_out.items():
                         if t is not c_in[k]:
@@ -334,7 +352,8 @@ class Model(nn.Module):
             li = self.n_super * period + i
             c_in = caches["rest"][i] if decode else None
             x, c_out = _layer_apply(cfg, cfg.layer_kind(li), lp.tree(), x,
-                                    positions, mode, c_in, pos, cache_len)
+                                    positions, mode, c_in, pos, cache_len,
+                                    self.moe_dispatch)
             rest.append(c_out)
         if decode:
             caches["rest"] = rest

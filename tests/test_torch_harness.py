@@ -48,7 +48,7 @@ def reference() -> types.SimpleNamespace:
             import repro.configs as configs
             import repro.models as models
             from repro.kernels import rglru, rwkv6
-            from repro.models import layers, recurrent
+            from repro.models import layers, moe, recurrent
             from repro.serving import engine
         finally:
             if shim:
@@ -62,7 +62,8 @@ def reference() -> types.SimpleNamespace:
             kref=ref, serving_dag=serving_dag, apps=apps, matrix=matrix,
             video=video, image=image, perfmodel=perfmodel, matmul=matmul,
             kops=ops, configs=configs, models=models, layers=layers,
-            recurrent=recurrent, rglru=rglru, rwkv6=rwkv6, engine=engine)
+            recurrent=recurrent, moe=moe, rglru=rglru, rwkv6=rwkv6,
+            engine=engine)
     return _REF
 
 

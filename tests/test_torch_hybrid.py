@@ -145,7 +145,8 @@ class TestLatencyModel:
             t1, rlm.decode_s(np.array([64]), np.array([4096])))
 
     @pytest.mark.parametrize("arch", ["llama3-8b", "recurrentgemma-9b",
-                                      "rwkv6-1.6b"])
+                                      "rwkv6-1.6b", "olmoe-1b-7b",
+                                      "arctic-480b"])
     def test_latencies_equal_the_reference(self, ref, arch):
         lm, rlm = self._pair(ref, arch)
         rng = np.random.default_rng(0)
@@ -715,6 +716,18 @@ def test_launch_serve_main_on_the_cpu(ref, monkeypatch):
     # (equal to rtol 1e-5), so only the baselines are held to the letter
     assert got[:3] == want[:3]
     assert got[3].startswith("hybrid     :") and "met=" in got[3]
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "arctic-480b"])
+def test_launch_serve_runs_the_moe_archs_on_the_cpu(arch):
+    """``--arch olmoe-1b-7b`` / ``arctic-480b`` reach the launcher now that
+    the MoE layers are ported: the smoke batch runs on the CPU and the
+    plan's lines follow."""
+    lines = _main_lines(pserve.main, ["--arch", arch, "--requests", "24",
+                                      "--execute-smoke", "--device", "cpu"])
+    assert lines[0].startswith("executed 8 requests on cpu")
+    assert lines[1] == f"arch={arch} J=24 order=spt"
+    assert lines[2].startswith("all-private:") and "met=" in lines[4]
 
 
 def test_default_device_needs_a_gpu():

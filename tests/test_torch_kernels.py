@@ -598,9 +598,11 @@ def _mm_module():
 def _served_products(arch):
     """(K, N, y strides) of each 2-D parameter of ``arch``'s full config
     as ``layers.linear`` reads it (a layer view of its stack, N
-    contiguous) and of its head (the tied embedding's transpose)."""
+    contiguous), of each expert's weights (a view of its [E, K, N] stack)
+    and of its head (the tied embedding's transpose)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import _layer_init
+    from repro_torch.models.moe import moe_init
 
     cfg = get_config(arch)
 
@@ -614,6 +616,10 @@ def _served_products(arch):
             if len(spec.shape) == 2:
                 K, N = spec.shape
                 out.add((K, N, (N, 1)))
+    if cfg.num_experts:
+        for spec in moe_init(cfg, torch.bfloat16).values():
+            K, N = spec.shape[-2:]
+            out.add((K, N, (N, 1)))
     d, V = cfg.d_model, cfg.vocab_size
     out.add((d, V, (1, d)) if cfg.tied_embeddings else (d, V, (V, 1)))
     return sorted(out)
@@ -637,7 +643,8 @@ def _plans_across_rows(products):
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b",
                                   "llama3-8b", "stablelm-12b",
-                                  "starcoder2-15b"])
+                                  "starcoder2-15b", "olmoe-1b-7b",
+                                  "arctic-480b"])
 def test_bf16_tile_plan_arithmetic_does_not_depend_on_the_row_count(arch):
     """At every served width the plan's y layout is the same for M in
     PLAN_ROWS (X, BK and the K order are the module's constants); it
@@ -976,8 +983,9 @@ def _f32_row_mean_products(rows, n):
 
 
 def _f32_products():
-    """Every float32 product shape the MM stage, the norms' row means and
-    chip_smoke give the kernel: (label, M, K, N, strides)."""
+    """Every float32 product shape the MM stage, the norms' row means, the
+    MoE routers and chip_smoke give the kernel: (label, M, K, N,
+    strides)."""
     from repro_torch.configs import get_config
 
     out = []
@@ -989,12 +997,22 @@ def _f32_products():
             ("transposed views", 200, 300, 150, (1, 200, 1, 300)),
             ("lone", 1, 1, 1, (1, 1, 1, 1))]
     for arch in ("rwkv6-1.6b", "recurrentgemma-9b", "llama3-8b",
-                 "stablelm-12b", "starcoder2-15b"):
+                 "stablelm-12b", "starcoder2-15b", "olmoe-1b-7b",
+                 "arctic-480b"):
         d = get_config(arch).d_model
         for rows in (1, 8, 656, 8192, 65600):
             for M, K, N, strides in _f32_row_mean_products(rows, d):
                 out.append((f"{arch} row_mean rows={rows}", M, K, N,
                             strides))
+    # the float32 router [tokens, d] @ [d, E]: one token, a decode step,
+    # the serve batch's prefill and olmoe's 2 x 4080-token long batch
+    for arch, tokens in (("olmoe-1b-7b", (1, 8, 656, 8160)),
+                         ("arctic-480b", (1, 8, 656))):
+        cfg = get_config(arch)
+        d, E = cfg.d_model, cfg.num_experts
+        for rows in tokens:
+            out.append((f"{arch} router rows={rows}", rows, d, E,
+                        (d, 1, E, 1)))
     return out
 
 

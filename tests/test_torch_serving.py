@@ -74,7 +74,8 @@ def _padded(reqs):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b",
                                   "llama3-8b", "stablelm-12b",
-                                  "starcoder2-15b", "qwen1.5-32b"])
+                                  "starcoder2-15b", "qwen1.5-32b",
+                                  "olmoe-1b-7b", "arctic-480b"])
 def test_generate_batch_matches_reference_engine(ref, arch, dtype):
     cfg, jeng, teng = _engines(ref, arch, dtype)
     want = jeng.generate_batch(_requests(cfg.vocab_size, 7,
