@@ -28,11 +28,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    replicas, providers, segments, start and end exact; cost and makespan
    to a relative 1e-12). The J=512 sweep then runs once more under
    ``torch.profiler`` to split its wall time into device-busy and idle,
-   and the J=4096 sweep once more to count the share of masked jobs the
-   engine gives ``acd_evict`` (``acd_mask_share``); the kernel is timed at
-   that share and at 0.8, at J=512 and J=4096, and by device time on
-   every 1000th of the engine's own calls, kept from that pass, beside
-   their chain floor.
+   and the grid once more at J=1024 (``SIDE_J``) to count the share of
+   masked jobs the engine gives ``acd_evict`` (``acd_mask_share``); the
+   kernel is timed at that share and at 0.8, at J=512 and J=4096, and by
+   device time on every 250th of the engine's own calls, kept from that
+   pass, beside their chain floor.
 4. The congested main path: the same grid on a 3-provider portfolio with
    2-slot concurrency caps per provider and a 0.5 s warm-up / 1 s
    keep-alive scale-to-zero cold-start model (the throughput benchmark's
@@ -40,10 +40,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and cold starts must occur; the J=128 grid agrees between the card and
    the CPU field for field; three scenarios of each timed grid meet the
    DES contract, queue waits and cold flags exact; the J=512 sweep runs
-   once more under the profiler. One more, untimed sweep of the J=4096
-   grid keeps the inputs of its every ``fifo_dispatch`` call, and each is
-   then held against its plain version and timed by CUDA events beside
-   its chain floor.
+   once more under the profiler. One more, untimed sweep of the grid at
+   J=1024 (``SIDE_J``) keeps the inputs of its every ``fifo_dispatch``
+   call, and each is then held against its plain version and timed by
+   CUDA events beside its chain floor.
 5. A pool trace (one private replica per stage, two from a breakpoint
    inside the horizon) with the cold-start model, J=512 on ``cuda``; three
    of its scenarios meet the DES contract, and the J=128 grid agrees
@@ -188,6 +188,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    arctic-480b at full width and 2 of its 35 layers (128 experts, top-2,
    a dense residual FFN, 56 heads over 8 KV heads): the serve batch, the
    same gates, card against CPU at its smoke config.
+   8d. The encoder-decoder, whisper-large-v3 at full width and depth (32
+   encoder + 32 decoder layers, 20 heads of 64, a 51,866-token vocabulary;
+   frames drawn on the card): the bf16 ``matmul`` at its products (the
+   encoder's 12,000 and 48,000 rows, the cross ``wk``/``wv``, the head,
+   whose row stride takes no TMA) against its plain version and timed,
+   rows bit for bit the row alone; its attention shapes (the encoder's
+   causal 1,500 x 1,500, the cross-attention's prefill and decode over
+   1,500 keys, the decoder's self-attention) against their plain
+   versions, timed beside SDPA and their bounds; then the serve batch and
+   a batch-transcription batch (32 x 4 tokens, 32 new, cache_len 448)
+   through ``Model.prefill(frames=...)`` and ``decode_step`` in the
+   engine's greedy loop (``FramesEngine``), launches exact (the encoder
+   and the cross ``wk``/``wv`` once a prefill), logits finite, first
+   tokens the argmax, the encoder's share of each prefill, a profiler
+   pass, prefill(S) + decode_step bit for bit prefill(S+1) with the same
+   frames, SHORT_DECODE of SHORT_DECODE steps; card against CPU at 2 + 2
+   layers in float32 (the encoder output, the greedy tokens).
 9. Prints the kernels' JSON line, then the device line last.
 
 Launch counts are set to 0 just before each main path and read just after
@@ -216,6 +233,15 @@ PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
 N_DEADLINES = 5
 ORDERS = ("spt", "hcf")
 MAIN_J = (512, 4096)
+#: the grid of the main paths' side passes (the uncapped path's counting
+#: pass, the congested path's kept ``fifo_dispatch`` calls), cut from
+#: J=4096 for the run's time (on an H100 the counting pass took 31.2 s and
+#: a congested J=4096 sweep 32.8 s of a 973 s run); the J=4096 scale stays
+#: timed and DES-checked on both paths
+SIDE_J = 1024
+#: every this-many-th of the counting pass's ``acd_evict`` calls is kept
+#: and timed by device time (16 of the J=1024 pass's ~4,000)
+KEEP_EVERY = 250
 #: job counts of the scenario-axes sweeps: at J=4096 they took ~200 s of
 #: a 1,319 s run on a slow host, past the 1,200 s a run may take; the
 #: J=4096 scale stays timed and DES-checked on the main and congested
@@ -358,6 +384,27 @@ OLMOE = "olmoe-1b-7b"
 ARCTIC = "arctic-480b"
 MOE = (OLMOE, ARCTIC)
 ARCTIC_LAYERS = 2
+#: the encoder-decoder phase (8d): whisper-large-v3 at full width and depth
+#: (32 encoder + 32 decoder layers, 1,603,486,720 parameters: 3.207 GB in
+#: bf16), each request's 1,500 frame embeddings drawn N(0, FRAMES_STD) on
+#: the card (the reference data pipeline's distribution,
+#: src/repro/data/pipeline.py:56-58): the serve batch, and TRANSCRIBE, a
+#: batch-transcription batch (requests, prompt tokens, new tokens,
+#: cache_len): 32 segments of 30 s of audio, Whisper's 4-token
+#: start-of-transcript prompt, 32 new tokens, cache_len 448 (Whisper's text
+#: context); it puts the encoder at 48,000 rows and 7.9 GB of ck/cv caches
+#: on the card
+WHISPER = "whisper-large-v3"
+TRANSCRIBE = (32, 4, 32, 448)
+FRAMES_STD = 0.02
+#: whisper's card-against-CPU check: encoder and decoder layers, and the
+#: first WHISPER_CPU_REQUESTS requests of the serve batch (the CPU runs the
+#: encoder over 1,500 frames a request); its encoder output within ENC_RTOL
+#: of its largest value (float32 rounding of d = 1280 dot products in
+#: another order, through two layers)
+WHISPER_CPU_LAYERS = 2
+WHISPER_CPU_REQUESTS = 2
+ENC_RTOL = 1e-4
 #: prefill(S) + decode_step == prefill(S+1): the reference suite's own
 #: tolerance (tests/test_models.py:88-90), held at the full configs in
 #: bf16 and in float32. Every weight product goes through the matmul
@@ -408,6 +455,10 @@ ROW_MEAN_ATOL = 1e-6
 ATTN_RTOL = 1e-5
 CPU_DECODE = 4
 CPU_RTOL = 1e-4
+#: the CPU's bf16 prefill(S) + decode_step reading of
+#: check_serve_against_cpu runs the serve batch's first CPU_BF16_REQUESTS
+#: requests (all 8 took 3-14 s an architecture on the CPU)
+CPU_BF16_REQUESTS = 2
 
 
 def fig4_workload(apps, J, jitter=0.05):
@@ -2238,11 +2289,14 @@ def head_split(B, S, H, D, dt, dev, g):
 def attention_shapes():
     """The serve phases' attention shapes: (arch, Hq, Hkv, D, window,
     serve prompt, long prompt or None, long cache or None); the MoE phase's
-    too (olmoe-1b-7b's 16/16 heads, arctic-480b's 56/8)."""
+    too (olmoe-1b-7b's 16/16 heads, arctic-480b's 56/8) and whisper's
+    decoder self-attention (20/20 heads of 64; its encoder and
+    cross-attention shapes are :func:`check_whisper_attention`'s)."""
     from repro_torch.configs import get_config
 
     out = []
-    for arch in ("recurrentgemma-9b", "llama3-8b") + SHORT + MOE:
+    for arch in ("recurrentgemma-9b", "llama3-8b") + SHORT + MOE + (
+            WHISPER,):
         cfg = get_config(arch)
         long_p, long_c = LONG.get(arch, (None, None))
         out.append((arch, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
@@ -2951,19 +3005,21 @@ def serve_batch(label, engine, reqs):
     return outs, counts, wall
 
 
-def incremental_gap(model, toks, cache_len):
-    """prefill(S) of ``toks`` [B, S], decode_step of its greedy tokens, and
-    prefill(S+1) of the same tokens: (prefill logits, decode logits,
-    prefill(S+1) logits, greedy tokens, the INCR_TOL line and whether every
-    logit is within it)."""
+def incremental_gap(model, toks, cache_len, frames=None):
+    """prefill(S) of ``toks`` [B, S] (with an encoder-decoder's ``frames``),
+    decode_step of its greedy tokens, and prefill(S+1) of the same tokens:
+    (prefill logits, decode logits, prefill(S+1) logits, greedy tokens, the
+    INCR_TOL line and whether every logit is within it)."""
     import torch
 
     S = toks.shape[1]
-    logits, cache = model.prefill(toks, cache_len=cache_len)
+    kw = {} if frames is None else {"frames": frames}
+    logits, cache = model.prefill(toks, cache_len=cache_len, **kw)
     first = torch.argmax(logits, -1)
     dec, _ = model.decode_step(cache, first, S)
+    del cache
     full, _ = model.prefill(torch.cat([toks, first[:, None]], 1),
-                            cache_len=cache_len)
+                            cache_len=cache_len, **kw)
     torch.cuda.synchronize()
     d, f = dec.float(), full.float()
     err = (d - f).abs()
@@ -2975,7 +3031,7 @@ def incremental_gap(model, toks, cache_len):
     return logits, dec, full, first, line, not bool(bad.any())
 
 
-def check_serve_logits(label, model, reqs, outs, cache_len):
+def check_serve_logits(label, model, reqs, outs, cache_len, frames=None):
     """The engine's batch once more by hand: finite logits, the engine's
     first tokens the prefill's argmax, and prefill(S) + decode_step within
     INCR_TOL of prefill(S+1), every logit (the reference suite's check, at
@@ -2989,7 +3045,7 @@ def check_serve_logits(label, model, reqs, outs, cache_len):
 
     toks = torch.from_numpy(padded(reqs)).to(model.device)
     logits, dec, full, first, line, ok = incremental_gap(model, toks,
-                                                         cache_len)
+                                                         cache_len, frames)
     engine_first = torch.tensor([int(c.tokens[0]) for c in outs],
                                 device=model.device)
     same_first = torch.equal(first, engine_first)
@@ -3139,9 +3195,14 @@ def check_incremental_float32(arch, dev, seed):
 
 def serve_batches(cfg, arch, new):
     """(label, requests, cache_len) of the serve batch and, where the
-    architecture has one, its long batch."""
+    architecture has one, its long batch (whisper-large-v3: the
+    transcription batch, TRANSCRIBE)."""
     out = [("batch", serve_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, new,
                                     SERVE_SEED), SERVE_CACHE)]
+    if arch == WHISPER:
+        n, prompt, n_new, cache_len = TRANSCRIBE
+        out.append(("transcription batch", serve_requests(
+            cfg, n, prompt, n_new, SERVE_SEED + 1), cache_len))
     if arch in LONG:
         prompt, cache_len = LONG[arch]
         out.append(("long batch", serve_requests(
@@ -3163,7 +3224,12 @@ def expected_launches(cfg, new):
     rwkv6 group norm; two norms a layer and the final one) and, in an MoE
     layer, ``moe.moe_launches``: the router product and two or three
     products per expert (every slot computed), beside the dense FFN where
-    ``dense_residual`` is set."""
+    ``dense_residual`` is set. An encoder-decoder's prefill also runs the
+    encoder (per layer: its attention's four products and one
+    flash_attention, its FFN, two norms; then its final norm), and each
+    decoder layer's cross-attention (a third norm; wq and wo every forward,
+    wk and wv only at prefill; one more flash_attention at prefill, not
+    causal, and one more flash_decode every decode step)."""
     from repro_torch.models.layers import row_mean_launches
     from repro_torch.models.moe import moe_launches
 
@@ -3172,16 +3238,24 @@ def expected_launches(cfg, new):
     per_norm = ((1 if cfg.norm == "rmsnorm" else 2)
                 * row_mean_launches(cfg.d_model))
     dense_ffn = not cfg.num_experts or cfg.dense_residual
-    per_forward = (sum(MIXER_PRODUCTS[k] for k in kinds)
-                   + (3 if cfg.glu else 2) * cfg.num_layers * dense_ffn
-                   + (moe_launches(cfg) * cfg.num_layers
-                      if cfg.num_experts else 0) + 1
-                   + per_norm * (2 * cfg.num_layers + 1)
-                   + 2 * row_mean_launches(cfg.rwkv_head_dim)
-                   * kinds.count("rwkv6"))
+    ffn = 3 if cfg.glu else 2
+    cross = int(cfg.is_encdec)
+    decode = (sum(MIXER_PRODUCTS[k] for k in kinds)
+              + ffn * cfg.num_layers * dense_ffn
+              + (moe_launches(cfg) * cfg.num_layers
+                 if cfg.num_experts else 0) + 1
+              + per_norm * ((2 + cross) * cfg.num_layers + 1)
+              + 2 * row_mean_launches(cfg.rwkv_head_dim)
+              * kinds.count("rwkv6")
+              + 2 * cross * cfg.num_layers)
+    prefill = (decode + 2 * cross * cfg.num_layers
+               + cfg.encoder_layers * (MIXER_PRODUCTS["attn"] + ffn
+                                       + 2 * per_norm)
+               + per_norm * cross)
     return {"acd_evict": 0, "fifo_dispatch": 0,
-            "matmul": per_forward * (1 + new),
-            "flash_attention": n_attn, "flash_decode": n_attn * new,
+            "matmul": prefill + decode * new,
+            "flash_attention": n_attn * (1 + cross) + cfg.encoder_layers,
+            "flash_decode": n_attn * (1 + cross) * new,
             "rglru": kinds.count("rglru") * (1 + new),
             "rwkv6": kinds.count("rwkv6") * (1 + new)}
 
@@ -3199,7 +3273,12 @@ def serve_full(arch, dev, seed, layers=None):
     (qwen1.5-32b's fp8) also runs the same weights with a cache in the
     activations' dtype, and an MoE one at capacity factor E/k
     (:func:`decode_against_prefill`, bit for bit), and its serve batch
-    through the ``scatter`` dispatch (:func:`scatter_batch`)."""
+    through the ``scatter`` dispatch (:func:`scatter_batch`). An
+    encoder-decoder (whisper-large-v3) serves through
+    :class:`FramesEngine`, each batch with frames of its own; it prints
+    each prefill's encoder share (:func:`encoder_share`), and its serve
+    batch's prefill and SHORT_DECODE greedy steps are held bit for bit
+    against prefill(S+1) with the same frames."""
     import dataclasses
     import gc
 
@@ -3229,8 +3308,14 @@ def serve_full(arch, dev, seed, layers=None):
           f"{cfg.vocab_size}: {n_params} parameters, {n_bytes / 1e9:.3f} GB,"
           f" drawn on the card in {time.perf_counter() - t0:.3f} s")
     launches, runs = {}, {}
-    for label, reqs, cache_len in serve_batches(cfg, arch, SERVE_NEW):
-        engine = InferenceEngine(model, cache_len=cache_len)
+    for i, (label, reqs, cache_len) in enumerate(serve_batches(
+            cfg, arch, SERVE_NEW)):
+        frames = None
+        if cfg.is_encdec:
+            frames = draw_frames(cfg, len(reqs), dev, seed * 10 + i)
+            engine = FramesEngine(model, cache_len, frames)
+        else:
+            engine = InferenceEngine(model, cache_len=cache_len)
         if label == "batch":  # first-use costs stay out of the timed run
             engine.generate_batch(reqs)
         outs, counts, wall = serve_batch(f"{arch} {label}", engine, reqs)
@@ -3240,12 +3325,15 @@ def serve_full(arch, dev, seed, layers=None):
                                  f"expected {want}")
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
-        check_serve_logits(f"{arch} {label}", model, reqs, outs, cache_len)
+        check_serve_logits(f"{arch} {label}", model, reqs, outs, cache_len,
+                           frames)
         runs[label] = (outs, wall)
-        if arch in ("rwkv6-1.6b", "llama3-8b") or (arch == OLMOE
-                                                    and label == "batch"):
+        if arch in ("rwkv6-1.6b", "llama3-8b") or (
+                arch in (OLMOE, WHISPER) and label == "batch"):
             profile_serve(arch, engine, reqs, wall)
-        if label == "batch" and arch == QWEN:
+        if cfg.is_encdec:
+            encoder_share(f"{arch} {label}", model, frames, outs)
+        elif label == "batch" and arch == QWEN:
             time_kv_cast(arch, engine, reqs)
         elif label == "batch" and cfg.num_experts:
             scatter_batch(arch, engine, reqs, outs)
@@ -3267,6 +3355,10 @@ def serve_full(arch, dev, seed, layers=None):
         decode_against_prefill(f"{arch}, capacity factor E/k = "
                                f"{model.cfg.capacity_factor:g}", model)
         model.cfg = cfg
+    if cfg.is_encdec:
+        engine = frames = None  # free the last batch's frames
+        decode_against_prefill(arch, model, draw_frames(
+            cfg, SERVE_REQUESTS, dev, seed * 10 + 9))
     print(f"serve {arch}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     del model, engine
@@ -3307,25 +3399,27 @@ def scatter_batch(arch, engine, reqs, einsum_outs):
                              f"expected {want}; finite {finite}")
 
 
-def decode_against_prefill(label, model):
+def decode_against_prefill(label, model, frames=None):
     """The serve batch's prefill and SHORT_DECODE greedy decode steps on
-    ``model`` (bf16), each step's logits bit for bit (and within INCR_TOL
-    of) the card's own prefill of the tokens so far, every kernel's
-    launches counted against ``expected_launches``. Raises on a miss;
-    returns the launches."""
+    ``model`` (bf16; an encoder-decoder's with ``frames``, each prefill
+    with the same ones), each step's logits bit for bit (and within
+    INCR_TOL of) the card's own prefill of the tokens so far, every
+    kernel's launches counted against ``expected_launches``. Raises on a
+    miss; returns the launches."""
     import torch
 
     from repro_torch.kernels import ops
 
     cfg = model.cfg
     dev = model.device
+    kw = {} if frames is None else {"frames": frames}
     reqs = serve_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, SHORT_DECODE,
                           SERVE_SEED)
     toks = torch.from_numpy(padded(reqs)).to(dev)
     S = toks.shape[1]
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(toks, cache_len=SERVE_CACHE)
+    logits, cache = model.prefill(toks, cache_len=SERVE_CACHE, **kw)
     steps = []
     for i in range(SHORT_DECODE):
         tok = torch.argmax(logits, -1)
@@ -3337,8 +3431,10 @@ def decode_against_prefill(label, model):
     counts = ops.launch_counts()
     want = expected_launches(cfg, SHORT_DECODE)
     readings, ok = [], counts == want
+    del cache
     for i, dec in enumerate(steps):
-        full, _ = model.prefill(toks[:, :S + i + 1], cache_len=SERVE_CACHE)
+        full, _ = model.prefill(toks[:, :S + i + 1], cache_len=SERVE_CACHE,
+                                **kw)
         d, f = dec.float(), full.float()
         bad = (d - f).abs() > INCR_TOL["atol"] + INCR_TOL["rtol"] * f.abs()
         ok = (ok and not bool(bad.any()) and bool(torch.isfinite(d).all())
@@ -3351,7 +3447,6 @@ def decode_against_prefill(label, model):
           f"heads, head_dim {cfg.hd}: prefill {S} tokens + {SHORT_DECODE} "
           f"decode steps in {wall:.3f} s; each step against prefill(S+1) at "
           f"INCR_TOL: {'; '.join(readings)}; launches {counts}")
-    del cache
     if not ok:
         raise AssertionError(f"serve {label}: decode steps != prefill(S+1)"
                              f" (launches expected {want})")
@@ -3580,15 +3675,360 @@ def check_serve_against_cpu(arch, dev, seed, smoke=False):
                                     kv_dtype="bfloat16"), device="cpu")
     cpu.load_state_dict(card.state_dict())
     t0 = time.perf_counter()
-    _, dec, full, _, line, _ = incremental_gap(cpu, toks, SERVE_CACHE)
-    print(f"serve {cfg.name} at {cfg.num_layers} layers, bf16 on the CPU "
-          f"({time.perf_counter() - t0:.3f} s): {line}; bitwise equal "
-          f"{torch.equal(dec, full)}")
+    _, dec, full, _, line, _ = incremental_gap(
+        cpu, toks[:CPU_BF16_REQUESTS], SERVE_CACHE)
+    print(f"serve {cfg.name} at {cfg.num_layers} layers, bf16 on the CPU, "
+          f"{CPU_BF16_REQUESTS} requests ({time.perf_counter() - t0:.3f} "
+          f"s): {line}; bitwise equal {torch.equal(dec, full)}")
     del card, cpu
     gc.collect()
     torch.cuda.empty_cache()
     if not same or rel > CPU_RTOL:
         raise AssertionError(f"serve {arch}: card != CPU")
+
+
+def draw_frames(cfg, n, dev, seed):
+    """``n`` requests' frame embeddings [n, encoder_seq, d_model], float32,
+    N(0, FRAMES_STD) from a seeded generator on ``dev``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((n, cfg.encoder_seq, cfg.d_model), generator=g,
+                       device=dev) * FRAMES_STD
+
+
+class FramesEngine:
+    """``InferenceEngine.generate_batch`` for an encoder-decoder model: the
+    same left padding, greedy loop and host-clock timing (each phase ending
+    in a sync on the card), with the batch's ``frames`` handed to prefill.
+    The port's engine, like the reference's, calls prefill without frames
+    and cannot serve such a model."""
+
+    def __init__(self, model, cache_len, frames):
+        self.model, self.cache_len, self.frames = model, cache_len, frames
+
+    def generate_batch(self, reqs):
+        import torch
+
+        from repro_torch.serving import Completion
+
+        model, dev = self.model, self.model.device
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        toks = torch.from_numpy(padded(reqs)).to(dev)
+        b, pmax = toks.shape
+        n_new = max(r.max_new_tokens for r in reqs)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(toks, cache_len=self.cache_len,
+                                          frames=self.frames)
+            sync()
+            prefill_s = time.perf_counter() - t0
+            out = torch.zeros((b, n_new), dtype=torch.int32, device=dev)
+            t0 = time.perf_counter()
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            for i in range(n_new):
+                out[:, i] = tok
+                logits, cache = model.decode_step(cache, tok, pmax + i)
+                tok = torch.argmax(logits, -1).to(torch.int32)
+            sync()
+            decode_s = time.perf_counter() - t0
+        out_np = out.cpu().numpy()
+        return [Completion(r.rid, out_np[i, :r.max_new_tokens], prefill_s,
+                           decode_s) for i, r in enumerate(reqs)]
+
+
+def encoder_share(label, model, frames, outs, n=3):
+    """The encoder alone (``Model._encode`` of the batch's frames, host
+    clock ending in a sync, the median of ``n`` calls) beside the batch's
+    prefill wall: the encoder's share of the prefill."""
+    import statistics
+
+    import torch
+
+    with torch.inference_mode():
+        x = frames.to(model.embed.dtype)
+        walls = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model._encode(x)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    enc_s, pre_s = statistics.median(walls), outs[0].prefill_s
+    print(f"serve {label}: the encoder over {list(frames.shape)} frames "
+          f"{enc_s * 1e3:.3f} ms (median of {n}: "
+          f"{', '.join(f'{w * 1e3:.3f}' for w in walls)}) of a "
+          f"{pre_s * 1e3:.3f} ms prefill: {enc_s / pre_s:.4f} of it")
+
+
+def whisper_rows():
+    """The row counts whisper-large-v3's weight products take in phase 8d:
+    {label: M} for the decode steps (8, 32), the prefills' decoder rows
+    (the serve batch's 8 x longest prompt, the transcription batch's
+    32 x 4) and the encoder's (8 and 32 x 1,500; the cross wk / wv too)."""
+    from repro_torch.configs import get_config
+
+    se = get_config(WHISPER).encoder_seq
+    n, prompt, _, _ = TRANSCRIBE
+    return {"decode": SERVE_REQUESTS, "transcription decode": n,
+            "prefill": SERVE_REQUESTS * longest_prompt(WHISPER),
+            "transcription prefill": n * prompt,
+            "encoder": SERVE_REQUESTS * se,
+            "transcription encoder": n * se}
+
+
+def sampled_rows(m):
+    """Every row of ``m`` up to 1,024; else the first and last 64 and every
+    997th between."""
+    return (range(m) if m <= 1024 else
+            [*range(64), *range(64, m - 64, 997), *range(m - 64, m)])
+
+
+def check_whisper_products(dev):
+    """The bf16 ``matmul`` at whisper-large-v3's weight products, against its
+    plain version and timed (:func:`bf16_timed`) at every row count of
+    :func:`whisper_rows`: the attention projections (d -> d: wq, wk, wv,
+    wo, the cross wk / wv at the encoder's rows) and the FFN's (d -> ff,
+    ff -> d), each a layer view of a stacked [2, K, N] parameter, and the
+    head [1280, 51866] at the decode rows (a 103,732-byte row stride, so no
+    TMA: thread-staged; N & 3 = 2, so scalar stores); every row of
+    ``linear`` (sampled past 1,024 rows) bit for bit the row computed
+    alone, and so every row of the norms' row mean at d = 1280. Returns the
+    timings for matmul's "bf16" entry."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import ieee_float32
+    from repro_torch.models.layers import linear, row_mean
+
+    cfg = get_config(WHISPER)
+    d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    g = torch.Generator(device=dev).manual_seed(27)
+    bf16 = torch.bfloat16
+    rows = whisper_rows()
+    reps = {m: 50 if m <= 1024 else 5 for m in rows.values()}
+    timings = []
+
+    def check_rows(label, x, w):
+        full = linear(x, w)
+        pick = sampled_rows(x.shape[0])
+        same = sum(torch.equal(linear(x[i:i + 1], w)[0], full[i])
+                   for i in pick)
+        print(f"linear rows {label}: {same} of {len(pick)} rows bitwise "
+              f"equal to the row alone")
+        if same != len(pick):
+            raise AssertionError(f"linear {label}: rows depend on the row "
+                                 f"count")
+
+    for K, N in ((d, d), (d, ff), (ff, d)):
+        w = (torch.randn(2, K, N, device=dev, generator=g)
+             * K ** -0.5).to(bf16)[1]  # a layer's view
+        for label, m in rows.items():
+            x = torch.randn(m, K, device=dev, generator=g).to(bf16)
+            with ieee_float32():
+                timings.append(bf16_timed(
+                    f"{WHISPER} {label} [{m}, {K}] @ layer view [{K}, {N}]",
+                    f"whisper {label}", x, w, reps[m]))
+            check_rows(f"{WHISPER} {label} [{m}, {K}] @ [{K}, {N}] bf16", x,
+                       w)
+            del x
+        del w
+        gc.collect()
+        torch.cuda.empty_cache()
+    w = (torch.randn(d, V, device=dev, generator=g) * d ** -0.5).to(bf16)
+    for label in ("decode", "transcription decode"):
+        m = rows[label]
+        x = torch.randn(m, d, device=dev, generator=g).to(bf16)
+        with ieee_float32():
+            timings.append(bf16_timed(
+                f"{WHISPER} head {label} [{m}, {d}] @ [{d}, {V}] strides "
+                f"{w.stride()}", f"whisper head {label}", x, w, 20))
+        check_rows(f"{WHISPER} head [{m}, {d}] @ [{d}, {V}] bf16", x, w)
+    del w, x
+    # the norms' row means at d = 1280 (first level [rows * 20, 64])
+    for label, m in rows.items():
+        x = torch.randn(m, d, device=dev, generator=g) * 3
+        full = row_mean(x * x)
+        pick = sampled_rows(m)
+        same = sum(torch.equal(row_mean(x[i:i + 1] * x[i:i + 1])[0],
+                               full[i]) for i in pick)
+        print(f"row_mean rows {WHISPER} {label} [{m}, {d}] float32: {same} "
+              f"of {len(pick)} rows bitwise equal to the row alone")
+        if same != len(pick):
+            raise AssertionError(f"row_mean [{m}, {d}]: rows depend on the "
+                                 f"row count")
+    del x, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return timings
+
+
+def check_whisper_attention(dev):
+    """whisper-large-v3's attention shapes (20 heads of 64 over 20 KV heads,
+    bf16) at the serve batch (8 x its longest prompt, cache_len 192) and
+    the transcription batch (32 x 4 tokens, cache_len 448): the encoder's
+    causal self-attention over 1,500 frames, the decoder's causal
+    self-attention, the cross-attention's prefill (not causal, Sq tokens
+    over 1,500 keys), and at a decode step the self-attention over the
+    cache (length S + 1, called with ``end`` as the model calls it) and the
+    cross-attention over all 1,500 slots. Each kernel against its plain
+    version, then timed beside its plain version,
+    ``scaled_dot_product_attention`` and its bound. Returns {kernel: [its
+    shapes' timings]} for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (flash_attention_plain,
+                                         flash_decode_plain)
+
+    cfg = get_config(WHISPER)
+    H, D, se = cfg.num_heads, cfg.hd, cfg.encoder_seq
+    g = torch.Generator(device=dev).manual_seed(28)
+    bf16 = torch.bfloat16
+    n, prompt, _, cache = TRANSCRIBE
+    out = {"flash_attention": [], "flash_decode": []}
+    for batch, B, S, C in (("serve", SERVE_REQUESTS, longest_prompt(WHISPER),
+                            SERVE_CACHE), ("transcription", n, prompt,
+                                           cache)):
+        for what, sq, sk, causal in (("encoder", se, se, True),
+                                     ("decoder self", S, S, True),
+                                     ("cross prefill", S, se, False)):
+            q = head_split(B, sq, H, D, bf16, dev, g)
+            k, v = (head_split(B, sk, H, D, bf16, dev, g) for _ in range(2))
+            label = (f"flash_attention {WHISPER} {batch} {what} [{B}, "
+                     f"{H}/{H}, {sq}x{sk}, {D}] bf16 causal={causal}")
+            err = attn_check(label, ops.flash_attention(q, k, v,
+                                                        causal=causal),
+                             flash_attention_plain(q, k, v, causal=causal),
+                             v)
+            reps = 5 if sq * sk * B > 10 ** 7 else 50
+            k_ms = cuda_ms(lambda: ops.flash_attention(q, k, v,
+                                                       causal=causal), reps)
+            p_ms = cuda_ms(lambda: flash_attention_plain(q, k, v,
+                                                         causal=causal), 1)
+            l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal), reps)
+            pairs = live_pairs(sq, sk, causal, None)
+            bound, by, n_bytes, n_ops = attention_bound(
+                B * H * sq * D, B * H * sk * D, 2, 4 * B * H * D * pairs,
+                "bfloat16")
+            print(f"{label}: kernel {k_ms:.6f} ms ({n_ops / k_ms * 1e-9:.3f} "
+                  f"TFLOP/s), plain {p_ms:.3f} ms, "
+                  f"scaled_dot_product_attention {l_ms:.6f} ms, bound "
+                  f"{bound:.6f} ms by {by} (bytes {n_bytes}, operations "
+                  f"{n_ops}); kernel at {bound / k_ms:.4f} of the bound, "
+                  f"{k_ms / l_ms:.2f}x the library call")
+            out["flash_attention"].append({
+                "shape": f"{batch} {what} [{B}, {H}, {sq}, {sk}, {D}]",
+                "causal": causal, "max_abs_err": err, "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": l_ms})
+            del q, k, v
+        for what, slots, n_live in (("decode self", C, S + 1),
+                                    ("decode cross", se, se)):
+            q = head_split(B, 1, H, D, bf16, dev, g)[:, :, 0]
+            k, v = (torch.randn(B, H, slots, D, device=dev,
+                                generator=g).to(bf16) for _ in range(2))
+            length = torch.full((B,), n_live, dtype=torch.int32, device=dev)
+            end = length if what == "decode self" else None
+            label = (f"flash_decode {WHISPER} {batch} {what} q [{B}, {H}, "
+                     f"{D}], cache [{B}, {H}, {slots}, {D}] bf16, length "
+                     f"{n_live}")
+            err = attn_check(label, ops.flash_decode(q, k, v, length, end),
+                             flash_decode_plain(q, k, v, length, end), v)
+            k_ms = cuda_ms(lambda: ops.flash_decode(q, k, v, length, end),
+                           50)
+            p_ms = cuda_ms(lambda: flash_decode_plain(q, k, v, length, end),
+                           5)
+            mask = (torch.arange(slots, device=dev)
+                    < n_live)[None, None, None, :]
+            q4 = q[:, :, None]
+            l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q4, k, v, attn_mask=mask), 50)
+            bound, by, n_bytes, n_ops = attention_bound(
+                B * H * D, B * H * n_live * D, 2, 4 * B * H * D * n_live,
+                "bfloat16")
+            print(f"{label}: kernel {k_ms:.6f} ms "
+                  f"({n_bytes / k_ms * 1e-9:.3f} TB/s), plain {p_ms:.6f} ms,"
+                  f" scaled_dot_product_attention {l_ms:.6f} ms, bound "
+                  f"{bound:.6f} ms by {by} (bytes {n_bytes}, operations "
+                  f"{n_ops}); kernel at {bound / k_ms:.4f} of the bound, "
+                  f"{k_ms / l_ms:.2f}x the library call")
+            out["flash_decode"].append({
+                "shape": f"{batch} {what} [{B}, {H}, {slots}, {D}] length "
+                         f"{n_live}", "max_abs_err": err, "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": l_ms})
+            del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_whisper_against_cpu(dev, seed):
+    """whisper-large-v3 at full width and WHISPER_CPU_LAYERS encoder and
+    decoder layers in float32 (IEEE float32 products), the same weights
+    and frames on the card and the CPU (drawn on the card, copied), the
+    serve batch's first WHISPER_CPU_REQUESTS requests: the encoder's output
+    within ENC_RTOL of its largest value, the greedy tokens over
+    CPU_DECODE steps equal, the prefill logits within CPU_RTOL of their
+    scale."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import ieee_float32
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(
+        get_config(WHISPER), num_layers=WHISPER_CPU_LAYERS,
+        encoder_layers=WHISPER_CPU_LAYERS, dtype="float32",
+        kv_dtype="float32")
+    card = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    reqs = serve_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, CPU_DECODE,
+                          SERVE_SEED)[:WHISPER_CPU_REQUESTS]
+    frames = draw_frames(cfg, len(reqs), dev, seed)
+    toks = torch.from_numpy(padded(reqs))
+    res = {}
+    for name, model, x in (("card", card, frames),
+                           ("CPU", cpu, frames.cpu())):
+        t0 = time.perf_counter()
+        with ieee_float32(), torch.inference_mode():
+            enc = model._encode(x)
+            outs = FramesEngine(model, SERVE_CACHE, x).generate_batch(reqs)
+            logits, _ = model.prefill(toks.to(model.device),
+                                      cache_len=SERVE_CACHE, frames=x)
+        res[name] = (enc.cpu(), outs, logits.cpu(),
+                     time.perf_counter() - t0)
+    (ec, oc, lc, tc), (eh, oh, lh, th) = res["card"], res["CPU"]
+    same = all(np.array_equal(g.tokens, w.tokens) for g, w in zip(oc, oh))
+    enc_rel = float((ec - eh).abs().max() / eh.abs().max())
+    rel = float((lc - lh).abs().max() / lh.abs().max())
+    finite = bool(torch.isfinite(ec).all() and torch.isfinite(lc).all())
+    print(f"serve {cfg.name} at {cfg.encoder_layers} + {cfg.num_layers} "
+          f"layers, float32, {len(reqs)} requests: card {tc:.3f} s, CPU "
+          f"{th:.3f} s; encoder output {list(ec.shape)} differs by "
+          f"{enc_rel!r} of its max (tolerance {ENC_RTOL}), finite {finite}; "
+          f"greedy tokens over {CPU_DECODE} steps equal {same}; prefill "
+          f"logits differ by {rel!r} of their max (tolerance {CPU_RTOL})")
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (same and finite and enc_rel <= ENC_RTOL and rel <= CPU_RTOL):
+        raise AssertionError(f"serve {WHISPER}: card != CPU")
 
 
 def main() -> int:
@@ -3901,8 +4341,8 @@ def main() -> int:
     # where the J=512 sweep's time goes
     profile_sweep("main path J=512", outs[512][0], {}, walls[512])
     # the engine's own mask share, and the kernel's time at it
-    share, kept = acd_mask_share(fig4_workload(APPS, max(MAIN_J)),
-                                 max(MAIN_J))
+    share, kept = acd_mask_share(fig4_workload(APPS, SIDE_J), SIDE_J,
+                                 KEEP_EVERY)
     kernels[0]["engine_mask_share"] = share
     # the kernel on the engine's own inputs, by device time: the calls
     # kept from the counting pass, each launched once per profiled pass
@@ -3916,7 +4356,8 @@ def main() -> int:
     e_floor = sum(chain_floor_ms(c[2], step_ns) for c in kept) / len(kept)
     e_rows = [int(c[2].sum(1).max()) for c in kept]
     print(f"acd_evict on {len(kept)} of the engine's own calls "
-          f"{list(kept[0][0].shape)} (every 1000th of the counting pass): "
+          f"{list(kept[0][0].shape)} (every {KEEP_EVERY}th of the counting "
+          f"pass): "
           f"bitwise equal to the plain version; device {e_dev:.6f} ms a "
           f"call on average, chain floor {e_floor:.6f} ms on average "
           f"(longest rows {e_rows} masked jobs), kernel at "
@@ -3959,10 +4400,10 @@ def main() -> int:
     profile_sweep("congested path J=512", louts[512][0], load_kw,
                   lwalls[512])
     # the kernel on the engine's own inputs: every call of one more sweep
-    # of the J=4096 grid, kept (the timed sweeps above ran unwrapped)
+    # of the grid at SIDE_J, kept (the timed sweeps above ran unwrapped)
     kernels[1]["engine_calls"] = fifo_engine_calls(
-        [(max(MAIN_J), c) for c in keep_fifo_calls(louts[max(MAIN_J)][0],
-                                                   load_kw)], fstep_ns)
+        [(SIDE_J, c) for c in keep_fifo_calls(fig4_workload(APPS, SIDE_J),
+                                              load_kw)], fstep_ns)
 
     lap("4 congested main path")
     # -- 5. a pool trace with cold starts --------------------------------------
@@ -4105,6 +4546,17 @@ def main() -> int:
     print(f"serve MoE: phase wall {time.perf_counter() - t0:.3f} s; "
           f"launches in its timed batches {moe_counts}")
     lap("8c MoE")
+    # -- 8d. the encoder-decoder: whisper-large-v3 at full width and depth --
+    t0 = time.perf_counter()
+    bf16_matmul.extend(check_whisper_products(dev))
+    whisper_attn = check_whisper_attention(dev)
+    whisper_counts, _ = serve_full(WHISPER, dev, 60)
+    for k, n in whisper_counts.items():
+        serve_launches[k] = serve_launches.get(k, 0) + n
+    check_whisper_against_cpu(dev, 61)
+    print(f"serve {WHISPER}: phase wall {time.perf_counter() - t0:.3f} s; "
+          f"launches in its timed batches {whisper_counts}")
+    lap("8d whisper-large-v3")
     # -- 9. result ------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main path of its slice: acd_evict on
@@ -4133,11 +4585,18 @@ def main() -> int:
     by_name["flash_decode"]["kv8"] = dict(
         kv8, launches=qwen_launches["flash_decode"])
     by_name["matmul"]["moe_launches"] = moe_counts["matmul"]
+    # whisper-large-v3's shapes and launches (phase 8d)
+    for name in ("matmul", "flash_attention", "flash_decode"):
+        by_name[name]["whisper_launches"] = whisper_counts[name]
+    for name, rows in whisper_attn.items():
+        by_name[name]["whisper"] = rows
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if qwen_launches["flash_decode"] <= 0:
         missing.append("flash_decode (float8_e4m3fn caches)")
     missing += [f"{k} (MoE)" for k in ("matmul", "flash_attention",
                                        "flash_decode") if moe_counts[k] <= 0]
+    missing += [f"{k} (whisper-large-v3)" for k in (
+        "matmul", "flash_attention", "flash_decode") if whisper_counts[k] <= 0]
     if missing or len(kernels) != 7:
         raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")

@@ -4,9 +4,11 @@
 hybrid ones (``rwkv6-1.6b``, ``recurrentgemma-9b``), the dense ones
 (``llama3-8b``, ``stablelm-12b``, ``starcoder2-15b``, and ``qwen1.5-32b``
 with its ``float8_e4m3fn`` KV cache) and the MoE ones (``olmoe-1b-7b``,
-``arctic-480b`` with its dense residual FFN). The reference registers two
-more, the encoder-decoder and vision ones; :func:`get_config` and
-:func:`get_smoke_config` name the ROADMAP item that brings each of them.
+``arctic-480b`` with its dense residual FFN) and the encoder-decoder
+``whisper-large-v3`` (its frontend a stub, as in the reference: prefill
+takes precomputed frame embeddings). The reference registers one more, the
+vision one; :func:`get_config` and :func:`get_smoke_config` name the
+ROADMAP item that brings it.
 
 Shapes (per the assignment):
   train_4k     seq 4,096   global_batch 256   (training)
@@ -22,7 +24,8 @@ from typing import Dict
 
 from ..models.config import ModelConfig
 from . import (arctic_480b, llama3_8b, olmoe_1b_7b, qwen1_5_32b,
-               recurrentgemma_9b, rwkv6_1_6b, stablelm_12b, starcoder2_15b)
+               recurrentgemma_9b, rwkv6_1_6b, stablelm_12b, starcoder2_15b,
+               whisper_large_v3)
 
 _MODULES = {
     "llama3-8b": llama3_8b,
@@ -33,11 +36,11 @@ _MODULES = {
     "qwen1.5-32b": qwen1_5_32b,
     "olmoe-1b-7b": olmoe_1b_7b,
     "arctic-480b": arctic_480b,
+    "whisper-large-v3": whisper_large_v3,
 }
 
 #: the reference's other architectures -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "whisper-large-v3": "ROADMAP Queue 1 item 9 (the encoder-decoder)",
     "internvl2-76b": "ROADMAP Queue 1 item 10 (vision patches)",
 }
 

@@ -177,8 +177,10 @@ def model_params_from_fields(cfg, fields: Mapping[str, Any], device=None):
     (``cuda`` unless the caller names another) holding the weights of a
     reference parameter tree given as numpy arrays: ``embed``,
     ``lm_head``, ``final_norm``, ``scan_layers.slot{i}`` (layers stacked
-    along axis 0) and ``rest_layers`` (a list). The tree's paths are the
-    model's parameter names; shapes and dtypes must match exactly."""
+    along axis 0), ``rest_layers`` (a list) and an encoder-decoder's
+    ``encoder`` (``layers`` stacked, ``pos_embed``, ``final_norm``). The
+    tree's paths are the model's parameter names; shapes and dtypes must
+    match exactly."""
     from ..models.model import Model
 
     model = Model(cfg, device=device)

@@ -1,4 +1,5 @@
-"""Decoder-only LM assembly for the port's architectures: serving modes.
+"""Decoder-only / encoder-decoder LM assembly for the port's architectures:
+serving modes.
 
 Port of the reference's ``models/model.py`` (``Model.prefill`` and
 ``Model.decode_step``, the stack unrolled as the reference serves it).
@@ -32,11 +33,25 @@ The caches hold K/V in ``cfg.kv_dtype`` (qwen1.5-32b's
 reads the cache, the reference's order, so under an fp8 cache prefill(S) +
 decode_step is not prefill(S+1) bit for bit.
 
-Training (``loss_fn``) is not ported yet. The encoder and cross-attention
-and vision patches are not either: a config that needs them raises.
+Encoder-decoder configs (``cfg.is_encdec``: whisper-large-v3) run an
+encoder over precomputed frame embeddings (the reference's frontend stub)
+once per prefill: ``encoder.layers.*`` stacked along a leading
+``[encoder_layers]`` axis, ``encoder.pos_embed``, ``encoder.final_norm``.
+As in the reference, each encoder layer is the decoder's layer function
+(:meth:`Model.encoder_cfg`): causal self-attention with RoPE. Each
+decoder layer adds cross-attention (``cross``, ``norm_cross``) over the
+encoder's output: at prefill ``ck = enc_out @ wk``, ``cv = enc_out @ wv``
+(no bias, no RoPE), attended without a mask and stored in the caches'
+``ck``/``cv``; a decode step attends all ``encoder_seq`` cached slots.
+:meth:`Model.prefill` takes the frames (``frames=``) and raises without
+them.
+
+Training (``loss_fn``) is not ported yet. Vision patches are not either: a
+config that needs them raises.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -56,9 +71,6 @@ def unported_parts(cfg: ModelConfig) -> List[str]:
     """What of ``cfg`` the port cannot run yet, each with its ROADMAP item
     (empty when the config runs)."""
     out = []
-    if cfg.is_encdec:
-        out.append("the encoder and cross-attention (ROADMAP Queue 1 "
-                   "item 9)")
     if cfg.vision_patches:
         out.append("vision patches (ROADMAP Queue 1 item 10)")
     return out
@@ -66,7 +78,7 @@ def unported_parts(cfg: ModelConfig) -> List[str]:
 
 # -- per-layer params -------------------------------------------------------
 
-def _layer_init(cfg: ModelConfig, kind: str) -> Params:
+def _layer_init(cfg: ModelConfig, kind: str, cross: bool = False) -> Params:
     dt = dtype_of(cfg.dtype)
     p: Params = {"norm1": init_norm(cfg, cfg.d_model),
                  "norm2": init_norm(cfg, cfg.d_model)}
@@ -78,6 +90,9 @@ def _layer_init(cfg: ModelConfig, kind: str) -> Params:
         p["mixer"] = rwkv6_init(cfg, dt)
     else:
         raise ValueError(kind)
+    if cross:
+        p["cross"] = attn_init(cfg, dt)
+        p["norm_cross"] = init_norm(cfg, cfg.d_model)
     if cfg.num_experts:
         p["moe"] = moe_init(cfg, dt)
     if not cfg.num_experts or cfg.dense_residual:
@@ -86,15 +101,18 @@ def _layer_init(cfg: ModelConfig, kind: str) -> Params:
 
 
 def _layer_cache_init(cfg: ModelConfig, kind: str, batch: int,
-                      cache_len: int, device) -> Dict[str, torch.Tensor]:
+                      cache_len: int, device,
+                      cross_len: int = 0) -> Dict[str, torch.Tensor]:
     if kind == "attn":
         dt = dtype_of(cfg.kv_dtype)
         hkv, hd = cfg.num_kv_heads, cfg.hd
         eff = min(cache_len, cfg.window) if cfg.window else cache_len
-        return {"k": torch.zeros((batch, hkv, eff, hd), dtype=dt,
-                                 device=device),
-                "v": torch.zeros((batch, hkv, eff, hd), dtype=dt,
-                                 device=device)}
+        slots = {"k": eff, "v": eff}
+        if cross_len:  # the encoder-decoder's cross-attention K/V
+            slots.update(ck=cross_len, cv=cross_len)
+        return {name: torch.zeros((batch, hkv, n, hd), dtype=dt,
+                                  device=device)
+                for name, n in slots.items()}
     if kind == "rglru":
         return rglru_state_init(cfg, batch, dtype_of(cfg.dtype), device)
     return rwkv6_state_init(cfg, batch, dtype_of(cfg.dtype), device)
@@ -203,24 +221,64 @@ def _right_align_cache(cfg: ModelConfig, kt: torch.Tensor, vt: torch.Tensor,
             "v": to_kv(v_sl, kd).contiguous()}
 
 
+def _cross_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                mode: str, cache: Optional[Params],
+                enc_out: Optional[torch.Tensor], new_cache: Params
+                ) -> torch.Tensor:
+    """Decoder cross-attention of ``x`` [B, S, d] over the encoder's keys
+    and values (``p`` the layer's ``cross`` weights; no bias, no RoPE, no
+    mask). Prefill projects ``enc_out`` [B, Se, d] and stores ``ck``/``cv``
+    [B, Hkv, Se, D] in ``new_cache`` (cast to ``kv_dtype``; the attention
+    reads them before the cast, as the reference's does); a decode step
+    reads all Se cached slots, which it leaves as they are."""
+    b, s, _ = x.shape
+    q = linear(x, p["wq"])
+    if mode == "decode":
+        ck, cv = cache["ck"], cache["cv"]
+        length = torch.full((b,), ck.shape[2], dtype=torch.int32,
+                            device=x.device)
+        out = kops.flash_decode(q.reshape(b, cfg.num_heads, cfg.hd), ck, cv,
+                                length)
+    else:
+        se = enc_out.shape[1]
+        ck, cv = (linear(enc_out, p[w]).reshape(
+            b, se, cfg.num_kv_heads, cfg.hd).transpose(1, 2)
+            for w in ("wk", "wv"))
+        q = q.reshape(b, s, cfg.num_heads, cfg.hd).transpose(1, 2)
+        out = kops.flash_attention(q, ck, cv, causal=False).transpose(1, 2)
+        kd = dtype_of(cfg.kv_dtype)
+        new_cache["ck"] = to_kv(ck, kd).contiguous()
+        new_cache["cv"] = to_kv(cv, kd).contiguous()
+    return linear(out.reshape(b, s, -1), p["wo"])
+
+
 def _layer_apply(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  positions: torch.Tensor, mode: str, cache: Optional[Params],
                  pos: Optional[int], cache_len: int,
-                 moe_dispatch: str = "einsum"
-                 ) -> Tuple[torch.Tensor, Params]:
+                 moe_dispatch: str = "einsum",
+                 enc_out: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """One layer in ``mode`` ``"prefill"``, ``"decode"`` or ``"encode"``
+    (an encoder layer: a prefill that keeps no cache)."""
     h = apply_norm(cfg, p["norm1"], x)
+    new_cache = None
     if kind == "attn":
         if mode == "decode":
             out, new_cache = _self_attn_decode(cfg, p, h, cache, pos)
         else:
             out, (kt, vt) = attention_apply(
                 cfg, p["mixer"], h, positions, causal=True, window=cfg.window)
-            new_cache = _right_align_cache(cfg, kt, vt, cache_len)
+            if mode == "prefill":
+                new_cache = _right_align_cache(cfg, kt, vt, cache_len)
     elif kind == "rglru":
         out, new_cache = rglru_block(cfg, p["mixer"], h, cache)
     else:  # rwkv6
         out, new_cache = rwkv6_block(cfg, p["mixer"], h, cache)
     x = x + out
+    if "cross" in p:  # the encoder-decoder's decoder layers
+        hx = apply_norm(cfg, p["norm_cross"], x)
+        x = x + _cross_attn(cfg, p["cross"], hx, mode, cache, enc_out,
+                            new_cache)
     h2 = apply_norm(cfg, p["norm2"], x)
     if cfg.num_experts:
         out2 = moe_apply(cfg, p["moe"], h2, moe_dispatch)
@@ -269,14 +327,22 @@ class Model(nn.Module):
         self.final_norm = ParamTree(init_norm(cfg, d), device=dev)
         self.n_super = cfg.num_layers // cfg.pattern_period
         groups = self._group_layers()
+        cross = cfg.is_encdec
         if self.n_super:
             self.scan_layers = nn.ModuleDict({
-                slot: ParamTree(_layer_init(cfg, cfg.layer_kind(layers[0])),
-                                (self.n_super,), dev)
+                slot: ParamTree(_layer_init(cfg, cfg.layer_kind(layers[0]),
+                                            cross), (self.n_super,), dev)
                 for slot, layers in groups["scan_layers"].items()})
         self.rest_layers = nn.ModuleList(
-            ParamTree(_layer_init(cfg, cfg.layer_kind(li)), device=dev)
+            ParamTree(_layer_init(cfg, cfg.layer_kind(li), cross), device=dev)
             for li in groups["rest_layers"])
+        if cross:
+            self.encoder = ParamTree({
+                "pos_embed": Init((cfg.encoder_seq, d), dt, "normal", 0.02),
+                "final_norm": init_norm(cfg, d)}, device=dev)
+            self.encoder.add_module("layers", ParamTree(
+                _layer_init(self.encoder_cfg(), "attn"),
+                (cfg.encoder_layers,), dev))
 
     @property
     def device(self) -> torch.device:
@@ -293,6 +359,15 @@ class Model(nn.Module):
                     _fill(getattr(mod, name), spec, generator)
         return self
 
+    def encoder_cfg(self) -> ModelConfig:
+        """The encoder layers' config: ``encoder_heads`` query and KV heads,
+        no window, no experts (the reference's ``Model.encoder_cfg``)."""
+        cfg = self.cfg
+        heads = cfg.encoder_heads or cfg.num_heads
+        return dataclasses.replace(cfg, num_kv_heads=heads, num_heads=heads,
+                                   block_pattern=("attn",), num_experts=0,
+                                   window=None)
+
     def _group_layers(self) -> Params:
         """Layer index of every (super-block, slot) of the stack and of the
         remainder layers, the reference's grouping."""
@@ -308,9 +383,10 @@ class Model(nn.Module):
     def init_cache(self, batch: int, cache_len: int) -> Params:
         cfg = self.cfg
         period = cfg.pattern_period
+        cross_len = cfg.encoder_seq if cfg.is_encdec else 0
         caches: Params = {"rest": [
             _layer_cache_init(cfg, cfg.layer_kind(li), batch, cache_len,
-                              self.device)
+                              self.device, cross_len)
             for li in self._group_layers()["rest_layers"]]}
         if self.n_super:
             caches["scan"] = {
@@ -318,14 +394,15 @@ class Model(nn.Module):
                     k: x[None].expand((self.n_super,) + x.shape).clone()
                     for k, x in _layer_cache_init(
                         cfg, cfg.block_pattern[si], batch, cache_len,
-                        self.device).items()}
+                        self.device, cross_len).items()}
                 for si in range(period)}
         return caches
 
     # ---- stack ----
     def _run_stack(self, x: torch.Tensor, positions: torch.Tensor, mode: str,
                    caches: Optional[Params], pos: Optional[int],
-                   cache_len: int) -> Tuple[torch.Tensor, Params]:
+                   cache_len: int, enc_out: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Params]:
         cfg = self.cfg
         period = cfg.pattern_period
         decode = mode == "decode"
@@ -340,8 +417,9 @@ class Model(nn.Module):
                 x, c_out = _layer_apply(
                     cfg, cfg.block_pattern[si],
                     self.scan_layers[slot].tree(bi), x, positions, mode,
-                    c_in, pos, cache_len, self.moe_dispatch)
-                if decode:  # write back into the stacked caches
+                    c_in, pos, cache_len, self.moe_dispatch, enc_out)
+                if decode:  # write back into the stacked caches (the cross
+                    # caches ck/cv come back as they went in: no copy)
                     for k, t in c_out.items():
                         if t is not c_in[k]:
                             c_in[k].copy_(t)
@@ -353,7 +431,7 @@ class Model(nn.Module):
             c_in = caches["rest"][i] if decode else None
             x, c_out = _layer_apply(cfg, cfg.layer_kind(li), lp.tree(), x,
                                     positions, mode, c_in, pos, cache_len,
-                                    self.moe_dispatch)
+                                    self.moe_dispatch, enc_out)
             rest.append(c_out)
         if decode:
             caches["rest"] = rest
@@ -365,6 +443,21 @@ class Model(nn.Module):
                            for slot, cs in new_scan.items()}
         return x, out
 
+    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over frame embeddings ``frames`` [B, Se, d] (in the
+        model's dtype): ``+ pos_embed[:Se]``, the encoder layers at
+        positions 0..Se-1 (causal, rotary: the reference's layer function),
+        the final norm. Unrolled, as the decoder is."""
+        enc_cfg = self.encoder_cfg()
+        enc = self.encoder
+        b, se, _ = frames.shape
+        x = frames + enc.pos_embed[None, :se]
+        positions = torch.arange(se, device=frames.device).expand(b, se)
+        for li in range(self.cfg.encoder_layers):
+            x, _ = _layer_apply(enc_cfg, "attn", enc.layers.tree(li), x,
+                                positions, "encode", None, None, 0)
+        return apply_norm(self.cfg, enc.final_norm.tree(), x)
+
     def _head(self) -> torch.Tensor:
         if self.cfg.tied_embeddings:
             return self.embed.T
@@ -372,16 +465,28 @@ class Model(nn.Module):
 
     # ---- public: serving ----
     @torch.inference_mode()
-    def prefill(self, tokens, cache_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Params]:
-        """tokens [B, S] -> (last-token logits [B, V], caches)."""
+    def prefill(self, tokens, cache_len: Optional[int] = None,
+                frames=None) -> Tuple[torch.Tensor, Params]:
+        """tokens [B, S] -> (last-token logits [B, V], caches). An
+        encoder-decoder config takes ``frames`` [B, Se, d_model], the
+        frontend's frame embeddings (cast to the model's dtype), and its
+        caches hold the cross-attention's ``ck``/``cv`` of Se slots."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
         b, s = tokens.shape
         x = self.embed[tokens]
+        enc_out = None
+        if self.cfg.is_encdec:
+            if frames is None:
+                raise ValueError(
+                    f"{self.cfg.name} is an encoder-decoder: prefill needs "
+                    f"frames [B, {self.cfg.encoder_seq}, "
+                    f"{self.cfg.d_model}] (frame embeddings)")
+            enc_out = self._encode(torch.as_tensor(
+                frames, device=self.device).to(x.dtype))
         positions = torch.arange(s, device=self.device).expand(b, s)
         cache_len = cache_len or s
         x, caches = self._run_stack(x, positions, "prefill", None, None,
-                                    cache_len)
+                                    cache_len, enc_out)
         x = apply_norm(self.cfg, self.final_norm.tree(), x)
         logits = linear(x[:, -1], self._head())                  # [B, V]
         return logits, caches

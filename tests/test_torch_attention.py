@@ -89,6 +89,12 @@ ATTN_CASES = [
     (16, 1, 33, 70, 128, True, None, "bf16"),
     (8, 2, 1, 40, 128, False, 16, "f32"),
     (4, 4, 50, 50, 16, False, 16, "bf16"),
+    # whisper-large-v3's D = 64 over its 1,500 encoder positions: the
+    # encoder's causal self-attention, the decoder's cross-attention (not
+    # causal, Sq != Sk)
+    (2, 2, 1500, 1500, 64, True, None, "bf16"),
+    (4, 4, 7, 1500, 64, False, None, "bf16"),
+    (2, 2, 40, 1500, 64, False, None, "f32"),
 ]
 
 
@@ -189,6 +195,22 @@ def test_flash_decode_plain_equals_the_last_row_of_prefill(d, g, cache):
         assert torch.equal(got, full[:, :, -1]), b_len
 
 
+@pytest.mark.parametrize("sq", [1, 7, 96])
+def test_flash_decode_plain_equals_every_row_of_a_non_causal_prefill(sq):
+    """Cross-attention (whisper-large-v3: D = 64, 1,500 encoder keys, all
+    live): ``flash_decode_plain`` of any query row over the whole cache
+    equals that row of ``flash_attention_plain``'s non-causal prefill bit
+    for bit, so a decode step's cross-attention is its prefill row's."""
+    rng = np.random.default_rng(sq)
+    q = _normal(rng, (2, 4, sq, 64), "bf16")[0]
+    k, v = (_normal(rng, (2, 4, 1500, 64), "bf16")[0] for _ in range(2))
+    full = flash_attention_plain(q, k, v, causal=False)
+    length = torch.full((2,), 1500, dtype=torch.int32)
+    for i in {0, sq // 2, sq - 1}:
+        assert torch.equal(flash_decode_plain(q[:, :, i], k, v, length),
+                           full[:, :, i]), i
+
+
 def test_attention_constants_match_the_kernels():
     """The plain versions' key tile and chunk are the bf16 kernels'
     (``csrc/attention_mma.cuh``), and ``flash_decode.chunks(S)`` is the most
@@ -219,7 +241,10 @@ def test_attention_constants_match_the_kernels():
 # -- flash_decode ---------------------------------------------------------------
 
 DECODE_CASES = [(4, 4, 40, 16, "f32"), (8, 2, 70, 16, "bf16"),
-                (16, 1, 33, 128, "f32"), (8, 2, 300, 128, "bf16")]
+                (16, 1, 33, 128, "f32"), (8, 2, 300, 128, "bf16"),
+                # whisper-large-v3's cross-attention cache (D = 64, 1,500
+                # slots; length 1,500 is the model's call)
+                (4, 4, 1500, 64, "bf16")]
 
 
 @pytest.mark.parametrize("hq,hkv,s,d,dtype", DECODE_CASES)
@@ -552,6 +577,26 @@ def test_cuda_decode_equals_attention_of_the_last_row():
             f"{(hq, hkv, S, d, window)}: {int(diff.sum())} of "
             f"{diff.numel()} differ, max "
             f"{float((got.float() - full[:, :, -1].float()).abs().max())}")
+
+
+@pytest.mark.gpu
+def test_cuda_cross_decode_equals_every_row_of_a_non_causal_prefill():
+    """whisper-large-v3's cross-attention on the card: flash_decode of a
+    query over all 1,500 encoder keys (D = 64, 20 heads) equals, bit for
+    bit, that row of flash_attention's non-causal prefill, at the serve
+    batch's prompt rows and the transcription batch's 4."""
+    dev = _cuda()
+    rng = np.random.default_rng(59)
+    for b, sq in ((8, 95), (4, 4)):
+        q = _normal(rng, (b, sq, 20, 64), "bf16")[0].to(dev).transpose(1, 2)
+        k, v = (_normal(rng, (b, 1500, 20, 64), "bf16")[0].to(dev)
+                .transpose(1, 2).contiguous() for _ in range(2))
+        full = ops.flash_attention(q, k, v, causal=False)
+        length = torch.full((b,), 1500, dtype=torch.int32, device=dev)
+        for i in range(sq):
+            got = ops.flash_decode(q[:, :, i], k, v, length)
+            diff = got != full[:, :, i]
+            assert not bool(diff.any()), (b, sq, i, int(diff.sum()))
 
 
 @pytest.mark.gpu

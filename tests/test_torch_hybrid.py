@@ -146,7 +146,7 @@ class TestLatencyModel:
 
     @pytest.mark.parametrize("arch", ["llama3-8b", "recurrentgemma-9b",
                                       "rwkv6-1.6b", "olmoe-1b-7b",
-                                      "arctic-480b"])
+                                      "arctic-480b", "whisper-large-v3"])
     def test_latencies_equal_the_reference(self, ref, arch):
         lm, rlm = self._pair(ref, arch)
         rng = np.random.default_rng(0)

@@ -584,6 +584,9 @@ def test_cuda_matmul_kernel_matches_plain_version(dtype):
 #: row counts the plan must treat alike: a lone row, a decode step, a
 #: smoke batch, the serve batch's prefill rows, the long batch's
 PLAN_ROWS = (1, 8, 40, 656, 8192)
+#: whisper-large-v3's encoder rows (and its cross wk / wv rows): 8 and 32
+#: segments of 1,500 frames
+ENCODER_ROWS = (12000, 48000)
 #: ragged products: odd widths, K not a multiple of 16, N below one tile
 PLAN_RAGGED = [(257, 65, (65, 1)), (129, 131, (1, 129)), (40, 256, (256, 1)),
                (1, 1, (1, 1)), (4096, 7, (7, 1))]
@@ -598,10 +601,11 @@ def _mm_module():
 def _served_products(arch):
     """(K, N, y strides) of each 2-D parameter of ``arch``'s full config
     as ``layers.linear`` reads it (a layer view of its stack, N
-    contiguous), of each expert's weights (a view of its [E, K, N] stack)
-    and of its head (the tied embedding's transpose)."""
+    contiguous), of each expert's weights (a view of its [E, K, N] stack),
+    of the encoder's layers and the decoder's cross-attention, and of its
+    head (the tied embedding's transpose)."""
     from repro_torch.configs import get_config
-    from repro_torch.models.model import _layer_init
+    from repro_torch.models.model import Model, _layer_init
     from repro_torch.models.moe import moe_init
 
     cfg = get_config(arch)
@@ -610,9 +614,14 @@ def _served_products(arch):
         for v in tree.values():
             yield from (leaves(v) if isinstance(v, dict) else (v,))
 
+    layers = [_layer_init(cfg, kind, cfg.is_encdec)
+              for kind in {cfg.layer_kind(i) for i in range(cfg.num_layers)}]
+    if cfg.is_encdec:
+        layers.append(_layer_init(
+            Model(cfg, device="meta").encoder_cfg(), "attn"))
     out = set()
-    for kind in {cfg.layer_kind(i) for i in range(cfg.num_layers)}:
-        for spec in leaves(_layer_init(cfg, kind)):
+    for layer in layers:
+        for spec in leaves(layer):
             if len(spec.shape) == 2:
                 K, N = spec.shape
                 out.add((K, N, (N, 1)))
@@ -625,15 +634,15 @@ def _served_products(arch):
     return sorted(out)
 
 
-def _plans_across_rows(products):
+def _plans_across_rows(products, rows=PLAN_ROWS):
     for K, N, strides in products:
-        plans = [_mm_module().tile_plan(M, N, K, strides) for M in PLAN_ROWS]
+        plans = [_mm_module().tile_plan(M, N, K, strides) for M in rows]
         # what fixes each element's sum beyond the module's constant X, BK
         # and K order: y's layout, from its strides, never from M
         assert len({p.b_major for p in plans}) == 1, (K, N, plans)
         assert plans[0].b_major == ("k" if strides[0] == 1 and not (
             strides[1] == 1 and N > 1) else "mn")
-        for M, p in zip(PLAN_ROWS, plans):
+        for M, p in zip(rows, plans):
             # M chooses only the block rows and instructions per step
             assert p.warpgroups == (1 if M <= 64 else 2)
             assert p.n_instr in _mm_module().N_INSTR
@@ -644,12 +653,18 @@ def _plans_across_rows(products):
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b",
                                   "llama3-8b", "stablelm-12b",
                                   "starcoder2-15b", "olmoe-1b-7b",
-                                  "arctic-480b"])
+                                  "arctic-480b", "whisper-large-v3"])
 def test_bf16_tile_plan_arithmetic_does_not_depend_on_the_row_count(arch):
     """At every served width the plan's y layout is the same for M in
-    PLAN_ROWS (X, BK and the K order are the module's constants); it
-    differs only in block rows and instructions per step."""
-    _plans_across_rows(_served_products(arch))
+    PLAN_ROWS, and for whisper-large-v3 also at its encoder's rows (X, BK
+    and the K order are the module's constants); it differs only in block
+    rows and instructions per step."""
+    rows = PLAN_ROWS + (ENCODER_ROWS if arch == "whisper-large-v3" else ())
+    products = _served_products(arch)
+    if arch == "whisper-large-v3":  # d 1280; the 51,866-wide head
+        assert (1280, 51866, (51866, 1)) in products
+        assert (1280, 1280, (1280, 1)) in products  # cross wk / wv
+    _plans_across_rows(products, rows)
 
 
 def test_bf16_tile_plan_ragged_shapes():
@@ -663,13 +678,16 @@ def test_bf16_tile_plan_ragged_shapes():
 
 #: bf16 products of the kernel's staging paths: (label, M, K, N, y layout):
 #: layer views of a stacked [2, K, N] (MN-major y),
-#: a transposed [N, K].T (K-major y, the tied head's layout), a 514-byte
-#: row stride (no TMA: thread-staged), K not a multiple of 16
+#: a transposed [N, K].T (K-major y, the tied head's layout), 514- and
+#: 103,732-byte row strides (no TMA: thread-staged), K not a multiple of 16
 BF16_CASES = [("layer view", 656, 4096, 1024, "stack"),
               ("layer view decode", 8, 2048, 2048, "stack"),
               ("transposed", 8, 4096, 4000, "T"),
               ("transposed prefill", 300, 512, 1000, "T"),
               ("unaligned stride", 130, 257, 65, "dense"),
+              # whisper-large-v3's head: a 103,732-byte row stride (no
+              # TMA), N & 3 = 2 (no vector stores)
+              ("whisper head", 32, 1280, 51866, "dense"),
               ("ragged K", 100, 40, 256, "stack")]
 
 

@@ -21,6 +21,7 @@ differ beyond that tolerance in 16-43% of the smoke models' logits (up to
 within that rounding.
 """
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -131,3 +132,36 @@ def test_engine_model_needs_a_gpu_unless_told_cpu(monkeypatch):
         Model(get_smoke_config("recurrentgemma-9b"))
     assert Model(get_smoke_config("recurrentgemma-9b"),
                  device="cpu").device.type == "cpu"
+
+
+def test_launch_serve_plans_whisper_as_the_reference_does(ref, monkeypatch):
+    """``launch/serve.py --arch whisper-large-v3`` without
+    ``--execute-smoke`` (the latency model and the plan) prints the
+    reference launcher's baselines, with the reference's peak rates; with
+    ``--execute-smoke`` the engine's prefill has no frames to give, and the
+    port raises a ValueError naming them where the reference fails on
+    ``None.astype``."""
+    import functools
+
+    from repro.launch import serve as rserve
+    from repro_torch.launch import serve as pserve
+    from repro_torch.serving import hybrid as ph
+    from tests.test_torch_hybrid import _main_lines, ref_peaks
+
+    argv = ["--arch", "whisper-large-v3", "--requests", "24"]
+    monkeypatch.setattr(ph.ServingLatencyModel, "__init__",
+                        functools.partialmethod(
+                            ph.ServingLatencyModel.__init__, **ref_peaks()))
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    want = _main_lines(lambda argv: rserve.main(), None)
+    got = _main_lines(pserve.main, argv + ["--device", "cpu"])
+    assert got[0] == want[0] == "arch=whisper-large-v3 J=24 order=spt"
+    # the schedule line rests on the two libraries' float32 ridge fits, so
+    # only the baselines are held to the letter (as for llama3-8b)
+    assert got[:3] == want[:3]
+    assert got[3].startswith("hybrid     :") and "met=" in got[3]
+    with pytest.raises(ValueError, match="frames"):
+        pserve.main(argv + ["--execute-smoke", "--device", "cpu"])
+    monkeypatch.setattr(sys, "argv", ["serve", "--execute-smoke"] + argv)
+    with pytest.raises(AttributeError, match="astype"):
+        rserve.main()
