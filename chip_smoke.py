@@ -21,22 +21,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    measured by ``acd_chain_step_probe`` and ``fifo_chain_step_probe``).
 3. The uncapped main path: Algorithm 1 over the Fig.-4 grid (image,
    matrix and video x {spt, hcf} x 5 deadlines = 30 scenarios) in one
-   ``sweep_scenarios`` call on ``cuda`` at J=512 and J=4096 jobs. The grid
+   ``sweep_scenarios`` call on ``cuda`` at J=512 and J=2048 jobs. The grid
    at J=128 runs on the card and on the CPU and must agree field for
-   field; three scenarios of each timed grid (J=512 and J=4096) replay
+   field; three scenarios of each timed grid (J=512 and J=2048) replay
    through the port's DES and must meet the parity contract (placements,
    replicas, providers, segments, start and end exact; cost and makespan
    to a relative 1e-12). The J=512 sweep then runs once more under
    ``torch.profiler`` to split its wall time into device-busy and idle,
    and the grid once more at J=1024 (``SIDE_J``) to count the share of
    masked jobs the engine gives ``acd_evict`` (``acd_mask_share``); the
-   kernel is timed at that share and at 0.8, at J=512 and J=4096, and by
+   kernel is timed at that share and at 0.8, at J=512 and J=2048, and by
    device time on every 250th of the engine's own calls, kept from that
    pass, beside their chain floor.
 4. The congested main path: the same grid on a 3-provider portfolio with
    2-slot concurrency caps per provider and a 0.5 s warm-up / 1 s
    keep-alive scale-to-zero cold-start model (the throughput benchmark's
-   ``--coldstart 0.5`` point), at J=512 and J=4096 on ``cuda``. Queue waits
+   ``--coldstart 0.5`` point), at J=512 and J=2048 on ``cuda``. Queue waits
    and cold starts must occur; the J=128 grid agrees between the card and
    the CPU field for field; three scenarios of each timed grid meet the
    DES contract, queue waits and cold flags exact; the J=512 sweep runs
@@ -52,18 +52,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    set to 0 just before it. Scenario axes: the Fig.-4 grid as five tasks
    mixing per-task flags (ACD-adaptive, ``adaptive=False``,
    ``init_phase=False``, an ``offload_mask``, an ``init_window`` over a
-   release stream) in one ``sweep_scenarios`` call at J=512 and J=1024,
+   release stream) in one ``sweep_scenarios`` call at J=512,
    uncapped and then with ``egress_lookahead`` under the congested load;
    faults: the Fig.-4 grid at J=512 on the 3-provider portfolio with a
    failure-rate axis (0, 0.1, 0.3) under the default ``RetryPolicy``
    (failures, retries, and an abandonment or a fallback must occur); each
    against the DES on some scenarios and the CPU at J=128, ``acd_evict``
    launched in each, ``fifo_dispatch`` in the capped one. A paged trace
-   day: ``azure:day=tue,scale=25000`` on the image app, spt, C_max 60 s,
+   day: ``azure:day=tue,scale=8192`` on the image app, spt, C_max 60 s,
    4096-job pages (the reference throughput benchmark's streaming point),
    against the DES on the host under the parity contract, with wall,
    jobs/s, pages, retries, body steps and ms per body step; then a
-   1024-job day in 512-job pages bit for bit against the monolithic card
+   512-job day in 256-job pages bit for bit against the monolithic card
    run and the CPU, and the same day again under the profiler. The serving
    scheduler (llama3-8b on a 2/4/2 pod with ``elastic_portfolio(3)``
    overflow, the H100 latency model): the ridge fit on the card against
@@ -71,7 +71,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the policy bench's ``--jobs 512`` point, at its ``poisson:8.0`` and at
    ``poisson:32.0`` (the bench's load on the H100's faster pod), each
    against the DES in every scenario and the bench's Fig.-4 ordering, and
-   at J=256 against the CPU field for field; ``serve_online`` over 4096
+   at J=256 against the CPU field for field; ``serve_online`` over 2048
    requests at 32/s under 2-slot caps, cold starts and three queue-wait
    samples (queue waits, cold starts and ``fifo_dispatch`` must occur)
    against the DES; the autoscaling (8 pod sizings), spot (3 markets) and
@@ -164,7 +164,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    8b. qwen1.5-32b at full width and 64 layers, its bf16 weights drawn on
    the card (no other model resident; the memory reckoning and
    ``mem_get_info`` printed first), its fp8 cache: the serve batch and a
-   2 x 2048-token long batch (cache 2064), launches exact, logits finite,
+   2 x 1024-token long batch (cache 1040), launches exact, logits finite,
    first tokens the prefill's argmax, peak memory, and prefill(S) +
    decode_step against prefill(S+1) as a reading (prefill attends the
    unrounded K/V); the same weights with a bf16 cache, each of
@@ -199,13 +199,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
    versions, timed beside SDPA and their bounds; then the serve batch and
    a batch-transcription batch (32 x 4 tokens, 32 new, cache_len 448)
    through ``Model.prefill(frames=...)`` and ``decode_step`` in the
-   engine's greedy loop (``FramesEngine``), launches exact (the encoder
+   engine's greedy loop (``PrefixEngine``), launches exact (the encoder
    and the cross ``wk``/``wv`` once a prefill), logits finite, first
    tokens the argmax, the encoder's share of each prefill, a profiler
    pass, prefill(S) + decode_step bit for bit prefill(S+1) with the same
    frames, SHORT_DECODE of SHORT_DECODE steps; card against CPU at 2 + 2
    layers in float32 (the encoder output, the greedy tokens).
-9. Prints the kernels' JSON line, then the device line last.
+   8e. The vision-language model, internvl2-76b at full width (d 8192,
+   64 heads over 8 KV heads, d_ff 28,672, a 128,256-token vocabulary) and
+   40 of its 80 layers (``VLM_LAYERS``: the deepest one card holds with
+   the serve batch's caches and activations), each request with 256 patch
+   embeddings drawn on the card in front of its tokens: the serve batch
+   through ``PrefixEngine`` (decode steps at P + S), launches exact,
+   logits finite, first tokens the argmax, a profiler pass, prefill(S) +
+   decode_step bit for bit prefill(S+1) with the same patches, and
+   SHORT_DECODE steps of it; card against CPU at 2 layers in float32 (the
+   greedy tokens, the prefill logits).
+9. Training. The bf16 ``matmul`` at llama3-8b's training products (4 x
+   1024 tokens: each backward product as the autograd Function launches
+   it, dX on the weight's transposed view and dW on a contiguous copy of
+   x.T) against its plain version, timed beside torch.matmul and its
+   bound, with the copy's time and the thread-staged time on the x.T view
+   as readings; ``flash_attention``'s forward and its torch backward at
+   the training shape, timed beside SDPA, the gradients against SDPA's
+   float32 autograd. Then llama3-8b at full width and depth with int8
+   AdamW moments (about 48.6 GB of weights, gradients and moments),
+   TRAIN_STEPS steps of 4 x 1024 tokens through ``launch/train.py``'s
+   ``run`` with remat: every loss and gradient norm finite, ``matmul`` and
+   ``flash_attention`` launches exactly ``models.model.train_launches`` a
+   step, the steady step's time, tokens per second, its share of the bf16
+   peak at 6 N FLOP a token, peak memory, and one more step under the
+   profiler (idle share). The llama3-8b and internvl2-76b smoke configs'
+   float32 steps on the card against the CPU's; internvl2-76b at full
+   width and 2 layers, one step with its patches, launches exact; and a
+   checkpoint of llama3-8b at full width and 2 layers saved, restored bit
+   for bit into a fresh model, and resumed two steps beside the
+   uninterrupted run.
+10. Prints the kernels' JSON line, then the device line last.
 
 Launch counts are set to 0 just before each main path and read just after
 it; every kernel of a path must have launched in it. Each phase prints its
@@ -232,21 +262,24 @@ PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
 
 N_DEADLINES = 5
 ORDERS = ("spt", "hcf")
-MAIN_J = (512, 4096)
+#: the main paths' two job counts, cut from (512, 4096) for the run's time
+#: when the training phase came (the J=4096 sweeps took 38.7 and 47.6 s of
+#: a 1,217 s run on a host at 2.55 ms a body step); the paged day's
+#: 4096-job pages keep the engine at J=4096 under the DES contract
+MAIN_J = (512, 2048)
 #: the grid of the main paths' side passes (the uncapped path's counting
 #: pass, the congested path's kept ``fifo_dispatch`` calls), cut from
 #: J=4096 for the run's time (on an H100 the counting pass took 31.2 s and
-#: a congested J=4096 sweep 32.8 s of a 973 s run); the J=4096 scale stays
-#: timed and DES-checked on both paths
+#: a congested J=4096 sweep 32.8 s of a 973 s run)
 SIDE_J = 1024
 #: every this-many-th of the counting pass's ``acd_evict`` calls is kept
 #: and timed by device time (16 of the J=1024 pass's ~4,000)
 KEEP_EVERY = 250
 #: job counts of the scenario-axes sweeps: at J=4096 they took ~200 s of
-#: a 1,319 s run on a slow host, past the 1,200 s a run may take; the
-#: J=4096 scale stays timed and DES-checked on the main and congested
-#: paths
-AXES_J = (512, 1024)
+#: a 1,319 s run on a slow host, past the 1,200 s a run may take, and at
+#: J=1024 58.9 s of a 1,217 s run (the training phase's room); the larger
+#: scales stay timed and DES-checked on the main and congested paths
+AXES_J = (512,)
 DES_SCENARIOS = ((0, 0), (1, 7), (2, 9))  # (task, scenario) pairs
 #: the engine twins' grid: 256 jobs, not MAIN_J[0], for the run's time
 #: (on an H100 the phase took 53-57 s of 856-916 s at J=512, and the
@@ -270,14 +303,17 @@ AXES_DES_SCENARIOS = ((0, 0), (1, 7), (2, 9), (3, 4), (4, 2))
 #: point (benchmarks/bench_scheduler_throughput.py measure_azure_point:
 #: one azure day on the image app, spt, C_max 60 s, 4096-job pages) cut
 #: for the 1,200 s a run may take, from 10^5 to 5 x 10^4 jobs (79 s and a
-#: 19 s DES at 10^5 on a slow host) and to 2.5 x 10^4 (48.4 s at 5 x 10^4),
-#: and a 1024-job day in 512-job pages held against the monolithic run
-#: and the CPU (4096 jobs before: 34.9 s waited for the CPU's day; 2048:
-#: 30.4 s); 1024 jobs in 512-job pages still take two pages
-DAY_SCALE = 25000
+#: 19 s DES at 10^5 on a slow host), to 2.5 x 10^4 (48.4 s at 5 x 10^4)
+#: to 1.25 x 10^4 (35.8 s at 2.5 x 10^4; room for the training phase) and
+#: to 8192, two full pages (31.7 s at 1.25 x 10^4 on a host at 2.55 ms a
+#: body step), and a 512-job day in 256-job pages held against the
+#: monolithic run and the CPU (4096 jobs before: 34.9 s waited for the
+#: CPU's day; 2048: 30.4 s; 1024: 16.8 s); 512 jobs in 256-job pages still
+#: take two pages
+DAY_SCALE = 8192
 DAY_CHUNK = 4096
 DAY_C_MAX = 60.0
-SMALL_DAY = (1024, 512)
+SMALL_DAY = (512, 256)
 #: the fault path: the Fig.-4 grid at J=512 with a failure-rate axis under
 #: the default RetryPolicy
 FAULT_J = 512
@@ -299,10 +335,11 @@ SCHED_RATES = (8.0, 32.0)
 SCHED_FAULTS = (None, 0.3)
 SCHED_POLICIES = ("skedulix", "private", "public", "random", "noah",
                   "costanalysis")
-#: congested online serving: 4096 requests at the bench's load under the
+#: congested online serving: 2048 requests at the bench's load under the
 #: congested path's caps and cold starts, with three observed per-stage
-#: public queue-wait samples (seconds) folded into the predictions
-ONLINE_J = 4096
+#: public queue-wait samples (seconds) folded into the predictions (4096
+#: requests took 39.5 s of a 1,217 s run; cut for the training phase)
+ONLINE_J = 2048
 ONLINE_RATE = 32.0
 ONLINE_QUEUE_WAITS = ((0.0, 0.05, 0.0), (0.1, 0.2, 0.0), (0.05, 0.1, 0.0))
 #: the three frontiers at J=512 (bench_hybrid_serving.py's stream), each
@@ -360,12 +397,13 @@ SERVE_CACHE = 192
 #: its full-attention cache (long documents, RAG contexts)
 LONG_BATCH = 2
 LONG = {"rwkv6-1.6b": (4096, 4112), "recurrentgemma-9b": (2304, 2048),
-        "llama3-8b": (4096, 4112), "qwen1.5-32b": (2048, 2064),
+        "llama3-8b": (4096, 4112), "qwen1.5-32b": (1024, 1040),
         "olmoe-1b-7b": (4080, 4096)}
-#: qwen1.5-32b's long batch is 2 x 2048 tokens: its bf16 weights take
+#: qwen1.5-32b's long batch is 2 x 1024 tokens: its bf16 weights take
 #: 65.56 GiB of the card's 80, and check_serve_logits holds a second fp8
 #: cache (2 x 2064 slots: 2.52 GiB each over 64 layers; 2 x 4112 would
-#: take 5.02 GiB each)
+#: take 5.02 GiB each); 2 x 2048 until the training phase needed the time
+#: (a 2 x 1040-slot cache is 1.27 GiB)
 #: the architectures served at full width and depth (QWEN in a phase of
 #: its own, after the others are freed)
 SERVED = ("rwkv6-1.6b", "recurrentgemma-9b", "llama3-8b")
@@ -403,6 +441,46 @@ FRAMES_STD = 0.02
 #: of its largest value (float32 rounding of d = 1280 dot products in
 #: another order, through two layers)
 WHISPER_CPU_LAYERS = 2
+#: phase 8e: internvl2-76b at full width and VLM_LAYERS of its 80 layers,
+#: the deepest one card holds with the serve batch's caches and the
+#: prefill's activations (param_count: 2.10 B + 0.856 B a layer, so 36.3 B
+#: parameters, 72.6 GB of bf16 at 40 layers); each request's 256 patch
+#: embeddings drawn N(0, PATCHES_STD) on the card; card against CPU at
+#: VLM_CPU_LAYERS layers on the serve batch's first VLM_CPU_REQUESTS
+VLM = "internvl2-76b"
+VLM_LAYERS = 40
+PATCHES_STD = 0.02
+VLM_CPU_LAYERS = 2
+VLM_CPU_REQUESTS = 1
+#: phase 9, training: llama3-8b at full width and depth with int8 moments,
+#: TRAIN_STEPS steps of SyntheticLM batches of TRAIN_BATCH x TRAIN_SEQ
+#: tokens through ``launch/train.py``'s ``run`` (remat on); the card's
+#: float32 smoke-config steps against the CPU's within TRAIN_CPU_RTOL (the
+#: CPU tests' tolerance against the reference); internvl2-76b at full
+#: width and VLM_TRAIN_LAYERS layers, one step of VLM_TRAIN (batch, text
+#: positions) with its patches; a checkpoint of llama3-8b at full width
+#: and CKPT_LAYERS layers saved at step CKPT_STEPS[0], restored bit for
+#: bit, and resumed to CKPT_STEPS[1]
+TRAIN_ARCH = "llama3-8b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_STEPS = 4
+TRAIN_CPU_STEPS = 3
+TRAIN_CPU_RTOL = 1e-5
+VLM_TRAIN_LAYERS = 2
+VLM_TRAIN = (2, 512)
+CKPT_LAYERS = 2
+CKPT_STEPS = (2, 4)
+#: llama3-8b's weight products at TRAIN_BATCH x TRAIN_SEQ tokens, (label,
+#: [M, K, N] of the forward x [M, K] @ w [K, N]); a loss chunk is 2 x 512
+#: rows against the head. The backward takes dX = g [M, N] @ w.T (a view)
+#: and dW = x.T (a contiguous copy) @ g [M, N]
+TRAIN_PRODUCTS = (("wq/wo", (4096, 4096, 4096)),
+                  ("wk/wv", (4096, 4096, 1024)),
+                  ("w_gate/w_up", (4096, 4096, 14336)),
+                  ("w_down", (4096, 14336, 4096)),
+                  ("head chunk", (2048, 4096, 128256)))
+#: llama3-8b's training attention: q [B, 32, S, 128] over k/v [B, 8, S, 128]
+TRAIN_ATTN = (TRAIN_BATCH, 32, 8, TRAIN_SEQ, 128)
 WHISPER_CPU_REQUESTS = 2
 ENC_RTOL = 1e-4
 #: prefill(S) + decode_step == prefill(S+1): the reference suite's own
@@ -457,8 +535,9 @@ CPU_DECODE = 4
 CPU_RTOL = 1e-4
 #: the CPU's bf16 prefill(S) + decode_step reading of
 #: check_serve_against_cpu runs the serve batch's first CPU_BF16_REQUESTS
-#: requests (all 8 took 3-14 s an architecture on the CPU)
-CPU_BF16_REQUESTS = 2
+#: requests (all 8 took 3-14 s an architecture on the CPU; 2 took 2.0-10.3
+#: s, cut to 1 for the training phase)
+CPU_BF16_REQUESTS = 1
 
 
 def fig4_workload(apps, J, jitter=0.05):
@@ -3005,18 +3084,28 @@ def serve_batch(label, engine, reqs):
     return outs, counts, wall
 
 
-def incremental_gap(model, toks, cache_len, frames=None):
-    """prefill(S) of ``toks`` [B, S] (with an encoder-decoder's ``frames``),
-    decode_step of its greedy tokens, and prefill(S+1) of the same tokens:
-    (prefill logits, decode logits, prefill(S+1) logits, greedy tokens, the
-    INCR_TOL line and whether every logit is within it)."""
+def prefix_kw(frames=None, patches=None):
+    """(prefill keywords, positions the prefix takes): an encoder-decoder's
+    ``frames``, a vision config's ``patches`` [B, P, d], which go in front
+    of the tokens (decode continues at P + S)."""
+    kw = {k: v for k, v in (("frames", frames), ("patches", patches))
+          if v is not None}
+    return kw, 0 if patches is None else int(patches.shape[1])
+
+
+def incremental_gap(model, toks, cache_len, frames=None, patches=None):
+    """prefill(S) of ``toks`` [B, S] (with an encoder-decoder's ``frames``
+    or a vision config's ``patches``), decode_step of its greedy tokens,
+    and prefill(S+1) of the same tokens: (prefill logits, decode logits,
+    prefill(S+1) logits, greedy tokens, the INCR_TOL line and whether
+    every logit is within it)."""
     import torch
 
     S = toks.shape[1]
-    kw = {} if frames is None else {"frames": frames}
+    kw, n_prefix = prefix_kw(frames, patches)
     logits, cache = model.prefill(toks, cache_len=cache_len, **kw)
     first = torch.argmax(logits, -1)
-    dec, _ = model.decode_step(cache, first, S)
+    dec, _ = model.decode_step(cache, first, n_prefix + S)
     del cache
     full, _ = model.prefill(torch.cat([toks, first[:, None]], 1),
                             cache_len=cache_len, **kw)
@@ -3031,7 +3120,8 @@ def incremental_gap(model, toks, cache_len, frames=None):
     return logits, dec, full, first, line, not bool(bad.any())
 
 
-def check_serve_logits(label, model, reqs, outs, cache_len, frames=None):
+def check_serve_logits(label, model, reqs, outs, cache_len, frames=None,
+                       patches=None):
     """The engine's batch once more by hand: finite logits, the engine's
     first tokens the prefill's argmax, and prefill(S) + decode_step within
     INCR_TOL of prefill(S+1), every logit (the reference suite's check, at
@@ -3044,8 +3134,8 @@ def check_serve_logits(label, model, reqs, outs, cache_len, frames=None):
     import torch
 
     toks = torch.from_numpy(padded(reqs)).to(model.device)
-    logits, dec, full, first, line, ok = incremental_gap(model, toks,
-                                                         cache_len, frames)
+    logits, dec, full, first, line, ok = incremental_gap(
+        model, toks, cache_len, frames, patches)
     engine_first = torch.tensor([int(c.tokens[0]) for c in outs],
                                 device=model.device)
     same_first = torch.equal(first, engine_first)
@@ -3198,7 +3288,8 @@ def serve_batches(cfg, arch, new):
     architecture has one, its long batch (whisper-large-v3: the
     transcription batch, TRANSCRIBE)."""
     out = [("batch", serve_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, new,
-                                    SERVE_SEED), SERVE_CACHE)]
+                                    SERVE_SEED),
+            SERVE_CACHE + cfg.vision_patches)]
     if arch == WHISPER:
         n, prompt, n_new, cache_len = TRANSCRIBE
         out.append(("transcription batch", serve_requests(
@@ -3275,7 +3366,7 @@ def serve_full(arch, dev, seed, layers=None):
     (:func:`decode_against_prefill`, bit for bit), and its serve batch
     through the ``scatter`` dispatch (:func:`scatter_batch`). An
     encoder-decoder (whisper-large-v3) serves through
-    :class:`FramesEngine`, each batch with frames of its own; it prints
+    :class:`PrefixEngine`, each batch with frames of its own; it prints
     each prefill's encoder share (:func:`encoder_share`), and its serve
     batch's prefill and SHORT_DECODE greedy steps are held bit for bit
     against prefill(S+1) with the same frames."""
@@ -3292,7 +3383,7 @@ def serve_full(arch, dev, seed, layers=None):
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
-    if arch in (QWEN, ARCTIC):
+    if arch in (QWEN, ARCTIC, VLM):
         memory_reckoning(arch, cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3310,10 +3401,13 @@ def serve_full(arch, dev, seed, layers=None):
     launches, runs = {}, {}
     for i, (label, reqs, cache_len) in enumerate(serve_batches(
             cfg, arch, SERVE_NEW)):
-        frames = None
+        frames = patches = None
         if cfg.is_encdec:
             frames = draw_frames(cfg, len(reqs), dev, seed * 10 + i)
-            engine = FramesEngine(model, cache_len, frames)
+            engine = PrefixEngine(model, cache_len, frames=frames)
+        elif cfg.vision_patches:
+            patches = draw_patches(cfg, len(reqs), dev, seed * 10 + i)
+            engine = PrefixEngine(model, cache_len, patches=patches)
         else:
             engine = InferenceEngine(model, cache_len=cache_len)
         if label == "batch":  # first-use costs stay out of the timed run
@@ -3326,10 +3420,10 @@ def serve_full(arch, dev, seed, layers=None):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
         check_serve_logits(f"{arch} {label}", model, reqs, outs, cache_len,
-                           frames)
+                           frames, patches)
         runs[label] = (outs, wall)
         if arch in ("rwkv6-1.6b", "llama3-8b") or (
-                arch in (OLMOE, WHISPER) and label == "batch"):
+                arch in (OLMOE, WHISPER, VLM) and label == "batch"):
             profile_serve(arch, engine, reqs, wall)
         if cfg.is_encdec:
             encoder_share(f"{arch} {label}", model, frames, outs)
@@ -3337,7 +3431,7 @@ def serve_full(arch, dev, seed, layers=None):
             time_kv_cast(arch, engine, reqs)
         elif label == "batch" and cfg.num_experts:
             scatter_batch(arch, engine, reqs, outs)
-        elif label == "batch":
+        elif label == "batch" and not cfg.vision_patches:
             time_activations(arch, engine, reqs)
         print(f"serve {arch} {label}: peak device memory so far "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
@@ -3358,6 +3452,10 @@ def serve_full(arch, dev, seed, layers=None):
     if cfg.is_encdec:
         engine = frames = None  # free the last batch's frames
         decode_against_prefill(arch, model, draw_frames(
+            cfg, SERVE_REQUESTS, dev, seed * 10 + 9))
+    if cfg.vision_patches:
+        engine = patches = None
+        decode_against_prefill(arch, model, patches=draw_patches(
             cfg, SERVE_REQUESTS, dev, seed * 10 + 9))
     print(f"serve {arch}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
@@ -3399,32 +3497,33 @@ def scatter_batch(arch, engine, reqs, einsum_outs):
                              f"expected {want}; finite {finite}")
 
 
-def decode_against_prefill(label, model, frames=None):
+def decode_against_prefill(label, model, frames=None, patches=None):
     """The serve batch's prefill and SHORT_DECODE greedy decode steps on
-    ``model`` (bf16; an encoder-decoder's with ``frames``, each prefill
-    with the same ones), each step's logits bit for bit (and within
-    INCR_TOL of) the card's own prefill of the tokens so far, every
-    kernel's launches counted against ``expected_launches``. Raises on a
-    miss; returns the launches."""
+    ``model`` (bf16; an encoder-decoder's with ``frames``, a vision
+    config's with ``patches`` in front, each prefill with the same ones),
+    each step's logits bit for bit (and within INCR_TOL of) the card's own
+    prefill of the tokens so far, every kernel's launches counted against
+    ``expected_launches``. Raises on a miss; returns the launches."""
     import torch
 
     from repro_torch.kernels import ops
 
     cfg = model.cfg
     dev = model.device
-    kw = {} if frames is None else {"frames": frames}
+    kw, n_prefix = prefix_kw(frames, patches)
+    cache_len = SERVE_CACHE + n_prefix
     reqs = serve_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, SHORT_DECODE,
                           SERVE_SEED)
     toks = torch.from_numpy(padded(reqs)).to(dev)
     S = toks.shape[1]
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(toks, cache_len=SERVE_CACHE, **kw)
+    logits, cache = model.prefill(toks, cache_len=cache_len, **kw)
     steps = []
     for i in range(SHORT_DECODE):
         tok = torch.argmax(logits, -1)
         toks = torch.cat([toks, tok[:, None]], 1)
-        logits, cache = model.decode_step(cache, tok, S + i)
+        logits, cache = model.decode_step(cache, tok, n_prefix + S + i)
         steps.append(logits)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3433,7 +3532,7 @@ def decode_against_prefill(label, model, frames=None):
     readings, ok = [], counts == want
     del cache
     for i, dec in enumerate(steps):
-        full, _ = model.prefill(toks[:, :S + i + 1], cache_len=SERVE_CACHE,
+        full, _ = model.prefill(toks[:, :S + i + 1], cache_len=cache_len,
                                 **kw)
         d, f = dec.float(), full.float()
         bad = (d - f).abs() > INCR_TOL["atol"] + INCR_TOL["rtol"] * f.abs()
@@ -3697,15 +3796,17 @@ def draw_frames(cfg, n, dev, seed):
                        device=dev) * FRAMES_STD
 
 
-class FramesEngine:
-    """``InferenceEngine.generate_batch`` for an encoder-decoder model: the
-    same left padding, greedy loop and host-clock timing (each phase ending
-    in a sync on the card), with the batch's ``frames`` handed to prefill.
-    The port's engine, like the reference's, calls prefill without frames
-    and cannot serve such a model."""
+class PrefixEngine:
+    """``InferenceEngine.generate_batch`` for an encoder-decoder model or a
+    vision-language one: the same left padding, greedy loop and host-clock
+    timing (each phase ending in a sync on the card), with the batch's
+    ``frames`` or ``patches`` handed to prefill (decode steps after P
+    patches start at P + S). The port's engine, like the reference's,
+    calls prefill without them (ROADMAP Queue 3 item 19)."""
 
-    def __init__(self, model, cache_len, frames):
-        self.model, self.cache_len, self.frames = model, cache_len, frames
+    def __init__(self, model, cache_len, frames=None, patches=None):
+        self.model, self.cache_len = model, cache_len
+        self.kw, self.n_prefix = prefix_kw(frames, patches)
 
     def generate_batch(self, reqs):
         import torch
@@ -3724,7 +3825,7 @@ class FramesEngine:
         with torch.inference_mode():
             t0 = time.perf_counter()
             logits, cache = model.prefill(toks, cache_len=self.cache_len,
-                                          frames=self.frames)
+                                          **self.kw)
             sync()
             prefill_s = time.perf_counter() - t0
             out = torch.zeros((b, n_new), dtype=torch.int32, device=dev)
@@ -3732,7 +3833,8 @@ class FramesEngine:
             tok = torch.argmax(logits, -1).to(torch.int32)
             for i in range(n_new):
                 out[:, i] = tok
-                logits, cache = model.decode_step(cache, tok, pmax + i)
+                logits, cache = model.decode_step(cache, tok,
+                                                  self.n_prefix + pmax + i)
                 tok = torch.argmax(logits, -1).to(torch.int32)
             sync()
             decode_s = time.perf_counter() - t0
@@ -4008,7 +4110,8 @@ def check_whisper_against_cpu(dev, seed):
         t0 = time.perf_counter()
         with ieee_float32(), torch.inference_mode():
             enc = model._encode(x)
-            outs = FramesEngine(model, SERVE_CACHE, x).generate_batch(reqs)
+            outs = PrefixEngine(model, SERVE_CACHE, frames=x
+                                ).generate_batch(reqs)
             logits, _ = model.prefill(toks.to(model.device),
                                       cache_len=SERVE_CACHE, frames=x)
         res[name] = (enc.cpu(), outs, logits.cpu(),
@@ -4029,6 +4132,435 @@ def check_whisper_against_cpu(dev, seed):
     torch.cuda.empty_cache()
     if not (same and finite and enc_rel <= ENC_RTOL and rel <= CPU_RTOL):
         raise AssertionError(f"serve {WHISPER}: card != CPU")
+
+
+def draw_patches(cfg, n, dev, seed):
+    """``n`` requests' patch embeddings [n, vision_patches, d_model],
+    float32, N(0, PATCHES_STD) from a seeded generator on ``dev``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((n, cfg.vision_patches, cfg.d_model), generator=g,
+                       device=dev) * PATCHES_STD
+
+
+def check_vlm_against_cpu(dev, seed):
+    """internvl2-76b at full width and VLM_CPU_LAYERS layers in float32
+    (IEEE float32 products), the same weights and patches on the card and
+    the CPU (drawn on the card, copied), the serve batch's first
+    VLM_CPU_REQUESTS requests: the greedy tokens over CPU_DECODE steps
+    equal, the prefill logits within CPU_RTOL of their scale."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import ieee_float32
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(VLM), num_layers=VLM_CPU_LAYERS,
+                              dtype="float32", kv_dtype="float32")
+    card = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    reqs = serve_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, CPU_DECODE,
+                          SERVE_SEED)[:VLM_CPU_REQUESTS]
+    patches = draw_patches(cfg, len(reqs), dev, seed)
+    toks = torch.from_numpy(padded(reqs))
+    cache_len = SERVE_CACHE + cfg.vision_patches
+    res = {}
+    for name, model, pt in (("card", card, patches),
+                            ("CPU", cpu, patches.cpu())):
+        t0 = time.perf_counter()
+        with ieee_float32():
+            outs = PrefixEngine(model, cache_len, patches=pt
+                                ).generate_batch(reqs)
+            logits, _ = model.prefill(toks.to(model.device),
+                                      cache_len=cache_len, patches=pt)
+        res[name] = (outs, logits.cpu(), time.perf_counter() - t0)
+    (oc, lc, tc), (oh, lh, th) = res["card"], res["CPU"]
+    same = all(np.array_equal(g.tokens, w.tokens) for g, w in zip(oc, oh))
+    rel = float((lc - lh).abs().max() / lh.abs().max())
+    finite = bool(torch.isfinite(lc).all())
+    print(f"serve {cfg.name} at {cfg.num_layers} layers, float32, "
+          f"{len(reqs)} requests with {cfg.vision_patches} patches each: "
+          f"card {tc:.3f} s, CPU {th:.3f} s; greedy tokens over "
+          f"{CPU_DECODE} steps equal {same}; prefill logits finite "
+          f"{finite}, differ by {rel!r} of their max (tolerance "
+          f"{CPU_RTOL})")
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (same and finite and rel <= CPU_RTOL):
+        raise AssertionError(f"serve {VLM}: card != CPU")
+
+
+def free_card():
+    """Return every cached block to the card (after a model is deleted)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_backward_products(dev):
+    """The bf16 ``matmul`` at llama3-8b's training products
+    (TRAIN_PRODUCTS): each backward product as the autograd Function
+    launches it (dX = g @ w.T, w.T a view; dW = x.T copied to be
+    contiguous, then @ g) against its plain version, timed beside
+    torch.matmul and its bound; beside dW, the copy's time and the same
+    product on the x.T view, which TMA does not take (the thread-staged
+    path), as a reading. Returns the entries for matmul's "train"
+    timings."""
+    import torch
+
+    from repro_torch.core.precision import ieee_float32
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(90)
+    out = []
+    with ieee_float32():
+        for label, (M, K, N) in TRAIN_PRODUCTS:
+            bf = torch.bfloat16
+            x = torch.randn((M, K), generator=g, device=dev).to(bf)
+            w = (torch.randn((K, N), generator=g, device=dev)
+                 * K ** -0.5).to(bf)
+            dy = (torch.randn((M, N), generator=g, device=dev) * 1e-2).to(bf)
+            out.append(bf16_timed(f"train dX {label}", "train dX", dy, w.T,
+                                  5))
+            xt = ops._left_operand(x.T)
+            if xt.stride(1) != 1:
+                raise AssertionError(f"train dW {label}: x.T not copied")
+            entry = bf16_timed(f"train dW {label}", "train dW", xt, dy, 5)
+            entry["copy_ms"] = cuda_ms(lambda: x.T.contiguous(), 5)
+            entry["view_ms"] = cuda_ms(lambda: ops.matmul(x.T, dy), 3)
+            print(f"matmul train dW {label}: x.T copy {entry['copy_ms']:.6f}"
+                  f" ms; the product on the x.T view (thread-staged) "
+                  f"{entry['view_ms']:.6f} ms against {entry['ms']:.6f} ms "
+                  f"on the copy")
+            out.append(entry)
+            del x, w, dy, xt
+            free_card()
+    return out
+
+
+def check_attention_backward(dev):
+    """``flash_attention`` at llama3-8b's training shape (TRAIN_ATTN,
+    causal, bf16) as training runs it: the kernel's forward, the torch
+    backward (``ops.flash_attention_backward``), each timed, beside SDPA's
+    forward and forward + backward on the same inputs; the backward's
+    gradients against autograd through SDPA in float32 (the backward is
+    float32 math: within 1e-2 of each gradient's scale, the bf16 inputs'
+    rounding). Returns the reading for flash_attention's "train" entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    B, Hq, Hkv, S, D = TRAIN_ATTN
+    g = torch.Generator(device=dev).manual_seed(91)
+    q = torch.randn((B, Hq, S, D), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, Hkv, S, D), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    dout = torch.randn((B, Hq, S, D), generator=g, device=dev).bfloat16()
+    out = ops.flash_attention(q, k, v)
+    dq, dk, dv = ops.flash_attention_backward(q, k, v, out, dout)
+    qs, ks, vs = (t.float().requires_grad_(True) for t in (q, k, v))
+    rep = Hq // Hkv
+    ref = F.scaled_dot_product_attention(
+        qs, ks.repeat_interleave(rep, 1), vs.repeat_interleave(rep, 1),
+        is_causal=True)
+    ref.backward(dout.float())
+    errs = [float((a.float() - b.grad).abs().max() / b.grad.abs().max())
+            for a, b in zip((dq, dk, dv), (qs, ks, vs))]
+    del qs, ks, vs, ref
+    fwd_ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 10)
+    bwd_ms = cuda_ms(lambda: ops.flash_attention_backward(q, k, v, out,
+                                                          dout), 5)
+    kr, vr = (t.repeat_interleave(rep, 1) for t in (k, v))
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, kr, vr, is_causal=True), 10)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                  for t in (q, kr, vr))
+
+    def sdpa_step():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        o.backward(dout)
+    lib_step = cuda_ms(sdpa_step, 5)
+    print(f"flash_attention train [{B}, {Hq}/{Hkv}, {S}, {D}] bf16 causal: "
+          f"kernel forward {fwd_ms:.6f} ms, torch backward {bwd_ms:.6f} ms "
+          f"(SDPA forward {lib_fwd:.6f} ms, forward + backward "
+          f"{lib_step:.6f} ms); backward against SDPA's float32 autograd: "
+          f"dq, dk, dv within {errs} of their scale")
+    if max(errs) > 1e-2 or not all(e == e for e in errs):
+        raise AssertionError("flash_attention backward != SDPA's")
+    return {"shape": [B, Hq, Hkv, S, D], "forward_ms": fwd_ms,
+            "backward_ms": bwd_ms, "sdpa_forward_ms": lib_fwd,
+            "sdpa_forward_backward_ms": lib_step, "grad_err_of_scale": errs}
+
+
+def train_full(dev):
+    """llama3-8b at full width and depth, int8 moments: TRAIN_STEPS steps
+    through ``launch/train.py``'s ``run`` on the card, with the launch
+    counts set to 0 just before and read just after (each step exactly
+    ``models.model.train_launches``), every loss and gradient norm
+    finite; the steady step's time, tokens per second, its share of the
+    card's bf16 peak at 6 N FLOP a token, peak memory; one more step under
+    the profiler (device busy and idle share, top device operations).
+    Returns (launches a step, readings)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import train_launches
+
+    cfg = get_config(TRAIN_ARCH)
+    n_params = cfg.param_count()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"train {TRAIN_ARCH} memory reckoning: {n_params} parameters: "
+          f"{2 * n_params / 1e9:.2f} GB of bf16 weights, as much of bf16 "
+          f"gradients, {2 * n_params * (1 + 3 / 256) / 1e9:.2f} GB of int8 "
+          f"moments with their float32 scales (float32 moments would take "
+          f"{8 * n_params / 1e9:.2f} GB: with the weights and gradients "
+          f"over the card's 80 GB); torch.cuda.mem_get_info "
+          f"{torch.cuda.mem_get_info()[0] / 2 ** 30:.3f} GiB free")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer, params, opt, log = launch_train.run(
+        cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        state_dtype="int8", device=dev, seed=70, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    per_step = train_launches(cfg, TRAIN_SEQ)
+    want = {k: (TRAIN_STEPS * per_step.get(k, 0)) for k in counts}
+    peak = torch.cuda.max_memory_allocated()
+    steps_s = trainer.step_times
+    steady = statistics.median(steps_s[1:])
+    share = 6 * n_params * tokens / steady / PEAK_OPS_PER_S["bfloat16"]
+    finite = all(np.isfinite(e["loss"]) and np.isfinite(e["grad_norm"])
+                 for e in log)
+    print(f"train {TRAIN_ARCH}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens in {wall:.3f} s (the draw and the optimizer "
+          f"state's init included); losses "
+          f"{[round(e['loss'], 6) for e in log]}, grad norms "
+          f"{[round(e['grad_norm'], 6) for e in log]}, finite {finite}; "
+          f"step ms {[round(t * 1e3, 3) for t in steps_s]}, steady "
+          f"{steady * 1e3:.3f} ms: {tokens / steady:.1f} tokens/s, "
+          f"{share:.4f} of the card's {PEAK_OPS_PER_S['bfloat16']:.3g} bf16 "
+          f"FLOP/s at 6 N FLOP a token; peak device memory "
+          f"{peak / 1e9:.3f} GB ({peak / 2 ** 30:.3f} GiB); launches "
+          f"{counts}, a step {per_step}")
+    if counts != want or not finite:
+        raise AssertionError(f"train {TRAIN_ARCH}: launches {counts}, "
+                             f"expected {want}; finite {finite}")
+    data = SyntheticLM(cfg, DataConfig(TRAIN_SEQ, TRAIN_BATCH))
+    got = device_profile(f"train {TRAIN_ARCH}", lambda: trainer.fit(
+        params, opt, data.iterate(TRAIN_STEPS), steps=TRAIN_STEPS + 1,
+        start_step=TRAIN_STEPS))
+    idle = None
+    if got is not None:
+        busy_s, wall_p, dev_events = got
+        idle = 1 - busy_s / wall_p
+        kern = {k: sum(e.self_device_time_total for e in dev_events
+                       if k in e.key) * 1e-6
+                for k in ("matmul_bf16", "matmul_f32", "flash_attention")}
+        print(f"profile train {TRAIN_ARCH}: device busy {busy_s:.6f} s of a "
+              f"{wall_p:.3f} s profiled step ({busy_s / wall_p:.4f}; idle "
+              f"{idle:.4f}); "
+              + ", ".join(f"{k} {v:.6f} s ({v / busy_s:.4f} of busy)"
+                          for k, v in kern.items())
+              + f"; {sum(e.count for e in dev_events)} device events")
+        print_top_events(dev_events, 10)
+    del trainer, params, opt
+    free_card()
+    return per_step, {"step_ms": steady * 1e3,
+                      "tokens_per_s": tokens / steady,
+                      "peak_share_6N": share, "peak_memory_bytes": peak,
+                      "idle_share": idle}
+
+
+def train_against_cpu(dev):
+    """The llama3-8b and internvl2-76b smoke configs in float32 (IEEE
+    float32 products), the same weights on the card and the CPU:
+    TRAIN_CPU_STEPS ``Trainer.fit`` steps each, losses and gradient norms
+    within TRAIN_CPU_RTOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.precision import ieee_float32
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.training import (AdamWConfig, Trainer, adamw_init,
+                                      train_params)
+
+    for seed, arch in enumerate((TRAIN_ARCH, VLM)):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                                  kv_dtype="float32")
+        cpu = Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(71 + seed))
+        card = Model(cfg, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        ocfg = AdamWConfig(lr=1e-3, warmup_steps=1,
+                           total_steps=TRAIN_CPU_STEPS)
+        logs = []
+        for m in (card, cpu):
+            tr = Trainer(m, ocfg)
+            p = train_params(m)
+            with ieee_float32():
+                _, _, log = tr.fit(p, adamw_init(p, ocfg), SyntheticLM(
+                    cfg, DataConfig(64, 4)).iterate(),
+                    steps=TRAIN_CPU_STEPS, log_every=1)
+            logs.append(log)
+        rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(*logs)
+                  for k in ("loss", "grad_norm"))
+        print(f"train {cfg.name} float32, card against CPU over "
+              f"{TRAIN_CPU_STEPS} steps: losses {[e['loss'] for e in logs[0]]}"
+              f" and {[e['loss'] for e in logs[1]]}, losses and grad norms "
+              f"within {rel!r} (tolerance {TRAIN_CPU_RTOL})")
+        if not (rel <= TRAIN_CPU_RTOL and np.isfinite(rel)):
+            raise AssertionError(f"train {cfg.name}: card != CPU")
+    free_card()
+
+
+def train_vlm_step(dev):
+    """internvl2-76b at full width and VLM_TRAIN_LAYERS layers, int8
+    moments: one ``Trainer.fit`` step of a SyntheticLM batch with its 256
+    patches a row, launches exactly ``train_launches``, loss finite.
+    Returns the launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.models.model import train_launches
+    from repro_torch.training import AdamWConfig, Trainer
+
+    cfg = dataclasses.replace(get_config(VLM), num_layers=VLM_TRAIN_LAYERS)
+    batch, seq = VLM_TRAIN
+    trainer = Trainer(Model(cfg, device=dev),
+                      AdamWConfig(state_dtype="int8", warmup_steps=1,
+                                  total_steps=1))
+    params, opt = trainer.init_state(
+        torch.Generator(device=dev).manual_seed(72))
+    data = SyntheticLM(cfg, DataConfig(seq, batch))
+    ops.reset_launch_counts()
+    _, _, log = trainer.fit(params, opt, data.iterate(), steps=1,
+                            log_every=1)
+    counts = ops.launch_counts()
+    want = dict({k: 0 for k in counts}, **train_launches(cfg, seq))
+    finite = bool(np.isfinite(log[0]["loss"]))
+    print(f"train {VLM} at {cfg.num_layers} layers, full width: one step of "
+          f"{batch} x ({cfg.vision_patches} patches + {seq} tokens) in "
+          f"{trainer.step_times[0] * 1e3:.3f} ms, loss {log[0]['loss']!r} "
+          f"finite {finite}, grad norm {log[0]['grad_norm']!r}; launches "
+          f"{counts}")
+    del trainer, params, opt
+    free_card()
+    if counts != want or not finite:
+        raise AssertionError(f"train {VLM}: launches {counts}, expected "
+                             f"{want}; finite {finite}")
+    return counts
+
+
+def train_checkpoint(dev):
+    """llama3-8b at full width and CKPT_LAYERS layers, int8 moments: a run
+    saves its checkpoint at step CKPT_STEPS[0] (``Trainer``'s async save,
+    waited on), a fresh model restores it (``maybe_restore``) bit for bit
+    (parameters, moments, their scales, the step), and both go on to step
+    CKPT_STEPS[1]: the restored run's losses within TRAIN_CPU_RTOL of the
+    uninterrupted run's (bit for bit where the card's gradient is
+    deterministic)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.training import AdamWConfig, Trainer
+    from repro_torch.training.checkpoint import _leaves
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=CKPT_LAYERS)
+    first, last = CKPT_STEPS
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=last,
+                       state_dtype="int8")
+    data = SyntheticLM(cfg, DataConfig(TRAIN_SEQ, TRAIN_BATCH))
+    with tempfile.TemporaryDirectory() as d:
+        a = Trainer(Model(cfg, device=dev), ocfg, ckpt_dir=d,
+                    ckpt_every=10 ** 9)
+        pa, oa = a.init_state(torch.Generator(device=dev).manual_seed(73))
+        t0 = time.perf_counter()
+        pa, oa, _ = a.fit(pa, oa, data.iterate(0), steps=first)
+        fit_s = time.perf_counter() - t0
+        n_bytes = sum(os.path.getsize(os.path.join(root, f))
+                      for root, _, files in os.walk(d) for f in files)
+        snap = {k: t.clone() for k, t in _leaves({"params": pa, "opt": oa})}
+        _, _, la = Trainer(a.model, ocfg).fit(
+            pa, oa, data.iterate(first), steps=last, start_step=first,
+            log_every=1)
+        del a, pa, oa
+        b = Trainer(Model(cfg, device=dev), ocfg, ckpt_dir=d)
+        pb, ob = b.init_state(torch.Generator(device=dev).manual_seed(74))
+        t0 = time.perf_counter()
+        pb, ob, start = b.maybe_restore(pb, ob)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored = dict(_leaves({"params": pb, "opt": ob}))
+        same = sorted(restored) == sorted(snap) and all(
+            torch.equal(restored[k], snap[k]) for k in snap)
+        del snap, restored
+        _, _, lb = Trainer(b.model, ocfg).fit(
+            pb, ob, data.iterate(first), steps=last, start_step=first,
+            log_every=1)
+        del b, pb, ob
+    rel = max(abs(x["loss"] - y["loss"]) / abs(x["loss"])
+              for x, y in zip(la, lb))
+    bitwise = [x["loss"] == y["loss"] for x, y in zip(la, lb)]
+    print(f"train {TRAIN_ARCH} at {CKPT_LAYERS} layers, full width: "
+          f"{first} steps and the checkpoint's save in {fit_s:.3f} s "
+          f"({n_bytes / 1e9:.3f} GB on disk), restored at step {start} in "
+          f"{restore_s:.3f} s, bit for bit {same}; steps {first + 1}.."
+          f"{last} uninterrupted {[x['loss'] for x in la]}, resumed "
+          f"{[y['loss'] for y in lb]}: within {rel!r} (tolerance "
+          f"{TRAIN_CPU_RTOL}), bitwise {bitwise}")
+    free_card()
+    if not (same and start == first and rel <= TRAIN_CPU_RTOL):
+        raise AssertionError(f"train {TRAIN_ARCH}: checkpoint round trip "
+                             f"failed")
+
+
+def training_phase(dev):
+    """Phase 9 (see the module docstring). Returns (matmul's train
+    timings, flash_attention's train reading, launches a step of the full
+    run, the full run's readings, internvl2-76b's step's launches)."""
+    backward = check_backward_products(dev)
+    attn = check_attention_backward(dev)
+    free_card()
+    per_step, readings = train_full(dev)
+    train_against_cpu(dev)
+    vlm = train_vlm_step(dev)
+    train_checkpoint(dev)
+    return backward, attn, per_step, readings, vlm
 
 
 def main() -> int:
@@ -4557,7 +5089,22 @@ def main() -> int:
     print(f"serve {WHISPER}: phase wall {time.perf_counter() - t0:.3f} s; "
           f"launches in its timed batches {whisper_counts}")
     lap("8d whisper-large-v3")
-    # -- 9. result ------------------------------------------------------------
+    # -- 8e. internvl2-76b at full width, its patch prefix -------------------
+    t0 = time.perf_counter()
+    vlm_counts, _ = serve_full(VLM, dev, 80, layers=VLM_LAYERS)
+    for k, n in vlm_counts.items():
+        serve_launches[k] = serve_launches.get(k, 0) + n
+    check_vlm_against_cpu(dev, 81)
+    print(f"serve {VLM}: phase wall {time.perf_counter() - t0:.3f} s; "
+          f"launches in its timed batches {vlm_counts}")
+    lap("8e internvl2-76b")
+    # -- 9. training ------------------------------------------------------------
+    t0 = time.perf_counter()
+    backward, attn_train, train_step, train_readings, vlm_train = \
+        training_phase(dev)
+    print(f"train: phase wall {time.perf_counter() - t0:.3f} s")
+    lap("9 training")
+    # -- 10. result -------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main path of its slice: acd_evict on
     # the uncapped sweeps, fifo_dispatch on the congested ones; matmul on
@@ -4577,10 +5124,23 @@ def main() -> int:
             for k, c in launches.items()
             if k != "profile" and c.get(name, 0) > 0}
     by_name["matmul"]["launches"] = (launches["profile"]["matmul"]
-                                     + serve_launches["matmul"])
+                                     + serve_launches["matmul"]
+                                     + TRAIN_STEPS * train_step["matmul"])
     by_name["matmul"]["bf16"] = bf16_matmul
     for name in ("flash_attention", "flash_decode", "rglru", "rwkv6"):
         by_name[name]["launches"] = serve_launches[name]
+    by_name["flash_attention"]["launches"] += (
+        TRAIN_STEPS * train_step["flash_attention"])
+    # training (phase 9): launches a step of llama3-8b's full run and of
+    # internvl2-76b's 2-layer step, the backward products' timings, the
+    # attention backward's reading
+    for name in ("matmul", "flash_attention"):
+        by_name[name]["train_launches_per_step"] = train_step[name]
+        by_name[name]["vlm_train_launches"] = vlm_train[name]
+        by_name[name]["vlm_serve_launches"] = vlm_counts[name]
+    by_name["matmul"]["train"] = backward
+    by_name["flash_attention"]["train"] = attn_train
+    by_name["matmul"]["train_step"] = train_readings
     # the fp8 reading: flash_decode's launches on qwen1.5-32b's fp8 caches
     by_name["flash_decode"]["kv8"] = dict(
         kv8, launches=qwen_launches["flash_decode"])
@@ -4597,6 +5157,11 @@ def main() -> int:
                                        "flash_decode") if moe_counts[k] <= 0]
     missing += [f"{k} (whisper-large-v3)" for k in (
         "matmul", "flash_attention", "flash_decode") if whisper_counts[k] <= 0]
+    missing += [f"{k} ({VLM})" for k in ("matmul", "flash_attention",
+                                         "flash_decode")
+                if vlm_counts[k] <= 0]
+    missing += [f"{k} (training)" for k in ("matmul", "flash_attention")
+                if train_step[k] <= 0 or vlm_train[k] <= 0]
     if missing or len(kernels) != 7:
         raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")

@@ -6,9 +6,10 @@ hybrid ones (``rwkv6-1.6b``, ``recurrentgemma-9b``), the dense ones
 with its ``float8_e4m3fn`` KV cache) and the MoE ones (``olmoe-1b-7b``,
 ``arctic-480b`` with its dense residual FFN) and the encoder-decoder
 ``whisper-large-v3`` (its frontend a stub, as in the reference: prefill
-takes precomputed frame embeddings). The reference registers one more, the
-vision one; :func:`get_config` and :func:`get_smoke_config` name the
-ROADMAP item that brings it.
+takes precomputed frame embeddings) and the vision-language
+``internvl2-76b`` (its vision frontend a stub too: patch embeddings go in
+front of the tokens). ``NOT_PORTED`` maps any reference architecture the
+port lacks to the ROADMAP item that brings it; it is empty.
 
 Shapes (per the assignment):
   train_4k     seq 4,096   global_batch 256   (training)
@@ -23,9 +24,9 @@ import dataclasses
 from typing import Dict
 
 from ..models.config import ModelConfig
-from . import (arctic_480b, llama3_8b, olmoe_1b_7b, qwen1_5_32b,
-               recurrentgemma_9b, rwkv6_1_6b, stablelm_12b, starcoder2_15b,
-               whisper_large_v3)
+from . import (arctic_480b, internvl2_76b, llama3_8b, olmoe_1b_7b,
+               qwen1_5_32b, recurrentgemma_9b, rwkv6_1_6b, stablelm_12b,
+               starcoder2_15b, whisper_large_v3)
 
 _MODULES = {
     "llama3-8b": llama3_8b,
@@ -37,12 +38,11 @@ _MODULES = {
     "olmoe-1b-7b": olmoe_1b_7b,
     "arctic-480b": arctic_480b,
     "whisper-large-v3": whisper_large_v3,
+    "internvl2-76b": internvl2_76b,
 }
 
 #: the reference's other architectures -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "internvl2-76b": "ROADMAP Queue 1 item 10 (vision patches)",
-}
+NOT_PORTED: Dict[str, str] = {}
 
 ARCHS = tuple(_MODULES)
 

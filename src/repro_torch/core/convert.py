@@ -15,6 +15,10 @@ nothing here imports the reference package.
 
     fields = dataclasses.asdict(reference_dag)
     dag = dag_from_fields(fields)
+
+The model stack's state crosses the same way: a parameter tree as numpy
+(:func:`model_params_from_fields`) and an AdamW state's step and moments
+(:func:`adamw_state_from_fields`).
 """
 from __future__ import annotations
 
@@ -199,3 +203,40 @@ def model_params_from_fields(cfg, fields: Mapping[str, Any], device=None):
                     f"{tuple(p.shape)} {p.dtype}")
             p.copy_(t)
     return model
+
+
+def adamw_state_from_fields(fields: Mapping[str, Any], params,
+                            device=None):
+    """:class:`repro_torch.training.AdamWState` of the model parameters
+    ``params`` (dotted name -> tensor) from a reference optimizer state
+    given as numpy: ``{"step": int32 [], "m": tree, "v": tree}`` (the
+    reference's ``AdamWState._asdict()``), each moment tree shaped as the
+    parameter tree with, at a parameter's path, an array of its shape or
+    an int8 moment's ``{"q", "scale"}`` / ``{"q", "lo", "scale"}``. On
+    ``device`` (``cuda`` unless the caller names another)."""
+    from ..training.optimizer import AdamWState
+
+    dev = resolve_device(device)
+
+    def moments(tree):
+        flat = dict(_leaves(tree))
+        out = {}
+        for name, p in params.items():
+            parts = {k[len(name) + 1:]: v for k, v in flat.items()
+                     if k.startswith(name + ".")}
+            if name in flat:
+                t = tensor_from_array(flat[name], dev)
+                if tuple(t.shape) != tuple(p.shape):
+                    raise ValueError(f"{name}: moment {tuple(t.shape)}, "
+                                     f"parameter {tuple(p.shape)}")
+                out[name] = t
+            elif parts and set(parts) <= {"q", "lo", "scale"}:
+                out[name] = {k: tensor_from_array(v, dev)
+                             for k, v in parts.items()}
+            else:
+                raise ValueError(f"{name}: no moment in the given state")
+        return out
+
+    return AdamWState(step=torch.tensor(int(fields["step"]),
+                                        dtype=torch.int32, device=dev),
+                      m=moments(fields["m"]), v=moments(fields["v"]))

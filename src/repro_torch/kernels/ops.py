@@ -7,6 +7,15 @@ integer attribute (``acd_evict.launches``, ``fifo_dispatch.launches``,
 ``matmul.launches``, ``flash_attention.launches``,
 ``flash_decode.launches``, ``rglru.launches``, ``rwkv6.launches``), so a
 run can show that its main path went through the kernel.
+
+``matmul`` and ``flash_attention`` are differentiable: where grad mode is
+on and an operand requires a gradient they run as a
+``torch.autograd.Function`` whose forward is the same kernel (or plain
+version). ``matmul``'s backward is two more ``matmul`` calls (``dX = dOut @
+Y^T``, ``dY = X^T @ dOut``; one where only one operand needs a gradient),
+each counted as a launch. ``flash_attention``'s backward
+(:func:`flash_attention_backward`) is torch code, the same on both
+devices. The other kernels are serving-only and stay outside autograd.
 """
 from __future__ import annotations
 
@@ -175,8 +184,52 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     ``x.dtype`` (float32, or bfloat16 for both). Any strides are taken
     (``x.T`` is passed as a view). CPU tensors run
     :func:`.ref.matmul_plain`; CUDA tensors run the CUDA kernel
-    (``csrc/matmul.cu``)."""
+    (``csrc/matmul.cu``). Differentiable (:class:`_MatmulFn`) where grad
+    mode is on and an operand requires a gradient."""
     _check_matmul(x, y)
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+        return _MatmulFn.apply(x, y)
+    return _matmul(x, y)
+
+
+def _left_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the bf16 kernel's left operand on the card: a contiguous
+    copy where its rows are not unit-stride (``x.T`` of a row-major x),
+    which TMA does not take and the kernel would stage by threads (PERF.md
+    §6: many times slower)."""
+    if t.device.type == "cuda" and t.dtype == torch.bfloat16 \
+            and t.stride(1) != 1:
+        return t.contiguous()
+    return t
+
+
+class _MatmulFn(torch.autograd.Function):
+    """``out = X @ Y`` through :func:`_matmul`; backward ``dX = dOut @
+    Y^T`` and ``dY = X^T @ dOut``, two more :func:`_matmul` calls (each a
+    launch on the card) with float32 accumulation and the result in the
+    operand's dtype, only for the operands that need a gradient (a norm's
+    row mean multiplies by a constant column: one)."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        need_x, need_y = ctx.needs_input_grad
+        ctx.save_for_backward(x if need_y else None, y if need_x else None)
+        return _matmul(x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        g = g.contiguous()  # an expanded or transposed incoming gradient
+        dx = dy = None
+        if ctx.needs_input_grad[0]:
+            dx = _matmul(g, y.T)
+        if ctx.needs_input_grad[1]:
+            dy = _matmul(_left_operand(x.T), g)
+        return dx, dy
+
+
+def _matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """:func:`matmul` on checked operands, outside autograd."""
     if x.device.type == "cpu":
         return matmul_plain(x, y)
     if x.device.type != "cuda":
@@ -252,9 +305,92 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                or window < 1):
         raise ValueError(f"flash_attention: window must be None or an int "
                          f">= 1, got {window!r}")
+    causal = bool(causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttentionFn.apply(q, k, v, causal, window)
+    return _flash_attention(q, k, v, causal, window)
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with its backward,
+    :func:`flash_attention_backward` (torch code on either device)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _flash_attention(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout,
+                                              causal=ctx.causal,
+                                              window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+#: float32 scores [B, Hq, rows, Sk] the backward holds per query chunk (at
+#: most; one row at the least): 256 MiB, four such tensors live at once
+BWD_SCORE_ELEMS = 1 << 26
+
+
+def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
+                             window: Optional[int] = None):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` at ``dout``, in
+    the inputs' dtypes, computed in float32 from ``out``: over chunks of
+    query rows (every batch row and head at once) the scores ``(q . k) *
+    D^-0.5`` and probabilities are recomputed with the kernel's masks
+    (causal, window, queries right-aligned to ``Sk - Sq``; a row with no
+    live key has p = 0), then ``dV += P^T dO``, ``dS = P * (dO V^T -
+    rowsum(dO * O)) * D^-0.5``, ``dQ = dS K`` and ``dK += dS^T Q``, dK and
+    dV summed over each GQA group. The reference trains through XLA's
+    autodiff of its chunked attention; no kernel has a backward."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = d ** -0.5
+    dev = q.device
+    qf = q.float().reshape(b, hkv, g, sq, d)
+    kf, vf = k.float(), v.float()
+    dof = dout.float().reshape(b, hkv, g, sq, d)
+    delta = (dof * out.float().reshape(b, hkv, g, sq, d)).sum(-1)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros((b, hkv, sk, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    kpos = torch.arange(sk, device=dev)
+    rows = max(1, BWD_SCORE_ELEMS // max(b * hq * sk, 1))
+    for r0 in range(0, sq, rows):
+        r1 = min(sq, r0 + rows)
+        qc, doc = qf[:, :, :, r0:r1], dof[:, :, :, r0:r1]
+        qpos = torch.arange(r0, r1, device=dev)[:, None] + (sk - sq)
+        live = torch.ones((r1 - r0, sk), dtype=torch.bool, device=dev)
+        if causal:
+            live = live & (kpos <= qpos)
+        if window is not None:
+            live = live & (kpos > qpos - window)
+        s = torch.einsum("bhgrd,bhkd->bhgrk", qc, kf) * scale
+        s = s.masked_fill(~live, float("-inf"))
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+        den = p.sum(-1, keepdim=True)
+        p = p / torch.where(den == 0.0, 1.0, den)
+        dv += torch.einsum("bhgrk,bhgrd->bhkd", p, doc)
+        dp = torch.einsum("bhgrd,bhkd->bhgrk", doc, vf)
+        ds = p * (dp - delta[:, :, :, r0:r1, None]) * scale
+        dq[:, :, :, r0:r1] = torch.einsum("bhgrk,bhkd->bhgrd", ds, kf)
+        dk += torch.einsum("bhgrk,bhgrd->bhkd", ds, qc)
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _flash_attention(q, k, v, causal: bool,
+                     window: Optional[int]) -> torch.Tensor:
+    """:func:`flash_attention` on checked operands, outside autograd."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=bool(causal),
-                                     window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if q.shape[0] > 65535 or q.shape[1] > 65535:
@@ -263,7 +399,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)  # q's strides when dense, else contiguous
     if out.numel() == 0:
         return out
-    _fa.launch(q, k, v, out, bool(causal), window)
+    _fa.launch(q, k, v, out, causal, window)
     flash_attention.launches += 1
     return out
 

@@ -1,4 +1,4 @@
-# Launch layer: the serving entry point (``python -m
-# repro_torch.launch.serve``). The multi-pod dry run, meshes, input specs,
-# roofline analysis and the training entry point are ROADMAP Queue 1
-# item 12.
+# Launch layer: the serving and training entry points (``python -m
+# repro_torch.launch.serve``, ``python -m repro_torch.launch.train``). The
+# multi-pod dry run, meshes, input specs, roofline analysis and sharded
+# training are ROADMAP Queue 1 item 12.

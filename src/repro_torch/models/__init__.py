@@ -1,4 +1,4 @@
-# The model stack's serving path: config-driven decoder LM with RG-LRU and
+# The model stack (serving and training): config-driven decoder LM with RG-LRU and
 # RWKV-6 recurrent blocks and windowed attention (port of repro.models).
 from .config import ModelConfig
 from .model import Model

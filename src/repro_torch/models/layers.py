@@ -121,11 +121,14 @@ ROW_GROUP = 64
 
 
 def _fill(n: int, value: float, device: torch.device) -> torch.Tensor:
-    """A cached float32 [n, 1] column of ``value``."""
+    """A cached float32 [n, 1] column of ``value`` (a normal tensor even
+    when first asked for under ``inference_mode``, so training may save it
+    for its backward)."""
     col = _FILLS.get((n, value, device))
     if col is None:
-        col = _FILLS[n, value, device] = torch.full(
-            (n, 1), value, dtype=torch.float32, device=device)
+        with torch.inference_mode(False):
+            col = _FILLS[n, value, device] = torch.full(
+                (n, 1), value, dtype=torch.float32, device=device)
     return col
 
 

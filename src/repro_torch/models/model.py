@@ -46,8 +46,29 @@ encoder's output: at prefill ``ck = enc_out @ wk``, ``cv = enc_out @ wv``
 :meth:`Model.prefill` takes the frames (``frames=``) and raises without
 them.
 
-Training (``loss_fn``) is not ported yet. Vision patches are not either: a
-config that needs them raises.
+Vision-language configs (``cfg.vision_patches``: internvl2-76b) take
+precomputed patch embeddings (the reference's frontend stub): ``prefill(...,
+patches=[B, P, d_model])`` and a training batch's ``"patches"`` go in front
+of the token embeddings, cast to the model's dtype, and positions run over
+both; decode steps continue at position ``P + S``.
+
+Training (``"train"`` mode; the reference's ``Model.loss_fn``):
+:meth:`Model.loss_fn` runs the whole sequence (patch prefix, encoder
+frames) with causal attention and no cache, the final norm, drops the
+prefix and takes a streaming cross-entropy over ``loss_chunk`` positions
+at a time (:func:`_chunked_ce`; float32 logits, recomputed in the
+backward, so no [B, S, V] tensor is kept). It is switched on by PyTorch's
+own idiom, ``model.requires_grad_(True)`` (and ``model.train()``); serving
+keeps its ``inference_mode``. With ``remat`` (the default, as the
+reference's ``jax.checkpoint(..., nothing_saveable)``) each super-block,
+each encoder layer and each loss chunk runs under
+``torch.utils.checkpoint`` (non-reentrant) and is recomputed in the
+backward. Every product goes through the ``matmul`` and
+``flash_attention`` autograd Functions (:mod:`..kernels.ops`). A layer of
+a stacked parameter is taken through :class:`_LayerOf`, whose gradient
+accumulates in place into the stack's ``.grad``. The recurrent mixers'
+kernels (``rglru``, ``rwkv6``) have no backward: ``loss_fn`` refuses such
+configs on every device.
 """
 from __future__ import annotations
 
@@ -56,6 +77,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.vectorsim import resolve_device
 from .config import ModelConfig
@@ -67,13 +89,8 @@ from .moe import DISPATCHES, moe_apply, moe_init
 from .recurrent import (rglru_block, rglru_init, rglru_state_init,
                         rwkv6_block, rwkv6_init, rwkv6_state_init)
 
-def unported_parts(cfg: ModelConfig) -> List[str]:
-    """What of ``cfg`` the port cannot run yet, each with its ROADMAP item
-    (empty when the config runs)."""
-    out = []
-    if cfg.vision_patches:
-        out.append("vision patches (ROADMAP Queue 1 item 10)")
-    return out
+#: the mixers whose kernels have no backward, so no config with them trains
+UNTRAINED_MIXERS = ("rglru", "rwkv6")
 
 
 # -- per-layer params -------------------------------------------------------
@@ -141,10 +158,38 @@ class ParamTree(nn.Module):
         """Nested dict of the tensors (of layer ``index`` of a stack)."""
         out: Params = {}
         for name, p in self.named_parameters(recurse=False):
-            out[name] = p if index is None else p[index]
+            out[name] = p if index is None else _layer(p, index)
         for name, m in self.named_children():
             out[name] = m.tree(index)
         return out
+
+
+class _LayerOf(torch.autograd.Function):
+    """Layer ``index`` of a stacked parameter (a view of ``stack[index]``)
+    whose gradient is added in place into that layer's slice of the
+    stack's ``.grad`` (zeros at the first), and none flows through autograd:
+    indexing would hand autograd a zero-filled copy of the whole stack for
+    every layer (llama3-8b's FFN stacks are 3.76 GB each in bf16)."""
+
+    @staticmethod
+    def forward(ctx, stack, index):
+        ctx.stack, ctx.index = stack, index
+        return stack[index]
+
+    @staticmethod
+    def backward(ctx, g):
+        stack = ctx.stack
+        if stack.grad is None:
+            stack.grad = torch.zeros_like(stack)
+        stack.grad[ctx.index] += g
+        return None, None
+
+
+def _layer(p: torch.Tensor, index: int) -> torch.Tensor:
+    """Layer ``index`` of the stacked parameter ``p``."""
+    if p.requires_grad and torch.is_grad_enabled():
+        return _LayerOf.apply(p, index)
+    return p[index]
 
 
 def _fill(p: torch.Tensor, spec: Init,
@@ -230,7 +275,8 @@ def _cross_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     mask). Prefill projects ``enc_out`` [B, Se, d] and stores ``ck``/``cv``
     [B, Hkv, Se, D] in ``new_cache`` (cast to ``kv_dtype``; the attention
     reads them before the cast, as the reference's does); a decode step
-    reads all Se cached slots, which it leaves as they are."""
+    reads all Se cached slots, which it leaves as they are. ``"train"``
+    mode attends as prefill and stores nothing."""
     b, s, _ = x.shape
     q = linear(x, p["wq"])
     if mode == "decode":
@@ -246,9 +292,10 @@ def _cross_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
             for w in ("wk", "wv"))
         q = q.reshape(b, s, cfg.num_heads, cfg.hd).transpose(1, 2)
         out = kops.flash_attention(q, ck, cv, causal=False).transpose(1, 2)
-        kd = dtype_of(cfg.kv_dtype)
-        new_cache["ck"] = to_kv(ck, kd).contiguous()
-        new_cache["cv"] = to_kv(cv, kd).contiguous()
+        if mode == "prefill":
+            kd = dtype_of(cfg.kv_dtype)
+            new_cache["ck"] = to_kv(ck, kd).contiguous()
+            new_cache["cv"] = to_kv(cv, kd).contiguous()
     return linear(out.reshape(b, s, -1), p["wo"])
 
 
@@ -258,8 +305,9 @@ def _layer_apply(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  moe_dispatch: str = "einsum",
                  enc_out: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """One layer in ``mode`` ``"prefill"``, ``"decode"`` or ``"encode"``
-    (an encoder layer: a prefill that keeps no cache)."""
+    """One layer in ``mode`` ``"prefill"``, ``"decode"`` or ``"train"``
+    (the whole sequence, causal, no cache: training, and the encoder's
+    layers)."""
     h = apply_norm(cfg, p["norm1"], x)
     new_cache = None
     if kind == "attn":
@@ -292,28 +340,29 @@ def _layer_apply(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
 # -- the model ---------------------------------------------------------------
 
 class Model(nn.Module):
-    """The serving model of one config, its parameters on ``device``
-    (``cuda`` unless the caller names another; raises without a GPU).
+    """The model of one config, its parameters on ``device`` (``cuda``
+    unless the caller names another; raises without a GPU).
 
-    The parameters are allocated uninitialised: :meth:`init` draws them
-    (the reference's distributions and scales) or
+    The parameters are allocated uninitialised and without gradients:
+    :meth:`init` draws them (the reference's distributions and scales) or
     ``load_state_dict`` / ``convert.model_params_from_fields`` fills
-    them. ``moe_dispatch`` picks the MoE layers' path (``"einsum"``, the
-    reference's default, or ``"scatter"``)."""
+    them; ``requires_grad_(True)`` makes them trainable. ``moe_dispatch``
+    picks the MoE layers' path (``"einsum"``, the reference's default, or
+    ``"scatter"``); ``remat`` recomputes each super-block, encoder layer
+    and loss chunk in the backward; ``loss_chunk`` is the loss's sequence
+    chunk."""
 
     def __init__(self, cfg: ModelConfig, device=None,
-                 moe_dispatch: str = "einsum"):
+                 moe_dispatch: str = "einsum", remat: bool = True,
+                 loss_chunk: int = 512):
         super().__init__()
-        missing = unported_parts(cfg)
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: not ported to repro_torch yet: "
-                + "; ".join(missing))
         if moe_dispatch not in DISPATCHES:
             raise ValueError(f"moe_dispatch must be one of {DISPATCHES}, "
                              f"got {moe_dispatch!r}")
         self.cfg = cfg
         self.moe_dispatch = moe_dispatch
+        self.remat = remat
+        self.loss_chunk = loss_chunk
         dev = resolve_device(device)
         dt = dtype_of(cfg.dtype)
         d, V = cfg.d_model, cfg.vocab_size
@@ -399,6 +448,10 @@ class Model(nn.Module):
         return caches
 
     # ---- stack ----
+    def _remat(self) -> bool:
+        """Whether this forward recomputes its blocks in the backward."""
+        return self.remat and torch.is_grad_enabled()
+
     def _run_stack(self, x: torch.Tensor, positions: torch.Tensor, mode: str,
                    caches: Optional[Params], pos: Optional[int],
                    cache_len: int, enc_out: Optional[torch.Tensor] = None
@@ -408,23 +461,38 @@ class Model(nn.Module):
         decode = mode == "decode"
         new_scan: Dict[str, List[Params]] = {f"slot{si}": []
                                               for si in range(period)}
-        for bi in range(self.n_super):
-            for si in range(period):
-                slot = f"slot{si}"
-                c_in = None
-                if decode:
-                    c_in = {k: t[bi] for k, t in caches["scan"][slot].items()}
-                x, c_out = _layer_apply(
-                    cfg, cfg.block_pattern[si],
-                    self.scan_layers[slot].tree(bi), x, positions, mode,
-                    c_in, pos, cache_len, self.moe_dispatch, enc_out)
-                if decode:  # write back into the stacked caches (the cross
-                    # caches ck/cv come back as they went in: no copy)
-                    for k, t in c_out.items():
-                        if t is not c_in[k]:
-                            c_in[k].copy_(t)
-                else:
-                    new_scan[slot].append(c_out)
+        if mode == "train":
+            def superblock(x, trees):
+                for si, tree in enumerate(trees):
+                    x, _ = _layer_apply(cfg, cfg.block_pattern[si], tree, x,
+                                        positions, mode, None, None, 0,
+                                        self.moe_dispatch, enc_out)
+                return x
+
+            for bi in range(self.n_super):
+                trees = [self.scan_layers[f"slot{si}"].tree(bi)
+                         for si in range(period)]
+                x = (checkpoint(superblock, x, trees, use_reentrant=False)
+                     if self._remat() else superblock(x, trees))
+        else:
+            for bi in range(self.n_super):
+                for si in range(period):
+                    slot = f"slot{si}"
+                    c_in = None
+                    if decode:
+                        c_in = {k: t[bi]
+                                for k, t in caches["scan"][slot].items()}
+                    x, c_out = _layer_apply(
+                        cfg, cfg.block_pattern[si],
+                        self.scan_layers[slot].tree(bi), x, positions, mode,
+                        c_in, pos, cache_len, self.moe_dispatch, enc_out)
+                    if decode:  # write back into the stacked caches (the
+                        # cross caches ck/cv come back as they went in)
+                        for k, t in c_out.items():
+                            if t is not c_in[k]:
+                                c_in[k].copy_(t)
+                    else:
+                        new_scan[slot].append(c_out)
         rest = []
         for i, lp in enumerate(self.rest_layers):
             li = self.n_super * period + i
@@ -437,7 +505,7 @@ class Model(nn.Module):
             caches["rest"] = rest
             return x, caches
         out: Params = {"rest": rest}
-        if self.n_super:
+        if self.n_super and mode != "train":
             out["scan"] = {slot: {k: torch.stack([c[k] for c in cs])
                                   for k in cs[0]}
                            for slot, cs in new_scan.items()}
@@ -447,15 +515,22 @@ class Model(nn.Module):
         """The encoder over frame embeddings ``frames`` [B, Se, d] (in the
         model's dtype): ``+ pos_embed[:Se]``, the encoder layers at
         positions 0..Se-1 (causal, rotary: the reference's layer function),
-        the final norm. Unrolled, as the decoder is."""
+        the final norm. Unrolled, as the decoder is; each layer recomputed
+        in the backward under ``remat``."""
         enc_cfg = self.encoder_cfg()
         enc = self.encoder
         b, se, _ = frames.shape
         x = frames + enc.pos_embed[None, :se]
         positions = torch.arange(se, device=frames.device).expand(b, se)
+
+        def layer(x, tree):
+            return _layer_apply(enc_cfg, "attn", tree, x, positions, "train",
+                                None, None, 0)[0]
+
         for li in range(self.cfg.encoder_layers):
-            x, _ = _layer_apply(enc_cfg, "attn", enc.layers.tree(li), x,
-                                positions, "encode", None, None, 0)
+            tree = enc.layers.tree(li)
+            x = (checkpoint(layer, x, tree, use_reentrant=False)
+                 if self._remat() else layer(x, tree))
         return apply_norm(self.cfg, enc.final_norm.tree(), x)
 
     def _head(self) -> torch.Tensor:
@@ -463,26 +538,80 @@ class Model(nn.Module):
             return self.embed.T
         return self.lm_head
 
-    # ---- public: serving ----
-    @torch.inference_mode()
-    def prefill(self, tokens, cache_len: Optional[int] = None,
-                frames=None) -> Tuple[torch.Tensor, Params]:
-        """tokens [B, S] -> (last-token logits [B, V], caches). An
-        encoder-decoder config takes ``frames`` [B, Se, d_model], the
-        frontend's frame embeddings (cast to the model's dtype), and its
-        caches hold the cross-attention's ``ck``/``cv`` of Se slots."""
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        b, s = tokens.shape
+    def _inputs(self, tokens, patches=None, frames=None
+                ) -> Tuple[torch.Tensor, int, Optional[torch.Tensor]]:
+        """(embeddings [B, P + S, d] with a vision config's ``patches``
+        [B, P, d] in front, cast to the model's dtype; P; the encoder's
+        output over an encoder-decoder config's ``frames``)."""
         x = self.embed[tokens]
+        n_prefix = 0
+        if self.cfg.vision_patches and patches is not None:
+            pt = torch.as_tensor(patches, device=self.device).to(x.dtype)
+            x = torch.cat([pt, x], 1)
+            n_prefix = pt.shape[1]
         enc_out = None
         if self.cfg.is_encdec:
             if frames is None:
                 raise ValueError(
-                    f"{self.cfg.name} is an encoder-decoder: prefill needs "
+                    f"{self.cfg.name} is an encoder-decoder: it needs "
                     f"frames [B, {self.cfg.encoder_seq}, "
                     f"{self.cfg.d_model}] (frame embeddings)")
             enc_out = self._encode(torch.as_tensor(
                 frames, device=self.device).to(x.dtype))
+        return x, n_prefix, enc_out
+
+    # ---- public: train ----
+    def loss_fn(self, batch: Dict[str, object]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross-entropy of ``batch`` (``tokens`` [B, S];
+        optional ``labels``, ``loss_mask``, and a vision config's
+        ``patches`` or an encoder-decoder's ``frames``), chunked over the
+        sequence: (loss, {"loss", "tokens"}), the reference's. Gradients
+        flow to the parameters that require them. Raises for a config
+        with recurrent mixers."""
+        cfg = self.cfg
+        untrained = sorted(set(cfg.block_pattern) & set(UNTRAINED_MIXERS))
+        if untrained:
+            raise NotImplementedError(
+                f"{cfg.name}: training is not ported for its "
+                f"{', '.join(untrained)} mixers (their kernels have no "
+                f"backward): ROADMAP Queue 1 item 14")
+        dev = self.device
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        b, s = tokens.shape
+        x, n_prefix, enc_out = self._inputs(tokens, batch.get("patches"),
+                                            batch.get("frames"))
+        positions = torch.arange(x.shape[1], device=dev).expand(b, -1)
+        x, _ = self._run_stack(x, positions, "train", None, None, 0, enc_out)
+        x = apply_norm(cfg, self.final_norm.tree(), x)
+        x = x[:, n_prefix:]                              # text positions only
+        labels = batch.get("labels")
+        labels = (torch.cat([tokens[:, 1:], tokens[:, :1]], 1)
+                  if labels is None else
+                  torch.as_tensor(labels, device=dev).long())
+        mask = batch.get("loss_mask")
+        mask = (torch.ones((b, s), dtype=torch.float32, device=dev)
+                if mask is None else
+                torch.as_tensor(mask, device=dev).float())
+        loss, denom = _chunked_ce(x, self._head(), labels, mask,
+                                  self.loss_chunk, self._remat())
+        return loss, {"loss": loss.detach(), "tokens": denom}
+
+    # ---- public: serving ----
+    @torch.inference_mode()
+    def prefill(self, tokens, cache_len: Optional[int] = None,
+                patches=None, frames=None) -> Tuple[torch.Tensor, Params]:
+        """tokens [B, S] -> (last-token logits [B, V], caches). A vision
+        config takes ``patches`` [B, P, d_model], the frontend's patch
+        embeddings, in front of the tokens (positions 0..P+S-1; decode
+        continues at P+S). An encoder-decoder config takes ``frames`` [B,
+        Se, d_model], the frontend's frame embeddings (cast to the model's
+        dtype), and its caches hold the cross-attention's ``ck``/``cv`` of
+        Se slots."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        b = tokens.shape[0]
+        x, _, enc_out = self._inputs(tokens, patches, frames)
+        s = x.shape[1]
         positions = torch.arange(s, device=self.device).expand(b, s)
         cache_len = cache_len or s
         x, caches = self._run_stack(x, positions, "prefill", None, None,
@@ -505,3 +634,89 @@ class Model(nn.Module):
         x = apply_norm(self.cfg, self.final_norm.tree(), x)
         logits = linear(x[:, 0], self._head())
         return logits, caches
+
+
+def train_launches(cfg: ModelConfig, seq: int, loss_chunk: int = 512,
+                   remat: bool = True) -> Dict[str, int]:
+    """``matmul`` and ``flash_attention`` launches of one training step
+    (:meth:`Model.loss_fn` and its backward) over ``seq`` text positions.
+    A weight product launches once forward and twice in the backward (dX
+    and dW), a norm's row-mean product once forward and once backward (its
+    other operand is a constant column), ``flash_attention`` once forward
+    (its backward is torch code); under ``remat`` every one inside a
+    super-block, an encoder layer or a loss chunk launches once more in
+    the recompute. Outside them: the remainder layers, the final norms."""
+    from .layers import row_mean_launches
+    from .moe import moe_launches
+
+    per_norm = ((1 if cfg.norm == "rmsnorm" else 2)
+                * row_mean_launches(cfg.d_model))
+    ffn = 3 if cfg.glu else 2
+    cross = int(cfg.is_encdec)
+
+    def layer(kind_attn: bool):
+        """(weight products, row-mean products, attention calls)."""
+        w = (4 + 4 * cross) if kind_attn else 0
+        if cfg.num_experts:
+            w += moe_launches(cfg) + ffn * cfg.dense_residual
+        else:
+            w += ffn
+        return w, per_norm * (2 + cross), int(kind_attn) * (1 + cross)
+
+    re = int(remat)
+    period = cfg.pattern_period
+    n_super = cfg.num_layers // period
+    inside = [layer(cfg.block_pattern[si] == "attn")
+              for si in range(period)] * n_super
+    outside = [layer(cfg.layer_kind(li) == "attn")
+               for li in range(n_super * period, cfg.num_layers)]
+    if cfg.is_encdec:
+        enc = (4 + ffn, 2 * per_norm, 1)
+        inside += [enc] * cfg.encoder_layers
+        outside.append((0, per_norm, 0))       # the encoder's final norm
+    outside.append((0, per_norm, 0))           # the final norm
+    chunks = -(-seq // min(loss_chunk, seq))
+    inside.append((chunks, 0, 0))              # the loss chunks' head
+    mm = attn = 0
+    for group, extra in ((inside, re), (outside, 0)):
+        for w, r, a in group:
+            mm += w * (3 + extra) + r * (2 + extra)
+            attn += a * (1 + extra)
+    return {"matmul": mm, "flash_attention": attn}
+
+
+def _ce_chunk(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
+              mc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's summed masked cross-entropy and mask count: logits
+    ``xc @ head`` in the model's dtype, then float32."""
+    logits = linear(xc, head).float()                    # [B, chunk, V]
+    lse = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, lc[..., None])[..., 0]
+    return ((lse - gold) * mc).sum(), mc.sum()
+
+
+def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                mask: torch.Tensor, chunk: int, remat: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streaming softmax cross-entropy over sequence chunks of ``chunk``
+    positions (the last padded with zero rows, label 0 and mask 0, as the
+    reference pads): (sum of masked CE / max(mask count, 1), mask count).
+    Under ``remat`` each chunk's logits are recomputed in the backward, so
+    no [B, chunk, V] tensor outlives its chunk."""
+    b, s, d = x.shape
+    chunk = min(chunk, s)
+    n = -(-s // chunk)
+    pad = n * chunk - s
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        part = (x[:, i * chunk:(i + 1) * chunk], head,
+                labels[:, i * chunk:(i + 1) * chunk],
+                mask[:, i * chunk:(i + 1) * chunk])
+        ce, c = (checkpoint(_ce_chunk, *part, use_reentrant=False)
+                 if remat else _ce_chunk(*part))
+        tot, cnt = tot + ce, cnt + c
+    return tot / torch.clamp_min(cnt, 1.0), cnt

@@ -142,15 +142,19 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     zero = x.new_zeros((1, d))
     xin = torch.cat([xg.reshape(bn * gl, d), zero])[held[:-1]].view(
         E, rows, d)
-    up = torch.cat([linear(xin[e], p["w_up"][e]) for e in range(E)])
+    # one view per expert (unbind: in training one gradient node stacks
+    # the experts' gradients, where indexing each would add a zero-filled
+    # copy of the whole stack per expert)
+    w_up, w_down = p["w_up"].unbind(0), p["w_down"].unbind(0)
+    up = torch.cat([linear(xin[e], w_up[e]) for e in range(E)])
     if cfg.glu:
-        gate = torch.cat([linear(xin[e], p["w_gate"][e]) for e in range(E)])
+        w_gate = p["w_gate"].unbind(0)
+        gate = torch.cat([linear(xin[e], w_gate[e]) for e in range(E)])
         h = _act(cfg, gate) * up
     else:
         h = _act(cfg, up)
     h = h.view(E, rows, -1)
-    out = torch.cat([linear(h[e], p["w_down"][e]) for e in range(E)]
-                    + [zero])
+    out = torch.cat([linear(h[e], w_down[e]) for e in range(E)] + [zero])
     if dispatch == "einsum":
         dest = dest.gather(-1, r.idx.argsort(-1))    # ascending experts
         w = [_ordered_sum(r.gates).to(x.dtype).float()[..., None]] * k
