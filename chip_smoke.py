@@ -234,8 +234,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    width and 2 layers, one step with its patches, launches exact; and a
    checkpoint of llama3-8b at full width and 2 layers saved, restored bit
    for bit into a fresh model, and resumed two steps beside the
-   uninterrupted run.
-10. Prints the kernels' JSON line, then the device line last.
+   uninterrupted run. The first DIGEST_STEPS steps run through ``run``,
+   and a digest of the state after them (``state_digest``) is kept for
+   phase 10.
+10. Distribution at world size 1, once phase 9's state is freed: an NCCL
+   group of one rank through a ``FileStore`` and the (data=1, model=1)
+   mesh; llama3-8b at full width and depth with int8 moments, DIGEST_STEPS
+   sharded steps through ``run(mesh=...)`` (parameters held by the
+   sharding rules, ZeRO-1 moments, every collective run on its group of
+   one rank) on phase 9's seed and batches: losses, gradient norms and the
+   state's digest bit for bit phase 9's, launches exactly
+   ``train_launches`` a step, step times and peak memory beside phase 9's;
+   a 2-layer sharded checkpoint restored bit for bit; ``_quantize`` on the
+   card equal to the CPU's bits; a one-stage ``gpipe`` through
+   ``ops.matmul``; the engine's scenario split over [cuda:0, cuda:0] at
+   J=512, uncapped and congested, bit for bit phase 3's and 4's unsplit
+   sweeps.
+11. Prints the kernels' JSON line, then the device line last.
 
 Launch counts are set to 0 just before each main path and read just after
 it; every kernel of a path must have launched in it. Each phase prints its
@@ -464,6 +479,14 @@ VLM_CPU_REQUESTS = 1
 TRAIN_ARCH = "llama3-8b"
 TRAIN_BATCH, TRAIN_SEQ = 4, 1024
 TRAIN_STEPS = 4
+TRAIN_SEED = 70
+#: phase 10's one-stage gpipe: GPIPE_MICRO microbatches of [rows, K]
+#: through a [K, K] bf16 ``matmul`` (GPIPE_SHAPE = (rows, K)); the
+#: ``_quantize`` check takes K * K + 100 float32 elements
+GPIPE_MICRO = 4
+GPIPE_SHAPE = (512, 4096)
+#: phase 9's steps through ``run`` before the digest phase 10 is held to
+DIGEST_STEPS = 2
 TRAIN_CPU_STEPS = 3
 TRAIN_CPU_RTOL = 1e-5
 VLM_TRAIN_LAYERS = 2
@@ -4304,15 +4327,41 @@ def check_attention_backward(dev):
             "sdpa_forward_backward_ms": lib_step, "grad_err_of_scale": errs}
 
 
+def state_digest(params, opt):
+    """Per leaf of the parameters and optimizer state, two int64 sums of
+    its bit patterns (the bits, and each bit pattern times its top byte),
+    slice by slice on the device: equal digests mean the same bits but
+    for a permutation within a leaf."""
+    import torch
+
+    from repro_torch.training.checkpoint import _leaves
+    from repro_torch.training.optimizer import _slices
+
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    with torch.no_grad():
+        for k, t in _leaves({"params": params, "opt": opt}):
+            bits = t.detach().view(ints[t.element_size()])
+            s1 = s2 = 0
+            for idx in _slices(bits.shape):
+                b = bits[idx].to(torch.int64)
+                s1 = s1 + b.sum()
+                s2 = s2 + (b * ((b >> 8) & 0xFF)).sum()
+            out[k] = (int(s1), int(s2))
+    return out
+
+
 def train_full(dev):
     """llama3-8b at full width and depth, int8 moments: TRAIN_STEPS steps
-    through ``launch/train.py``'s ``run`` on the card, with the launch
-    counts set to 0 just before and read just after (each step exactly
-    ``models.model.train_launches``), every loss and gradient norm
-    finite; the steady step's time, tokens per second, its share of the
-    card's bf16 peak at 6 N FLOP a token, peak memory; one more step under
-    the profiler (device busy and idle share, top device operations).
-    Returns (launches a step, readings)."""
+    on the card, the first DIGEST_STEPS through ``launch/train.py``'s
+    ``run`` (then a digest of the state, ``state_digest``, that phase 10
+    holds its sharded steps to), the rest through the same trainer's
+    ``fit``, with the launch counts set to 0 just before and read just
+    after (each step exactly ``models.model.train_launches``), every loss
+    and gradient norm finite; the steady step's time, tokens per second,
+    its share of the card's bf16 peak at 6 N FLOP a token, peak memory;
+    one more step under the profiler (device busy and idle share, top
+    device operations). Returns (launches a step, readings)."""
     import statistics
 
     import numpy as np
@@ -4338,9 +4387,18 @@ def train_full(dev):
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     trainer, params, opt, log = launch_train.run(
-        cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-        state_dtype="int8", device=dev, seed=70, log_every=1)
+        cfg, steps=DIGEST_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        state_dtype="int8", device=dev, seed=TRAIN_SEED, log_every=1)
     torch.cuda.synchronize()
+    first_peak = torch.cuda.max_memory_allocated()
+    digest = state_digest(params, opt)
+    data = SyntheticLM(cfg, DataConfig(TRAIN_SEQ, TRAIN_BATCH))
+    params, opt, more = trainer.fit(
+        params, opt, data.iterate(DIGEST_STEPS), steps=TRAIN_STEPS,
+        start_step=DIGEST_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    first = log
+    log = log + more
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     per_step = train_launches(cfg, TRAIN_SEQ)
@@ -4365,7 +4423,6 @@ def train_full(dev):
     if counts != want or not finite:
         raise AssertionError(f"train {TRAIN_ARCH}: launches {counts}, "
                              f"expected {want}; finite {finite}")
-    data = SyntheticLM(cfg, DataConfig(TRAIN_SEQ, TRAIN_BATCH))
     got = device_profile(f"train {TRAIN_ARCH}", lambda: trainer.fit(
         params, opt, data.iterate(TRAIN_STEPS), steps=TRAIN_STEPS + 1,
         start_step=TRAIN_STEPS))
@@ -4388,7 +4445,14 @@ def train_full(dev):
     return per_step, {"step_ms": steady * 1e3,
                       "tokens_per_s": tokens / steady,
                       "peak_share_6N": share, "peak_memory_bytes": peak,
-                      "idle_share": idle}
+                      "idle_share": idle,
+                      "first": {"losses": [e["loss"] for e in first],
+                                "grad_norms": [e["grad_norm"]
+                                               for e in first],
+                                "step_ms": [t * 1e3 for t in
+                                            steps_s[:DIGEST_STEPS]],
+                                "peak_memory_bytes": first_peak,
+                                "digest": digest}}
 
 
 def train_against_cpu(dev):
@@ -4561,6 +4625,230 @@ def training_phase(dev):
     vlm = train_vlm_step(dev)
     train_checkpoint(dev)
     return backward, attn, per_step, readings, vlm
+
+
+def dist_train(dev, mesh, phase9):
+    """llama3-8b at full width and depth with int8 moments: DIGEST_STEPS
+    steps through ``launch/train.py``'s ``run`` over ``mesh`` (the
+    parameters held by the sharding rules, ZeRO-1 moments, the collectives
+    on groups of one rank), phase 9's seed and batches, after phase 9's
+    state is freed; the launch counts set to 0 just before and read just
+    after (each step exactly ``train_launches``); the losses, gradient
+    norms and ``state_digest`` equal to phase 9's first DIGEST_STEPS
+    steps bit for bit. Returns (launches, readings)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import train_launches
+
+    cfg = get_config(TRAIN_ARCH)
+    first = phase9["first"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer, params, opt, log = launch_train.run(
+        cfg, steps=DIGEST_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        state_dtype="int8", device=dev, seed=TRAIN_SEED, log_every=1,
+        mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    per_step = train_launches(cfg, TRAIN_SEQ)
+    want = {k: DIGEST_STEPS * per_step.get(k, 0) for k in counts}
+    peak = torch.cuda.max_memory_allocated()
+    digest = state_digest(params, opt)
+    losses = [e["loss"] for e in log]
+    norms = [e["grad_norm"] for e in log]
+    same_digest = digest == first["digest"]
+    step_ms = [t * 1e3 for t in trainer.step_times]
+    print(f"dist train {TRAIN_ARCH} on mesh {mesh.shape} "
+          f"({type(trainer.layout).__name__}, {mesh.size} rank): "
+          f"{DIGEST_STEPS} steps in {wall:.3f} s (the draw included); "
+          f"losses {losses} against phase 9's {first['losses']}, grad "
+          f"norms {norms} against {first['grad_norms']}; digest of "
+          f"{len(digest)} leaves equal {same_digest}; step ms "
+          f"{[round(t, 3) for t in step_ms]} against phase 9's "
+          f"{[round(t, 3) for t in first['step_ms']]}; peak device memory "
+          f"{peak / 1e9:.3f} GB against phase 9's "
+          f"{first['peak_memory_bytes'] / 1e9:.3f} GB over its first "
+          f"{DIGEST_STEPS} steps; launches {counts}, a step {per_step}")
+    del trainer, params, opt
+    free_card()
+    if not (losses == first["losses"] and norms == first["grad_norms"]
+            and same_digest and counts == want):
+        raise AssertionError(f"dist train {TRAIN_ARCH}: the sharded steps "
+                             f"are not phase 9's (launches {counts}, "
+                             f"expected {want})")
+    return counts, {"step_ms": step_ms, "phase9_step_ms": first["step_ms"],
+                    "peak_memory_bytes": peak,
+                    "phase9_peak_memory_bytes": first["peak_memory_bytes"],
+                    "wall_s": wall}
+
+
+def dist_checkpoint(dev, mesh):
+    """llama3-8b at full width and CKPT_LAYERS layers over ``mesh``, int8
+    moments: one sharded step, the trainer's checkpoint (whole leaves,
+    rank 0 writing, a barrier), then a fresh sharded trainer restores it
+    bit for bit (``maybe_restore`` on the mesh's shardings)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed import MeshSharder, ShardingRules
+    from repro_torch.models import Model
+    from repro_torch.training import AdamWConfig, Trainer
+    from repro_torch.training.checkpoint import _leaves
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=CKPT_LAYERS)
+    rules = ShardingRules(cfg, mesh)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=1,
+                       state_dtype="int8")
+
+    def trainer(d):
+        return Trainer(Model(cfg, device=dev, shard=MeshSharder(rules)),
+                       ocfg, ckpt_dir=d, ckpt_every=10 ** 9, rules=rules)
+
+    with tempfile.TemporaryDirectory() as d:
+        a = trainer(d)
+        pa, oa = a.init_state(torch.Generator(device=dev).manual_seed(75))
+        t0 = time.perf_counter()
+        pa, oa, _ = a.fit(pa, oa, SyntheticLM(cfg, DataConfig(
+            TRAIN_SEQ, TRAIN_BATCH)).iterate(), steps=1)
+        save_s = time.perf_counter() - t0
+        snap = {k: t.clone() for k, t in _leaves({"params": pa, "opt": oa})}
+        del a, pa, oa
+        b = trainer(d)
+        pb, ob = b.init_state(torch.Generator(device=dev).manual_seed(76))
+        t0 = time.perf_counter()
+        pb, ob, start = b.maybe_restore(pb, ob)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = dict(_leaves({"params": pb, "opt": ob}))
+        same_bits = sorted(got) == sorted(snap) and all(
+            torch.equal(got[k], snap[k]) for k in snap)
+        del b, pb, ob, got, snap
+    free_card()
+    print(f"dist checkpoint {TRAIN_ARCH} at {CKPT_LAYERS} layers, full "
+          f"width, mesh {mesh.shape}: one step and the save in "
+          f"{save_s:.3f} s, restored at step {start} in {restore_s:.3f} s, "
+          f"bit for bit {same_bits}")
+    if not (same_bits and start == 1):
+        raise AssertionError("dist checkpoint: the restore is not the save")
+
+
+def dist_small_parts(dev):
+    """``_quantize`` on the card equal to the CPU's bits (a K x K float32
+    gradient and a ragged tail); a one-stage ``gpipe`` over a
+    ('stage',) mesh of the one rank through ``ops.matmul``, equal to the
+    stage run microbatch by microbatch bit for bit. Returns the gpipe's
+    ``matmul`` launches."""
+    import torch
+
+    from repro_torch.distributed.compression import _quantize
+    from repro_torch.distributed.pipeline import gpipe
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+
+    rows, k = GPIPE_SHAPE
+    g = torch.Generator(device=dev).manual_seed(77)
+    x = torch.randn((k * k + 100,), generator=g, device=dev) * 1e-2
+    q, scale, n = _quantize(x)
+    qc, sc, nc = _quantize(x.cpu())
+    same_q = (n == nc and torch.equal(q.cpu(), qc)
+              and torch.equal(scale.cpu(), sc))
+    mesh = Mesh((1,), ("stage",))
+    w = (torch.randn((1, k, k), generator=g, device=dev)
+         * k ** -0.5).bfloat16()
+    xs = torch.randn((GPIPE_MICRO, rows, k), generator=g,
+                     device=dev).bfloat16()
+    ops.reset_launch_counts()
+    out = gpipe(lambda p, xb: ops.matmul(xb, p["w"]), mesh, "stage", 1,
+                GPIPE_MICRO)({"w": w}, xs)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["matmul"]
+    want = torch.stack([ops.matmul(xs[i], w[0])
+                        for i in range(GPIPE_MICRO)])
+    same_pipe = torch.equal(out, want)
+    print(f"dist _quantize [{x.numel()}] float32: the card's q and scales "
+          f"equal the CPU's {same_q}; gpipe of 1 stage x {GPIPE_MICRO} "
+          f"microbatches [{rows}, {k}] @ [{k}, {k}] bf16 through "
+          f"ops.matmul: {launches} matmul launches, equal to the stage "
+          f"run alone {same_pipe}")
+    if not (same_q and same_pipe and launches == GPIPE_MICRO):
+        raise AssertionError("dist: _quantize or gpipe on the card")
+    return launches
+
+
+def dist_split_sweeps(load_kw, main512, load512):
+    """The engine's scenario split (``vectorsim._dispatch``) over two
+    shards on the one card ([cuda:0, cuda:0]: each shard on a stream and
+    a host thread of its own) at J=512, uncapped and congested, against
+    phase 3's and 4's unsplit sweeps of the same grids bit for bit; the
+    launch counts set to 0 just before each and read just after. Returns
+    {path: launches}."""
+    import torch
+
+    from repro_torch.core import sweep_scenarios, vectorsim
+    from repro_torch.kernels import ops
+
+    out = {}
+    real = vectorsim._split_devices
+    vectorsim._split_devices = lambda d, n: [d, d]
+    try:
+        for label, kw, (tasks, want) in (("uncapped", {}, main512),
+                                         ("congested", load_kw, load512)):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = sweep_scenarios(tasks, device="cuda", **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            ok = all(same(getattr(a, f), getattr(b, f))
+                     for a, b in zip(got, want) for f in RESULT_FIELDS)
+            print(f"dist split {label} J=512: "
+                  f"{sum(r.num_scenarios for r in got)} scenarios over 2 "
+                  f"shards on cuda:0 in {wall:.3f} s, equal to the unsplit "
+                  f"sweep {ok}; body steps per stage (the longer shard's) "
+                  f"{vectorsim._LAST_RUN_STATS['trips']}; launches {counts}")
+            need = ("acd_evict",) + (("fifo_dispatch",) if kw else ())
+            if not ok or any(counts[k] <= 0 for k in need):
+                raise AssertionError(f"dist split {label}: != unsplit, or "
+                                     f"a kernel never launched: {counts}")
+            out[f"split {label} J=512"] = counts
+    finally:
+        vectorsim._split_devices = real
+    return out
+
+
+def distribution_phase(dev, phase9, load_kw, main512, load512):
+    """Phase 10 (see the module docstring): returns (the sharded steps'
+    launches, their readings, gpipe's matmul launches, the split sweeps'
+    launches)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Mesh, init_distributed
+
+    free_card()
+    init_distributed(dev)
+    try:
+        backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+        if dist.get_backend() != backend or dist.get_world_size() != 1:
+            raise AssertionError(f"dist: group {dist.get_backend()} of "
+                                 f"{dist.get_world_size()} ranks")
+        mesh = Mesh((1, 1), ("data", "model"))
+        counts, readings = dist_train(dev, mesh, phase9)
+        dist_checkpoint(dev, mesh)
+        gpipe_launches = dist_small_parts(dev)
+        split = dist_split_sweeps(load_kw, main512, load512)
+    finally:
+        dist.destroy_process_group()
+    return counts, readings, gpipe_launches, split
 
 
 def main() -> int:
@@ -5104,7 +5392,15 @@ def main() -> int:
         training_phase(dev)
     print(f"train: phase wall {time.perf_counter() - t0:.3f} s")
     lap("9 training")
-    # -- 10. result -------------------------------------------------------------
+    # -- 10. distribution at world size 1 ----------------------------------------
+    t0 = time.perf_counter()
+    dist_counts, dist_readings, gpipe_launches, split_launches = \
+        distribution_phase(dev, train_readings, load_kw, outs[512],
+                           louts[512])
+    launches.update(split_launches)
+    print(f"dist: phase wall {time.perf_counter() - t0:.3f} s")
+    lap("10 distribution")
+    # -- 11. result -------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main path of its slice: acd_evict on
     # the uncapped sweeps, fifo_dispatch on the congested ones; matmul on
@@ -5125,12 +5421,14 @@ def main() -> int:
             if k != "profile" and c.get(name, 0) > 0}
     by_name["matmul"]["launches"] = (launches["profile"]["matmul"]
                                      + serve_launches["matmul"]
-                                     + TRAIN_STEPS * train_step["matmul"])
+                                     + TRAIN_STEPS * train_step["matmul"]
+                                     + dist_counts["matmul"])
     by_name["matmul"]["bf16"] = bf16_matmul
     for name in ("flash_attention", "flash_decode", "rglru", "rwkv6"):
         by_name[name]["launches"] = serve_launches[name]
     by_name["flash_attention"]["launches"] += (
-        TRAIN_STEPS * train_step["flash_attention"])
+        TRAIN_STEPS * train_step["flash_attention"]
+        + dist_counts["flash_attention"])
     # training (phase 9): launches a step of llama3-8b's full run and of
     # internvl2-76b's 2-layer step, the backward products' timings, the
     # attention backward's reading
@@ -5139,6 +5437,11 @@ def main() -> int:
         by_name[name]["vlm_train_launches"] = vlm_train[name]
         by_name[name]["vlm_serve_launches"] = vlm_counts[name]
     by_name["matmul"]["train"] = backward
+    # phase 10: the sharded steps at world size 1, the one-stage gpipe
+    for name in ("matmul", "flash_attention"):
+        by_name[name]["dist_train_launches"] = dist_counts[name]
+    by_name["matmul"]["dist_train_step"] = dist_readings
+    by_name["matmul"]["gpipe_launches"] = gpipe_launches
     by_name["flash_attention"]["train"] = attn_train
     by_name["matmul"]["train_step"] = train_readings
     # the fp8 reading: flash_decode's launches on qwen1.5-32b's fp8 caches
@@ -5162,6 +5465,9 @@ def main() -> int:
                 if vlm_counts[k] <= 0]
     missing += [f"{k} (training)" for k in ("matmul", "flash_attention")
                 if train_step[k] <= 0 or vlm_train[k] <= 0]
+    missing += [f"{k} (sharded training)" for k in ("matmul",
+                                                     "flash_attention")
+                if dist_counts[k] <= 0]
     if missing or len(kernels) != 7:
         raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")

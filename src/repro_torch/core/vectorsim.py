@@ -92,6 +92,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -1759,18 +1760,88 @@ _LAST_RUN_STATS: Dict[str, object] = {}
 _LAST_PAGE_STATS: Dict[str, int] = {}
 
 
+def _split_devices(dev: torch.device, S: int) -> List[torch.device]:
+    """The devices one engine call's ``S`` scenarios run on: every CUDA
+    device when the engine runs on CUDA and ``S`` > 1 (the reference's
+    ``pmap`` over the local devices, ``n_dev`` at its
+    ``core/vectorsim.py:2095``), else ``dev`` alone."""
+    if dev.type == "cuda" and S > 1 and torch.cuda.device_count() > 1:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def _dispatch(run, args: Dict[str, np.ndarray], S: int,
+              devices: Sequence[torch.device]) -> Dict[str, np.ndarray]:
+    """``run(args, device)`` over the scenario axis of ``args`` (every
+    array's leading dim, ``S`` long) split across ``devices``, its numpy
+    outputs joined on the host in scenario order.
+
+    The reference's split (``core/vectorsim.py:1915-1941``): scenario ``s``
+    goes to shard ``k`` by the strided interleave ``perm`` (which balances
+    heterogeneous grids across the shards, each running its event loop in
+    lockstep), ``S`` padded to a multiple of the shard count by repeating
+    the first scenarios, and ``pos`` (the first place of each scenario)
+    reads the outputs back. Each shard runs on its own device from a
+    thread of its own (on a CUDA device, on a stream of its own): the
+    engine's host loop releases the interpreter lock in every launch and
+    copy. Scenarios never interact, so the result is the one-device run's
+    bit for bit. One device: ``run(args, devices[0])``."""
+    n_dev = len(devices)
+    if n_dev <= 1:
+        return run(args, devices[0])
+    pad = (-S) % n_dev
+    sel = np.arange(S + pad) % S
+    perm = sel.reshape(-1, n_dev).T.reshape(-1)
+    per = perm.shape[0] // n_dev
+
+    def shard(k: int) -> Dict[str, np.ndarray]:
+        part = {name: x[perm[k * per:(k + 1) * per]]
+                for name, x in args.items()}
+        dev = devices[k]
+        if dev.type != "cuda":
+            return run(part, dev)
+        with torch.cuda.device(dev), torch.cuda.stream(
+                torch.cuda.Stream(dev)):
+            return run(part, dev)
+
+    with ThreadPoolExecutor(n_dev) as pool:
+        outs = [f.result() for f in [pool.submit(shard, k)
+                                     for k in range(n_dev)]]
+    # position of each original scenario in the shard-major output
+    # (padding repeats a few scenarios; any occurrence works)
+    pos = np.empty(S, dtype=np.int64)
+    pos[perm] = np.arange(perm.shape[0])
+    return {k: np.concatenate([o[k] for o in outs])[pos] for k in outs[0]}
+
+
 def _engine_call(task: _Task, args: Dict[str, np.ndarray], dev,
                  include_transfers: bool, init_mode: int, adaptive: bool,
-                 lookahead: bool, impl: str) -> Dict[str, np.ndarray]:
-    """One engine call on ``dev`` with body ``impl``; its per-stage body
-    steps join ``_LAST_RUN_STATS["trips"]``."""
-    trips: List[int] = []
-    with torch.no_grad():
-        out_t = _run_engine(_to_device(args, dev), include_transfers,
-                            init_mode, adaptive, task.t0, trips,
-                            load=task.load, lookahead=lookahead, impl=impl)
-        out = {k: v.cpu().numpy() for k, v in out_t.items()}
-    _LAST_RUN_STATS["trips"].append(trips)
+                 lookahead: bool, impl: str,
+                 devices: Optional[Sequence[torch.device]] = None
+                 ) -> Dict[str, np.ndarray]:
+    """One engine call with body ``impl``, its scenarios split across
+    ``devices`` (by default :func:`_split_devices` of ``dev``); each
+    stage's body steps (the most any shard took) join
+    ``_LAST_RUN_STATS["trips"]``."""
+    S = int(next(iter(args.values())).shape[0])
+    shard_trips: List[List[int]] = []
+
+    def run(part: Dict[str, np.ndarray], d: torch.device):
+        trips: List[int] = []
+        with torch.no_grad():
+            out_t = _run_engine(_to_device(part, d), include_transfers,
+                                init_mode, adaptive, task.t0, trips,
+                                load=task.load, lookahead=lookahead,
+                                impl=impl)
+            out = {k: v.cpu().numpy() for k, v in out_t.items()}
+        shard_trips.append(trips)
+        return out
+
+    out = _dispatch(run, args, S, devices or _split_devices(dev, S))
+    _LAST_RUN_STATS["trips"].append(
+        [max(t) for t in zip(*shard_trips)] if len(shard_trips) > 1
+        else shard_trips[0])
     return out
 
 

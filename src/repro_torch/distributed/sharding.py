@@ -1,0 +1,834 @@
+"""Sharding rules (DP / TP / EP / SP over a mesh), and parameters held as
+local shards over a ``torch.distributed`` mesh.
+
+Port of the reference's ``distributed/sharding.py``. The rules are the
+reference's, line for line: they map each parameter, cache, batch and
+named activation to a partition spec (:class:`P`, one entry a dim: ``None``,
+an axis name or a tuple of axis names) over any mesh object with
+``.shape`` and ``.axis_names``. Batch shards over (pod, data); weights TP
+over 'model' (output-dim preferred, input-dim fallback); MoE experts EP
+over 'model' with expert-FFN FSDP over 'data'; decode KV caches shard
+kv-heads over 'model' when divisible, otherwise the *sequence* dim. Every
+rule checks divisibility and degrades to replication instead of failing.
+ZeRO-1: optimizer state specs add the 'data' axis on the largest
+still-unsharded divisible dim of each parameter.
+
+The port's parameter names are the reference's tree paths joined with
+dots (``scan_layers.slot0.mixer.w_x``); the whole-tree functions take those
+names and key the rules on the same path elements, and on the same
+``scan_layers`` / ``encoder/layers`` stacking (the leading layer dim is
+never sharded).
+
+Where XLA places values by these specs, the port computes with them
+itself (:class:`MeshParams`): each rank holds its parameters' local
+shards (:class:`NamedSharding`), gathers each weight whole where the model
+uses it, and computes its own rows of the batch; activations stay local to
+their rank, the layout XLA itself picks for the dense configs (see
+:meth:`ShardingRules.batch_dim`). Where the reference shards heads,
+sequence or experts over 'model', the port computes the same values
+replicated over 'model': a layout difference, not another function.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..models.config import ModelConfig
+from ..models.layers import Sharder
+
+Params = Dict[str, Any]
+
+
+class P(tuple):
+    """A partition spec: one entry per leading dim, each ``None`` (whole),
+    an axis name, or a tuple of axis names (the dim split over their
+    product, row-major in the tuple's order); dims past the spec are
+    whole. The reference's ``PartitionSpec``."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self):
+        return "P" + tuple.__repr__(self)
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    """The axis names of one spec entry."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _axis_size(mesh, name: str) -> int:
+    return mesh.shape[name] if name in mesh.axis_names else 1
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _div(n: int, k: int) -> bool:
+    return k > 0 and n % k == 0
+
+
+@dataclasses.dataclass
+class ShardingRules:
+    """Computes partition specs for one (cfg, mesh) pair.
+
+    ``fold_model=False`` keeps 'model' out of the batch axes (pure
+    TP + Megatron-SP residual sharding instead of the FSDP-flavored
+    batch-over-all-chips default)."""
+
+    cfg: ModelConfig
+    mesh: Any
+    fold_model: bool = True
+    # Gather TOKENS across 'data' inside the expert einsums instead of
+    # gathering the ff-sharded expert weights: the expert compute grid
+    # becomes (E x ff) = (model x data) and activations are broadcast
+    # over 'data'.
+    moe_token_gather: bool = False
+    # Weight-stationary 2D sharding: every weight matrix [in, out] shards
+    # in->'data', out->'model'.
+    w2d: bool = False
+
+    def __post_init__(self):
+        self.m = _axis_size(self.mesh, "model")
+        self.d = _axis_size(self.mesh, "data")
+        self.b_axes = batch_axes(self.mesh)
+        self.b = int(np.prod([_axis_size(self.mesh, a) for a in self.b_axes]))
+
+    # -- generic 2D weight: prefer output-dim TP, fall back to input-dim --
+    def w2(self, a: int, b: int, prefer_out: bool = True) -> P:
+        if self.w2d and _div(a, self.d) and _div(b, self.m):
+            return P("data", "model")        # weight-stationary 2D tiles
+        if prefer_out and _div(b, self.m):
+            return P(None, "model")
+        if _div(a, self.m):
+            return P("model", None)
+        if _div(b, self.m):
+            return P(None, "model")
+        return P(None, None)
+
+    def batch_dim(self, n: int):
+        """Greedy (pod, data[, model]) sharding of the batch dim.
+
+        Non-MoE archs fold 'model' into the batch axes when it divides:
+        tokens per rank drop by its size and attention is rank-local
+        (weights stay 'model'-sharded and are gathered per layer, which is
+        what the port does for every config). MoE archs keep 'model' for
+        expert parallelism."""
+        cand = list(self.b_axes)
+        if self.fold_model and not self.cfg.num_experts:
+            cand.append("model")
+        axes = []
+        rem = n
+        for a in cand:
+            s = _axis_size(self.mesh, a)
+            if s > 1 and rem % s == 0:
+                axes.append(a)
+                rem //= s
+            else:
+                break
+        if not axes:
+            return None
+        return tuple(axes) if len(axes) > 1 else axes[0]
+
+    # -- named activation hints (used by MeshSharder) --
+    def hint(self, name: str, shape: Tuple[int, ...]) -> Optional[P]:
+        bd = self.batch_dim(shape[0]) if shape else None
+        bd_axes = (bd,) if isinstance(bd, str) else (bd or ())
+
+        def free(axis: str) -> bool:
+            return axis not in bd_axes
+
+        if name in ("activations", "residual"):        # [B, S, d]
+            seq_ok = (len(shape) == 3 and free("model")
+                      and shape[1] > 1 and _div(shape[1], self.m))
+            return P(bd, "model" if seq_ok else None, None)
+        if name == "ffn_hidden":                       # [B, S, ff]
+            return P(bd, None, "model" if free("model")
+                     and _div(shape[-1], self.m) else None)
+        if name == "rnn_hidden":                       # [B, S, d]
+            return P(bd, None, "model" if free("model")
+                     and _div(shape[-1], self.m) else None)
+        if name in ("attn_heads", "attn_kv"):          # [B, H, S, D]
+            h = shape[1]
+            return P(bd, "model" if free("model") and _div(h, self.m)
+                     else None, None, None)
+        if name == "kv_cache":                         # [B, Hkv, S, D]
+            hkv, s = shape[1], shape[2]
+            if free("model") and _div(hkv, self.m):
+                return P(bd, "model", None, None)
+            if free("model") and _div(s, self.m):
+                return P(bd, None, "model", None)
+            return P(bd, None, None, None)
+        if name == "moe_expert_in5":                   # [B, N, E, C, d]
+            e = shape[2]
+            e_ok = free("model") and _div(e, self.m)
+            if self.moe_token_gather and self._moe_ffn_fsdp():
+                return P(None, None, "model" if _div(e, self.m) else None,
+                         None, None)
+            return P(bd, None, "model" if e_ok else None, None, None)
+        if name == "moe_hidden5":                      # [B, N, E, C, ff]
+            e, ff = shape[2], shape[4]
+            if self.moe_token_gather and self._moe_ffn_fsdp():
+                return P(None, None, "model" if _div(e, self.m) else None,
+                         None, "data" if _div(ff, self.d) else None)
+            return P(bd, None, "model" if free("model") and _div(e, self.m)
+                     else None, None,
+                     "data" if free("data") and _div(ff, self.d)
+                     and self._moe_ffn_fsdp() else None)
+        return None
+
+    def _moe_ffn_fsdp(self) -> bool:
+        """Shard expert-FFN hidden over 'data' only for very large MoEs."""
+        cfg = self.cfg
+        if not cfg.num_experts:
+            return False
+        moe_bytes = cfg.num_experts * cfg.d_model * cfg.d_ff * (3 if cfg.glu else 2) * 2
+        return moe_bytes * cfg.num_layers > 64e9   # > 64 GB of expert weights
+
+    # -- parameter tree --------------------------------------------------
+    def param_spec(self, path: str, shape: Tuple[int, ...]) -> P:
+        # specs computed on the trailing dims (layer-stacked leaves get
+        # None prepended by the caller)
+        last = path.split("/")[-1]
+        if last in ("scale", "bias", "lam", "ln_scale"):
+            return P(*(None,) * len(shape))
+        if last == "pos_embed":
+            return P(None, "model" if _div(shape[-1], self.m) else None)
+        if last == "embed":
+            return P(None, "model" if _div(shape[-1], self.m) else None)
+        if last == "lm_head":
+            return P(None, "model" if _div(shape[-1], self.m) else None)
+        if last == "router":
+            return P(None, None)
+        if last == "u":                                 # rwkv bonus [H, hd]
+            return P("model" if _div(shape[0], self.m) else None, None)
+        if last == "mix":
+            return P(None, None)
+        if last == "conv":                              # [K, d]
+            return P(None, "model" if _div(shape[-1], self.m) else None)
+        if last in ("bq", "bk", "bv"):
+            return P("model" if _div(shape[-1], self.m) else None)
+        if last in ("w_up", "w_gate") and len(shape) == 3:   # MoE [E, d, ff]
+            e, d_in, ff = shape
+            if self.w2d and _div(e, self.m) and _div(d_in, self.d):
+                return P("model", "data", None)   # weight-stationary tiles
+            return P("model" if _div(e, self.m) else None, None,
+                     "data" if self._moe_ffn_fsdp() and _div(ff, self.d) else None)
+        if last == "w_down" and len(shape) == 3:             # MoE [E, ff, d]
+            e, ff, _ = shape
+            if self.w2d and _div(e, self.m) and _div(ff, self.d):
+                return P("model", "data", None)
+            return P("model" if _div(e, self.m) else None,
+                     "data" if self._moe_ffn_fsdp() and _div(ff, self.d) else None,
+                     None)
+        if last in ("wo", "w_down", "w_out", "w_o"):         # [in, d]
+            return self.w2(shape[0], shape[1], prefer_out=False)
+        if len(shape) == 2:
+            return self.w2(shape[0], shape[1], prefer_out=True)
+        return P(*(None,) * len(shape))
+
+    def zero_spec(self, spec: P, shape: Tuple[int, ...]) -> P:
+        """Optimizer-state / inference-weight spec: add 'data' on the
+        largest free divisible dim (ZeRO partitioning). No-op when the
+        spec already uses 'data'."""
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        used = {a for p in parts if p is not None
+                for a in ((p,) if isinstance(p, str) else p)}
+        if "data" in used:
+            return P(*parts)
+        cand = [(shape[i], i) for i in range(len(shape))
+                if parts[i] is None and _div(shape[i], self.d)]
+        if cand:
+            _, i = max(cand)
+            parts[i] = "data"
+        return P(*parts)
+
+
+# -- collectives ----------------------------------------------------------------
+
+def _all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    fn(out, inp, group=group)
+
+
+def _reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    fn = (getattr(dist, "reduce_scatter_single", None)
+          or dist.reduce_scatter_tensor)
+    fn(out, inp, group=group)
+
+
+def _group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
+class NamedSharding:
+    """A partition spec over a mesh, and this rank's part of a tensor
+    laid out by it (the reference's ``NamedSharding``, with the data
+    movement XLA does for it done here by ``torch.distributed``).
+
+    A dim whose entry names axes is cut into equal chunks, one for each
+    index of those axes (row-major in the entry's order); the ranks that
+    differ only along axes the spec does not name hold the same chunk. The
+    methods that move data need a :class:`repro_torch.launch.mesh.Mesh`;
+    the layout ones need only ``.shape`` and ``.axis_names``."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = spec if isinstance(spec, P) else P(*spec)
+
+    def __repr__(self):
+        return f"NamedSharding({self.spec})"
+
+    def entries(self, ndim: int) -> List[Tuple[str, ...]]:
+        """The axis names of every dim of a tensor of ``ndim`` dims."""
+        if len(self.spec) > ndim:
+            raise ValueError(f"spec {self.spec} is longer than {ndim} dims")
+        return [_axes(e) for e in self.spec] + [()] * (ndim - len(self.spec))
+
+    def used(self, ndim: int) -> Tuple[str, ...]:
+        """The axes the spec names, in mesh order."""
+        names = {a for e in self.entries(ndim) for a in e}
+        return tuple(a for a in self.mesh.axis_names if a in names)
+
+    def counts(self, ndim: int) -> List[int]:
+        return [math.prod(self.mesh.shape[a] for a in e)
+                for e in self.entries(ndim)]
+
+    def local_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        out = []
+        for n, k in zip(shape, self.counts(len(shape))):
+            if n % k:
+                raise ValueError(f"dim {n} does not split into {k} chunks "
+                                 f"({self.spec})")
+            out.append(n // k)
+        return tuple(out)
+
+    def bounds(self, shape: Sequence[int], coords=None
+               ) -> Tuple[Tuple[int, int], ...]:
+        """[lo, hi) of every dim of the part the rank at ``coords`` (an
+        axis -> index dict; this rank's by default) holds."""
+        coords = self.mesh.coords if coords is None else coords
+        loc = self.local_shape(shape)
+        out = []
+        for e, n in zip(self.entries(len(shape)), loc):
+            i = 0
+            for a in e:
+                i = i * self.mesh.shape[a] + coords[a]
+            out.append((i * n, (i + 1) * n))
+        return tuple(out)
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of ``full`` (a view)."""
+        return full[tuple(slice(lo, hi) for lo, hi in
+                          self.bounds(full.shape))]
+
+    def region(self, shape: Sequence[int]) -> "Region":
+        return Region(self.mesh, shape, lambda c: self.bounds(shape, c))
+
+    def _split(self, local_shape):
+        """(the full tensor viewed with every sharded dim split into
+        [axis sizes in the entry's order..., local size], the permutation
+        of those dims that puts the named axes first in mesh order, then
+        the local dims; the named axes)."""
+        split, pos, local_dims = [], {}, []
+        for e, n in zip(self.entries(len(local_shape)), local_shape):
+            for a in e:
+                pos[a] = len(split)
+                split.append(self.mesh.shape[a])
+            local_dims.append(len(split))
+            split.append(n)
+        used = self.used(len(local_shape))
+        return split, [pos[a] for a in used] + local_dims, used
+
+    @torch.no_grad()
+    def gather(self, local: torch.Tensor,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The whole tensor from every rank's part (an all-gather over the
+        group of the named axes). Along a group of one rank the collective
+        runs in place and the result is ``local`` itself (or ``out``, when
+        given, holding it)."""
+        split, perm, used = self._split(local.shape)
+        group = self.mesh.group(used)
+        n = _group_size(group)
+        flat = local.reshape(-1)
+        if n == 1:
+            if not local.is_contiguous():
+                raise ValueError("gather needs a contiguous local part")
+            _all_gather(flat, flat, group)
+            if out is not None and out.data_ptr() != local.data_ptr():
+                out.copy_(local)
+                return out
+            return local
+        buf = torch.empty(n * flat.numel(), dtype=local.dtype,
+                          device=local.device)
+        _all_gather(buf, flat.contiguous(), group)
+        got = buf.view([self.mesh.shape[a] for a in used] + list(local.shape))
+        inv = [0] * len(perm)
+        for i, p in enumerate(perm):
+            inv[p] = i
+        full_shape = [n_loc * k for n_loc, k in
+                      zip(local.shape, self.counts(local.dim()))]
+        if out is None:
+            out = torch.empty(full_shape, dtype=local.dtype,
+                              device=local.device)
+        out.view(split).copy_(got.permute(inv))
+        return out
+
+    @torch.no_grad()
+    def reduce(self, full: torch.Tensor, batch: Sequence[str]) -> torch.Tensor:
+        """This rank's part of the sum of ``full`` over the ranks that
+        hold other rows of the batch (the axes ``batch``), each rank's
+        ``full`` counted once: a reduce-scatter over the named axes that
+        are batch axes, the rank's own chunk along the named axes that are
+        not (those ranks computed the same rows), an all-reduce over the
+        batch axes the spec does not name. Along groups of one rank the
+        collectives run in place on ``full``'s own memory."""
+        loc = self.local_shape(full.shape)
+        split, perm, used = self._split(loc)
+        t = full.reshape(split).permute(perm)
+        t = t[tuple(slice(None) if a in batch else self.mesh.coords[a]
+                    for a in used)]
+        keep = [a for a in used if a in batch]
+        t = t.contiguous()
+        group = self.mesh.group(keep)
+        if _group_size(group) == 1:
+            flat = t.view(-1)
+            _reduce_scatter(flat, flat, group)
+            out = t
+        else:
+            out = torch.empty(loc, dtype=full.dtype, device=full.device)
+            _reduce_scatter(out.view(-1), t.view(-1), group)
+        out = out.view(loc)
+        dist.all_reduce(out, group=self.mesh.group(
+            [a for a in batch if a not in used]))
+        return out
+
+
+class Region:
+    """Where every rank's local tensor sits in a leaf of shape ``shape``:
+    a box ([lo, hi) a dim) for each rank, from ``bounds(coords)``. Boxes
+    may overlap where ranks hold the same elements (replicas, or the whole
+    int8 blocks of a moment); they hold the same values there."""
+
+    def __init__(self, mesh, shape: Sequence[int], bounds):
+        self.mesh = mesh
+        self.shape = tuple(int(n) for n in shape)
+        self.boxes = [bounds(mesh.coords_of(r)) for r in range(mesh.size)]
+
+    def box(self, rank: Optional[int] = None) -> Tuple[slice, ...]:
+        b = self.boxes[self.mesh.rank if rank is None else rank]
+        return tuple(slice(lo, hi) for lo, hi in b)
+
+    def local_shape(self, rank: Optional[int] = None) -> Tuple[int, ...]:
+        return tuple(s.stop - s.start for s in self.box(rank))
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        return full[self.box()]
+
+    @torch.no_grad()
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole leaf on every rank (one all-gather over the mesh of
+        each rank's box, padded to the largest)."""
+        if tuple(local.shape) != self.local_shape():
+            raise ValueError(f"local {tuple(local.shape)} is not this rank's "
+                             f"box {self.local_shape()}")
+        sizes = [math.prod(self.local_shape(r)) for r in range(self.mesh.size)]
+        n = max(sizes)
+        mine = torch.zeros(n, dtype=local.dtype, device=local.device)
+        mine[:local.numel()] = local.reshape(-1)
+        buf = torch.empty(n * self.mesh.size, dtype=local.dtype,
+                          device=local.device)
+        _all_gather(buf, mine, self.mesh.group(self.mesh.axis_names))
+        full = torch.empty(self.shape, dtype=local.dtype, device=local.device)
+        for r in range(self.mesh.size):
+            full[self.box(r)] = buf[r * n:r * n + sizes[r]].view(
+                self.local_shape(r))
+        return full
+
+
+class MeshSharder(Sharder):
+    """The model's ``shard=`` hook over a mesh.
+
+    The reference constrains each named activation to its rule's spec; in
+    the port activations are local to their rank (each rank computes its
+    rows of the batch with the weights gathered whole), so this checks the
+    rule's spec against that layout and returns ``x``: the rows must be
+    the whole batch's (``global_batch``) cut along ``rules.batch_dim`` of
+    it, and every dim the spec names must divide. ``global_batch`` is the
+    whole batch's row count, set by the step that cut it (``None``: ``x``
+    holds every row). :meth:`batch_sum` sums the loss's token count over
+    the ranks that hold other rows."""
+
+    def __init__(self, rules: ShardingRules):
+        self.rules = rules
+        self.global_batch: Optional[int] = None
+
+    def batch_axes(self) -> Tuple[str, ...]:
+        if self.global_batch is None:
+            return ()
+        return _axes(self.rules.batch_dim(self.global_batch))
+
+    def __call__(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        shape = tuple(x.shape)
+        if self.global_batch is not None:
+            cut = math.prod(self.rules.mesh.shape[a]
+                            for a in self.batch_axes())
+            if shape[0] * cut != self.global_batch:
+                raise ValueError(f"{name}: {shape[0]} rows here, the batch "
+                                 f"of {self.global_batch} was cut {cut} ways")
+            shape = (self.global_batch,) + shape[1:]
+        spec = self.rules.hint(name, shape)
+        if spec is not None:   # every named dim divides
+            NamedSharding(self.rules.mesh, spec).local_shape(shape)
+        return x
+
+    def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.detach().clone()
+        dist.all_reduce(y, group=self.rules.mesh.group(self.batch_axes()))
+        return y
+
+
+# -- whole-tree specs ----------------------------------------------------
+
+def _path(name: str) -> str:
+    """The reference's tree path of a dotted port name."""
+    return name.replace(".", "/")
+
+
+def _stacked(path: str) -> bool:
+    return "scan_layers" in path or path.startswith("encoder/layers")
+
+
+def _param_spec(rules: ShardingRules, name: str, shape, zero: bool) -> P:
+    path = _path(name)
+    shape = tuple(shape)
+    stacked = _stacked(path)
+    core = shape[1:] if stacked and len(shape) >= 1 else shape
+    spec = rules.param_spec(path, core)
+    if stacked:
+        spec = P(None, *spec)
+    if zero:
+        spec = rules.zero_spec(spec, shape)
+    return spec
+
+
+def _shape(x) -> Tuple[int, ...]:
+    return tuple(x.shape) if hasattr(x, "shape") else tuple(x)
+
+
+def param_shardings(rules: ShardingRules, params: Params,
+                    zero: bool = False) -> Dict[str, NamedSharding]:
+    """NamedSharding of every parameter (``{dotted name: tensor or
+    shape}``); a stacked leaf's leading layer dim is never sharded.
+    ``zero=True`` additionally spreads each weight over 'data'."""
+    return {k: NamedSharding(rules.mesh, _param_spec(rules, k, _shape(x),
+                                                     zero))
+            for k, x in params.items()}
+
+
+def opt_state_shardings(rules: ShardingRules, params: Params
+                        ) -> Dict[str, NamedSharding]:
+    """ZeRO-1 specs for each parameter's optimizer moments."""
+    return param_shardings(rules, params, zero=True)
+
+
+def _tree_map(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn("/".join(path), tree)
+
+
+def cache_shardings(rules: ShardingRules, cache: Params) -> Params:
+    """Decode-cache tree (``Model.init_cache``'s layout): KV [.., B, Hkv,
+    S, D] / recurrent states."""
+
+    def spec_for(path, x) -> NamedSharding:
+        shape = _shape(x)
+        stacked = path.startswith("scan/")
+        core = shape[1:] if stacked else shape
+        last = path.split("/")[-1]
+        if last in ("k", "v", "ck", "cv") and len(core) == 4:
+            spec = rules.hint("kv_cache", core)
+        elif last == "wkv" and len(core) == 4:          # [B, H, dk, dv]
+            bd = rules.batch_dim(core[0])
+            spec = P(bd, "model" if _div(core[1], rules.m) else None, None, None)
+        elif last == "h" and len(core) == 2:            # [B, d]
+            bd = rules.batch_dim(core[0])
+            spec = P(bd, "model" if _div(core[1], rules.m) else None)
+        elif last in ("conv", "shift") and len(core) == 3:
+            bd = rules.batch_dim(core[0])
+            spec = P(bd, None, "model" if _div(core[2], rules.m) else None)
+        else:
+            spec = P(*(None,) * len(core))
+        if stacked:
+            spec = P(None, *spec)
+        return NamedSharding(rules.mesh, spec)
+
+    return _tree_map(spec_for, cache)
+
+
+def batch_shardings(rules: ShardingRules, batch: Params) -> Params:
+    """Input batch: shard dim 0 over (pod, data)."""
+
+    def spec_for(path, x) -> NamedSharding:
+        shape = _shape(x)
+        bd = rules.batch_dim(shape[0]) if shape else None
+        return NamedSharding(rules.mesh,
+                             P(bd, *(None,) * (max(len(shape), 1) - 1)))
+
+    return _tree_map(spec_for, batch)
+
+
+def replicated(mesh, tree: Params) -> Params:
+    return _tree_map(lambda _, x: NamedSharding(
+        mesh, P(*(None,) * len(_shape(x)))), tree)
+
+
+# -- parameters held as local shards ------------------------------------------
+
+class _Gather(torch.autograd.Function):
+    """A parameter's whole value (of layer ``index`` of a stack) from this
+    rank's local shard; the backward reduces the whole gradient to the
+    shard's part (:meth:`NamedSharding.reduce`) and adds it into the
+    shard's ``.grad`` in place, as ``_LayerOf`` adds a layer's."""
+
+    @staticmethod
+    def forward(ctx, local, sharding, index, batch):
+        ctx.local, ctx.sharding, ctx.index, ctx.batch = (local, sharding,
+                                                         index, batch)
+        part = local.data if index is None else local.data[index]
+        return sharding.gather(part)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.no_grad():
+            red = ctx.sharding.reduce(g, ctx.batch)
+            p = ctx.local
+            if ctx.index is None:
+                if p.grad is None:
+                    if (red.untyped_storage().data_ptr()
+                            == g.untyped_storage().data_ptr()):
+                        red = red.clone()   # not autograd's own buffer
+                    p.grad = red
+                else:
+                    p.grad += red
+            else:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                p.grad[ctx.index] += red
+        return None, None, None, None
+
+
+class _Leaf:
+    """One parameter's layout on this rank: its whole shape, its local
+    shard's box (``param``), its moments' ZeRO box (``zero``) and the box
+    they are stored over (``moment``: ``zero`` widened along the last dim
+    to whole quantization blocks of the whole leaf, ``block`` elements)."""
+
+    def __init__(self, shape, param: NamedSharding, opt: NamedSharding,
+                 block: int):
+        nd = len(shape)
+        self.shape, self.param_sh, self.opt_sh, self.block = (
+            tuple(shape), param, opt, block)
+        self.param = param.bounds(shape)
+        self.zero = opt.bounds(shape)
+        lo, hi = self.zero[-1] if nd else (0, 0)
+        self.moment = self.zero[:-1] + (
+            (lo // block * block, -(-hi // block) * block),) if nd else ()
+        pe, oe = param.entries(nd), opt.entries(nd)
+        self.zero_dims = [i for i in range(nd) if oe[i] != pe[i]]
+        self.last_axes = pe[-1] if nd else ()
+
+    def rel(self, box, outer) -> Tuple[slice, ...]:
+        return tuple(slice(lo - o, hi - o) for (lo, hi), (o, _) in
+                     zip(box, outer))
+
+
+def _block(shape) -> int:
+    """The int8 moments' block of a whole leaf (the optimizer's rule: 256,
+    or the whole last dim where 256 does not divide it)."""
+    from ..training.optimizer import _last_block
+    return _last_block(shape) if len(shape) else 1
+
+
+class MeshParams:
+    """A model's parameters held as local shards over ``rules.mesh``, and
+    the model's ``param_hook`` that hands each out whole.
+
+    Constructing it cuts every parameter of ``model`` (drawn or not) to
+    this rank's part by :func:`param_shardings` and installs the hook and,
+    where the model has none, a :class:`MeshSharder`. The optimizer's
+    moments follow :func:`opt_state_shardings` (ZeRO-1), stored over whole
+    int8 blocks of the whole leaf (:class:`_Leaf`), so that quantization
+    never depends on the mesh; the ranks whose boxes share a block hold
+    and update it alike.
+
+    A forward gathers each weight where the model takes it (a stacked
+    leaf one layer at a time); the backward reduce-scatters each gathered
+    gradient into the shard's ``.grad`` (:meth:`NamedSharding.reduce`:
+    summed over the ranks holding other batch rows, counted once over the
+    ranks repeating a batch). The collectives run whatever the group
+    sizes, in place along groups of one rank."""
+
+    def __init__(self, model, rules: ShardingRules):
+        self.model, self.rules, self.mesh = model, rules, rules.mesh
+        if not isinstance(model.shard, MeshSharder):
+            model.shard = MeshSharder(rules)
+        self.sharder = model.shard
+        named = dict(model.named_parameters())
+        shapes = {k: tuple(p.shape) for k, p in named.items()}
+        self.param = param_shardings(rules, shapes)
+        opt = opt_state_shardings(rules, shapes)
+        self.leaves = {k: _Leaf(shapes[k], self.param[k], opt[k],
+                                _block(shapes[k])) for k in named}
+        self._names = {p: k for k, p in named.items()}
+        self._layer = {k: NamedSharding(self.mesh, P(*sh.spec[1:]))
+                       for k, sh in self.param.items()
+                       if _stacked(_path(k))}
+        self._cut()
+        model.param_hook = self
+
+    def _cut(self) -> None:
+        with torch.no_grad():
+            for k, p in self.model.named_parameters():
+                leaf = self.leaves[k]
+                if tuple(p.shape) != leaf.shape:
+                    raise ValueError(f"{k} is already cut")
+                part = p.data[tuple(slice(lo, hi) for lo, hi in leaf.param)]
+                if part.shape != p.shape:
+                    p.data = part.clone()
+
+    def init(self, generator: Optional[torch.Generator] = None) -> None:
+        """Draw the model's weights whole (the unsharded model's numbers,
+        the same on every mesh) and keep this rank's parts."""
+        with torch.no_grad():
+            for k, p in self.model.named_parameters():
+                p.data = torch.empty(self.leaves[k].shape, dtype=p.dtype,
+                                     device=p.device)
+        self.model.init(generator)
+        self._cut()
+
+    def __call__(self, p: torch.Tensor, index: Optional[int] = None
+                 ) -> torch.Tensor:
+        name = self._names[p]
+        sh = self.param[name] if index is None else self._layer[name]
+        if p.requires_grad and torch.is_grad_enabled():
+            return _Gather.apply(p, sh, index, self.sharder.batch_axes())
+        with torch.no_grad():
+            return sh.gather((p if index is None else p[index]).contiguous())
+
+    def local_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of a whole batch (cut along
+        ``rules.batch_dim`` of its row count), and the count set on the
+        model's sharder."""
+        b = int(next(iter(batch.values())).shape[0])
+        self.sharder.global_batch = b
+        sh = NamedSharding(self.mesh, P(self.rules.batch_dim(b)))
+        return {k: sh.local(torch.as_tensor(v)) for k, v in batch.items()}
+
+    # -- what the optimizer asks ------------------------------------------
+    def moment_shape(self, name: str) -> Tuple[int, ...]:
+        return tuple(hi - lo for lo, hi in self.leaves[name].moment)
+
+    def block(self, name: str) -> int:
+        return self.leaves[name].block
+
+    def norm_owner(self, name: str) -> bool:
+        """Whether this rank counts ``name``'s shard in the global norm:
+        index 0 along every axis its spec does not name, so each element
+        is counted once."""
+        used = self.param[name].used(len(self.leaves[name].shape))
+        return all(self.mesh.coords[a] == 0 for a in self.mesh.axis_names
+                   if a not in used)
+
+    def norm_sum(self, total: torch.Tensor) -> torch.Tensor:
+        total = torch.as_tensor(total, dtype=torch.float32,
+                                device=self.model.device).clone()
+        dist.all_reduce(total, group=self.mesh.group(self.mesh.axis_names))
+        return total
+
+    def update_view(self, name: str, p: torch.Tensor,
+                    g: Optional[torch.Tensor]):
+        """(the parameter and gradient over the moments' box, a function
+        that writes the updated values back and gathers them to every rank
+        holding the shard). Views of ``p`` and ``g`` where the box lies
+        inside the shard; otherwise (the box's whole blocks reach past the
+        shard along the last dim) gathered along it."""
+        leaf = self.leaves[name]
+        nd = len(leaf.shape)
+        outer = leaf.param
+        if nd and not (outer[-1][0] <= leaf.moment[-1][0]
+                       and leaf.moment[-1][1] <= outer[-1][1]):
+            along = NamedSharding(self.mesh, P(*(None,) * (nd - 1),
+                                               leaf.last_axes))
+            p_ext = along.gather(p.contiguous())
+            g = None if g is None else along.gather(g.contiguous())
+            outer = outer[:-1] + ((0, leaf.shape[-1]),)
+            pw = p_ext[leaf.rel(leaf.moment, outer)]
+        else:
+            p_ext = p
+            pw = p[leaf.rel(leaf.moment, outer)]
+        gw = None if g is None else g[leaf.rel(leaf.moment, outer)]
+
+        def finish():
+            if p_ext is not p:
+                p[leaf.rel(leaf.zero, leaf.param)] = \
+                    p_ext[leaf.rel(leaf.zero, outer)]
+            spec = [None] * nd
+            for i in leaf.zero_dims:
+                spec[i] = tuple(a for a in leaf.opt_sh.entries(nd)[i]
+                                if a not in leaf.param_sh.entries(nd)[i])
+            part = p[leaf.rel(leaf.zero, leaf.param)]
+            NamedSharding(self.mesh, P(*spec)).gather(
+                part if part.is_contiguous() else part.contiguous(), out=p)
+
+        return pw, gw, finish
+
+    # -- checkpoints --------------------------------------------------------
+    def regions(self, opt_state) -> Tuple[Dict[str, Region], Any]:
+        """Where this rank's parameters and optimizer state sit in the
+        whole leaves: (a Region a parameter, the state's tree of Regions),
+        for ``save``/``restore(shardings=)``."""
+        params = {k: Region(self.mesh, leaf.shape,
+                            lambda c, s=leaf.param_sh, sh=leaf.shape:
+                            s.bounds(sh, c))
+                  for k, leaf in self.leaves.items()}
+
+        def moment(k, m):
+            leaf = self.leaves[k]
+
+            def box(c, scales=False):
+                zb = leaf.opt_sh.bounds(leaf.shape, c)
+                lo, hi = zb[-1]
+                b = leaf.block
+                if scales:   # [..., nb, 1]
+                    return zb[:-1] + ((lo // b, -(-hi // b)), (0, 1))
+                return zb[:-1] + ((lo // b * b, -(-hi // b) * b),)
+            if isinstance(m, dict):
+                nb = leaf.shape[-1] // leaf.block
+                scale_shape = leaf.shape[:-1] + (nb, 1)
+                return {part: Region(self.mesh, leaf.shape if part == "q"
+                                     else scale_shape,
+                                     lambda c, s=part != "q": box(c, s))
+                        for part in m}
+            return Region(self.mesh, leaf.shape, box)
+
+        step = Region(self.mesh, (), lambda c: ())
+        opt = type(opt_state)(step=step,
+                              m={k: moment(k, v) for k, v in opt_state.m.items()},
+                              v={k: moment(k, v) for k, v in opt_state.v.items()})
+        return params, opt

@@ -19,6 +19,7 @@ devices. The other kernels are serving-only and stay outside autograd.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -34,6 +35,14 @@ from .ref import (acd_evict_plain, fifo_dispatch_plain,
                   rglru_plain, rwkv6_plain)
 
 _FLOATS = (torch.float64, torch.float32)
+#: the counts are bumped from the engine's scenario shards' threads too
+_COUNT_LOCK = threading.Lock()
+
+
+def _counted(fn) -> None:
+    """One more launch of ``fn``'s kernel."""
+    with _COUNT_LOCK:
+        fn.launches += 1
 
 
 def _check_acd(P, thresh, mask) -> None:
@@ -74,7 +83,7 @@ def acd_evict(P: torch.Tensor, thresh: torch.Tensor,
         raise ValueError(f"acd_evict: no kernel for device {P.device}")
     out = torch.empty(P.shape, dtype=torch.bool, device=P.device)
     acd_sweep.launch(P, thresh, mask, out)
-    acd_evict.launches += 1
+    _counted(acd_evict)
     return out
 
 
@@ -151,7 +160,7 @@ def fifo_dispatch(order: torch.Tensor, n_pub: torch.Tensor,
         torch.float64, torch.float64))
     fifo.launch(order, n_pub, ready, dur, selc, occ, seg, capped, wu, sclk0,
                 sidle0, float(keep_alive), bool(cold), outs)
-    fifo_dispatch.launches += 1
+    _counted(fifo_dispatch)
     return outs
 
 
@@ -239,7 +248,7 @@ def _matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     _mm.launch(x, y, out)
-    matmul.launches += 1
+    _counted(matmul)
     return out
 
 
@@ -400,7 +409,7 @@ def _flash_attention(q, k, v, causal: bool,
     if out.numel() == 0:
         return out
     _fa.launch(q, k, v, out, causal, window)
-    flash_attention.launches += 1
+    _counted(flash_attention)
     return out
 
 
@@ -439,7 +448,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if end is None:  # the first n = min(length, S) slots: positions 0..n-1
         end = length.clamp(0, k.shape[2])
     _fd.launch(q, k, v, length.contiguous(), end.contiguous(), out)
-    flash_decode.launches += 1
+    _counted(flash_decode)
     return out
 
 
@@ -498,7 +507,7 @@ def rglru(x: torch.Tensor, a: torch.Tensor,
     hT = torch.empty((x.shape[0], x.shape[2]), dtype=torch.float32,
                      device=x.device)
     _rg.launch(x, a, h0, y, hT)
-    rglru.launches += 1
+    _counted(rglru)
     return y, hT
 
 
@@ -566,7 +575,7 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sT = torch.empty((B, H, Dk, v.shape[-1]), dtype=torch.float32,
                      device=r.device)
     _rk.launch(r, k, v, w, u, s0, o, sT)
-    rwkv6.launches += 1
+    _counted(rwkv6)
     return o, sT
 
 

@@ -10,6 +10,11 @@ parameters from them on its device and fills them in place, so a
 full-width model is drawn on the card and weights carried from elsewhere
 land in the same tensors.
 
+Activations pass named points (``shard(x, "ffn_hidden")``, ...) where
+the reference asks its :class:`Sharder` for a sharding constraint; the
+base here is a no-op, and ``repro_torch.distributed.MeshSharder`` checks
+the reference's spec against the port's batch-sharded layout.
+
 Every weight product goes through :func:`linear`, the port's ``matmul``
 kernel on the card: it computes each output row the same way whatever the
 number of rows, and so do the norms' row means (:func:`row_mean`), so
@@ -32,6 +37,23 @@ from ..kernels import ops as kops
 from .config import ModelConfig
 
 Params = Dict[str, Any]
+
+
+class Sharder:
+    """The activations' sharding hook, called by logical name at the
+    reference's points; the base returns ``x`` and counts nothing across
+    ranks (an unsharded model)."""
+
+    def __call__(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        return x
+
+    def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the ranks that hold other rows of the batch
+        (the loss's token count): ``x`` itself without a mesh."""
+        return x
+
+
+NO_SHARD = Sharder()
 
 
 class Init(NamedTuple):
@@ -265,12 +287,14 @@ def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return silu(x) if cfg.act == "silu" else gelu(x)
 
 
-def ffn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def ffn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              shard: Sharder = NO_SHARD) -> torch.Tensor:
     """Gated (SwiGLU-style) or plain 2-matrix FFN."""
     if cfg.glu:
         h = _act(cfg, linear(x, p["w_gate"])) * linear(x, p["w_up"])
     else:
         h = _act(cfg, linear(x, p["w_up"]))
+    h = shard(h, "ffn_hidden")
     return linear(h, p["w_down"])
 
 
@@ -410,6 +434,7 @@ def attention_apply(
     positions: torch.Tensor,       # [B, S]
     causal: bool = True,
     window: Optional[int] = None,
+    shard: Sharder = NO_SHARD,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence self-attention (prefill). Returns (out, (k, v)) with
     k, v [B, Hkv, S, D] after RoPE."""
@@ -424,7 +449,9 @@ def attention_apply(
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    q, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    q = shard(q.transpose(1, 2), "attn_heads")                # [B, H, S, D]
+    kt = shard(k.transpose(1, 2), "attn_kv")
+    vt = shard(v.transpose(1, 2), "attn_kv")
     out = kops.flash_attention(q, kt, vt, causal=causal, window=window)
     out = out.transpose(1, 2).reshape(b, s, -1)
     return linear(out, p["wo"]), (kt, vt)

@@ -69,6 +69,16 @@ a stacked parameter is taken through :class:`_LayerOf`, whose gradient
 accumulates in place into the stack's ``.grad``. The recurrent mixers'
 kernels (``rglru``, ``rwkv6``) have no backward: ``loss_fn`` refuses such
 configs on every device.
+
+Sharding (the reference's ``Model(shard=...)``): ``shard`` is the
+activations' hook, called by logical name at the reference's points
+(:class:`.layers.Sharder`; a no-op by default). ``param_hook``, when a
+mesh sets it (``repro_torch.distributed.MeshParams``), hands out each
+parameter whole where the forward uses it, from the local shard this
+rank holds: a stacked parameter layer by layer where the stack hands the
+layer out (inside each remat super-block, so the recompute gathers
+again), the embedding, the head and the remainder layers where they are
+used. Without it a parameter is the module's own tensor, as before.
 """
 from __future__ import annotations
 
@@ -82,9 +92,9 @@ from torch.utils.checkpoint import checkpoint
 from ..core.vectorsim import resolve_device
 from .config import ModelConfig
 from ..kernels import ops as kops
-from .layers import (Init, Params, apply_norm, attention_apply, attn_init,
-                     cache_update, dtype_of, ffn_apply, ffn_init, init_norm,
-                     linear, rope, to_kv)
+from .layers import (NO_SHARD, Init, Params, Sharder, apply_norm,
+                     attention_apply, attn_init, cache_update, dtype_of,
+                     ffn_apply, ffn_init, init_norm, linear, rope, to_kv)
 from .moe import DISPATCHES, moe_apply, moe_init
 from .recurrent import (rglru_block, rglru_init, rglru_state_init,
                         rwkv6_block, rwkv6_init, rwkv6_state_init)
@@ -154,13 +164,15 @@ class ParamTree(nn.Module):
                     tuple(lead) + tuple(spec.shape), dtype=spec.dtype,
                     device=device), requires_grad=False))
 
-    def tree(self, index: Optional[int] = None) -> Params:
-        """Nested dict of the tensors (of layer ``index`` of a stack)."""
+    def tree(self, index: Optional[int] = None, take=None) -> Params:
+        """Nested dict of the tensors (of layer ``index`` of a stack), each
+        through ``take(p, index)`` where a mesh hands parameters out."""
         out: Params = {}
         for name, p in self.named_parameters(recurse=False):
-            out[name] = p if index is None else _layer(p, index)
+            out[name] = (take(p, index) if take is not None
+                         else p if index is None else _layer(p, index))
         for name, m in self.named_children():
-            out[name] = m.tree(index)
+            out[name] = m.tree(index, take)
         return out
 
 
@@ -206,7 +218,8 @@ def _fill(p: torch.Tensor, spec: Init,
 # -- one layer, serving modes --------------------------------------------------
 
 def _self_attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                      cache: Params, pos: int) -> Tuple[torch.Tensor, Params]:
+                      cache: Params, pos: int, shard: Sharder = NO_SHARD
+                      ) -> Tuple[torch.Tensor, Params]:
     """x [B,1,d]; cache update at the rolling slot + one-token attention."""
     b = x.shape[0]
     q = linear(x, p["mixer"]["wq"])
@@ -224,8 +237,8 @@ def _self_attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     v = v[:, 0]
     s_cache = cache["k"].shape[2]
     slot = pos % s_cache if cfg.window else min(pos, s_cache - 1)
-    k_new = cache_update(cache["k"], k, slot)
-    v_new = cache_update(cache["v"], v, slot)
+    k_new = shard(cache_update(cache["k"], k, slot), "kv_cache")
+    v_new = shard(cache_update(cache["v"], v, slot), "kv_cache")
     # rolling cache: every slot is valid once pos >= s_cache; eff_pos + 1
     # keys are live (decode_attention's mask kpos <= eff_pos), read in
     # position order (position p sits at slot p % s_cache), as the prefill
@@ -242,7 +255,7 @@ def _self_attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def _right_align_cache(cfg: ModelConfig, kt: torch.Tensor, vt: torch.Tensor,
-                       cache_len: int) -> Params:
+                       cache_len: int, shard: Sharder = NO_SHARD) -> Params:
     """[B,Hkv,S,D] -> cache of ``min(cache_len, window)`` slots, with each
     absolute position p stored at slot p % len (rolling invariant)."""
     s = kt.shape[2]
@@ -262,14 +275,14 @@ def _right_align_cache(cfg: ModelConfig, kt: torch.Tensor, vt: torch.Tensor,
         k_sl = torch.nn.functional.pad(kt, pad)
         v_sl = torch.nn.functional.pad(vt, pad)
     kd = dtype_of(cfg.kv_dtype)
-    return {"k": to_kv(k_sl, kd).contiguous(),
-            "v": to_kv(v_sl, kd).contiguous()}
+    return {"k": shard(to_kv(k_sl, kd).contiguous(), "kv_cache"),
+            "v": shard(to_kv(v_sl, kd).contiguous(), "kv_cache")}
 
 
 def _cross_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 mode: str, cache: Optional[Params],
-                enc_out: Optional[torch.Tensor], new_cache: Params
-                ) -> torch.Tensor:
+                enc_out: Optional[torch.Tensor], new_cache: Params,
+                shard: Sharder = NO_SHARD) -> torch.Tensor:
     """Decoder cross-attention of ``x`` [B, S, d] over the encoder's keys
     and values (``p`` the layer's ``cross`` weights; no bias, no RoPE, no
     mask). Prefill projects ``enc_out`` [B, Se, d] and stores ``ck``/``cv``
@@ -278,19 +291,19 @@ def _cross_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     reads all Se cached slots, which it leaves as they are. ``"train"``
     mode attends as prefill and stores nothing."""
     b, s, _ = x.shape
-    q = linear(x, p["wq"])
+    q = shard(linear(x, p["wq"]).reshape(b, s, cfg.num_heads,
+                                         cfg.hd).transpose(1, 2),
+              "attn_heads")                                 # [B, H, S, D]
     if mode == "decode":
         ck, cv = cache["ck"], cache["cv"]
         length = torch.full((b,), ck.shape[2], dtype=torch.int32,
                             device=x.device)
-        out = kops.flash_decode(q.reshape(b, cfg.num_heads, cfg.hd), ck, cv,
-                                length)
+        out = kops.flash_decode(q[:, :, 0], ck, cv, length)
     else:
         se = enc_out.shape[1]
         ck, cv = (linear(enc_out, p[w]).reshape(
             b, se, cfg.num_kv_heads, cfg.hd).transpose(1, 2)
             for w in ("wk", "wv"))
-        q = q.reshape(b, s, cfg.num_heads, cfg.hd).transpose(1, 2)
         out = kops.flash_attention(q, ck, cv, causal=False).transpose(1, 2)
         if mode == "prefill":
             kd = dtype_of(cfg.kv_dtype)
@@ -303,7 +316,8 @@ def _layer_apply(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  positions: torch.Tensor, mode: str, cache: Optional[Params],
                  pos: Optional[int], cache_len: int,
                  moe_dispatch: str = "einsum",
-                 enc_out: Optional[torch.Tensor] = None
+                 enc_out: Optional[torch.Tensor] = None,
+                 shard: Sharder = NO_SHARD
                  ) -> Tuple[torch.Tensor, Optional[Params]]:
     """One layer in ``mode`` ``"prefill"``, ``"decode"`` or ``"train"``
     (the whole sequence, causal, no cache: training, and the encoder's
@@ -312,29 +326,30 @@ def _layer_apply(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     new_cache = None
     if kind == "attn":
         if mode == "decode":
-            out, new_cache = _self_attn_decode(cfg, p, h, cache, pos)
+            out, new_cache = _self_attn_decode(cfg, p, h, cache, pos, shard)
         else:
             out, (kt, vt) = attention_apply(
-                cfg, p["mixer"], h, positions, causal=True, window=cfg.window)
+                cfg, p["mixer"], h, positions, causal=True, window=cfg.window,
+                shard=shard)
             if mode == "prefill":
-                new_cache = _right_align_cache(cfg, kt, vt, cache_len)
+                new_cache = _right_align_cache(cfg, kt, vt, cache_len, shard)
     elif kind == "rglru":
-        out, new_cache = rglru_block(cfg, p["mixer"], h, cache)
+        out, new_cache = rglru_block(cfg, p["mixer"], h, cache, shard)
     else:  # rwkv6
-        out, new_cache = rwkv6_block(cfg, p["mixer"], h, cache)
+        out, new_cache = rwkv6_block(cfg, p["mixer"], h, cache, shard)
     x = x + out
     if "cross" in p:  # the encoder-decoder's decoder layers
         hx = apply_norm(cfg, p["norm_cross"], x)
         x = x + _cross_attn(cfg, p["cross"], hx, mode, cache, enc_out,
-                            new_cache)
+                            new_cache, shard)
     h2 = apply_norm(cfg, p["norm2"], x)
     if cfg.num_experts:
-        out2 = moe_apply(cfg, p["moe"], h2, moe_dispatch)
+        out2 = moe_apply(cfg, p["moe"], h2, moe_dispatch, shard)
         if cfg.dense_residual:
-            out2 = out2 + ffn_apply(cfg, p["ffn"], h2)
+            out2 = out2 + ffn_apply(cfg, p["ffn"], h2, shard)
     else:
-        out2 = ffn_apply(cfg, p["ffn"], h2)
-    return x + out2, new_cache
+        out2 = ffn_apply(cfg, p["ffn"], h2, shard)
+    return shard(x + out2, "residual"), new_cache
 
 
 # -- the model ---------------------------------------------------------------
@@ -350,12 +365,16 @@ class Model(nn.Module):
     picks the MoE layers' path (``"einsum"``, the reference's default, or
     ``"scatter"``); ``remat`` recomputes each super-block, encoder layer
     and loss chunk in the backward; ``loss_chunk`` is the loss's sequence
-    chunk."""
+    chunk; ``shard`` is the activations' hook (the reference's
+    ``shard=``). ``param_hook`` (``None``: the module's own tensors) hands
+    parameters out under a mesh (see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  moe_dispatch: str = "einsum", remat: bool = True,
-                 loss_chunk: int = 512):
+                 loss_chunk: int = 512, shard: Sharder = NO_SHARD):
         super().__init__()
+        self.shard = shard
+        self.param_hook = None
         if moe_dispatch not in DISPATCHES:
             raise ValueError(f"moe_dispatch must be one of {DISPATCHES}, "
                              f"got {moe_dispatch!r}")
@@ -396,6 +415,10 @@ class Model(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def _param(self, p: torch.Tensor) -> torch.Tensor:
+        """An unstacked parameter as the forward uses it (whole)."""
+        return p if self.param_hook is None else self.param_hook(p, None)
 
     # ---- init ----
     def init(self, generator: Optional[torch.Generator] = None) -> "Model":
@@ -461,19 +484,20 @@ class Model(nn.Module):
         decode = mode == "decode"
         new_scan: Dict[str, List[Params]] = {f"slot{si}": []
                                               for si in range(period)}
+        take = self.param_hook
         if mode == "train":
-            def superblock(x, trees):
-                for si, tree in enumerate(trees):
+            def superblock(x, bi):
+                for si in range(period):
+                    tree = self.scan_layers[f"slot{si}"].tree(bi, take)
                     x, _ = _layer_apply(cfg, cfg.block_pattern[si], tree, x,
                                         positions, mode, None, None, 0,
-                                        self.moe_dispatch, enc_out)
+                                        self.moe_dispatch, enc_out,
+                                        self.shard)
                 return x
 
             for bi in range(self.n_super):
-                trees = [self.scan_layers[f"slot{si}"].tree(bi)
-                         for si in range(period)]
-                x = (checkpoint(superblock, x, trees, use_reentrant=False)
-                     if self._remat() else superblock(x, trees))
+                x = (checkpoint(superblock, x, bi, use_reentrant=False)
+                     if self._remat() else superblock(x, bi))
         else:
             for bi in range(self.n_super):
                 for si in range(period):
@@ -484,8 +508,9 @@ class Model(nn.Module):
                                 for k, t in caches["scan"][slot].items()}
                     x, c_out = _layer_apply(
                         cfg, cfg.block_pattern[si],
-                        self.scan_layers[slot].tree(bi), x, positions, mode,
-                        c_in, pos, cache_len, self.moe_dispatch, enc_out)
+                        self.scan_layers[slot].tree(bi, take), x, positions,
+                        mode, c_in, pos, cache_len, self.moe_dispatch,
+                        enc_out, self.shard)
                     if decode:  # write back into the stacked caches (the
                         # cross caches ck/cv come back as they went in)
                         for k, t in c_out.items():
@@ -497,9 +522,9 @@ class Model(nn.Module):
         for i, lp in enumerate(self.rest_layers):
             li = self.n_super * period + i
             c_in = caches["rest"][i] if decode else None
-            x, c_out = _layer_apply(cfg, cfg.layer_kind(li), lp.tree(), x,
-                                    positions, mode, c_in, pos, cache_len,
-                                    self.moe_dispatch, enc_out)
+            x, c_out = _layer_apply(cfg, cfg.layer_kind(li), lp.tree(None, take),
+                                    x, positions, mode, c_in, pos, cache_len,
+                                    self.moe_dispatch, enc_out, self.shard)
             rest.append(c_out)
         if decode:
             caches["rest"] = rest
@@ -520,35 +545,37 @@ class Model(nn.Module):
         enc_cfg = self.encoder_cfg()
         enc = self.encoder
         b, se, _ = frames.shape
-        x = frames + enc.pos_embed[None, :se]
+        x = frames + self._param(enc.pos_embed)[None, :se]
         positions = torch.arange(se, device=frames.device).expand(b, se)
+        take = self.param_hook
 
-        def layer(x, tree):
-            return _layer_apply(enc_cfg, "attn", tree, x, positions, "train",
-                                None, None, 0)[0]
+        def layer(x, li):
+            return _layer_apply(enc_cfg, "attn", enc.layers.tree(li, take), x,
+                                positions, "train", None, None, 0,
+                                shard=self.shard)[0]
 
         for li in range(self.cfg.encoder_layers):
-            tree = enc.layers.tree(li)
-            x = (checkpoint(layer, x, tree, use_reentrant=False)
-                 if self._remat() else layer(x, tree))
-        return apply_norm(self.cfg, enc.final_norm.tree(), x)
+            x = (checkpoint(layer, x, li, use_reentrant=False)
+                 if self._remat() else layer(x, li))
+        return apply_norm(self.cfg, enc.final_norm.tree(None, take), x)
 
     def _head(self) -> torch.Tensor:
         if self.cfg.tied_embeddings:
-            return self.embed.T
-        return self.lm_head
+            return self._param(self.embed).T
+        return self._param(self.lm_head)
 
     def _inputs(self, tokens, patches=None, frames=None
                 ) -> Tuple[torch.Tensor, int, Optional[torch.Tensor]]:
         """(embeddings [B, P + S, d] with a vision config's ``patches``
         [B, P, d] in front, cast to the model's dtype; P; the encoder's
         output over an encoder-decoder config's ``frames``)."""
-        x = self.embed[tokens]
+        x = self._param(self.embed)[tokens]
         n_prefix = 0
         if self.cfg.vision_patches and patches is not None:
             pt = torch.as_tensor(patches, device=self.device).to(x.dtype)
             x = torch.cat([pt, x], 1)
             n_prefix = pt.shape[1]
+        x = self.shard(x, "activations")
         enc_out = None
         if self.cfg.is_encdec:
             if frames is None:
@@ -583,7 +610,7 @@ class Model(nn.Module):
                                             batch.get("frames"))
         positions = torch.arange(x.shape[1], device=dev).expand(b, -1)
         x, _ = self._run_stack(x, positions, "train", None, None, 0, enc_out)
-        x = apply_norm(cfg, self.final_norm.tree(), x)
+        x = apply_norm(cfg, self.final_norm.tree(None, self.param_hook), x)
         x = x[:, n_prefix:]                              # text positions only
         labels = batch.get("labels")
         labels = (torch.cat([tokens[:, 1:], tokens[:, :1]], 1)
@@ -594,8 +621,10 @@ class Model(nn.Module):
                 if mask is None else
                 torch.as_tensor(mask, device=dev).float())
         loss, denom = _chunked_ce(x, self._head(), labels, mask,
-                                  self.loss_chunk, self._remat())
-        return loss, {"loss": loss.detach(), "tokens": denom}
+                                  self.loss_chunk, self._remat(),
+                                  self.shard.batch_sum)
+        return loss, {"loss": self.shard.batch_sum(loss.detach()),
+                      "tokens": denom}
 
     # ---- public: serving ----
     @torch.inference_mode()
@@ -616,7 +645,8 @@ class Model(nn.Module):
         cache_len = cache_len or s
         x, caches = self._run_stack(x, positions, "prefill", None, None,
                                     cache_len, enc_out)
-        x = apply_norm(self.cfg, self.final_norm.tree(), x)
+        x = apply_norm(self.cfg, self.final_norm.tree(None, self.param_hook),
+                       x)
         logits = linear(x[:, -1], self._head())                  # [B, V]
         return logits, caches
 
@@ -627,11 +657,13 @@ class Model(nn.Module):
         place)."""
         token = torch.as_tensor(token, device=self.device).long()
         pos = int(pos)
-        x = self.embed[token[:, None]]                # [B, 1, d]
+        x = self.shard(self._param(self.embed)[token[:, None]],
+                       "activations")                   # [B, 1, d]
         positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
                                device=self.device)
         x, caches = self._run_stack(x, positions, "decode", caches, pos, 0)
-        x = apply_norm(self.cfg, self.final_norm.tree(), x)
+        x = apply_norm(self.cfg, self.final_norm.tree(None, self.param_hook),
+                       x)
         logits = linear(x[:, 0], self._head())
         return logits, caches
 
@@ -696,13 +728,16 @@ def _ce_chunk(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
 
 
 def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-                mask: torch.Tensor, chunk: int, remat: bool
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                mask: torch.Tensor, chunk: int, remat: bool,
+                count=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming softmax cross-entropy over sequence chunks of ``chunk``
     positions (the last padded with zero rows, label 0 and mask 0, as the
     reference pads): (sum of masked CE / max(mask count, 1), mask count).
     Under ``remat`` each chunk's logits are recomputed in the backward, so
-    no [B, chunk, V] tensor outlives its chunk."""
+    no [B, chunk, V] tensor outlives its chunk. ``count`` maps this rank's
+    mask count to the whole batch's (a sum over the ranks that hold other
+    rows: their losses then add up to the whole batch's loss); none, the
+    rows here are the batch."""
     b, s, d = x.shape
     chunk = min(chunk, s)
     n = -(-s // chunk)
@@ -719,4 +754,6 @@ def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
         ce, c = (checkpoint(_ce_chunk, *part, use_reentrant=False)
                  if remat else _ce_chunk(*part))
         tot, cnt = tot + ce, cnt + c
+    if count is not None:
+        cnt = count(cnt)
     return tot / torch.clamp_min(cnt, 1.0), cnt

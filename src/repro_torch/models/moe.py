@@ -40,7 +40,7 @@ from typing import NamedTuple
 import torch
 
 from .config import ModelConfig
-from .layers import Init, Params, _act, linear
+from .layers import NO_SHARD, Init, Params, Sharder, _act, linear
 
 DISPATCHES = ("einsum", "scatter")
 
@@ -113,8 +113,18 @@ def route(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor,
     return Routing(idx, torch.where(kept, gates, 0.0), slot, kept)
 
 
+def _hint5(shard: Sharder, t: torch.Tensor, b: int, ns: int, cap: int,
+           name: str) -> torch.Tensor:
+    """``shard`` asked about the expert-major slot rows ``t`` [E, b * ns *
+    cap, f] in the reference's [B, N, E, C, f] layout (a view each way)."""
+    E, _, f = t.shape
+    v = t.view(E, b, ns, cap, f).permute(1, 2, 0, 3, 4)
+    return shard(v, name).permute(2, 0, 1, 3, 4).reshape(E, -1, f)
+
+
 def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
-              dispatch: str = "einsum") -> torch.Tensor:
+              dispatch: str = "einsum",
+              shard: Sharder = NO_SHARD) -> torch.Tensor:
     """x [B, S, d] -> [B, S, d]."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"moe dispatch must be one of {DISPATCHES}, got "
@@ -142,6 +152,7 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     zero = x.new_zeros((1, d))
     xin = torch.cat([xg.reshape(bn * gl, d), zero])[held[:-1]].view(
         E, rows, d)
+    xin = _hint5(shard, xin, b, s // gl, cap, "moe_expert_in5")
     # one view per expert (unbind: in training one gradient node stacks
     # the experts' gradients, where indexing each would add a zero-filled
     # copy of the whole stack per expert)
@@ -153,7 +164,7 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
         h = _act(cfg, gate) * up
     else:
         h = _act(cfg, up)
-    h = h.view(E, rows, -1)
+    h = _hint5(shard, h.view(E, rows, -1), b, s // gl, cap, "moe_hidden5")
     out = torch.cat([linear(h[e], w_down[e]) for e in range(E)] + [zero])
     if dispatch == "einsum":
         dest = dest.gather(-1, r.idx.argsort(-1))    # ascending experts

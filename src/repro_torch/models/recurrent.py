@@ -13,7 +13,8 @@ import torch
 
 from ..kernels import ops as kops
 from .config import ModelConfig
-from .layers import Init, Params, gelu, linear, row_mean, sigmoid, silu
+from .layers import (NO_SHARD, Init, Params, Sharder, gelu, linear, row_mean,
+                     sigmoid, silu)
 
 _CONV_K = 4  # temporal conv width (Griffin)
 
@@ -59,13 +60,15 @@ def _decay(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def rglru_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                state: Optional[Dict[str, torch.Tensor]] = None
+                state: Optional[Dict[str, torch.Tensor]] = None,
+                shard: Sharder = NO_SHARD
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [B,S,d] -> (out [B,S,d], new_state {conv [B,K-1,d], h [B,d]})."""
     gate = gelu(linear(x, p["w_gate"]))
     u = linear(x, p["w_x"])
     u, conv_state = _causal_conv(
         u, p["conv"], None if state is None else state["conv"])
+    u = shard(u, "rnn_hidden")
     a = _decay(p, x)
     i = sigmoid(linear(x, p["w_ig"]).float())
     h0 = None if state is None else state["h"]
@@ -111,7 +114,8 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]
 
 
 def rwkv6_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                state: Optional[Dict[str, torch.Tensor]] = None
+                state: Optional[Dict[str, torch.Tensor]] = None,
+                shard: Sharder = NO_SHARD
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Time-mix block. x [B,S,d] -> (out, state {shift [B,1,d],
     wkv [B,H,Dk,Dv]}).
@@ -131,6 +135,7 @@ def rwkv6_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     w = torch.exp(-torch.exp(linear(xw, p["w_w"]).float() - 4.0))
     w = w.reshape(b, s, H, hd).transpose(1, 2)
     g = silu(linear(xg, p["w_g"]))
+    r = shard(r, "attn_heads")
     s0 = None if state is None else state["wkv"]
     o, sT = kops.rwkv6(r, k, v, w, p["u"], s0)
     o = o.transpose(1, 2).reshape(b, s, d)

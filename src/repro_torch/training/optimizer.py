@@ -21,12 +21,23 @@ leading (stacked-layer, or row) axes of at most ``SLICE_ELEMS`` elements,
 so the float32 temporaries of one slice are all it adds (llama3-8b's
 stacked FFN leaf alone is 1.88 G elements). The quantization blocks run
 along the last dim, which is never cut, so the slicing changes no bit.
+
+Over a mesh (``layout=``, a ``repro_torch.distributed.MeshParams``) each
+rank holds its parameters' shards and its ZeRO-1 part of the moments: the
+moments' box widened along the last dim to whole blocks of the *whole*
+leaf (``block=``: the whole leaf's block, never the shard's), so every
+mesh quantizes the same blocks. :func:`global_norm` counts each element
+once over the mesh and sums the ranks' totals; the update runs on each
+rank's box and the updated parameters are gathered back to every rank
+holding them. At one rank the boxes are the whole leaves and every value
+is the unsharded update's.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Iterator, NamedTuple, Sequence, Tuple, Union
+from typing import (Dict, Iterator, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -42,42 +53,59 @@ SLICE_ELEMS = 1 << 26
 # Shape-preserving layout: q keeps the parameter's shape (int8) and scales
 # are blocked along the last dim ([..., nb, 1]), as in the reference.
 
-def _last_block(shape) -> int:
-    last = int(shape[-1])
+def _div(x: torch.Tensor, d) -> torch.Tensor:
+    """``x / d`` for a Python number ``d``, correctly rounded on every
+    device: torch's CUDA kernel multiplies by the rounded reciprocal of a
+    Python divisor, where its CPU kernel (and XLA) divide; a divisor on
+    ``x``'s device is divided by on both."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def _last_block(shape, full=None) -> int:
+    """The block of a leaf of ``shape``, or of the whole leaf of shape
+    ``full`` that ``shape`` is a part of."""
+    last = int((shape if full is None else full)[-1])
     return _BLOCK if last % _BLOCK == 0 else last  # per-row fallback
 
 
-def _to_blocks(x: torch.Tensor) -> torch.Tensor:
-    b = _last_block(x.shape)
+def _to_blocks(x: torch.Tensor, block: Optional[int] = None) -> torch.Tensor:
+    b = _last_block(x.shape) if block is None else block
     return x.reshape(*x.shape[:-1], x.shape[-1] // b, b)
 
 
-def _blocks_shape(shape) -> Tuple[int, ...]:
-    """The scales' shape ``[..., nb, 1]`` of a leaf of ``shape``."""
-    return tuple(shape[:-1]) + (int(shape[-1]) // _last_block(shape), 1)
+def _blocks_shape(shape, full=None) -> Tuple[int, ...]:
+    """The scales' shape ``[..., nb, 1]`` of a leaf of ``shape`` (a part
+    of a whole leaf of shape ``full``, whose blocks it keeps)."""
+    return tuple(shape[:-1]) + (int(shape[-1]) // _last_block(shape, full),
+                                1)
 
 
-def quantize_q8(x: torch.Tensor) -> Dict[str, torch.Tensor]:
-    xb = _to_blocks(x.float())
-    scale = torch.clamp_min(xb.abs().amax(-1, keepdim=True) / 127.0, 1e-12)
+def quantize_q8(x: torch.Tensor, block: Optional[int] = None
+                ) -> Dict[str, torch.Tensor]:
+    xb = _to_blocks(x.float(), block)
+    scale = torch.clamp_min(_div(xb.abs().amax(-1, keepdim=True), 127.0),
+                            1e-12)
     q = torch.clamp(torch.round(xb / scale), -127, 127).to(torch.int8)
     return {"q": q.reshape(x.shape), "scale": scale}
 
 
 def dequantize_q8(qs: Dict[str, torch.Tensor], shape,
-                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    qb = _to_blocks(qs["q"].float())
+                  dtype: torch.dtype = torch.float32,
+                  block: Optional[int] = None) -> torch.Tensor:
+    qb = _to_blocks(qs["q"].float(), block)
     return (qb * qs["scale"]).reshape(shape).to(dtype)
 
 
-def quantize_q8_log(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+def quantize_q8_log(x: torch.Tensor, block: Optional[int] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Log-domain int8 for non-negative tensors (Adam second moments):
     linear int8 on log(v) per block, so the relative error stays bounded
     across v's dynamic range."""
-    xb = torch.clamp_min(_to_blocks(x.float()), 1e-30)
+    xb = torch.clamp_min(_to_blocks(x.float(), block), 1e-30)
     lx = torch.log(xb)
     lo = lx.amin(-1, keepdim=True)
-    scale = torch.clamp_min((lx.amax(-1, keepdim=True) - lo) / 254.0, 1e-8)
+    scale = torch.clamp_min(_div(lx.amax(-1, keepdim=True) - lo, 254.0),
+                            1e-8)
     q = (torch.round((lx - lo) / scale) - 127.0).to(torch.int8)
     return {"q": q.reshape(x.shape), "lo": lo, "scale": scale}
 
@@ -88,8 +116,9 @@ def _log_floor(device) -> torch.Tensor:
 
 
 def dequantize_q8_log(qs: Dict[str, torch.Tensor], shape,
-                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    qb = _to_blocks(qs["q"].float())
+                      dtype: torch.dtype = torch.float32,
+                      block: Optional[int] = None) -> torch.Tensor:
+    qb = _to_blocks(qs["q"].float(), block)
     lx = qs["lo"] + (qb + 127.0) * qs["scale"]
     out = torch.where(lx <= _log_floor(lx.device), 0.0, torch.exp(lx))
     return out.reshape(shape).to(dtype)
@@ -114,9 +143,10 @@ class AdamWConfig:
 def _lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     """The schedule at int32 ``step``: linear warm-up, then cosine to
     ``min_lr_frac``; float32."""
-    warm = cfg.lr * (step + 1) / max(cfg.warmup_steps, 1)
-    prog = torch.clamp((step - cfg.warmup_steps)
-                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    warm = _div(cfg.lr * (step + 1), max(cfg.warmup_steps, 1))
+    prog = torch.clamp(_div(step - cfg.warmup_steps,
+                            max(cfg.total_steps - cfg.warmup_steps, 1)),
+                       0.0, 1.0)
     cos = cfg.lr * (cfg.min_lr_frac + (1 - cfg.min_lr_frac)
                     * 0.5 * (1 + torch.cos(math.pi * prog)))
     return torch.where(step < cfg.warmup_steps, warm, cos)
@@ -162,45 +192,58 @@ def _store(moment: Moment, idx: tuple, value: Moment) -> None:
         moment[idx] = value
 
 
-def _read(moment: Moment, shape, dtype_cfg: str, kind: str) -> torch.Tensor:
+def _read(moment: Moment, shape, dtype_cfg: str, kind: str,
+          block: Optional[int] = None) -> torch.Tensor:
     if dtype_cfg == "int8":
         dq = dequantize_q8_log if kind == "v" else dequantize_q8
-        return dq(moment, shape)
+        return dq(moment, shape, block=block)
     return moment.float()
 
 
-def _write(x: torch.Tensor, dtype_cfg: str, kind: str) -> Moment:
+def _write(x: torch.Tensor, dtype_cfg: str, kind: str,
+           block: Optional[int] = None) -> Moment:
     if dtype_cfg == "int8":
         qf = quantize_q8_log if kind == "v" else quantize_q8
-        return qf(x)
+        return qf(x, block)
     return x.to(getattr(torch, dtype_cfg))
 
 
-def _moment_init(p: torch.Tensor, dtype_cfg: str, kind: str) -> Moment:
-    """A zero moment of ``p``: int8 zeros quantized slice by slice (the
-    reference's ``quantize(zeros)``: q, lo and scale constants)."""
+def _moment_init(shape, device, dtype_cfg: str, kind: str,
+                 block: Optional[int] = None) -> Moment:
+    """A zero moment of ``shape``: int8 zeros quantized slice by slice in
+    blocks of ``block`` (the reference's ``quantize(zeros)``: q, lo and
+    scale constants)."""
+    shape = tuple(shape)
     if dtype_cfg != "int8":
-        return torch.zeros(p.shape, dtype=getattr(torch, dtype_cfg),
-                           device=p.device)
+        return torch.zeros(shape, dtype=getattr(torch, dtype_cfg),
+                           device=device)
+    block = _last_block(shape) if block is None else block
     names = ("q", "lo", "scale") if kind == "v" else ("q", "scale")
-    out = {k: torch.empty(p.shape if k == "q" else _blocks_shape(p.shape),
+    out = {k: torch.empty(shape if k == "q" else
+                          tuple(shape[:-1]) + (shape[-1] // block, 1),
                           dtype=torch.int8 if k == "q" else torch.float32,
-                          device=p.device) for k in names}
-    for idx in _slices(p.shape):
-        zeros = torch.zeros(p[idx].shape, dtype=torch.float32,
-                            device=p.device)
-        _store(out, idx, _write(zeros, "int8", kind))
+                          device=device) for k in names}
+    for idx in _slices(shape):
+        zeros = torch.zeros(out["q"][idx].shape, dtype=torch.float32,
+                            device=device)
+        _store(out, idx, _write(zeros, "int8", kind, block))
     return out
 
 
-def adamw_init(params: Params, cfg: AdamWConfig) -> AdamWState:
+def adamw_init(params: Params, cfg: AdamWConfig, layout=None) -> AdamWState:
+    """Zero moments of every parameter (of this rank's box of each under a
+    mesh ``layout``, in the whole leaf's blocks)."""
     dev = next(iter(params.values())).device
+
+    def moment(k, p, kind):
+        if layout is None:
+            return _moment_init(p.shape, dev, cfg.state_dtype, kind)
+        return _moment_init(layout.moment_shape(k), dev, cfg.state_dtype,
+                            kind, layout.block(k))
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
-        m={k: _moment_init(p, cfg.state_dtype, "m")
-           for k, p in params.items()},
-        v={k: _moment_init(p, cfg.state_dtype, "v")
-           for k, p in params.items()})
+        m={k: moment(k, p, "m") for k, p in params.items()},
+        v={k: moment(k, p, "v") for k, p in params.items()})
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -217,57 +260,80 @@ def tree_order(names) -> list:
         (0, int(c), "") if c.isdigit() else (1, 0, c) for c in n.split(".")))
 
 
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tree: Dict[str, torch.Tensor], layout=None) -> torch.Tensor:
     """sqrt of the sum over the leaves (in the reference's order) of each
     leaf's float32 sum of squares (a large leaf summed slice by slice; a
-    ``None`` leaf, a parameter the loss does not reach, adds nothing)."""
+    ``None`` leaf, a parameter the loss does not reach, adds nothing).
+    Under a mesh ``layout`` the leaves are shards: a rank adds those it
+    owns (each element counted once over the mesh) and the ranks' totals
+    are summed (``layout.norm_sum``, an all-reduce) before the root."""
     total = 0
     with torch.no_grad():
         for name in tree_order(tree):
             x = tree[name]
-            if x is None:
+            if x is None or (layout is not None
+                             and not layout.norm_owner(name)):
                 continue
             leaf = 0
             for idx in _slices(x.shape):
                 leaf = leaf + torch.sum(torch.square(x[idx].float()))
             total = total + leaf
+        if layout is not None:
+            total = layout.norm_sum(total)
     return torch.sqrt(total)
 
 
+def _update_leaf(p: torch.Tensor, g: Optional[torch.Tensor], m: Moment,
+                 v: Moment, cfg: AdamWConfig, clip, lr, bc1, bc2,
+                 decay: float, block: Optional[int] = None) -> None:
+    """One leaf's AdamW update in place, slice by slice (int8 moments in
+    blocks of ``block``, by default the leaf's own)."""
+    sd = cfg.state_dtype
+    for idx in _slices(p.shape):
+        ps = p[idx]
+        shape = ps.shape
+        g32 = (torch.zeros(shape, dtype=torch.float32,
+                           device=p.device) if g is None
+               else g[idx].float()) * clip
+        m32 = _read(_at(m, idx), shape, sd, "m", block)
+        v32 = _read(_at(v, idx), shape, sd, "v", block)
+        m32 = cfg.b1 * m32 + (1 - cfg.b1) * g32
+        v32 = cfg.b2 * v32 + (1 - cfg.b2) * g32 * g32
+        upd32 = (m32 / bc1) / (_sqrt(v32 / bc2) + cfg.eps)
+        p32 = ps.float()
+        new_p = p32 - lr * (upd32 + cfg.weight_decay * p32 * decay)
+        ps.copy_(new_p.to(p.dtype))
+        _store(m, idx, _write(m32, sd, "m", block))
+        _store(v, idx, _write(v32, sd, "v", block))
+
+
 def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState,
-                 params: Params, cfg: AdamWConfig
+                 params: Params, cfg: AdamWConfig, layout=None
                  ) -> Tuple[Params, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step with global-norm clipping, the reference's
     arithmetic. ``params`` and the moments are updated in place (slice by
     slice) and returned, with the new state and ``{"grad_norm", "lr"}``.
     A leaf of two dims or more decays its weights (the reference tests the
-    stacked leaf's ``ndim``, so a stacked norm scale decays too)."""
+    stacked leaf's ``ndim``, so a stacked norm scale decays too). Under a
+    mesh ``layout`` (a ``MeshParams``) the parameters, gradients and
+    moments are this rank's shards (see the module docstring)."""
     with torch.no_grad():
-        gnorm = global_norm(grads)
+        gnorm = (global_norm(grads) if layout is None
+                 else global_norm(grads, layout))
         clip = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
         step = state.step + 1
         lr = _lr_at(cfg, state.step)
         bc1 = 1 - cfg.b1 ** step.float()
         bc2 = 1 - cfg.b2 ** step.float()
-        sd = cfg.state_dtype
         for name, p in params.items():
             g, m, v = grads[name], state.m[name], state.v[name]
             decay = float(p.dim() >= 2)
-            for idx in _slices(p.shape):
-                ps = p[idx]
-                shape = ps.shape
-                g32 = (torch.zeros(shape, dtype=torch.float32,
-                                   device=p.device) if g is None
-                       else g[idx].float()) * clip
-                m32 = _read(_at(m, idx), shape, sd, "m")
-                v32 = _read(_at(v, idx), shape, sd, "v")
-                m32 = cfg.b1 * m32 + (1 - cfg.b1) * g32
-                v32 = cfg.b2 * v32 + (1 - cfg.b2) * g32 * g32
-                upd32 = (m32 / bc1) / (_sqrt(v32 / bc2) + cfg.eps)
-                p32 = ps.float()
-                new_p = p32 - lr * (upd32 + cfg.weight_decay * p32 * decay)
-                ps.copy_(new_p.to(p.dtype))
-                _store(m, idx, _write(m32, sd, "m"))
-                _store(v, idx, _write(v32, sd, "v"))
+            if layout is None:
+                _update_leaf(p, g, m, v, cfg, clip, lr, bc1, bc2, decay)
+                continue
+            pw, gw, finish = layout.update_view(name, p, g)
+            _update_leaf(pw, gw, m, v, cfg, clip, lr, bc1, bc2, decay,
+                         layout.block(name))
+            finish()
     return params, AdamWState(step=step, m=state.m, v=state.v), {
         "grad_norm": gnorm, "lr": lr}

@@ -483,10 +483,47 @@ def test_launch_train_runs_on_the_cpu_and_refuses_meshes(capsys, tmp_path):
     out = capsys.readouterr().out.splitlines()
     assert out[-1].startswith("step     3 loss=")
     assert latest_step(str(tmp_path)) == 3
-    for mesh in ("test", "single", "multi"):
-        with pytest.raises(NotImplementedError, match="item 12"):
+    # one process: the meshes need more ranks than it has (the multi-rank
+    # runs are tests/test_torch_distributed.py's)
+    for mesh, ranks in (("test", 4), ("single", 256), ("multi", 512)):
+        with pytest.raises(RuntimeError, match=f"need {ranks} ranks"):
             launch_train.main(["--smoke", "--mesh", mesh, "--device",
                                "cpu"])
+        assert not torch.distributed.is_initialized()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             launch_train.run(get_smoke_config("llama3-8b"), steps=1)
+
+
+# -- the optimizer on shards ------------------------------------------------------
+
+@pytest.mark.parametrize("whole,lo,hi", [
+    ((3, 64, 512), 256, 512),      # a shard of whole 256-element blocks
+    ((3, 64, 1024), 0, 768),
+    ((5, 300), 0, 300),            # 300 is no multiple of 256: whole rows
+    ((4, 96), 0, 96)])
+def test_shard_keeps_the_whole_leafs_blocks(whole, lo, hi, state_dtype="int8"):
+    """A moment shard along the last dim, widened to whole blocks of the
+    whole leaf (``MeshParams``), quantizes as the whole leaf does there:
+    the blocks and scales come from the whole leaf's shape, never the
+    shard's."""
+    x = torch.from_numpy(np.random.default_rng(hi).normal(
+        0, 1, whole).astype(np.float32))
+    part = x[..., lo:hi]
+    block = TO._last_block(part.shape, whole)
+    assert block == TO._last_block(whole)
+    assert TO._blocks_shape(part.shape, whole) == (
+        tuple(whole[:-1]) + ((hi - lo) // block, 1))
+    for q, dq in ((TO.quantize_q8, TO.dequantize_q8),
+                  (TO.quantize_q8_log, TO.dequantize_q8_log)):
+        got = q(part.abs(), block)
+        want = q(x.abs())
+        b0, b1 = lo // block, hi // block
+        assert torch.equal(got["q"], want["q"][..., lo:hi])
+        for k in got:
+            if k != "q":
+                assert torch.equal(got[k], want[k][..., b0:b1, :])
+        assert torch.equal(dq(got, part.shape, block=block),
+                           dq(want, x.shape)[..., lo:hi])
+    m = TO._moment_init(part.shape, "cpu", "int8", "v", block)
+    assert m["scale"].shape == TO._blocks_shape(part.shape, whole)

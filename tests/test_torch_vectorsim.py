@@ -429,3 +429,93 @@ def test_cuda_engine_matches_cpu_on_every_axis():
     want = pc.sweep_scenarios(tasks, device="cpu", **kw)
     for i, (g, w) in enumerate(zip(got, want)):
         assert_bitwise(g, w, where=f"task {i}")
+
+
+def _split_tasks(side_dags, S):
+    """Tasks of ``S`` scenarios in one engine call: S = 30 is the Fig.-4
+    grid (three apps x two orders x five deadlines), S = 7 one app at
+    seven deadlines and one order."""
+    out = []
+    if S == 30:
+        for seed, dag in enumerate(side_dags):
+            pred, act = workload(dag, J, seed)
+            out.append(_task(dag, pred, act, c_max_grid=grid_for(
+                dag, pred, (0.3, 0.45, 0.6, 0.9, 1.2))))
+        return out
+    dag = side_dags[0]
+    pred, act = workload(dag, J, 3)
+    return [_task(dag, pred, act, orders=("spt",), c_max_grid=grid_for(
+        dag, pred, (0.25, 0.3, 0.45, 0.6, 0.75, 0.9, 1.2)))]
+
+
+@pytest.mark.parametrize("load", [False, True])
+@pytest.mark.parametrize("S", [30, 7])
+def test_scenario_split_equals_one_device(ref, monkeypatch, S, load):
+    """The engine's scenario axis split over three devices (here three
+    CPU shards, ``_dispatch`` through ``_split_devices``; S = 7 pads to 9
+    with the reference's strided interleave) equals the one-device run
+    bit for bit, and the reference's vector engine under the parity
+    contract; uncapped, and congested (2-slot caps on a 3-provider
+    portfolio, cold starts: ``fifo_dispatch``)."""
+    from repro_torch.core import coldstart as pcold
+    from repro_torch.core import cost as pcost
+
+    names = ("image", "matrix", "video")
+    tasks = _split_tasks([pc.APPS[n] for n in names], S)
+    ref_tasks = _split_tasks([ref.core.APPS[n] for n in names], S)
+    kw, ref_kw = {}, {}
+    if load:
+        kw = dict(portfolio=pcost.demo_portfolio(3), concurrency=2,
+                  coldstart=pcold.ColdStartModel(warm_up_s=0.5,
+                                                 keep_alive_s=1.0,
+                                                 scale_to_zero=True))
+        ref_kw = dict(portfolio=ref.cost.demo_portfolio(3), concurrency=2,
+                      coldstart=ref.core.ColdStartModel(
+                          warm_up_s=0.5, keep_alive_s=1.0,
+                          scale_to_zero=True))
+    pvs._PREP_CACHE.clear()
+    one = pc.sweep_scenarios(tasks, device="cpu", **kw)
+    calls = []
+    real = pvs._dispatch
+
+    def spy(run, args, n, devices):
+        calls.append((n, len(devices)))
+        return real(run, args, n, devices)
+
+    monkeypatch.setattr(pvs, "_split_devices",
+                        lambda dev, n: [torch.device("cpu")] * 3)
+    monkeypatch.setattr(pvs, "_dispatch", spy)
+    split = pc.sweep_scenarios(tasks, device="cpu", **kw)
+    assert calls == [(S, 3)]
+    want = ref.vectorsim.sweep_scenarios(ref_tasks, engine_impl="pallas",
+                                         **ref_kw)
+    for i, (a, b, w) in enumerate(zip(split, one, want)):
+        assert a.num_scenarios == b.num_scenarios
+        assert_bitwise(a, b, where=f"task {i} split")
+        assert_bitwise(a, w, where=f"task {i} reference")
+    if load:
+        assert any(r.queue_wait.max() > 0 for r in split)
+
+
+@pytest.mark.parametrize("S,n_dev", [(30, 3), (7, 3), (5, 1), (2, 4)])
+def test_dispatch_interleaves_and_reads_back_every_scenario(S, n_dev):
+    """``_dispatch`` hands shard k the scenarios perm[k::...] of the
+    reference's interleave (padded by the first scenarios) and returns
+    each scenario's own row."""
+    args = {"x": np.arange(S * 2, dtype=np.float64).reshape(S, 2),
+            "m": np.arange(S) % 2 == 0}
+    seen = []
+
+    def run(part, dev):
+        seen.append(part["x"][:, 0] // 2)
+        return {"y": part["x"] * 10.0, "m": part["m"]}
+
+    out = pvs._dispatch(run, args, S, [torch.device("cpu")] * n_dev)
+    np.testing.assert_array_equal(out["y"], args["x"] * 10.0)
+    np.testing.assert_array_equal(out["m"], args["m"])
+    assert len(seen) == n_dev
+    if n_dev > 1:
+        per = -(-S // n_dev)
+        assert sorted(len(s) for s in seen) == [per] * n_dev
+        assert sorted(np.concatenate(seen) % S) == sorted(
+            np.arange(per * n_dev) % S)
