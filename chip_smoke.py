@@ -249,8 +249,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    card equal to the CPU's bits; a one-stage ``gpipe`` through
    ``ops.matmul``; the engine's scenario split over [cuda:0, cuda:0] at
    J=512, uncapped and congested, bit for bit phase 3's and 4's unsplit
-   sweeps.
-11. Prints the kernels' JSON line, then the device line last.
+   sweeps. Before its state is freed, one more sharded step, untimed,
+   under ``launch.counting.StepCounter``, whose counts phase 11 reads.
+11. The dry run against the card, once phase 10's NCCL group is
+   destroyed: ``launch.dryrun.trace_step`` traces the same sharded step
+   (llama3-8b at full width and depth, 4 x 1024 tokens, int8 moments,
+   remat) on meta tensors over a fake (1, 1) mesh; its kernel calls,
+   operations and bytes by kernel, aten FLOPs and bytes, collectives and
+   argument bytes must equal the card's counted step exactly, the calls
+   ``train_launches``; its traced memory beside phase 9's measured peak
+   and its roofline bound beside phase 9's step are readings. The card's
+   bf16 -> float8_e4m3fn cast (``models.layers._bf16_cast_is_xla``,
+   probed afresh) must be the one meta traces take. Then
+   llama3-8b's decode step at the serve batch (8 rows, cache 192, at its
+   last slot) on the card under the counter against its meta trace: the
+   ``matmul`` and ``flash_decode`` calls must be equal. Then the
+   production cells ``DRYRUN_CELLS`` on fake groups of 256 and 512 ranks:
+   per-device GiB, the dominant term and the bound, reckoned from the
+   H100's data-sheet peaks.
+12. Prints the kernels' JSON line, then the device line last.
 
 Launch counts are set to 0 just before each main path and read just after
 it; every kernel of a path must have launched in it. Each phase prints its
@@ -266,14 +283,16 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+from repro_torch.kernels import cost  # noqa: E402
+from repro_torch.kernels.cost import HBM_BW, PEAK_FLOPS  # noqa: E402
 
-#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the
-#: non-tensor-core float rates the kernels' float64 and float32 work runs
-#: at, and the dense bf16 tensor-core rate, the bound of bf16 products and
-#: attention (any kernel computing the same function may use the tensor
-#: cores)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
+#: published H100 SXM peaks (NVIDIA data sheet): the non-tensor-core float
+#: rates the kernels' float64 and float32 work runs at, and the dense bf16
+#: tensor-core rate, the bound of bf16 products and attention (any kernel
+#: computing the same function may use the tensor cores); the HBM and bf16
+#: rates are ``kernels.cost``'s
+PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12, "bfloat16": PEAK_FLOPS}
 
 N_DEADLINES = 5
 ORDERS = ("spt", "hcf")
@@ -487,6 +506,9 @@ GPIPE_MICRO = 4
 GPIPE_SHAPE = (512, 4096)
 #: phase 9's steps through ``run`` before the digest phase 10 is held to
 DIGEST_STEPS = 2
+#: the production cells phase 11 traces on fake groups: (arch, shape, mesh)
+DRYRUN_CELLS = (("llama3-8b", "train_4k", "single"),
+                ("olmoe-1b-7b", "decode_32k", "multi"))
 TRAIN_CPU_STEPS = 3
 TRAIN_CPU_RTOL = 1e-5
 VLM_TRAIN_LAYERS = 2
@@ -741,16 +763,15 @@ def finite(ms):
     return ms if ms == ms else None
 
 
-def matmul_bound(M, K, N, dtype):
-    """(bound ms, what bounds it, bytes, operations) of one [M, K] @ [K, N]
-    in ``dtype`` ("float32" or "bfloat16"): each input read once and the
-    output written once at the HBM rate, the 2MNK operations at the peak of
-    the type (float32 without tensor cores, bf16 on the tensor cores)."""
-    itemsize = 4 if dtype == "float32" else 2
-    n_bytes = (M * K + K * N + M * N) * itemsize
-    n_ops = 2 * M * N * K
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
+def bound_of(work, peak):
+    """(bound ms, what bounds it, bytes, operations) of one kernel call
+    whose ``work`` is ``(operations, bytes)`` from its ``kernels.cost``
+    function: the bytes at the HBM rate against the operations at
+    ``PEAK_OPS_PER_S[peak]`` (float32 work without tensor cores, bf16
+    products and attention on them)."""
+    n_ops, n_bytes = work
+    bytes_ms = n_bytes / HBM_BW * 1e3
+    ops_ms = n_ops / PEAK_OPS_PER_S[peak] * 1e3
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops)
 
@@ -880,7 +901,8 @@ def _check_matmul(dev):
         # device time too: events around calls this short read the host
         k_dev = device_ms(lambda: ops.matmul(x, y), reps)[0]
         l_dev = device_ms(lambda: torch.matmul(x, y), reps)[0]
-        bound, by, n_bytes, n_ops = matmul_bound(M, K, N, "float32")
+        bound, by, n_bytes, n_ops = bound_of(
+            cost.matmul(M, K, N, torch.float32), "float32")
         plan = mm.tile_plan_f32(M, N, K, x.stride() + y.stride())
         print(f"matmul {label} [{M}, {K}] @ [{K}, {N}] f32: kernel "
               f"{k_ms:.6f} ms ({n_ops / k_ms * 1e-9:.3f} TFLOP/s, "
@@ -2078,36 +2100,6 @@ def fig3_part(run):
     return counts
 
 
-def rglru_bound(B, T, D, with_h0):
-    """(bound ms, what bounds it, bytes, operations) of one ``rglru``: x and
-    a read and y written once (float32), h0 read and h_T written; seven
-    float operations per element (a*a, 1-, max, sqrt, *x, a*h, +)."""
-    n = B * T * D
-    n_bytes = 3 * n * 4 + (2 if with_h0 else 1) * B * D * 4
-    n_ops = 7 * n
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / PEAK_OPS_PER_S["float32"] * 1e3
-    return (max(bytes_ms, ops_ms),
-            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops)
-
-
-def rwkv6_bound(B, H, T, Dk, Dv, itemsize, with_s0):
-    """(bound ms, what bounds it, bytes, operations) of one ``rwkv6``: r, k,
-    v read and o written in their type, w (float32) read, u read, s0 read
-    and S_T written (float32); the operations the function needs per
-    (b, h, t): 2 Dk Dv for r^T S, 3 Dk Dv for w * S + k^T v, and 3 Dk + 2 Dv
-    for the bonus (sum_k r u k) * v and its add (the kernel itself does
-    7 Dk Dv: see csrc/rwkv6.cu and ``rwkv6_term_floor``)."""
-    n_bytes = (B * H * T * (2 * Dk + 2 * Dv) * itemsize
-               + B * H * T * Dk * 4 + H * Dk * 4
-               + (2 if with_s0 else 1) * B * H * Dk * Dv * 4)
-    n_ops = B * H * T * (5 * Dk * Dv + 3 * Dk + 2 * Dv)
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / PEAK_OPS_PER_S["float32"] * 1e3
-    return (max(bytes_ms, ops_ms),
-            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops)
-
-
 def rwkv6_term_floor(B, H, T, Dk, Dv):
     """The kernel's own floor in ms: its 7 rounded float32 operations per
     state element and step (none fused, so one per lane and clock: half
@@ -2189,7 +2181,8 @@ def check_rglru(dev):
     B, T, D = x.shape
     k_ms = cuda_ms(lambda: ops.rglru(x, a, h0), 20)
     p_ms = cuda_ms(lambda: rglru_plain(x, a, h0), 1)
-    bound, by, n_bytes, n_ops = rglru_bound(B, T, D, True)
+    bound, by, n_bytes, n_ops = bound_of(cost.rglru(B, T, D, True),
+                                         "float32")
     print(f"rglru [{B}, {T}, {D}] f32: kernel {k_ms:.6f} ms "
           f"({n_bytes / k_ms * 1e-9:.3f} TB/s), plain {p_ms:.3f} ms, bound "
           f"{bound:.6f} ms by {by} (bytes {n_bytes}, operations {n_ops}); "
@@ -2299,8 +2292,11 @@ def check_rwkv6(dev):
         Bs, _, Ts, _ = args[0].shape
         ev = cuda_ms(lambda: ops.rwkv6(*args), reps)
         dv = device_ms(lambda: ops.rwkv6(*args), reps)[0]
-        bound, by, n_bytes, n_ops = rwkv6_bound(Bs, H, Ts, Dk, Dk, 2,
-                                                args[5] is not None)
+        # the function's operations (the kernel itself does 7 Dk Dv per
+        # (b, h, t): see csrc/rwkv6.cu and ``rwkv6_term_floor``)
+        bound, by, n_bytes, n_ops = bound_of(cost.rwkv6(
+            Bs, H, Ts, Dk, Dk, torch.bfloat16, args[5] is not None),
+            "float32")
         floor = rwkv6_term_floor(Bs, H, Ts, Dk, Dk)
         plan = rk.launch_plan(Bs, H, Dk, n_sm)
         print(f"rwkv6 {label} [{Bs}, {H}, {Ts}, {Dk}] bf16, plan "
@@ -2316,7 +2312,8 @@ def check_rwkv6(dev):
                        "bound_by": by, "term_floor_ms": floor})
     k_ms = shapes[0]["ms"]
     p_ms = cuda_ms(lambda: rwkv6_plain(*timed), 1)
-    bound, by, n_bytes, n_ops = rwkv6_bound(B, H, T, Dk, Dk, 2, False)
+    bound, by, n_bytes, n_ops = bound_of(
+        cost.rwkv6(B, H, T, Dk, Dk, torch.bfloat16, False), "float32")
     print(f"rwkv6 [{B}, {H}, {T}, {Dk}] bf16: kernel {k_ms:.6f} ms "
           f"({n_ops / k_ms * 1e-9:.3f} TFLOP/s of the function's "
           f"operations), plain {p_ms:.3f} ms, bound {bound:.6f} ms by {by};"
@@ -2328,33 +2325,6 @@ def check_rwkv6(dev):
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "device_ms": shapes[0]["device_ms"],
             "term_floor_ms": shapes[0]["term_floor_ms"], "shapes": shapes}
-
-
-def live_pairs(sq, sk, causal, window):
-    """Live (query, key) pairs of one (b, h) of a prefill: query i at
-    position sk - sq + i, key j live iff j <= qpos (causal) and j > qpos -
-    window."""
-    n = 0
-    for i in range(sq):
-        qpos = sk - sq + i
-        hi = min(sk - 1, qpos) if causal else sk - 1
-        lo = max(0, qpos - window + 1) if window else 0
-        n += max(0, hi - lo + 1)
-    return n
-
-
-def attention_bound(q_elems, kv_elems, itemsize, n_ops, dtype):
-    """(bound ms, what bounds it, bytes, operations) of one attention call:
-    q read and out written (``q_elems`` each), the live K and V rows read
-    (``kv_elems`` each), in their type; ``n_ops`` (4 D per live pair and
-    query head) at the bf16 tensor-core peak for bf16 inputs, the float32
-    peak for float32 ones."""
-    n_bytes = (2 * q_elems + 2 * kv_elems) * itemsize
-    peak = PEAK_OPS_PER_S["bfloat16" if dtype == "bfloat16" else "float32"]
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / peak * 1e3
-    return (max(bytes_ms, ops_ms),
-            "bytes" if bytes_ms >= ops_ms else "operations", n_bytes, n_ops)
 
 
 def attn_check(label, got, want, v):
@@ -2484,10 +2454,10 @@ def check_flash_attention(dev):
                         return F.scaled_dot_product_attention(
                             q, k, v, attn_mask=mask, enable_gqa=True)
                 l_ms = cuda_ms(lib, n)
-                pairs = live_pairs(S, S, True, window)
-                bound, by, n_bytes, n_ops = attention_bound(
-                    B * hq * S * d, B * hkv * S * d, 2,
-                    4 * B * hq * d * pairs, "bfloat16")
+                pairs = cost.live_pairs(S, S, True, window)
+                bound, by, n_bytes, n_ops = bound_of(cost.flash_attention(
+                    (B, hq, S, d), (B, hkv, S, d), bf16, True, window),
+                    "bfloat16")
                 print(f"flash_attention {arch} [{B}, {hq}/{hkv}, {S}, {d}] "
                       f"bf16 window={window}: kernel {k_ms:.6f} ms "
                       f"({n_ops / k_ms * 1e-9:.3f} TFLOP/s), plain "
@@ -2619,9 +2589,8 @@ def check_flash_decode(dev):
                 q4 = q[:, :, None]
                 l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                     q4, k, v, attn_mask=mask, enable_gqa=True), 50)
-                bound, by, n_bytes, n_ops = attention_bound(
-                    B * hq * d, B * hkv * n_live * d, 2,
-                    4 * B * hq * d * n_live, "bfloat16")
+                bound, by, n_bytes, n_ops = bound_of(cost.flash_decode(
+                    (B, hq, d), hkv, bf16, bf16, B * n_live), "bfloat16")
                 launched, working = fd_blocks(length, end, S, hq, hkv)
                 kd_ms, k_events = device_ms(
                     lambda: ops.flash_decode(q, k, v, length, end), 20)
@@ -2823,13 +2792,11 @@ def check_flash_decode_kv8(dev):
         lambda: ops.flash_decode(q, k8, v8, length, end), 20)
     wd_ms, _ = device_ms(lambda: ops.flash_decode(q, kb, vb, length, end),
                          20)
-    n_bytes = 2 * B_t * hq * d * 2 + 2 * B_t * hkv * n_t * d
-    n_ops = 4 * B_t * hq * d * n_t
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
-    bound, by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                        else "operations")
-    w_bound = (n_bytes + 2 * B_t * hkv * n_t * d) / HBM_BYTES_PER_S * 1e3
+    bound, by, n_bytes, n_ops = bound_of(cost.flash_decode(
+        (B_t, hq, d), hkv, bf16, torch.float8_e4m3fn, B_t * n_t),
+        "bfloat16")
+    w_bound = bound_of(cost.flash_decode(
+        (B_t, hq, d), hkv, bf16, bf16, B_t * n_t), "bfloat16")[0]
     print(f"flash_decode fp8 K/V q [{B_t}, {hq}, {d}] bf16, cache [{B_t}, "
           f"{hkv}, {S_t}, {d}] float8_e4m3fn, length {n_t}: kernel "
           f"{k_ms:.6f} ms ({n_bytes / k_ms * 1e-9:.3f} TB/s; device "
@@ -2920,7 +2887,8 @@ def bf16_timed(label, phase, x, w, reps):
     k_ms = cuda_ms(lambda: ops.matmul(x, w), reps)
     p_ms = cuda_ms(lambda: matmul_plain(x, w), reps)
     l_ms = cuda_ms(lambda: torch.matmul(x, w), reps)
-    bound, by, n_bytes, n_ops = matmul_bound(M, K, N, "bfloat16")
+    bound, by, n_bytes, n_ops = bound_of(
+        cost.matmul(M, K, N, torch.bfloat16), "bfloat16")
     plan = mm.tile_plan(M, N, K, w.stride())
     print(f"matmul {label} bf16: kernel {k_ms:.6f} ms, plain {p_ms:.6f} "
           f"ms, torch.matmul {l_ms:.6f} ms, bound {bound:.6f} ms by {by} "
@@ -4041,9 +4009,8 @@ def check_whisper_attention(dev):
                                                          causal=causal), 1)
             l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal), reps)
-            pairs = live_pairs(sq, sk, causal, None)
-            bound, by, n_bytes, n_ops = attention_bound(
-                B * H * sq * D, B * H * sk * D, 2, 4 * B * H * D * pairs,
+            bound, by, n_bytes, n_ops = bound_of(cost.flash_attention(
+                (B, H, sq, D), (B, H, sk, D), bf16, causal, None),
                 "bfloat16")
             print(f"{label}: kernel {k_ms:.6f} ms ({n_ops / k_ms * 1e-9:.3f} "
                   f"TFLOP/s), plain {p_ms:.3f} ms, "
@@ -4078,9 +4045,8 @@ def check_whisper_attention(dev):
             q4 = q[:, :, None]
             l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q4, k, v, attn_mask=mask), 50)
-            bound, by, n_bytes, n_ops = attention_bound(
-                B * H * D, B * H * n_live * D, 2, 4 * B * H * D * n_live,
-                "bfloat16")
+            bound, by, n_bytes, n_ops = bound_of(cost.flash_decode(
+                (B, H, D), H, bf16, bf16, B * n_live), "bfloat16")
             print(f"{label}: kernel {k_ms:.6f} ms "
                   f"({n_bytes / k_ms * 1e-9:.3f} TB/s), plain {p_ms:.6f} ms,"
                   f" scaled_dot_product_attention {l_ms:.6f} ms, bound "
@@ -4635,13 +4601,19 @@ def dist_train(dev, mesh, phase9):
     state is freed; the launch counts set to 0 just before and read just
     after (each step exactly ``train_launches``); the losses, gradient
     norms and ``state_digest`` equal to phase 9's first DIGEST_STEPS
-    steps bit for bit. Returns (launches, readings)."""
+    steps bit for bit. Then one more sharded step, untimed, under
+    ``launch.counting.StepCounter`` (:func:`counted_step`), whose counts
+    phase 11 holds the dry run's trace to. Returns (launches, readings,
+    the counted step)."""
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
+    from repro_torch.launch.counting import tensor_bytes
     from repro_torch.models.model import train_launches
+    from repro_torch.training.train_loop import make_train_step
 
     cfg = get_config(TRAIN_ARCH)
     first = phase9["first"]
@@ -4663,6 +4635,14 @@ def dist_train(dev, mesh, phase9):
     norms = [e["grad_norm"] for e in log]
     same_digest = digest == first["digest"]
     step_ms = [t * 1e3 for t in trainer.step_times]
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLM(
+        cfg, DataConfig(TRAIN_SEQ, TRAIN_BATCH)).batch(DIGEST_STEPS).items()}
+    counted = counted_step(dev, make_train_step(trainer.model, trainer.ocfg),
+                           (params, opt, batch),
+                           lambda out: (out[0], out[1], batch))
+    counted["ocfg"] = trainer.ocfg
+    counted["loss_chunk"] = trainer.model.loss_chunk
+    counted["state_bytes"] = tensor_bytes((params, opt))
     print(f"dist train {TRAIN_ARCH} on mesh {mesh.shape} "
           f"({type(trainer.layout).__name__}, {mesh.size} rank): "
           f"{DIGEST_STEPS} steps in {wall:.3f} s (the draw included); "
@@ -4684,7 +4664,25 @@ def dist_train(dev, mesh, phase9):
     return counts, {"step_ms": step_ms, "phase9_step_ms": first["step_ms"],
                     "peak_memory_bytes": peak,
                     "phase9_peak_memory_bytes": first["peak_memory_bytes"],
-                    "wall_s": wall}
+                    "wall_s": wall}, counted
+
+
+def counted_step(dev, step, args, arguments):
+    """``step(*args)`` once on ``dev`` under ``launch.counting.
+    StepCounter`` (untimed): the counter's summary (kernel calls,
+    operations and bytes, aten FLOPs and bytes, collectives), its memory
+    fields over ``arguments(out)`` (the step's arguments as they stand
+    after it) and the outputs, and its per-op tally."""
+    import torch
+
+    from repro_torch.launch.counting import StepCounter
+
+    with StepCounter(dev, args) as counter:
+        out = step(*args)
+    torch.cuda.synchronize()
+    return {"summary": counter.summary(), "ops": counter.ops,
+            "memory": counter.memory(arguments(out), out),
+            "cost": counter.cost(), "collectives": counter.collectives()}
 
 
 def dist_checkpoint(dev, mesh):
@@ -4828,7 +4826,7 @@ def dist_split_sweeps(load_kw, main512, load512):
 def distribution_phase(dev, phase9, load_kw, main512, load512):
     """Phase 10 (see the module docstring): returns (the sharded steps'
     launches, their readings, gpipe's matmul launches, the split sweeps'
-    launches)."""
+    launches, the counted sharded step)."""
     import torch
     import torch.distributed as dist
 
@@ -4842,17 +4840,163 @@ def distribution_phase(dev, phase9, load_kw, main512, load512):
             raise AssertionError(f"dist: group {dist.get_backend()} of "
                                  f"{dist.get_world_size()} ranks")
         mesh = Mesh((1, 1), ("data", "model"))
-        counts, readings = dist_train(dev, mesh, phase9)
+        counts, readings, counted = dist_train(dev, mesh, phase9)
         dist_checkpoint(dev, mesh)
         gpipe_launches = dist_small_parts(dev)
         split = dist_split_sweeps(load_kw, main512, load512)
     finally:
         dist.destroy_process_group()
-    return counts, readings, gpipe_launches, split
+    return counts, readings, gpipe_launches, split, counted
+
+
+def dryrun_phase(dev, smi, counted, phase9):
+    """Phase 11 (see the module docstring): the dry run's meta traces held
+    to the card's steps count for count, then DRYRUN_CELLS. Returns its
+    readings."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.counting import tensor_bytes
+    from repro_torch.launch.roofline import model_flops_estimate, roofline
+    from repro_torch.models import Model, layers
+    from repro_torch.models.model import train_launches
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    mesh = dryrun.fake_mesh((1, 1), ("data", "model"))
+    try:
+        traced, mem = dryrun.trace_step(cfg, shape, mesh,
+                                        ocfg=counted["ocfg"],
+                                        loss_chunk=counted["loss_chunk"])
+    finally:
+        dist.destroy_process_group()
+    trace_s = time.perf_counter() - t0
+    got, real = traced.summary(), counted["summary"]
+    calls = {k: v["calls"] for k, v in got["kernels"].items()}
+    want_calls = {k: n for k, n in train_launches(cfg, TRAIN_SEQ).items()
+                  if n}
+    args, real_args = (mem["argument_size_in_bytes"],
+                       counted["memory"]["argument_size_in_bytes"])
+    state = counted["state_bytes"]
+    terms = roofline(traced.cost(), traced.collectives(), 1,
+                     model_flops_estimate(cfg.active_param_count(),
+                                          TRAIN_BATCH * TRAIN_SEQ, "train"))
+    print(f"{smi}: dry run {TRAIN_ARCH} sharded train step ({TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, int8 moments, remat) traced on meta over a "
+          f"fake (1, 1) mesh in {trace_s:.3f} s: kernels {got['kernels']}; "
+          f"aten {got['aten_flops']} FLOP, {got['aten_bytes']} B; "
+          f"collectives {got['collectives']}")
+    print(f"{smi}: the card's sharded step (phase 10, counted): kernels "
+          f"{real['kernels']}; aten {real['aten_flops']} FLOP, "
+          f"{real['aten_bytes']} B; collectives {real['collectives']}; "
+          f"equal to the trace {got == real}")
+    print(f"{smi}: dry run arguments {args:.0f} B, the card's "
+          f"{real_args:.0f} B (parameters and moments {state} B, batch "
+          f"{real_args - state:.0f} B); traced per-device HBM "
+          f"{mem['per_device_hbm_bytes'] / 1e9:.3f} GB (temporaries "
+          f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB), the card's counted "
+          f"step {counted['memory']['per_device_hbm_bytes'] / 1e9:.3f} GB, "
+          f"phase 9's measured peak "
+          f"{phase9['peak_memory_bytes'] / 1e9:.3f} GB (a reading); bound "
+          f"{terms.bound_s * 1e3:.3f} ms by {terms.dominant} (reckoned from "
+          f"the H100 datasheet peaks) against phase 9's measured steady step "
+          f"{phase9['step_ms']:.3f} ms (a reading)")
+    if got != real:
+        ops_t, ops_r = traced.ops, counted["ops"]
+        for name in sorted(set(ops_t) | set(ops_r)):
+            if ops_t.get(name) != ops_r.get(name):
+                print(f"dry run: aten {name}: trace {ops_t.get(name)}, card "
+                      f"{ops_r.get(name)}")
+    if got != real or calls != want_calls or args != real_args:
+        raise AssertionError(f"dry run {TRAIN_ARCH}: the trace is not the "
+                             f"card's step (calls {calls}, expected "
+                             f"{want_calls}; arguments {args} against "
+                             f"{real_args})")
+    readings = {"train": {"trace_s": trace_s, "kernels": got["kernels"],
+                          "memory": mem, "card_memory": counted["memory"],
+                          "bound_ms": terms.bound_s * 1e3,
+                          "dominant": terms.dominant}}
+    del traced
+    free_card()
+
+    # the K/V cast a meta trace takes (fp8 caches) is the card's: probe
+    # the card afresh
+    layers._BF16_CAST_IS_XLA.pop(dev, None)
+    card_cast = layers._bf16_cast_is_xla(dev)
+    meta_cast = layers._bf16_cast_is_xla(torch.device("meta"))
+    print(f"{smi}: dry run K/V cast: bf16 takes torch's own cast to "
+          f"float8_e4m3fn on the card {card_cast}, in the meta trace "
+          f"{meta_cast}")
+    if card_cast != meta_cast:
+        raise AssertionError("dry run: the meta trace's K/V cast is not the "
+                             "card's")
+
+    # llama3-8b's decode step at serve_full's batch, at the cache's last
+    # slot (every slot live, as the trace counts them)
+    B, S = SERVE_REQUESTS, SERVE_CACHE
+    g = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    model = Model(cfg, device=dev).init(g)
+    toks = torch.randint(0, cfg.vocab_size, (B, S - 1), generator=g,
+                         device=dev, dtype=torch.int32)
+    _, cache = model.prefill(toks, cache_len=S)
+    token = torch.randint(0, cfg.vocab_size, (B,), generator=g, device=dev,
+                          dtype=torch.int32)
+    params = dict(model.named_parameters())
+    card = counted_step(dev, lambda c, t: model.decode_step(c, t, S - 1),
+                        (cache, token), lambda out: (params, out[1], token))
+    del model, cache, params
+    free_card()
+    t0 = time.perf_counter()
+    traced, mem = dryrun.trace_step(cfg, ShapeSpec("decode", S, B, "decode"))
+    trace_s = time.perf_counter() - t0
+    got, real = traced.summary(), card["summary"]
+    calls = {k: v["calls"] for k, v in got["kernels"].items()}
+    real_calls = {k: v["calls"] for k, v in real["kernels"].items()}
+    print(f"{smi}: dry run {TRAIN_ARCH} decode step (batch {B}, cache {S}, "
+          f"position {S - 1}) traced on meta in {trace_s:.3f} s: kernels "
+          f"{got['kernels']}, aten {got['aten_flops']} FLOP, "
+          f"{got['aten_bytes']} B; the card's step {real['kernels']}, aten "
+          f"{real['aten_flops']} FLOP, {real['aten_bytes']} B; calls equal "
+          f"{calls == real_calls}, everything equal {got == real}; arguments "
+          f"{mem['argument_size_in_bytes']:.0f} B against the card's "
+          f"{card['memory']['argument_size_in_bytes']:.0f} B")
+    if calls != real_calls or not calls.get("flash_decode"):
+        raise AssertionError(f"dry run {TRAIN_ARCH} decode: calls {calls}, "
+                             f"the card's {real_calls}")
+    readings["decode"] = {"trace_s": trace_s, "kernels": got["kernels"],
+                          "card_kernels": real["kernels"],
+                          "all_equal": got == real}
+
+    readings["cells"] = {}
+    for arch, shape_name, mesh_kind in DRYRUN_CELLS:
+        res = dryrun.run_cell(arch, shape_name, mesh_kind)
+        if not res.ok:
+            raise AssertionError(f"dry run {arch} {shape_name} {mesh_kind}: "
+                                 f"{res.reason}")
+        m = res.memory
+        print(f"{smi}: dry run {arch} {shape_name} {mesh_kind} "
+              f"({res.n_chips} fake ranks) traced in {res.compile_s:.3f} s: "
+              f"per device {m['per_device_hbm_bytes'] / 2 ** 30:.3f} GiB "
+              f"(arguments {m['argument_size_in_bytes'] / 2 ** 30:.3f}, "
+              f"temporaries {m['temp_size_in_bytes'] / 2 ** 30:.3f}), "
+              f"dominant {res.terms['dominant']}, bound "
+              f"{res.terms['bound_s'] * 1e3:.3f} ms (reckoned from the H100 "
+              f"datasheet peaks, not measured); kernels {res.kernels}")
+        readings["cells"][f"{arch} {shape_name} {mesh_kind}"] = {
+            k: dataclasses.asdict(res)[k] for k in (
+                "compile_s", "n_chips", "memory", "kernels")} | {
+            "dominant": res.terms["dominant"],
+            "bound_s": res.terms["bound_s"]}
+    return readings
 
 
 def main() -> int:
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
     import torch
 
@@ -4978,7 +5122,7 @@ def main() -> int:
     p_ms = cuda_ms(lambda: acd_evict_plain(P, thresh, mask), 2)
     n_bytes = B * J * (2 * P.element_size() + 2)
     n_ops = 2 * B * J  # one compare and one add per element
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    bytes_ms = n_bytes / HBM_BW * 1e3
     ops_ms = n_ops / PEAK_OPS_PER_S["float64"] * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     step_clk, step_ns = chain_step_latency()
@@ -5098,7 +5242,7 @@ def main() -> int:
                + P * (1 + 8) + 2 * B * P * C * 8  # capped, wu, sclk0/sidle0
                + B * J * (2 * 4 + 4 * 8 + 1))  # the seven outputs
     f_ops = n_steps * P * (C + 12)  # slot argmin + wait/cold/pen/key
-    f_bytes_ms = f_bytes / HBM_BYTES_PER_S * 1e3
+    f_bytes_ms = f_bytes / HBM_BW * 1e3
     f_ops_ms = f_ops / PEAK_OPS_PER_S["float64"] * 1e3
     f_bound_ms = max(f_bytes_ms, f_ops_ms)
     fstep_clk, fstep_ns = fifo_chain_step_latency()
@@ -5394,13 +5538,18 @@ def main() -> int:
     lap("9 training")
     # -- 10. distribution at world size 1 ----------------------------------------
     t0 = time.perf_counter()
-    dist_counts, dist_readings, gpipe_launches, split_launches = \
+    dist_counts, dist_readings, gpipe_launches, split_launches, counted = \
         distribution_phase(dev, train_readings, load_kw, outs[512],
                            louts[512])
     launches.update(split_launches)
     print(f"dist: phase wall {time.perf_counter() - t0:.3f} s")
     lap("10 distribution")
-    # -- 11. result -------------------------------------------------------------
+    # -- 11. the dry run against the card --------------------------------------
+    t0 = time.perf_counter()
+    dryrun_readings = dryrun_phase(dev, smi, counted, train_readings)
+    print(f"dry run: phase wall {time.perf_counter() - t0:.3f} s")
+    lap("11 dry run")
+    # -- 12. result -------------------------------------------------------------
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main path of its slice: acd_evict on
     # the uncapped sweeps, fifo_dispatch on the congested ones; matmul on
@@ -5441,6 +5590,8 @@ def main() -> int:
     for name in ("matmul", "flash_attention"):
         by_name[name]["dist_train_launches"] = dist_counts[name]
     by_name["matmul"]["dist_train_step"] = dist_readings
+    # phase 11: the dry run's traces against the card's steps
+    by_name["matmul"]["dry_run"] = dryrun_readings
     by_name["matmul"]["gpipe_launches"] = gpipe_launches
     by_name["flash_attention"]["train"] = attn_train
     by_name["matmul"]["train_step"] = train_readings

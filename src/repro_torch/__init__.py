@@ -25,8 +25,11 @@ scheduler applied to LLM serving:
   LLM-serving scheduler (batches, online streams, frontiers) and the
   policy harness;
 - ``training``: the fault-tolerance helpers the online controller uses;
-- ``launch``: the serving entry point (``python -m
-  repro_torch.launch.serve``);
+- ``launch``: the serving and training entry points (``python -m
+  repro_torch.launch.serve``, ``... .train``), the meshes, and the
+  multi-pod dry run on meta tensors (``python -m
+  repro_torch.launch.dryrun``) with its input specs, step counter and
+  roofline on the H100's peaks;
 - ``kernels``: the hand-written CUDA kernels ``acd_evict``,
   ``fifo_dispatch``, ``matmul``, ``flash_attention``, ``flash_decode``,
   ``rglru`` and ``rwkv6``, with their plain PyTorch versions.

@@ -19,6 +19,7 @@ import torch
 import torch.distributed as dist
 
 from ..training.optimizer import _div
+from .sharding import all_reduce
 
 Params = Dict[str, torch.Tensor]
 _BLOCK = 256
@@ -52,9 +53,9 @@ def compressed_psum(x: torch.Tensor, group,
     new_ef = xc - sent
     # the int8 payload times its float32 block scales, summed in float32
     qsum = q.to(torch.int32) * scale
-    dist.all_reduce(qsum, group=group)
+    all_reduce(qsum, group)
     world = torch.ones((), dtype=torch.float32, device=x.device)
-    dist.all_reduce(world, group=group)
+    all_reduce(world, group)
     mean = _dequantize(qsum.float(), torch.ones_like(scale), n,
                        x.shape) / world
     return mean, new_ef
@@ -90,7 +91,7 @@ def make_compressed_dp_step(loss_fn: Callable[[Params, Any], torch.Tensor],
         for (k, _), g in zip(leaves.items(), grads):
             gmean[k], new_ef[k] = compressed_psum(g, group, ef[k])
         loss = loss.detach().clone()
-        dist.all_reduce(loss, group=group)
+        all_reduce(loss, group)
         return gmean, new_ef, loss / dist.get_world_size(group)
 
     return step

@@ -13,6 +13,9 @@ from typing import Any, Callable, Dict
 import torch
 import torch.distributed as dist
 
+from ..kernels.cost import note_collective
+from .sharding import all_reduce
+
 Params = Any
 
 
@@ -57,9 +60,11 @@ def gpipe(stage_fn: Callable[[Params, torch.Tensor], torch.Tensor],
             if ops:
                 for work in dist.batch_isend_irecv(ops):
                     work.wait()
+                if stage > 0:
+                    note_collective("collective-permute", recv, n_stages)
         # replicate the last stage's outputs to every stage
         outs = outs * float(last)
-        dist.all_reduce(outs, group=group)
+        all_reduce(outs, group)
         return outs
 
     return run

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..kernels.cost import note_collective, quiet
 from ..models.config import ModelConfig
 from ..models.layers import Sharder
 
@@ -257,19 +258,43 @@ class ShardingRules:
 
 # -- collectives ----------------------------------------------------------------
 
+# Each helper reports its collective to any counter counting the step
+# (``kernels.cost.note_collective``: the output's bytes on this rank); the
+# aten ops a backend runs inside one (gloo's copies) are the collective's,
+# not counted apart (``kernels.cost.quiet``).
+
 def _all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-    fn(out, inp, group=group)
+    with quiet():
+        fn(out, inp, group=group)
+    note_collective("all-gather", out, _group_size(group))
 
 
 def _reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     fn = (getattr(dist, "reduce_scatter_single", None)
           or dist.reduce_scatter_tensor)
-    fn(out, inp, group=group)
+    with quiet():
+        fn(out, inp, group=group)
+    note_collective("reduce-scatter", out, _group_size(group))
+
+
+def all_reduce(t: torch.Tensor, group) -> None:
+    """``dist.all_reduce`` of ``t`` in place over ``group``."""
+    with quiet():
+        dist.all_reduce(t, group=group)
+    note_collective("all-reduce", t, _group_size(group))
 
 
 def _group_size(group) -> int:
     return dist.get_world_size(group)
+
+
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` start at the same element of one storage
+    (``data_ptr`` equality on a device, and on ``meta``, whose pointers
+    are all 0)."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset())
 
 
 class NamedSharding:
@@ -366,7 +391,7 @@ class NamedSharding:
             if not local.is_contiguous():
                 raise ValueError("gather needs a contiguous local part")
             _all_gather(flat, flat, group)
-            if out is not None and out.data_ptr() != local.data_ptr():
+            if out is not None and not _same_memory(out, local):
                 out.copy_(local)
                 return out
             return local
@@ -410,8 +435,7 @@ class NamedSharding:
             out = torch.empty(loc, dtype=full.dtype, device=full.device)
             _reduce_scatter(out.view(-1), t.view(-1), group)
         out = out.view(loc)
-        dist.all_reduce(out, group=self.mesh.group(
-            [a for a in batch if a not in used]))
+        all_reduce(out, self.mesh.group([a for a in batch if a not in used]))
         return out
 
 
@@ -495,7 +519,7 @@ class MeshSharder(Sharder):
 
     def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
         y = x.detach().clone()
-        dist.all_reduce(y, group=self.rules.mesh.group(self.batch_axes()))
+        all_reduce(y, self.rules.mesh.group(self.batch_axes()))
         return y
 
 
@@ -620,8 +644,8 @@ class _Gather(torch.autograd.Function):
             p = ctx.local
             if ctx.index is None:
                 if p.grad is None:
-                    if (red.untyped_storage().data_ptr()
-                            == g.untyped_storage().data_ptr()):
+                    if (red.untyped_storage()._cdata
+                            == g.untyped_storage()._cdata):
                         red = red.clone()   # not autograd's own buffer
                     p.grad = red
                 else:
@@ -758,7 +782,7 @@ class MeshParams:
     def norm_sum(self, total: torch.Tensor) -> torch.Tensor:
         total = torch.as_tensor(total, dtype=torch.float32,
                                 device=self.model.device).clone()
-        dist.all_reduce(total, group=self.mesh.group(self.mesh.axis_names))
+        all_reduce(total, self.mesh.group(self.mesh.axis_names))
         return total
 
     def update_view(self, name: str, p: torch.Tensor,

@@ -24,7 +24,9 @@
                   ``csrc/rwkv6.cu``)
 
 ``ops`` holds the checked wrappers (plain version for CPU tensors, the
-kernel for CUDA tensors, launch counts), ``ref`` the plain versions,
+kernel for CUDA tensors, the dry run's shape-only path for ``meta``
+tensors, launch counts), ``ref`` the plain versions, ``cost`` each model
+kernel's operations and bytes and the step counters they report to,
 ``build`` the ``nvcc`` build into ``build/kernels/``.
 """
 from . import ops, ref

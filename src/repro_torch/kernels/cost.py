@@ -1,0 +1,129 @@
+"""The work of each model kernel, from shapes and dtypes, and the counters
+that a step's kernels and collectives report to.
+
+One cost function per kernel gives ``(operations, bytes)`` of one call:
+the operations the function needs and the bytes it must move, each input
+read once and each output written once, with only the live slots of a KV
+cache (the bound column of PERF.md §6, which chip_smoke.py computes from
+these functions). ``launch.roofline`` turns them into times on the card's
+peaks, defined here once (:data:`PEAK_FLOPS`, :data:`HBM_BW`,
+:data:`LINK_BW`) for the roofline, the serving latency model and
+chip_smoke.py.
+
+A counter (``launch.counting.StepCounter``) registers itself in
+:data:`COUNTERS` while it counts. The wrappers of :mod:`.ops` then report
+each kernel call (:func:`note_kernel`, on the card, on ``meta`` and
+through the plain version on the CPU), and the distribution layer's
+collective helpers each collective (:func:`note_collective`). With no
+counter registered a report is one test of an empty list.
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+from typing import List, Tuple
+
+import torch
+
+#: H100 SXM5 80GB, 700 W (NVIDIA data sheet): dense bf16 tensor-core FLOP/s
+PEAK_FLOPS = 989e12
+#: its HBM3 bytes/s
+HBM_BW = 3.35e12
+#: bytes/s of one 400 Gb/s NDR InfiniBand port, one per card (DGX H100)
+LINK_BW = 50e9
+
+#: the counters now counting (a step's ``StepCounter``s), innermost last
+COUNTERS: List = []
+#: how deep the calls inside :func:`quiet` are nested
+QUIET = [0]
+
+
+def note_kernel(name: str, operations: int, nbytes: int) -> None:
+    """One call of kernel ``name`` doing ``operations`` and moving
+    ``nbytes``, reported to every registered counter."""
+    for c in COUNTERS:
+        c.kernel(name, operations, nbytes)
+
+
+@contextlib.contextmanager
+def quiet():
+    """Counters skip the aten ops run inside (a kernel's own: its plain
+    version on the CPU, or reading a decode's live slots to cost it)."""
+    QUIET[0] += 1
+    try:
+        yield
+    finally:
+        QUIET[0] -= 1
+
+
+def note_collective(kind: str, out: torch.Tensor, group_size: int) -> None:
+    """One collective of ``kind`` (the reference's names: ``all-gather``,
+    ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
+    ``collective-permute``) whose output on this rank is ``out``, over a
+    group of ``group_size`` ranks."""
+    if COUNTERS:
+        nbytes = out.numel() * out.element_size()
+        for c in COUNTERS:
+            c.collective(kind, nbytes, group_size)
+
+
+def matmul(M: int, K: int, N: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """[M, K] @ [K, N] in ``dtype``: 2MNK operations; x and y read, out
+    written."""
+    return 2 * M * N * K, (M * K + K * N + M * N) * dtype.itemsize
+
+
+@functools.lru_cache(maxsize=4096)
+def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """Live (query, key) pairs of one (batch row, head) of a prefill:
+    query i at position sk - sq + i, key j live iff j <= its position
+    (causal) and j > its position - window."""
+    n = 0
+    for i in range(sq):
+        qpos = sk - sq + i
+        hi = min(sk - 1, qpos) if causal else sk - 1
+        lo = max(0, qpos - window + 1) if window else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def flash_attention(q_shape, k_shape, dtype: torch.dtype, causal: bool,
+                    window) -> Tuple[int, int]:
+    """Prefill attention of q [B, Hq, Sq, D] over k, v [B, Hkv, Sk, D]:
+    4 D operations per live pair and query head (the two dots); q read and
+    out written, K and V read once."""
+    B, Hq, Sq, D = q_shape
+    Hkv, Sk = k_shape[1], k_shape[2]
+    ops = 4 * B * Hq * D * live_pairs(Sq, Sk, bool(causal), window)
+    return ops, (2 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D) * dtype.itemsize
+
+
+def flash_decode(q_shape, Hkv: int, q_dtype: torch.dtype,
+                 kv_dtype: torch.dtype, live: int) -> Tuple[int, int]:
+    """One token of q [B, Hq, D] against ``live`` cache slots in all (the
+    sum over the batch rows of min(length, S)): 4 D operations per live
+    slot and query head; q read and out written in q's dtype, the live K
+    and V rows read in the cache's."""
+    B, Hq, D = q_shape
+    return (4 * Hq * D * live,
+            2 * B * Hq * D * q_dtype.itemsize
+            + 2 * Hkv * live * D * kv_dtype.itemsize)
+
+
+def rglru(B: int, T: int, D: int, with_h0: bool) -> Tuple[int, int]:
+    """The RG-LRU scan over [B, T, D] float32: seven operations per element;
+    x and a read and y written, h0 read (where given) and h_T written."""
+    n = B * T * D
+    return 7 * n, 3 * n * 4 + (2 if with_h0 else 1) * B * D * 4
+
+
+def rwkv6(B: int, H: int, T: int, Dk: int, Dv: int, dtype: torch.dtype,
+          with_s0: bool) -> Tuple[int, int]:
+    """The WKV recurrence: per (b, h, t) 2 Dk Dv for r^T S, 3 Dk Dv for
+    w * S + k^T v and 3 Dk + 2 Dv for the bonus; r, k, v read and o written
+    in ``dtype``, w (float32) and u read, s0 read (where given) and S_T
+    written (float32)."""
+    nbytes = (B * H * T * (2 * Dk + 2 * Dv) * dtype.itemsize
+              + B * H * T * Dk * 4 + H * Dk * 4
+              + (2 if with_s0 else 1) * B * H * Dk * Dv * 4)
+    return B * H * T * (5 * Dk * Dv + 3 * Dk + 2 * Dv), nbytes

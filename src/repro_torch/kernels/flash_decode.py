@@ -16,6 +16,8 @@ public wrapper that ``models/model.py`` calls.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
+
 import torch
 
 from . import build
@@ -74,6 +76,17 @@ def blocks(length: torch.Tensor, end: torch.Tensor, S: int, Hq: int,
             int(count.sum()) * groups)
 
 
+def scratch(q: torch.Tensor, S: int) -> Optional[torch.Tensor]:
+    """The bf16 kernel's float32 partials for q [B, Hq, D] over S cache
+    slots (each chunk's running max, sum and D outputs a query head), on
+    q's device; ``None`` for float32 q, whose kernel keeps none."""
+    if q.dtype != torch.bfloat16:
+        return None
+    B, Hq, D = q.shape
+    return torch.empty(B * Hq * chunks(S) * (2 + D), dtype=torch.float32,
+                       device=q.device)
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            length: torch.Tensor, end: torch.Tensor,
            out: torch.Tensor) -> None:
@@ -88,18 +101,17 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rounded up to a power of two >= 32, above 32 x 256)."""
     B, Hq, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    scratch = []
-    if q.dtype == torch.bfloat16:
+    parts = []
+    part = scratch(q, S)
+    if part is not None:
         n = B * Hq * chunks(S)
-        part = torch.empty(n * (2 + D), dtype=torch.float32,
-                           device=q.device)
-        scratch = [part.data_ptr(), part[n:].data_ptr(),
-                   part[2 * n:].data_ptr()]
+        parts = [part.data_ptr(), part[n:].data_ptr(),
+                 part[2 * n:].data_ptr()]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn(q.dtype, k.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
         end.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, D, D ** -0.5,
         _S2(*q.stride()[:2]), _S3(*k.stride()[:3]), _S3(*v.stride()[:3]),
-        *scratch, stream)
+        *parts, stream)
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError_t {err}")

@@ -8,6 +8,20 @@ integer attribute (``acd_evict.launches``, ``fifo_dispatch.launches``,
 ``flash_decode.launches``, ``rglru.launches``, ``rwkv6.launches``), so a
 run can show that its main path went through the kernel.
 
+The five model kernels (``matmul``, ``flash_attention``, ``flash_decode``,
+``rglru``, ``rwkv6``) also take ``meta`` tensors: the dry run's shape-only
+path (``launch.dryrun``). There a wrapper checks what the card's kernel
+requires (head dims up to ``ATTN_MAX_D``, at most 65535 rows, ``rwkv6``'s
+``DK_SIZES``), makes the card's allocations (outputs of the kernel's
+shapes and dtypes, ``flash_decode``'s partials) and launches nothing, so
+``launches`` counts real launches only; where the card's path shapes the
+work (``matmul``'s dW takes x.T copied contiguous in bf16), the meta path
+takes the same branch. While a step counter is registered
+(``kernels.cost.COUNTERS``) every call reports its kernel's operations
+and bytes (:mod:`.cost`): each launch on the card, each meta call, and
+each plain version's call on the CPU (whose own aten ops are then not
+counted apart). With no counter the card's path tests one empty list.
+
 ``matmul`` and ``flash_attention`` are differentiable: where grad mode is
 on and an operand requires a gradient they run as a
 ``torch.autograd.Function`` whose forward is the same kernel (or plain
@@ -24,7 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import acd_sweep, fifo
+from . import acd_sweep, cost as _cost, fifo
 from . import flash_attention as _fa
 from . import flash_decode as _fd
 from . import matmul as _mm
@@ -37,12 +51,38 @@ from .ref import (acd_evict_plain, fifo_dispatch_plain,
 _FLOATS = (torch.float64, torch.float32)
 #: the counts are bumped from the engine's scenario shards' threads too
 _COUNT_LOCK = threading.Lock()
+#: the devices the model kernels' wrappers take beside the CPU: the card,
+#: and ``meta`` (the dry run's shapes, no kernel launched)
+_KERNEL_DEVICES = ("cuda", "meta")
 
 
-def _counted(fn) -> None:
-    """One more launch of ``fn``'s kernel."""
+def _counted(fn, *args) -> None:
+    """One more launch of ``fn``'s kernel; a model kernel's, on ``args``,
+    is reported to any counter counting the step."""
     with _COUNT_LOCK:
         fn.launches += 1
+    if args and _cost.COUNTERS:
+        _note(fn, *args)
+
+
+def _note(fn, *args) -> None:
+    """One call of ``fn``'s kernel on ``args``, its operations and bytes
+    (:mod:`.cost`), reported to the counters; not a launch."""
+    with _cost.quiet():
+        ops, nbytes = _COSTS[fn.__name__](*args)
+    _cost.note_kernel(fn.__name__, ops, nbytes)
+
+
+def _plain(fn, plain, *args, **kw):
+    """``plain(*args, **kw)``, a CPU tensor's kernel, reported to any
+    counter as one call of ``fn``'s kernel (its own aten ops are the
+    kernel's, not counted apart)."""
+    if not _cost.COUNTERS:
+        return plain(*args, **kw)
+    with _cost.quiet():
+        out = plain(*args, **kw)
+    _note(fn, *args, *kw.values())
+    return out
 
 
 def _check_acd(P, thresh, mask) -> None:
@@ -206,7 +246,7 @@ def _left_operand(t: torch.Tensor) -> torch.Tensor:
     copy where its rows are not unit-stride (``x.T`` of a row-major x),
     which TMA does not take and the kernel would stage by threads (PERF.md
     §6: many times slower)."""
-    if t.device.type == "cuda" and t.dtype == torch.bfloat16 \
+    if t.device.type in _KERNEL_DEVICES and t.dtype == torch.bfloat16 \
             and t.stride(1) != 1:
         return t.contiguous()
     return t
@@ -239,16 +279,20 @@ class _MatmulFn(torch.autograd.Function):
 
 def _matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """:func:`matmul` on checked operands, outside autograd."""
-    if x.device.type == "cpu":
-        return matmul_plain(x, y)
-    if x.device.type != "cuda":
+    dev = x.device.type
+    if dev == "cpu":
+        return _plain(matmul, matmul_plain, x, y)
+    if dev not in _KERNEL_DEVICES:
         raise ValueError(f"matmul: no kernel for device {x.device}")
     out = torch.empty((x.shape[0], y.shape[1]), dtype=x.dtype,
                       device=x.device)
     if out.numel() == 0:
         return out
-    _mm.launch(x, y, out)
-    _counted(matmul)
+    if dev == "meta":
+        _note(matmul, x, y)
+    else:
+        _mm.launch(x, y, out)
+        _counted(matmul, x, y)
     return out
 
 
@@ -292,7 +336,7 @@ def _check_attn(name, q, k, v, q_dims, kv8=False) -> None:
         if t.stride(-1) != 1 and t.shape[-1] > 1:
             raise ValueError(f"{name}: {arg} must have a unit stride along "
                              f"its last dimension")
-    if q.device.type == "cuda" and not 1 <= D <= ATTN_MAX_D:
+    if q.device.type in _KERNEL_DEVICES and not 1 <= D <= ATTN_MAX_D:
         raise ValueError(f"{name}: the kernel takes head dims 1..{ATTN_MAX_D}"
                          f", got D={D}")
 
@@ -398,9 +442,11 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
 def _flash_attention(q, k, v, causal: bool,
                      window: Optional[int]) -> torch.Tensor:
     """:func:`flash_attention` on checked operands, outside autograd."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    dev = q.device.type
+    if dev == "cpu":
+        return _plain(flash_attention, flash_attention_plain, q, k, v,
+                      causal=causal, window=window)
+    if dev not in _KERNEL_DEVICES:
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if q.shape[0] > 65535 or q.shape[1] > 65535:
         raise ValueError("flash_attention: the kernel takes at most 65535 "
@@ -408,8 +454,11 @@ def _flash_attention(q, k, v, causal: bool,
     out = torch.empty_like(q)  # q's strides when dense, else contiguous
     if out.numel() == 0:
         return out
-    _fa.launch(q, k, v, out, causal, window)
-    _counted(flash_attention)
+    if dev == "meta":
+        _note(flash_attention, q, k, v, causal, window)
+    else:
+        _fa.launch(q, k, v, out, causal, window)
+        _counted(flash_attention, q, k, v, causal, window)
     return out
 
 
@@ -438,17 +487,22 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise TypeError(f"flash_decode: {arg} must be int32 [B] = "
                             f"[{q.shape[0]}], got {t.dtype} "
                             f"{tuple(t.shape)}")
-    if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, length, end)
-    if q.device.type != "cuda":
+    dev = q.device.type
+    if dev == "cpu":
+        return _plain(flash_decode, flash_decode_plain, q, k, v, length, end)
+    if dev not in _KERNEL_DEVICES:
         raise ValueError(f"flash_decode: no kernel for device {q.device}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     if end is None:  # the first n = min(length, S) slots: positions 0..n-1
         end = length.clamp(0, k.shape[2])
-    _fd.launch(q, k, v, length.contiguous(), end.contiguous(), out)
-    _counted(flash_decode)
+    if dev == "meta":
+        _fd.scratch(q, k.shape[2])  # the card's partials, for the memory
+        _note(flash_decode, q, k, v, length)
+    else:
+        _fd.launch(q, k, v, length.contiguous(), end.contiguous(), out)
+        _counted(flash_decode, q, k, v, length)
     return out
 
 
@@ -485,7 +539,7 @@ def _check_rglru(x, a, h0) -> None:
             raise TypeError(f"rglru: {arg} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"rglru: {arg} must be contiguous")
-    if x.device.type == "cuda" and B > 65535:
+    if x.device.type in _KERNEL_DEVICES and B > 65535:
         raise ValueError(f"rglru: the kernel takes at most 65535 rows, got "
                          f"B={B}")
 
@@ -499,15 +553,19 @@ def rglru(x: torch.Tensor, a: torch.Tensor,
     CPU tensors run :func:`.ref.rglru_plain`; CUDA tensors run the CUDA
     kernel (``csrc/rglru.cu``)."""
     _check_rglru(x, a, h0)
-    if x.device.type == "cpu":
-        return rglru_plain(x, a, h0)
-    if x.device.type != "cuda":
+    dev = x.device.type
+    if dev == "cpu":
+        return _plain(rglru, rglru_plain, x, a, h0)
+    if dev not in _KERNEL_DEVICES:
         raise ValueError(f"rglru: no kernel for device {x.device}")
     y = torch.empty_like(x)
     hT = torch.empty((x.shape[0], x.shape[2]), dtype=torch.float32,
                      device=x.device)
-    _rg.launch(x, a, h0, y, hT)
-    _counted(rglru)
+    if dev == "meta":
+        _note(rglru, x, a, h0)
+    else:
+        _rg.launch(x, a, h0, y, hT)
+        _counted(rglru, x, a, h0)
     return y, hT
 
 
@@ -548,7 +606,8 @@ def _check_rwkv6(r, k, v, w, u, s0) -> None:
     for arg in ("u", "s0"):
         if arg in xs and not xs[arg].is_contiguous():
             raise ValueError(f"rwkv6: {arg} must be contiguous")
-    if dev.type == "cuda" and (Dk not in _rk.DK_SIZES or Dv > _rk.MAX_DV):
+    if dev.type in _KERNEL_DEVICES and (Dk not in _rk.DK_SIZES
+                                        or Dv > _rk.MAX_DV):
         raise ValueError(f"rwkv6: the kernel takes Dk in {_rk.DK_SIZES} "
                          f"and Dv <= {_rk.MAX_DV}, got Dk={Dk}, Dv={Dv}")
 
@@ -566,16 +625,20 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the CUDA kernel (``csrc/rwkv6.cu``), whose ``o`` has the strides of
     ``v``."""
     _check_rwkv6(r, k, v, w, u, s0)
-    if r.device.type == "cpu":
-        return rwkv6_plain(r, k, v, w, u, s0)
-    if r.device.type != "cuda":
+    dev = r.device.type
+    if dev == "cpu":
+        return _plain(rwkv6, rwkv6_plain, r, k, v, w, u, s0)
+    if dev not in _KERNEL_DEVICES:
         raise ValueError(f"rwkv6: no kernel for device {r.device}")
     B, H, _, Dk = r.shape
     o = torch.empty_like(v)  # v's strides when dense, else contiguous
     sT = torch.empty((B, H, Dk, v.shape[-1]), dtype=torch.float32,
                      device=r.device)
-    _rk.launch(r, k, v, w, u, s0, o, sT)
-    _counted(rwkv6)
+    if dev == "meta":
+        _note(rwkv6, r, k, v, w, u, s0)
+    else:
+        _rk.launch(r, k, v, w, u, s0, o, sT)
+        _counted(rwkv6, r, k, v, w, u, s0)
     return o, sT
 
 
@@ -584,6 +647,31 @@ rwkv6.launches = 0
 
 _WRAPPERS = (acd_evict, fifo_dispatch, matmul, flash_attention,
              flash_decode, rglru, rwkv6)
+
+
+def _decode_live(length: torch.Tensor, S: int) -> int:
+    """The live cache slots of a decode call, sum over the rows of
+    min(length, S): read from the data, except on ``meta``, which has none
+    and counts every slot (the dry run decodes at the last position of a
+    full cache, where that is the data's count)."""
+    if length.device.type == "meta":
+        return length.shape[0] * S
+    return int(length.clamp(0, S).sum())
+
+
+#: kernel name -> (operations, bytes) of one call on the wrapper's arguments
+_COSTS = {
+    "matmul": lambda x, y: _cost.matmul(x.shape[0], x.shape[1], y.shape[1],
+                                        x.dtype),
+    "flash_attention": lambda q, k, v, causal, window: _cost.flash_attention(
+        q.shape, k.shape, q.dtype, causal, window),
+    "flash_decode": lambda q, k, v, length, *_: _cost.flash_decode(
+        q.shape, k.shape[1], q.dtype, k.dtype,
+        _decode_live(length, k.shape[2])),
+    "rglru": lambda x, a, h0: _cost.rglru(*x.shape, h0 is not None),
+    "rwkv6": lambda r, k, v, w, u, s0: _cost.rwkv6(
+        *r.shape, v.shape[-1], r.dtype, s0 is not None),
+}
 
 
 def reset_launch_counts() -> None:

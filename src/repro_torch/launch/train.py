@@ -14,8 +14,8 @@ train over a ``torch.distributed`` group of one process per device
 reference's ``ShardingRules``, the moments as ZeRO-1 parts, each rank
 computing its rows of every batch, checkpoints whole and restored on any
 mesh (``repro_torch.distributed``). Unlike the reference's meshed branch,
-remat stays on. The dry run of the production meshes is ROADMAP Queue 1
-item 12.
+remat stays on. ``python -m repro_torch.launch.dryrun`` traces the
+production meshes' steps without a GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
         --state-dtype int8 [--smoke] [--steps 50] [--ckpt DIR]

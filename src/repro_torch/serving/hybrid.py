@@ -76,13 +76,10 @@ from ..core.perfmodel import fit_app_perf_model, AppPerfModel
 from ..core.scheduler import BatchReport, SkedulixScheduler
 from ..core.simulator import SimResult, simulate
 from ..core.vectorsim import VectorSimResult, resolve_device
+from ..kernels.cost import HBM_BW, PEAK_FLOPS
 from ..models.config import ModelConfig
 from .policies import (PolicyContext, SkedulixGreedy, compare_policies,
                        policy_from_mode)
-
-#: one H100 SXM: dense bf16 tensor-core FLOP/s and HBM3 bytes/s
-H100_PEAK_FLOPS = 989e12
-H100_HBM_BW = 3.35e12
 
 
 def serving_dag(prefill_replicas: int = 2, decode_replicas: int = 4,
@@ -119,8 +116,8 @@ class ServingLatencyModel:
     public_speedup: float = 2.0       # elastic replicas are bigger slices
     public_startup_s: float = 0.5     # provisioning/attach latency
     pack_s: float = 0.02
-    peak_flops: float = H100_PEAK_FLOPS
-    hbm_bw: float = H100_HBM_BW
+    peak_flops: float = PEAK_FLOPS    # one H100 SXM's, kernels.cost
+    hbm_bw: float = HBM_BW
 
     def _n_active(self) -> int:
         return self.cfg.active_param_count()

@@ -267,13 +267,20 @@ def _scale_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
 
 
+def _step_values(log):
+    """A training log's entries without ``straggled``: that is the step
+    timer's wall-clock verdict on each run's own steps, not a value the
+    step computes."""
+    return [{k: v for k, v in e.items() if k != "straggled"} for e in log]
+
+
 @pytest.mark.parametrize("arch,shape,state_dtype", TRAIN4 + TRAIN2 + TRAIN1)
 def test_sharded_step_matches_unsharded(ranks, arch, shape, state_dtype):
     got, want = ranks["train"][arch, shape, state_dtype]
     assert [e["step"] for e in got["log"]] == [1, 2]
     assert sorted(got["state"]) == sorted(want["state"])
     if shape in WHOLE_BATCH:
-        assert got["log"] == want["log"]
+        assert _step_values(got["log"]) == _step_values(want["log"])
         for k, t in want["state"].items():
             assert torch.equal(got["state"][k], t), k
         return

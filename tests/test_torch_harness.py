@@ -50,6 +50,10 @@ def reference() -> types.SimpleNamespace:
             from repro.kernels import rglru, rwkv6
             from repro.models import layers, moe, recurrent
             from repro.serving import engine
+            from repro.launch import specs as launch_specs
+            # the package's ``roofline`` is the function, not the module
+            launch_roofline = importlib.import_module(
+                "repro.launch.roofline")
         finally:
             if shim:
                 del jax.experimental.enable_x64
@@ -63,7 +67,8 @@ def reference() -> types.SimpleNamespace:
             video=video, image=image, perfmodel=perfmodel, matmul=matmul,
             kops=ops, configs=configs, models=models, layers=layers,
             recurrent=recurrent, moe=moe, rglru=rglru, rwkv6=rwkv6,
-            engine=engine)
+            engine=engine, launch_roofline=launch_roofline,
+            launch_specs=launch_specs)
     return _REF
 
 
