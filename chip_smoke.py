@@ -21,32 +21,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    measured by ``acd_chain_step_probe`` and ``fifo_chain_step_probe``).
 3. The uncapped main path: Algorithm 1 over the Fig.-4 grid (image,
    matrix and video x {spt, hcf} x 5 deadlines = 30 scenarios) in one
-   ``sweep_scenarios`` call on ``cuda`` at J=512 and J=2048 jobs. The grid
-   at J=128 runs on the card and on the CPU and must agree field for
-   field; three scenarios of each timed grid (J=512 and J=2048) replay
+   ``sweep_scenarios`` call on ``cuda`` at J=512 jobs. The grid
+   at J=64 runs on the card and on the CPU and must agree field for
+   field; three scenarios of the timed grid replay
    through the port's DES and must meet the parity contract (placements,
    replicas, providers, segments, start and end exact; cost and makespan
    to a relative 1e-12). The J=512 sweep then runs once more under
    ``torch.profiler`` to split its wall time into device-busy and idle,
-   and the grid once more at J=1024 (``SIDE_J``) to count the share of
+   and the grid once more at J=512 (``SIDE_J``) to count the share of
    masked jobs the engine gives ``acd_evict`` (``acd_mask_share``); the
-   kernel is timed at that share and at 0.8, at J=512 and J=2048, and by
-   device time on every 250th of the engine's own calls, kept from that
+   kernel is timed at that share and at 0.8, at J=512, and by
+   device time on every 125th of the engine's own calls, kept from that
    pass, beside their chain floor.
 4. The congested main path: the same grid on a 3-provider portfolio with
    2-slot concurrency caps per provider and a 0.5 s warm-up / 1 s
    keep-alive scale-to-zero cold-start model (the throughput benchmark's
-   ``--coldstart 0.5`` point), at J=512 and J=2048 on ``cuda``. Queue waits
-   and cold starts must occur; the J=128 grid agrees between the card and
-   the CPU field for field; three scenarios of each timed grid meet the
+   ``--coldstart 0.5`` point), at J=512 on ``cuda``. Queue waits
+   and cold starts must occur; the J=64 grid agrees between the card and
+   the CPU field for field; three scenarios of the timed grid meet the
    DES contract, queue waits and cold flags exact; the J=512 sweep runs
    once more under the profiler. One more, untimed sweep of the grid at
-   J=1024 (``SIDE_J``) keeps the inputs of its every ``fifo_dispatch``
+   J=512 (``SIDE_J``) keeps the inputs of its every ``fifo_dispatch``
    call, and each is then held against its plain version and timed by
    CUDA events beside its chain floor.
 5. A pool trace (one private replica per stage, two from a breakpoint
    inside the horizon) with the cold-start model, J=512 on ``cuda``; three
-   of its scenarios meet the DES contract, and the J=128 grid agrees
+   of its scenarios meet the DES contract, and the J=64 grid agrees
    between the card and the CPU field for field.
 6. The engine's other options, each path timed with its launch counts
    set to 0 just before it. Scenario axes: the Fig.-4 grid as five tasks
@@ -57,7 +57,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    faults: the Fig.-4 grid at J=512 on the 3-provider portfolio with a
    failure-rate axis (0, 0.1, 0.3) under the default ``RetryPolicy``
    (failures, retries, and an abandonment or a fallback must occur); each
-   against the DES on some scenarios and the CPU at J=128, ``acd_evict``
+   against the DES on some scenarios and the CPU at J=64, ``acd_evict``
    launched in each, ``fifo_dispatch`` in the capped one. A paged trace
    day: ``azure:day=tue,scale=8192`` on the image app, spt, C_max 60 s,
    4096-job pages (the reference throughput benchmark's streaming point),
@@ -71,7 +71,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the policy bench's ``--jobs 512`` point, at its ``poisson:8.0`` and at
    ``poisson:32.0`` (the bench's load on the H100's faster pod), each
    against the DES in every scenario and the bench's Fig.-4 ordering, and
-   at J=256 against the CPU field for field; ``serve_online`` over 2048
+   at J=128 against the CPU field for field; ``serve_online`` over 1024
    requests at 32/s under 2-slot caps, cold starts and three queue-wait
    samples (queue waits, cold starts and ``fifo_dispatch`` must occur)
    against the DES; the autoscaling (8 pod sizings), spot (3 markets) and
@@ -86,7 +86,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    inner loop (``engine_impl`` ``kernel``, ``scan`` and ``loop``) on the
    card, equal field for field, the twins with no kernel launched, each
    with its wall, body steps and ms per body step; their DES scenarios
-   under the contract and their J=128 grids against the CPU; how many of
+   under the contract and their J=64 grids against the CPU; how many of
    the ``scan`` twin's prefix elements ``torch.cumsum`` on the card would
    give otherwise than the host's sequential sum (a reading, over its
    first 1000 ACD rounds); and a repeated ``kernel`` sweep that hits the
@@ -236,7 +236,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    for bit into a fresh model, and resumed two steps beside the
    uninterrupted run. The first DIGEST_STEPS steps run through ``run``,
    and a digest of the state after them (``state_digest``) is kept for
-   phase 10.
+   phase 10. The recurrences' backward kernels at the training shapes:
+   ``rglru_bwd`` at recurrentgemma-9b's [4, 1024, 4096] (and from h0 with
+   dh_T, and a ragged shape with a = 1 steps) bit for bit its plain
+   version, ``rwkv6_bwd`` at rwkv6-1.6b's [4, 32, 1024, 64] bf16 head
+   views (and float32 from s0 with dS_T, and a ragged shape) within the
+   summation-order bound of its sums, ds0 bit for bit, each timed by
+   CUDA events beside its plain version and its ``kernels/cost.py``
+   bound. Then ``RECURRENT_TRAIN``, rwkv6-1.6b and recurrentgemma-9b at
+   full width and depth with int8 moments, TRAIN_STEPS steps of 4 x 1024
+   tokens each through ``run``: losses and norms finite, every kernel's
+   launches exactly ``train_launches`` (the recurrence's forward twice a
+   layer under remat, its backward kernel once), the steady step, tokens
+   per second, peak memory and a profiled step's idle share; their smoke
+   configs' float32 steps on the card against the CPU's; one more
+   rwkv6-1.6b step counted for phase 11.
 10. Distribution at world size 1, once phase 9's state is freed: an NCCL
    group of one rank through a ``FileStore`` and the (data=1, model=1)
    mesh; llama3-8b at full width and depth with int8 moments, DIGEST_STEPS
@@ -260,7 +274,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``train_launches``; its traced memory beside phase 9's measured peak
    and its roofline bound beside phase 9's step are readings. The card's
    bf16 -> float8_e4m3fn cast (``models.layers._bf16_cast_is_xla``,
-   probed afresh) must be the one meta traces take. Then
+   probed afresh) must be the one meta traces take. rwkv6-1.6b's
+   training step (phase 9's counted step, one card, no mesh) against its
+   meta trace, count for count, its ``rwkv6`` and ``rwkv6_bwd`` calls
+   ``train_launches``. Then
    llama3-8b's decode step at the serve batch (8 rows, cache 192, at its
    last slot) on the card under the counter against its meta trace: the
    ``matmul`` and ``flash_decode`` calls must be equal. Then the
@@ -298,17 +315,22 @@ N_DEADLINES = 5
 ORDERS = ("spt", "hcf")
 #: the main paths' two job counts, cut from (512, 4096) for the run's time
 #: when the training phase came (the J=4096 sweeps took 38.7 and 47.6 s of
-#: a 1,217 s run on a host at 2.55 ms a body step); the paged day's
-#: 4096-job pages keep the engine at J=4096 under the DES contract
-MAIN_J = (512, 2048)
+#: a 1,217 s run on a host at 2.55 ms a body step), and from (512, 2048)
+#: when the recurrent training runs came (a 1,012 s run on a host at 1.91
+#: ms a body step, the J=2048 sweep 13.4 s of phase 3), and to J=512 alone
+#: when a 1,277 s run on a host at 2.2-2.7 ms a body step passed the
+#: 1,200 s a run may take (the J=1024 sweeps 10.3 and 12.6 s); the paged
+#: day's 4096-job pages keep the engine at J=4096 under the DES contract
+MAIN_J = (512,)
 #: the grid of the main paths' side passes (the uncapped path's counting
 #: pass, the congested path's kept ``fifo_dispatch`` calls), cut from
 #: J=4096 for the run's time (on an H100 the counting pass took 31.2 s and
-#: a congested J=4096 sweep 32.8 s of a 973 s run)
-SIDE_J = 1024
+#: a congested J=4096 sweep 32.8 s of a 973 s run), and from J=1024 (11.8 s
+#: of the 1,277 s run)
+SIDE_J = 512
 #: every this-many-th of the counting pass's ``acd_evict`` calls is kept
-#: and timed by device time (16 of the J=1024 pass's ~4,000)
-KEEP_EVERY = 250
+#: and timed by device time (16 of the J=512 pass's ~2,000)
+KEEP_EVERY = 125
 #: job counts of the scenario-axes sweeps: at J=4096 they took ~200 s of
 #: a 1,319 s run on a slow host, past the 1,200 s a run may take, and at
 #: J=1024 58.9 s of a 1,217 s run (the training phase's room); the larger
@@ -369,11 +391,13 @@ SCHED_RATES = (8.0, 32.0)
 SCHED_FAULTS = (None, 0.3)
 SCHED_POLICIES = ("skedulix", "private", "public", "random", "noah",
                   "costanalysis")
-#: congested online serving: 2048 requests at the bench's load under the
+#: congested online serving: 1024 requests at the bench's load under the
 #: congested path's caps and cold starts, with three observed per-stage
 #: public queue-wait samples (seconds) folded into the predictions (4096
-#: requests took 39.5 s of a 1,217 s run; cut for the training phase)
-ONLINE_J = 2048
+#: requests took 39.5 s of a 1,217 s run, cut to 2048 for the training
+#: phase; 2048 took 15.4 s of a 1,012 s run, cut for the recurrent
+#: training runs)
+ONLINE_J = 1024
 ONLINE_RATE = 32.0
 ONLINE_QUEUE_WAITS = ((0.0, 0.05, 0.0), (0.1, 0.2, 0.0), (0.05, 0.1, 0.0))
 #: the three frontiers at J=512 (bench_hybrid_serving.py's stream), each
@@ -391,9 +415,11 @@ FIG3_TIME_LIMIT_S = 20.0
 #: job count of the CPU reruns: a J=512 rerun of each path on the CPU (the
 #: plain acd_evict loop) took 46-64 s and put the script at 6 minutes; at
 #: J=256 the eight reruns took 82 s of a 979 s run, so the engine's paths
-#: rerun at 128 and the serving scheduler's comparison at 256
-CPU_J = 128
-SCHED_CPU_J = 256
+#: reran at 128 and the serving scheduler's comparison at 256; at those
+#: the reruns took 62 s of a 1,277 s run on a slow host, so they run at 64
+#: and 128
+CPU_J = 64
+SCHED_CPU_J = 128
 #: the profiling path: every app at full width (scale 1.0); the matrix app
 #: with the paper's trace counts (benchmarks/common.py FULL_COUNTS), video
 #: and image with the benchmark's quick counts (QUICK_COUNTS)
@@ -496,6 +522,11 @@ VLM_CPU_REQUESTS = 1
 #: and CKPT_LAYERS layers saved at step CKPT_STEPS[0], restored bit for
 #: bit, and resumed to CKPT_STEPS[1]
 TRAIN_ARCH = "llama3-8b"
+#: the recurrent configs phase 9 trains at full width and depth, as
+#: TRAIN_ARCH (recurrentgemma-9b: 67.6 GB a step traced on meta), and the
+#: one whose counted step phase 11 holds its meta trace to
+RECURRENT_TRAIN = ("rwkv6-1.6b", "recurrentgemma-9b")
+RWKV_TRAIN = "rwkv6-1.6b"
 TRAIN_BATCH, TRAIN_SEQ = 4, 1024
 TRAIN_STEPS = 4
 TRAIN_SEED = 70
@@ -511,6 +542,18 @@ DRYRUN_CELLS = (("llama3-8b", "train_4k", "single"),
                 ("olmoe-1b-7b", "decode_32k", "multi"))
 TRAIN_CPU_STEPS = 3
 TRAIN_CPU_RTOL = 1e-5
+#: recurrentgemma-9b's smoke config's tolerance over the same steps, set
+#: above its reading (2.6e-5, its second step's norm, on an H100 80GB HBM3
+#: at 700 W; rwkv6-1.6b's 4.3e-6 is within TRAIN_CPU_RTOL). What moves it
+#: is AdamW's first update, lr * m / (sqrt(v) + eps), whose size does not
+#: follow |g|: at two gradient elements of about 1e-7 of their leaves'
+#: scale (``embed`` and the first layer's RG-LRU ``w_out``) the card's
+#: and the CPU's gradients differ in sign, so those weights move by 6-7e-4
+#: apart where every other weight is within 1e-5. The card's libm (rsqrt
+#: and tanh within 2 ulps, exp, sin, cos) and its sums' order set those
+#: signs: with its tanh or rsqrt taken from the CPU the gap is 8e-6, with
+#: every aten op's 1.1e-5 (``tools/card_cpu_drift.py``)
+RECURRENT_CPU_RTOL = {"rwkv6-1.6b": TRAIN_CPU_RTOL, "recurrentgemma-9b": 5e-5}
 VLM_TRAIN_LAYERS = 2
 VLM_TRAIN = (2, 512)
 CKPT_LAYERS = 2
@@ -526,7 +569,8 @@ TRAIN_PRODUCTS = (("wq/wo", (4096, 4096, 4096)),
                   ("head chunk", (2048, 4096, 128256)))
 #: llama3-8b's training attention: q [B, 32, S, 128] over k/v [B, 8, S, 128]
 TRAIN_ATTN = (TRAIN_BATCH, 32, 8, TRAIN_SEQ, 128)
-WHISPER_CPU_REQUESTS = 2
+#: (two requests took 20.2 s of the CPU in a 1,277 s run on a slow host)
+WHISPER_CPU_REQUESTS = 1
 ENC_RTOL = 1e-4
 #: prefill(S) + decode_step == prefill(S+1): the reference suite's own
 #: tolerance (tests/test_models.py:88-90), held at the full configs in
@@ -578,11 +622,12 @@ ROW_MEAN_ATOL = 1e-6
 ATTN_RTOL = 1e-5
 CPU_DECODE = 4
 CPU_RTOL = 1e-4
-#: the CPU's bf16 prefill(S) + decode_step reading of
-#: check_serve_against_cpu runs the serve batch's first CPU_BF16_REQUESTS
-#: requests (all 8 took 3-14 s an architecture on the CPU; 2 took 2.0-10.3
-#: s, cut to 1 for the training phase)
-CPU_BF16_REQUESTS = 1
+#: check_serve_against_cpu's requests, the first of the serve batch's draw:
+#: all 8 took 4.2-28.1 s an architecture on the CPU of a slow host, in a
+#: 1,277 s run; its bf16 prefill(S) + decode_step reading runs the shorter
+#: of them alone (the first, 82 tokens, took 1.8-10.8 s; 8 requests took
+#: 3-14 s an architecture, 2 took 2.0-10.3 s)
+CPU_SERVE_REQUESTS = 2
 
 
 def fig4_workload(apps, J, jitter=0.05):
@@ -1573,8 +1618,8 @@ def faults_phase(run_path):
     """The fault axis on the card: the Fig.-4 grid at J=512 on the
     congested path's 3-provider portfolio (uncapped: a failed provider
     leaves two to retry on) with failure rates ``FAULT_RATES`` under the
-    default RetryPolicy; scenarios against the DES and the grid at J=256
-    against the CPU."""
+    default RetryPolicy; scenarios against the DES and the grid at
+    ``CPU_J`` against the CPU."""
     from repro_torch.core import APPS, demo_portfolio
 
     def tasks_at(J):
@@ -3292,10 +3337,6 @@ def serve_batches(cfg, arch, new):
     return out
 
 
-#: weight products (``linear``) of one layer's mixer, by kind
-MIXER_PRODUCTS = {"attn": 4, "rglru": 5, "rwkv6": 6}
-
-
 def expected_launches(cfg, new):
     """Kernel launches of one ``generate_batch`` (a prefill and ``new``
     decode steps): the recurrence kernels and both attention kernels once
@@ -3306,13 +3347,15 @@ def expected_launches(cfg, new):
     rwkv6 group norm; two norms a layer and the final one) and, in an MoE
     layer, ``moe.moe_launches``: the router product and two or three
     products per expert (every slot computed), beside the dense FFN where
-    ``dense_residual`` is set. An encoder-decoder's prefill also runs the
+    ``dense_residual`` is set; the backward kernels never (serving runs
+    under inference mode). An encoder-decoder's prefill also runs the
     encoder (per layer: its attention's four products and one
     flash_attention, its FFN, two norms; then its final norm), and each
     decoder layer's cross-attention (a third norm; wq and wo every forward,
     wk and wv only at prefill; one more flash_attention at prefill, not
     causal, and one more flash_decode every decode step)."""
     from repro_torch.models.layers import row_mean_launches
+    from repro_torch.models.model import MIXER_PRODUCTS
     from repro_torch.models.moe import moe_launches
 
     kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
@@ -3338,8 +3381,8 @@ def expected_launches(cfg, new):
             "matmul": prefill + decode * new,
             "flash_attention": n_attn * (1 + cross) + cfg.encoder_layers,
             "flash_decode": n_attn * (1 + cross) * new,
-            "rglru": kinds.count("rglru") * (1 + new),
-            "rwkv6": kinds.count("rwkv6") * (1 + new)}
+            "rglru": kinds.count("rglru") * (1 + new), "rglru_bwd": 0,
+            "rwkv6": kinds.count("rwkv6") * (1 + new), "rwkv6_bwd": 0}
 
 
 def serve_full(arch, dev, seed, layers=None):
@@ -3607,13 +3650,14 @@ def memory_reckoning(arch, cfg):
                              f"allocated before the draw")
 
 
-def time_activations(arch, engine, reqs, n=3):
+def time_activations(arch, engine, reqs, n=1):
     """The decode step with the port's activations (``layers.gelu``,
     ``silu``, ``sigmoid``: one op per op of XLA's expansion, for bf16
     parity with the reference) against torch's fused ``F.gelu(approximate=
     "tanh")``, ``F.silu`` and ``torch.sigmoid`` swapped in: ``n``
     ``generate_batch`` calls each, alternating; prints each one's median
-    decode ms per step. A measurement of what the parity costs; the fused
+    decode ms per step (one call each: three took ~27 s of a 1,277 s run
+    on a slow host). A measurement of what the parity costs; the fused
     versions are not the port's."""
     import statistics
 
@@ -3648,7 +3692,7 @@ def time_activations(arch, engine, reqs, n=3):
           f"expansion costs {med['ported'] - med['fused']:.3f} ms per step")
 
 
-def time_kv_cast(arch, engine, reqs, n=2):
+def time_kv_cast(arch, engine, reqs, n=1):
     """The fp8-cache decode step with its bf16 K/V rows cast by torch's own
     kernel (``layers.to_kv``'s path on a device where that cast equals
     XLA's on every bf16 input) against the cast on the float32 bits
@@ -3718,11 +3762,12 @@ def profile_serve(arch, engine, reqs, wall):
 def check_serve_against_cpu(arch, dev, seed, smoke=False):
     """The architecture at full width and CPU_LAYERS depth (or at its smoke
     config) in float32, the same weights on the card and the CPU (drawn on
-    the card, copied): the
+    the card, copied), CPU_SERVE_REQUESTS requests: the
     engine's greedy tokens over CPU_DECODE steps equal, prefill logits
     within CPU_RTOL of their scale; float32 products in IEEE float32. Then,
     as a reading, the CPU's bf16 prefill(S) + decode_step against
-    prefill(S+1) with the same weights rounded to bf16."""
+    prefill(S+1) with the same weights rounded to bf16, on the shorter
+    request."""
     import dataclasses
     import gc
 
@@ -3741,7 +3786,7 @@ def check_serve_against_cpu(arch, dev, seed, smoke=False):
         torch.Generator(device=dev).manual_seed(seed))
     cpu = Model(cfg, device="cpu")
     cpu.load_state_dict(card.state_dict())
-    reqs = serve_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, CPU_DECODE,
+    reqs = serve_requests(cfg, CPU_SERVE_REQUESTS, SERVE_PROMPT, CPU_DECODE,
                           SERVE_SEED)
     toks = torch.from_numpy(padded(reqs))
     t0 = time.perf_counter()
@@ -3765,11 +3810,12 @@ def check_serve_against_cpu(arch, dev, seed, smoke=False):
                                     kv_dtype="bfloat16"), device="cpu")
     cpu.load_state_dict(card.state_dict())
     t0 = time.perf_counter()
+    short = min(reqs, key=lambda r: r.prompt_len)
     _, dec, full, _, line, _ = incremental_gap(
-        cpu, toks[:CPU_BF16_REQUESTS], SERVE_CACHE)
+        cpu, torch.from_numpy(padded([short])), SERVE_CACHE)
     print(f"serve {cfg.name} at {cfg.num_layers} layers, bf16 on the CPU, "
-          f"{CPU_BF16_REQUESTS} requests ({time.perf_counter() - t0:.3f} "
-          f"s): {line}; bitwise equal {torch.equal(dec, full)}")
+          f"1 request ({time.perf_counter() - t0:.3f} s): {line}; bitwise "
+          f"equal {torch.equal(dec, full)}")
     del card, cpu
     gc.collect()
     torch.cuda.empty_cache()
@@ -4293,6 +4339,155 @@ def check_attention_backward(dev):
             "sdpa_forward_backward_ms": lib_step, "grad_err_of_scale": errs}
 
 
+def check_rglru_backward(dev):
+    """``rglru_bwd`` against its plain version on the card, bit for bit
+    (every operation elementwise; NaN where the reference's autodiff gives
+    NaN): at recurrentgemma-9b's training shape [TRAIN_BATCH, TRAIN_SEQ,
+    4096] from zeros with no dh_T (as ``loss_fn`` calls it), from a
+    nonzero h0 and dh_T, and at a ragged [3, 37, 300] with four steps at a
+    = 1 exactly; then its time by CUDA events, the plain version's and the
+    bound. Returns its entry of the kernels line."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rglru_backward_plain
+
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def inputs(B, T, D, with_state, a_one=False):
+        x = torch.randn(B, T, D, device=dev, generator=g)
+        a = torch.rand(B, T, D, device=dev, generator=g) * 0.98 + 0.01
+        if a_one:
+            a[:, 5:9] = 1.0
+            x[0, 5:9, :3] = 0.0
+        h0, dhT = (torch.randn(B, D, device=dev, generator=g)
+                   if with_state else None for _ in range(2))
+        dy = torch.randn(B, T, D, device=dev, generator=g)
+        return x, a, ops.rglru(x, a, h0)[0], dy, h0, dhT
+
+    B, T, D = TRAIN_BATCH, TRAIN_SEQ, 4096
+    train = inputs(B, T, D, False)
+    err = 0.0
+    for label, args in (("from zeros, no dh_T (the training call)", train),
+                        ("from h0 with dh_T", inputs(B, T, D, True)),
+                        ("from h0 with dh_T, a = 1 at 4 steps",
+                         inputs(3, 37, 300, True, True))):
+        got = ops.rglru_bwd(*args)
+        want = rglru_backward_plain(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x.isnan(), y.isnan())
+                   and torch.equal(torch.nan_to_num(x), torch.nan_to_num(y))
+                   for x, y in zip(got, want))
+        e = max(float((torch.nan_to_num(x) - torch.nan_to_num(y)).abs()
+                      .max()) for x, y in zip(got, want))
+        err = max(err, e)
+        print(f"rglru_bwd {list(args[0].shape)} f32 {label}: dx, da, dh0 "
+              f"bitwise equal to the plain version {same} (max_abs_err "
+              f"{e!r}, non-finite da {int((~torch.isfinite(got[1])).sum())}"
+              f")")
+        if not same:
+            raise AssertionError(f"rglru_bwd {label}: kernel != plain")
+    k_ms = cuda_ms(lambda: ops.rglru_bwd(*train), 20)
+    p_ms = cuda_ms(lambda: rglru_backward_plain(*train), 1)
+    bound, by, n_bytes, n_ops = bound_of(cost.rglru_backward(
+        B, T, D, False, False), "float32")
+    print(f"rglru_bwd [{B}, {T}, {D}] f32: kernel {k_ms:.6f} ms "
+          f"({n_bytes / k_ms * 1e-9:.3f} TB/s), plain {p_ms:.3f} ms, bound "
+          f"{bound:.6f} ms by {by} (bytes {n_bytes}, operations {n_ops}); "
+          f"kernel at {bound / k_ms:.3f} of the bound")
+    return {"name": "rglru_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru_bwd.cu",
+            "replaces": "src/repro/kernels/rglru.py:51",
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def check_rwkv6_backward(dev):
+    """``rwkv6_bwd`` against its plain version on the card: at rwkv6-1.6b's
+    training shape [TRAIN_BATCH, 32, TRAIN_SEQ, 64] in bf16 on head views
+    of [B, T, H, D] tensors with no s0 and no dS_T (as ``loss_fn`` calls
+    it), in float32 from s0 with dS_T, and at a ragged [2, 3, 37, 32 / 60]
+    in float32. Every term of every sum is the plain version's bit for
+    bit, so dr, dk, dv, dw and du must lie within the bound two summation
+    orders of their n terms allow (``ref.sum_order_bound``: 2 (n - 1)
+    2^-24 times the terms' magnitudes, plus a bf16 ulp in bf16); ds0,
+    elementwise, bit for bit. Then its time by CUDA events and profiler
+    device time at the training shape, the plain version's and the bound.
+    Returns its entry of the kernels line."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import rwkv6_backward_plain, sum_order_bound
+    from repro_torch.kernels.rwkv6 import BWD_CHUNK
+
+    g = torch.Generator(device=dev).manual_seed(24)
+
+    def inputs(B, H, T, Dk, Dv, dt, with_state):
+        def heads(D, scale=0.3, to=dt):
+            return (torch.randn(B, T, H, D, device=dev, generator=g)
+                    * scale).to(to).transpose(1, 2)
+        r, k, v = heads(Dk), heads(Dk), heads(Dv)
+        w = torch.exp(-torch.exp(heads(Dk, 1.0, torch.float32) - 4.0))
+        u = torch.randn(H, Dk, device=dev, generator=g) * 0.1
+        s0, dsT = (torch.randn(B, H, Dk, Dv, device=dev, generator=g)
+                   if with_state else None for _ in range(2))
+        return r, k, v, w, u, heads(Dv), s0, dsT
+
+    def against_plain(label, args):
+        got = ops.rwkv6_bwd(*args)
+        *want, sums = rwkv6_backward_plain(*args, term_sums=True)
+        torch.cuda.synchronize()
+        B, _, T, Dk = args[0].shape
+        Dv = args[2].shape[-1]
+        ok, worst, err = torch.equal(got[5], want[5]), 0.0, 0.0
+        for gg, ww, sm, n in zip(got, want, sums,
+                                 (Dv, Dv, Dk, Dv, Dv + B * T)):
+            d = (gg.float() - ww.float()).abs()
+            bound = sum_order_bound(sm, n, gg, ww)
+            ok = ok and bool((d <= bound).all()) and gg.dtype == ww.dtype
+            worst = max(worst, float((d / bound.clamp(min=1e-30)).max()))
+            err = max(err, float(d.max()))
+        print(f"rwkv6_bwd {list(args[0].shape)} Dv={Dv} "
+              f"{str(args[0].dtype)[6:]} {label}: dr, dk, dv, dw, du "
+              f"max_abs_err {err!r} (at most {worst:.3f} of the order "
+              f"bound), ds0 bitwise equal {torch.equal(got[5], want[5])}; "
+              f"gradient strides {[t.stride() for t in got[:4]]}")
+        if not ok:
+            raise AssertionError(f"rwkv6_bwd {label}: kernel != plain")
+        return err
+
+    B, H, T, Dk = TRAIN_BATCH, 32, TRAIN_SEQ, 64
+    timed = inputs(B, H, T, Dk, Dk, torch.bfloat16, False)
+    err = max(against_plain("no s0, no dS_T (the training call)", timed),
+              against_plain("from s0 with dS_T",
+                            inputs(B, H, T, Dk, Dk, torch.float32, True)),
+              against_plain("ragged, from s0 with dS_T",
+                            inputs(2, 3, 37, 32, 60, torch.float32, True)))
+    k_ms = cuda_ms(lambda: ops.rwkv6_bwd(*timed), 5)
+    d_ms = device_ms(lambda: ops.rwkv6_bwd(*timed), 5)[0]
+    p_ms = cuda_ms(lambda: rwkv6_backward_plain(*timed), 1)
+    bound, by, n_bytes, n_ops = bound_of(cost.rwkv6_backward(
+        B, H, T, Dk, Dk, torch.bfloat16, False, False), "float32")
+    d_bound, d_by, d_bytes, d_ops = bound_of(cost.rwkv6_backward_kernel(
+        B, H, T, Dk, Dk, torch.bfloat16, False, False, BWD_CHUNK),
+        "float32")
+    print(f"rwkv6_bwd [{B}, {H}, {T}, {Dk}] bf16: kernel {k_ms:.6f} ms by "
+          f"events, {d_ms:.6f} ms of device time ({n_ops / k_ms * 1e-9:.3f}"
+          f" TFLOP/s of the function's operations), plain {p_ms:.3f} ms, "
+          f"bound {bound:.6f} ms by {by} (bytes {n_bytes}, operations "
+          f"{n_ops}); kernel at {bound / k_ms:.3f} of the bound. The "
+          f"design's own work (a second recompute, unfactored terms, the "
+          f"checkpoints' round trip): bytes {d_bytes}, operations {d_ops}, "
+          f"{d_bound:.6f} ms by {d_by}; kernel at {d_bound / k_ms:.3f} of "
+          f"it")
+    return {"name": "rwkv6_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv6_bwd.cu",
+            "replaces": "src/repro/kernels/rwkv6.py:56",
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "device_ms": finite(d_ms)}
+
+
 def state_digest(params, opt):
     """Per leaf of the parameters and optimizer state, two int64 sums of
     its bit patterns (the bits, and each bit pattern times its top byte),
@@ -4327,21 +4522,17 @@ def train_full(dev):
     and gradient norm finite; the steady step's time, tokens per second,
     its share of the card's bf16 peak at 6 N FLOP a token, peak memory;
     one more step under the profiler (device busy and idle share, top
-    device operations). Returns (launches a step, readings)."""
-    import statistics
-
-    import numpy as np
+    device operations: :func:`train_report`). Returns (launches a step,
+    readings)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
-    from repro_torch.models.model import train_launches
 
     cfg = get_config(TRAIN_ARCH)
     n_params = cfg.param_count()
-    tokens = TRAIN_BATCH * TRAIN_SEQ
     print(f"train {TRAIN_ARCH} memory reckoning: {n_params} parameters: "
           f"{2 * n_params / 1e9:.2f} GB of bf16 weights, as much of bf16 "
           f"gradients, {2 * n_params * (1 + 3 / 256) / 1e9:.2f} GB of int8 "
@@ -4366,66 +4557,146 @@ def train_full(dev):
     first = log
     log = log + more
     wall = time.perf_counter() - t0
+    per_step, readings = train_report(TRAIN_ARCH, cfg, trainer, params, opt,
+                                      log, wall, data)
+    del trainer, params, opt
+    free_card()
+    readings["first"] = {"losses": [e["loss"] for e in first],
+                         "grad_norms": [e["grad_norm"] for e in first],
+                         "step_ms": readings["step_ms_all"][:DIGEST_STEPS],
+                         "peak_memory_bytes": first_peak,
+                         "digest": digest}
+    return per_step, readings
+
+
+def train_report(arch, cfg, trainer, params, opt, log, wall, data):
+    """The end of a full-width training run of TRAIN_STEPS steps whose
+    launch counts were set to 0 just before it: its launches read now
+    (each step exactly ``models.model.train_launches``), every loss and
+    gradient norm finite; the steady step's time, tokens per second, its
+    share of the card's bf16 peak at 6 N FLOP a token, peak memory; one
+    more step of ``data`` under the profiler (device busy and idle share,
+    the port's kernels' shares of busy, top device operations). Returns
+    (launches a step, readings)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import RECURRENT, train_launches
+
+    n_params = cfg.param_count()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
     counts = ops.launch_counts()
     per_step = train_launches(cfg, TRAIN_SEQ)
-    want = {k: (TRAIN_STEPS * per_step.get(k, 0)) for k in counts}
+    want = {k: TRAIN_STEPS * per_step.get(k, 0) for k in counts}
     peak = torch.cuda.max_memory_allocated()
-    steps_s = trainer.step_times
+    steps_s = list(trainer.step_times)
     steady = statistics.median(steps_s[1:])
     share = 6 * n_params * tokens / steady / PEAK_OPS_PER_S["bfloat16"]
-    finite = all(np.isfinite(e["loss"]) and np.isfinite(e["grad_norm"])
-                 for e in log)
-    print(f"train {TRAIN_ARCH}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ} tokens in {wall:.3f} s (the draw and the optimizer "
-          f"state's init included); losses "
-          f"{[round(e['loss'], 6) for e in log]}, grad norms "
-          f"{[round(e['grad_norm'], 6) for e in log]}, finite {finite}; "
-          f"step ms {[round(t * 1e3, 3) for t in steps_s]}, steady "
+    ok = all(np.isfinite(e["loss"]) and np.isfinite(e["grad_norm"])
+             for e in log)
+    print(f"train {arch}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}"
+          f" tokens in {wall:.3f} s (the draw and the optimizer state's "
+          f"init included); losses {[round(e['loss'], 6) for e in log]}, "
+          f"grad norms {[round(e['grad_norm'], 6) for e in log]}, finite "
+          f"{ok}; step ms {[round(t * 1e3, 3) for t in steps_s]}, steady "
           f"{steady * 1e3:.3f} ms: {tokens / steady:.1f} tokens/s, "
           f"{share:.4f} of the card's {PEAK_OPS_PER_S['bfloat16']:.3g} bf16 "
           f"FLOP/s at 6 N FLOP a token; peak device memory "
           f"{peak / 1e9:.3f} GB ({peak / 2 ** 30:.3f} GiB); launches "
           f"{counts}, a step {per_step}")
-    if counts != want or not finite:
-        raise AssertionError(f"train {TRAIN_ARCH}: launches {counts}, "
-                             f"expected {want}; finite {finite}")
-    got = device_profile(f"train {TRAIN_ARCH}", lambda: trainer.fit(
+    if counts != want or not ok:
+        raise AssertionError(f"train {arch}: launches {counts}, expected "
+                             f"{want}; finite {ok}")
+    got = device_profile(f"train {arch}", lambda: trainer.fit(
         params, opt, data.iterate(TRAIN_STEPS), steps=TRAIN_STEPS + 1,
         start_step=TRAIN_STEPS))
-    idle = None
+    idle, kern = None, {}
     if got is not None:
         busy_s, wall_p, dev_events = got
         idle = 1 - busy_s / wall_p
+        # kernel symbols: the recurrences' by their names (rwkv6_kernel<...>,
+        # rwkv6_bwd_kernel<...>: neither name inside the other)
+        names = {k: k for k in ("matmul_bf16", "matmul_f32",
+                                "flash_attention")}
+        for mixer in RECURRENT:
+            if mixer in cfg.block_pattern:
+                names.update({mixer: f"{mixer}_kernel",
+                              f"{mixer}_bwd": f"{mixer}_bwd_kernel"})
         kern = {k: sum(e.self_device_time_total for e in dev_events
-                       if k in e.key) * 1e-6
-                for k in ("matmul_bf16", "matmul_f32", "flash_attention")}
-        print(f"profile train {TRAIN_ARCH}: device busy {busy_s:.6f} s of a "
+                       if sym in e.key) * 1e-6 for k, sym in names.items()}
+        print(f"profile train {arch}: device busy {busy_s:.6f} s of a "
               f"{wall_p:.3f} s profiled step ({busy_s / wall_p:.4f}; idle "
               f"{idle:.4f}); "
               + ", ".join(f"{k} {v:.6f} s ({v / busy_s:.4f} of busy)"
                           for k, v in kern.items())
               + f"; {sum(e.count for e in dev_events)} device events")
         print_top_events(dev_events, 10)
-    del trainer, params, opt
-    free_card()
     return per_step, {"step_ms": steady * 1e3,
+                      "step_ms_all": [t * 1e3 for t in steps_s],
                       "tokens_per_s": tokens / steady,
                       "peak_share_6N": share, "peak_memory_bytes": peak,
-                      "idle_share": idle,
-                      "first": {"losses": [e["loss"] for e in first],
-                                "grad_norms": [e["grad_norm"]
-                                               for e in first],
-                                "step_ms": [t * 1e3 for t in
-                                            steps_s[:DIGEST_STEPS]],
-                                "peak_memory_bytes": first_peak,
-                                "digest": digest}}
+                      "idle_share": idle, "busy_s_by_kernel": kern,
+                      "losses": [e["loss"] for e in log]}
+
+
+def train_recurrent(dev, arch, count=False):
+    """``arch`` (a recurrent config) at full width and depth with int8
+    moments: TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens through
+    ``launch/train.py``'s ``run`` (remat on), the launch counts set to 0
+    just before and read just after (:func:`train_report`: the
+    recurrence's kernel twice a layer, forward and recompute, and its
+    backward kernel once), and its readings. With ``count``, one more
+    step, untimed, under ``launch.counting.StepCounter``, whose counts
+    phase 11 holds the dry run's trace to. Returns (launches a step,
+    readings, the counted step or None)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.counting import tensor_bytes
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = get_config(arch)
+    free_card()
+    print(f"train {arch}: {cfg.param_count()} parameters, {cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}; torch.cuda.mem_get_info "
+          f"{torch.cuda.mem_get_info()[0] / 2 ** 30:.3f} GiB free")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer, params, opt, log = launch_train.run(
+        cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        state_dtype="int8", device=dev, seed=TRAIN_SEED, log_every=1)
+    torch.cuda.synchronize()
+    data = SyntheticLM(cfg, DataConfig(TRAIN_SEQ, TRAIN_BATCH))
+    per_step, readings = train_report(arch, cfg, trainer, params, opt, log,
+                                      time.perf_counter() - t0, data)
+    counted = None
+    if count:
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 data.batch(TRAIN_STEPS + 1).items()}
+        counted = counted_step(
+            dev, make_train_step(trainer.model, trainer.ocfg),
+            (params, opt, batch), lambda out: (out[0], out[1], batch))
+        counted.update(ocfg=trainer.ocfg,
+                       loss_chunk=trainer.model.loss_chunk,
+                       state_bytes=tensor_bytes((params, opt)))
+    del trainer, params, opt
+    free_card()
+    return per_step, readings, counted
 
 
 def train_against_cpu(dev):
-    """The llama3-8b and internvl2-76b smoke configs in float32 (IEEE
-    float32 products), the same weights on the card and the CPU:
-    TRAIN_CPU_STEPS ``Trainer.fit`` steps each, losses and gradient norms
-    within TRAIN_CPU_RTOL."""
+    """The llama3-8b, internvl2-76b, rwkv6-1.6b and recurrentgemma-9b
+    smoke configs in float32 (IEEE float32 products), the same weights on
+    the card and the CPU: TRAIN_CPU_STEPS ``Trainer.fit`` steps each,
+    losses and gradient norms within TRAIN_CPU_RTOL (the recurrent
+    configs' within RECURRENT_CPU_RTOL[arch])."""
     import dataclasses
 
     import numpy as np
@@ -4438,7 +4709,7 @@ def train_against_cpu(dev):
     from repro_torch.training import (AdamWConfig, Trainer, adamw_init,
                                       train_params)
 
-    for seed, arch in enumerate((TRAIN_ARCH, VLM)):
+    for seed, arch in enumerate((TRAIN_ARCH, VLM) + RECURRENT_TRAIN):
         cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
                                   kv_dtype="float32")
         cpu = Model(cfg, device="cpu").init(
@@ -4458,11 +4729,14 @@ def train_against_cpu(dev):
             logs.append(log)
         rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(*logs)
                   for k in ("loss", "grad_norm"))
+        tol = RECURRENT_CPU_RTOL.get(arch, TRAIN_CPU_RTOL)
         print(f"train {cfg.name} float32, card against CPU over "
               f"{TRAIN_CPU_STEPS} steps: losses {[e['loss'] for e in logs[0]]}"
-              f" and {[e['loss'] for e in logs[1]]}, losses and grad norms "
-              f"within {rel!r} (tolerance {TRAIN_CPU_RTOL})")
-        if not (rel <= TRAIN_CPU_RTOL and np.isfinite(rel)):
+              f" and {[e['loss'] for e in logs[1]]}, grad norms "
+              f"{[e['grad_norm'] for e in logs[0]]} and "
+              f"{[e['grad_norm'] for e in logs[1]]}: losses and grad norms "
+              f"within {rel!r} (tolerance {tol})")
+        if not (rel <= tol and np.isfinite(rel)):
             raise AssertionError(f"train {cfg.name}: card != CPU")
     free_card()
 
@@ -4582,15 +4856,24 @@ def train_checkpoint(dev):
 def training_phase(dev):
     """Phase 9 (see the module docstring). Returns (matmul's train
     timings, flash_attention's train reading, launches a step of the full
-    run, the full run's readings, internvl2-76b's step's launches)."""
+    run, the full run's readings, internvl2-76b's step's launches, the
+    backward kernels' entries of the kernels line, {arch: (launches a
+    step, readings)} of the recurrent runs, rwkv6-1.6b's counted step)."""
     backward = check_backward_products(dev)
     attn = check_attention_backward(dev)
+    rec_kernels = [check_rglru_backward(dev), check_rwkv6_backward(dev)]
     free_card()
     per_step, readings = train_full(dev)
     train_against_cpu(dev)
     vlm = train_vlm_step(dev)
     train_checkpoint(dev)
-    return backward, attn, per_step, readings, vlm
+    recurrent, counted = {}, None
+    for arch in RECURRENT_TRAIN:
+        step, got, c = train_recurrent(dev, arch, count=arch == RWKV_TRAIN)
+        recurrent[arch] = (step, got)
+        counted = c or counted
+    return (backward, attn, per_step, readings, vlm, rec_kernels, recurrent,
+            counted)
 
 
 def dist_train(dev, mesh, phase9):
@@ -4849,10 +5132,61 @@ def distribution_phase(dev, phase9, load_kw, main512, load512):
     return counts, readings, gpipe_launches, split, counted
 
 
-def dryrun_phase(dev, smi, counted, phase9):
-    """Phase 11 (see the module docstring): the dry run's meta traces held
-    to the card's steps count for count, then DRYRUN_CELLS. Returns its
+def dryrun_recurrent(smi, rec_counted, shape):
+    """rwkv6-1.6b's training step as phase 9 counted it on the card (one
+    card, no mesh) against its meta trace (``launch.dryrun.trace_step``),
+    count for count: kernel calls, operations and bytes by kernel (the
+    recurrence's forward and backward kernels among them, their calls
+    ``train_launches``), aten FLOPs and bytes, argument bytes. Returns its
     readings."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import train_launches
+
+    rcfg = get_config(RWKV_TRAIN)
+    t0 = time.perf_counter()
+    traced, mem = dryrun.trace_step(rcfg, shape, None,
+                                    ocfg=rec_counted["ocfg"],
+                                    loss_chunk=rec_counted["loss_chunk"])
+    trace_s = time.perf_counter() - t0
+    got, real = traced.summary(), rec_counted["summary"]
+    calls = {k: v["calls"] for k, v in got["kernels"].items()}
+    want_calls = {k: n for k, n in train_launches(rcfg, TRAIN_SEQ).items()
+                  if n}
+    args = mem["argument_size_in_bytes"]
+    real_args = rec_counted["memory"]["argument_size_in_bytes"]
+    print(f"{smi}: dry run {RWKV_TRAIN} train step ({TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, int8 moments, remat, no mesh) traced on "
+          f"meta in {trace_s:.3f} s: kernels {got['kernels']}; aten "
+          f"{got['aten_flops']} FLOP, {got['aten_bytes']} B; the card's "
+          f"counted step (phase 9): kernels {real['kernels']}; aten "
+          f"{real['aten_flops']} FLOP, {real['aten_bytes']} B; equal to the "
+          f"trace {got == real}; arguments {args:.0f} B against the card's "
+          f"{real_args:.0f} B; traced per-device HBM "
+          f"{mem['per_device_hbm_bytes'] / 1e9:.3f} GB, the card's counted "
+          f"step {rec_counted['memory']['per_device_hbm_bytes'] / 1e9:.3f} "
+          f"GB")
+    if got != real:
+        ops_t, ops_r = traced.ops, rec_counted["ops"]
+        for name in sorted(set(ops_t) | set(ops_r)):
+            if ops_t.get(name) != ops_r.get(name):
+                print(f"dry run {RWKV_TRAIN}: aten {name}: trace "
+                      f"{ops_t.get(name)}, card {ops_r.get(name)}")
+    if got != real or calls != want_calls or args != real_args:
+        raise AssertionError(f"dry run {RWKV_TRAIN}: the trace is not the "
+                             f"card's step (calls {calls}, expected "
+                             f"{want_calls}; arguments {args} against "
+                             f"{real_args})")
+    del traced
+    free_card()
+    return {"trace_s": trace_s, "kernels": got["kernels"], "memory": mem,
+            "card_memory": rec_counted["memory"]}
+
+
+def dryrun_phase(dev, smi, counted, phase9, rec_counted):
+    """Phase 11 (see the module docstring): the dry run's meta traces held
+    to the card's steps count for count (``rec_counted``: phase 9's
+    counted rwkv6-1.6b step), then DRYRUN_CELLS. Returns its readings."""
     import dataclasses
 
     import torch
@@ -4924,6 +5258,9 @@ def dryrun_phase(dev, smi, counted, phase9):
                           "dominant": terms.dominant}}
     del traced
     free_card()
+
+    readings["train " + RWKV_TRAIN] = dryrun_recurrent(smi, rec_counted,
+                                                       shape)
 
     # the K/V cast a meta trace takes (fp8 caches) is the card's: probe
     # the card afresh
@@ -5532,8 +5869,9 @@ def main() -> int:
     lap("8e internvl2-76b")
     # -- 9. training ------------------------------------------------------------
     t0 = time.perf_counter()
-    backward, attn_train, train_step, train_readings, vlm_train = \
-        training_phase(dev)
+    (backward, attn_train, train_step, train_readings, vlm_train,
+     rec_kernels, rec_train, rec_counted) = training_phase(dev)
+    kernels.extend(rec_kernels)
     print(f"train: phase wall {time.perf_counter() - t0:.3f} s")
     lap("9 training")
     # -- 10. distribution at world size 1 ----------------------------------------
@@ -5546,7 +5884,8 @@ def main() -> int:
     lap("10 distribution")
     # -- 11. the dry run against the card --------------------------------------
     t0 = time.perf_counter()
-    dryrun_readings = dryrun_phase(dev, smi, counted, train_readings)
+    dryrun_readings = dryrun_phase(dev, smi, counted, train_readings,
+                                   rec_counted)
     print(f"dry run: phase wall {time.perf_counter() - t0:.3f} s")
     lap("11 dry run")
     # -- 12. result -------------------------------------------------------------
@@ -5555,7 +5894,9 @@ def main() -> int:
     # the uncapped sweeps, fifo_dispatch on the congested ones; matmul on
     # the matrix app's profiling path and on the timed serve batches (every
     # weight product); flash_attention, flash_decode, rglru and rwkv6 on
-    # the timed serve batches
+    # the timed serve batches; every model kernel but flash_decode on the
+    # training steps (phase 9), the recurrences' backward kernels there
+    # alone
     by_name = {k["name"]: k for k in kernels}
     by_name["acd_evict"]["launches"] = sum(
         launches[("main", J)]["acd_evict"] for J in MAIN_J)
@@ -5575,6 +5916,21 @@ def main() -> int:
     by_name["matmul"]["bf16"] = bf16_matmul
     for name in ("flash_attention", "flash_decode", "rglru", "rwkv6"):
         by_name[name]["launches"] = serve_launches[name]
+    # the recurrences on the training path (phase 9's full-width runs):
+    # the forwards (and their recomputes) beside the serve batches', the
+    # backward kernels' launches there alone
+    rec_steps = {}
+    for arch, (step, readings) in rec_train.items():
+        for name, n in step.items():
+            rec_steps[name] = rec_steps.get(name, 0) + TRAIN_STEPS * n
+        mixer = "rglru" if step.get("rglru") else "rwkv6"
+        for name in (mixer, f"{mixer}_bwd"):
+            by_name[name]["train_launches_per_step"] = step[name]
+        by_name[f"{mixer}_bwd"]["train_step"] = dict(readings, arch=arch)
+    for name in ("rglru", "rwkv6", "matmul", "flash_attention"):
+        by_name[name]["launches"] += rec_steps[name]
+    for name in ("rglru_bwd", "rwkv6_bwd"):
+        by_name[name]["launches"] = rec_steps[name]
     by_name["flash_attention"]["launches"] += (
         TRAIN_STEPS * train_step["flash_attention"]
         + dist_counts["flash_attention"])
@@ -5619,7 +5975,10 @@ def main() -> int:
     missing += [f"{k} (sharded training)" for k in ("matmul",
                                                      "flash_attention")
                 if dist_counts[k] <= 0]
-    if missing or len(kernels) != 7:
+    missing += [f"{k} (recurrent training)" for k in (
+        "rglru", "rglru_bwd", "rwkv6", "rwkv6_bwd", "matmul")
+                if rec_steps.get(k, 0) <= 0]
+    if missing or len(kernels) != 9:
         raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")
     print(json.dumps({"kernels": kernels}))

@@ -659,9 +659,11 @@ class _Gather(torch.autograd.Function):
 
 class _Leaf:
     """One parameter's layout on this rank: its whole shape, its local
-    shard's box (``param``), its moments' ZeRO box (``zero``) and the box
-    they are stored over (``moment``: ``zero`` widened along the last dim
-    to whole quantization blocks of the whole leaf, ``block`` elements)."""
+    shard's box (``param``), its moments' ZeRO box (``zero``: where
+    float32 and bf16 moments are stored, exactly the reference's part) and
+    the box int8 moments are stored over (``moment``: ``zero`` widened
+    along the last dim to whole quantization blocks of the whole leaf,
+    ``block`` elements)."""
 
     def __init__(self, shape, param: NamedSharding, opt: NamedSharding,
                  block: int):
@@ -676,6 +678,10 @@ class _Leaf:
         pe, oe = param.entries(nd), opt.entries(nd)
         self.zero_dims = [i for i in range(nd) if oe[i] != pe[i]]
         self.last_axes = pe[-1] if nd else ()
+
+    def box(self, int8: bool):
+        """The moments' box: ``moment`` for int8 moments, else ``zero``."""
+        return self.moment if int8 else self.zero
 
     def rel(self, box, outer) -> Tuple[slice, ...]:
         return tuple(slice(lo - o, hi - o) for (lo, hi), (o, _) in
@@ -696,8 +702,9 @@ class MeshParams:
     Constructing it cuts every parameter of ``model`` (drawn or not) to
     this rank's part by :func:`param_shardings` and installs the hook and,
     where the model has none, a :class:`MeshSharder`. The optimizer's
-    moments follow :func:`opt_state_shardings` (ZeRO-1), stored over whole
-    int8 blocks of the whole leaf (:class:`_Leaf`), so that quantization
+    moments follow :func:`opt_state_shardings` (ZeRO-1): float32 and bf16
+    moments over exactly the reference's ZeRO part, int8 moments over
+    whole blocks of the whole leaf (:class:`_Leaf`), so that quantization
     never depends on the mesh; the ranks whose boxes share a block hold
     and update it alike.
 
@@ -765,8 +772,8 @@ class MeshParams:
         return {k: sh.local(torch.as_tensor(v)) for k, v in batch.items()}
 
     # -- what the optimizer asks ------------------------------------------
-    def moment_shape(self, name: str) -> Tuple[int, ...]:
-        return tuple(hi - lo for lo, hi in self.leaves[name].moment)
+    def moment_shape(self, name: str, int8: bool) -> Tuple[int, ...]:
+        return tuple(hi - lo for lo, hi in self.leaves[name].box(int8))
 
     def block(self, name: str) -> int:
         return self.leaves[name].block
@@ -786,27 +793,28 @@ class MeshParams:
         return total
 
     def update_view(self, name: str, p: torch.Tensor,
-                    g: Optional[torch.Tensor]):
+                    g: Optional[torch.Tensor], int8: bool):
         """(the parameter and gradient over the moments' box, a function
         that writes the updated values back and gathers them to every rank
         holding the shard). Views of ``p`` and ``g`` where the box lies
-        inside the shard; otherwise (the box's whole blocks reach past the
-        shard along the last dim) gathered along it."""
+        inside the shard; otherwise (int8 moments' whole blocks reach past
+        the shard along the last dim) gathered along it."""
         leaf = self.leaves[name]
+        box = leaf.box(int8)
         nd = len(leaf.shape)
         outer = leaf.param
-        if nd and not (outer[-1][0] <= leaf.moment[-1][0]
-                       and leaf.moment[-1][1] <= outer[-1][1]):
+        if nd and not (outer[-1][0] <= box[-1][0]
+                       and box[-1][1] <= outer[-1][1]):
             along = NamedSharding(self.mesh, P(*(None,) * (nd - 1),
                                                leaf.last_axes))
             p_ext = along.gather(p.contiguous())
             g = None if g is None else along.gather(g.contiguous())
             outer = outer[:-1] + ((0, leaf.shape[-1]),)
-            pw = p_ext[leaf.rel(leaf.moment, outer)]
+            pw = p_ext[leaf.rel(box, outer)]
         else:
             p_ext = p
-            pw = p[leaf.rel(leaf.moment, outer)]
-        gw = None if g is None else g[leaf.rel(leaf.moment, outer)]
+            pw = p[leaf.rel(box, outer)]
+        gw = None if g is None else g[leaf.rel(box, outer)]
 
         def finish():
             if p_ext is not p:
@@ -849,7 +857,8 @@ class MeshParams:
                                      else scale_shape,
                                      lambda c, s=part != "q": box(c, s))
                         for part in m}
-            return Region(self.mesh, leaf.shape, box)
+            return Region(self.mesh, leaf.shape,
+                          lambda c: leaf.opt_sh.bounds(leaf.shape, c))
 
         step = Region(self.mesh, (), lambda c: ())
         opt = type(opt_state)(step=step,

@@ -37,7 +37,9 @@ SOURCES = {"acd_evict": "acd_evict.cu",
            "flash_attention": "flash_attention.cu",
            "flash_decode": "flash_decode.cu",
            "rglru": "rglru.cu",
-           "rwkv6": "rwkv6.cu"}
+           "rglru_bwd": "rglru_bwd.cu",
+           "rwkv6": "rwkv6.cu",
+           "rwkv6_bwd": "rwkv6_bwd.cu"}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 #: seconds each kernel's last build (or cache hit) took, for reporting

@@ -127,3 +127,53 @@ def rwkv6(B: int, H: int, T: int, Dk: int, Dv: int, dtype: torch.dtype,
               + B * H * T * Dk * 4 + H * Dk * 4
               + (2 if with_s0 else 1) * B * H * Dk * Dv * 4)
     return B * H * T * (5 * Dk * Dv + 3 * Dk + 2 * Dv), nbytes
+
+
+def rglru_backward(B: int, T: int, D: int, with_h0: bool,
+                   with_dhT: bool) -> Tuple[int, int]:
+    """The RG-LRU backward over [B, T, D] float32: fifteen operations per
+    element (``csrc/rglru_bwd.cu``: the carry's add and product, 1 - a^2,
+    its clamp and root, dx, and the seven of da); x, a, y and dy read and
+    dx and da written, h0 and dh_T read (where given) and dh0 written."""
+    n = B * T * D
+    rows = B * D * 4
+    return 15 * n, 6 * n * 4 + (1 + int(with_h0) + int(with_dhT)) * rows
+
+
+def rwkv6_backward(B: int, H: int, T: int, Dk: int, Dv: int,
+                   dtype: torch.dtype, with_s0: bool,
+                   with_dsT: bool) -> Tuple[int, int]:
+    """What the WKV recurrence's gradients need, whatever kernel computes
+    them: per (b, h, t) 14 Dk Dv operations (S_{t-1} recomputed once, 3;
+    the sums of dr, dk, dv and dw, 2 each; the dS update, 3), 11 Dk and
+    4 Dv (the dot do . v once, shared by dr, dk and du; r u, u k and the
+    bonus terms of dr, dk and dv; du's product and add). r, k, v and do
+    read and dr, dk, dv written in ``dtype``, w read and dw written
+    (float32), u read and du written, s0 and dS_T read (where given) and
+    ds0 written."""
+    n = B * H * T
+    state = B * H * Dk * Dv * 4
+    nbytes = (n * ((2 * Dk + 2 * Dv) + (2 * Dk + Dv)) * dtype.itemsize
+              + n * Dk * 4 * 2 + 2 * H * Dk * 4
+              + (1 + int(with_s0) + int(with_dsT)) * state)
+    return n * (14 * Dk * Dv + 11 * Dk + 4 * Dv), nbytes
+
+
+def rwkv6_backward_kernel(B: int, H: int, T: int, Dk: int, Dv: int,
+                          dtype: torch.dtype, with_s0: bool, with_dsT: bool,
+                          chunk: int) -> Tuple[int, int]:
+    """What ``csrc/rwkv6_bwd.cu`` does for :func:`rwkv6_backward`'s work, a
+    reading of its design beside the bound: per (b, h, t) 22 Dk Dv
+    operations (the state recomputed twice, 3 each; dr's terms 5, dkv's 2,
+    dk's, dv's and dw's 2 each, the dS update 3), 4 Dk (r u, r k, its
+    product with the dot, du's add) and 2 Dv (the dot); the bytes of
+    :func:`rwkv6_backward` with the per-(b, h) du partials written in
+    place of du, and a float32 [Dk, Dv] checkpoint every ``chunk`` steps
+    written and read once. The chunk scratch beside it is read back by the
+    threads that wrote it and counted no further (32 MB at rwkv6-1.6b's
+    training shape: L2)."""
+    n = B * H * T
+    ckpt = B * H * (-(-T // chunk)) * Dk * (-(-Dv // 4) * 4) * 4
+    _, nbytes = rwkv6_backward(B, H, T, Dk, Dv, dtype, with_s0, with_dsT)
+    return (n * (22 * Dk * Dv + 4 * Dk + 2 * Dv),
+            nbytes + (B - 1) * H * Dk * 4 + 2 * ckpt)

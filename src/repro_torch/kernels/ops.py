@@ -5,11 +5,13 @@ CPU. For CUDA tensors it launches the hand-written kernel or raises; it
 never falls back. Each wrapper counts its kernel launches in a plain
 integer attribute (``acd_evict.launches``, ``fifo_dispatch.launches``,
 ``matmul.launches``, ``flash_attention.launches``,
-``flash_decode.launches``, ``rglru.launches``, ``rwkv6.launches``), so a
-run can show that its main path went through the kernel.
+``flash_decode.launches``, ``rglru.launches``, ``rglru_bwd.launches``,
+``rwkv6.launches``, ``rwkv6_bwd.launches``), so a run can show that its
+main path went through the kernel.
 
-The five model kernels (``matmul``, ``flash_attention``, ``flash_decode``,
-``rglru``, ``rwkv6``) also take ``meta`` tensors: the dry run's shape-only
+The seven model kernels (``matmul``, ``flash_attention``,
+``flash_decode``, ``rglru`` and ``rwkv6`` with their backwards) also take
+``meta`` tensors: the dry run's shape-only
 path (``launch.dryrun``). There a wrapper checks what the card's kernel
 requires (head dims up to ``ATTN_MAX_D``, at most 65535 rows, ``rwkv6``'s
 ``DK_SIZES``), makes the card's allocations (outputs of the kernel's
@@ -22,14 +24,19 @@ and bytes (:mod:`.cost`): each launch on the card, each meta call, and
 each plain version's call on the CPU (whose own aten ops are then not
 counted apart). With no counter the card's path tests one empty list.
 
-``matmul`` and ``flash_attention`` are differentiable: where grad mode is
-on and an operand requires a gradient they run as a
-``torch.autograd.Function`` whose forward is the same kernel (or plain
-version). ``matmul``'s backward is two more ``matmul`` calls (``dX = dOut @
-Y^T``, ``dY = X^T @ dOut``; one where only one operand needs a gradient),
-each counted as a launch. ``flash_attention``'s backward
-(:func:`flash_attention_backward`) is torch code, the same on both
-devices. The other kernels are serving-only and stay outside autograd.
+``matmul``, ``flash_attention``, ``rglru`` and ``rwkv6`` are
+differentiable: where grad mode is on and an operand requires a gradient
+they run as a ``torch.autograd.Function`` whose forward is the same kernel
+(or plain version). ``matmul``'s backward is two more ``matmul`` calls
+(``dX = dOut @ Y^T``, ``dY = X^T @ dOut``; one where only one operand
+needs a gradient), each counted as a launch. ``flash_attention``'s
+backward (:func:`flash_attention_backward`) is torch code, the same on
+both devices. The recurrences' backwards are kernels of their own
+(:func:`rglru_bwd`, :func:`rwkv6_bwd`: the reverse-time recurrences, the
+plain loops of ``ref.rglru_backward_plain`` / ``rwkv6_backward_plain`` on
+the CPU), one launch per forward in the graph; a CUDA tensor under grad
+takes the Function or the call raises, never autograd of a plain loop.
+The scheduler's kernels stay outside autograd.
 """
 from __future__ import annotations
 
@@ -46,7 +53,8 @@ from . import rglru as _rg
 from . import rwkv6 as _rk
 from .ref import (acd_evict_plain, fifo_dispatch_plain,
                   flash_attention_plain, flash_decode_plain, matmul_plain,
-                  rglru_plain, rwkv6_plain)
+                  rglru_backward_plain, rglru_plain, rwkv6_backward_plain,
+                  rwkv6_plain)
 
 _FLOATS = (torch.float64, torch.float32)
 #: the counts are bumped from the engine's scenario shards' threads too
@@ -228,6 +236,13 @@ def _check_matmul(x, y) -> None:
                         f"bfloat16, got {x.dtype} and {y.dtype}")
 
 
+def _grad_wanted(*xs) -> bool:
+    """Grad mode is on and one of ``xs`` (tensors or ``None``) needs a
+    gradient."""
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in xs)
+
+
 def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``x`` [M, K] @ ``y`` [K, N] with float32 accumulation, in
     ``x.dtype`` (float32, or bfloat16 for both). Any strides are taken
@@ -236,7 +251,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     (``csrc/matmul.cu``). Differentiable (:class:`_MatmulFn`) where grad
     mode is on and an operand requires a gradient."""
     _check_matmul(x, y)
-    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+    if _grad_wanted(x, y):
         return _MatmulFn.apply(x, y)
     return _matmul(x, y)
 
@@ -359,8 +374,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: window must be None or an int "
                          f">= 1, got {window!r}")
     causal = bool(causal)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if _grad_wanted(q, k, v):
         return _FlashAttentionFn.apply(q, k, v, causal, window)
     return _flash_attention(q, k, v, causal, window)
 
@@ -551,8 +565,40 @@ def rglru(x: torch.Tensor, a: torch.Tensor,
     ``x``, ``a`` [B, T, D] float32 (contiguous) from ``h0`` [B, D] float32
     (zeros when ``None``) -> (y [B, T, D] float32, h_T [B, D] float32).
     CPU tensors run :func:`.ref.rglru_plain`; CUDA tensors run the CUDA
-    kernel (``csrc/rglru.cu``)."""
+    kernel (``csrc/rglru.cu``). Differentiable (:class:`_RGLRUFn`, its
+    backward :func:`rglru_bwd`) where grad mode is on and an operand
+    requires a gradient."""
     _check_rglru(x, a, h0)
+    if _grad_wanted(x, a, h0):
+        return _RGLRUFn.apply(x, a, h0)
+    return _rglru(x, a, h0)
+
+
+class _RGLRUFn(torch.autograd.Function):
+    """:func:`rglru` with its backward, :func:`rglru_bwd` (a launch of the
+    backward kernel on the card): the forward saves its inputs and y, and
+    an unused h_T's gradient reaches the backward as ``None``."""
+
+    @staticmethod
+    def forward(ctx, x, a, h0):
+        ctx.set_materialize_grads(False)
+        y, hT = _rglru(x, a, h0)
+        ctx.save_for_backward(x, a, h0, y)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        x, a, h0, y = ctx.saved_tensors
+        dy = torch.zeros_like(y) if dy is None else dy.contiguous()
+        dx, da, dh0 = rglru_bwd(x, a, y, dy, h0,
+                                None if dhT is None else dhT.contiguous())
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, da if need[1] else None,
+                dh0 if need[2] else None)
+
+
+def _rglru(x, a, h0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rglru` on checked operands, outside autograd."""
     dev = x.device.type
     if dev == "cpu":
         return _plain(rglru, rglru_plain, x, a, h0)
@@ -570,6 +616,54 @@ def rglru(x: torch.Tensor, a: torch.Tensor,
 
 
 rglru.launches = 0
+
+
+def _check_rglru_bwd(x, a, y, dy, h0, dhT) -> None:
+    _check_rglru(x, a, h0)
+    xs = dict(x=x, y=y, dy=dy) if dhT is None else dict(x=x, y=y, dy=dy,
+                                                        dhT=dhT)
+    _check_tensors("rglru_bwd", **xs)
+    B, _, D = x.shape
+    for arg, t in xs.items():
+        want = (B, D) if arg == "dhT" else tuple(x.shape)
+        if tuple(t.shape) != want:
+            raise ValueError(f"rglru_bwd: {arg} must have shape {want}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"rglru_bwd: {arg} must be float32, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"rglru_bwd: {arg} must be contiguous")
+
+
+def rglru_bwd(x: torch.Tensor, a: torch.Tensor, y: torch.Tensor,
+              dy: torch.Tensor, h0: Optional[torch.Tensor] = None,
+              dhT: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of :func:`rglru` at ``dy`` (of y) and ``dhT`` (of h_T,
+    zeros when ``None``): ``x``, ``a``, its output ``y`` and ``dy`` [B, T,
+    D], ``h0`` and ``dhT`` [B, D], all float32 and contiguous -> (dx, da
+    [B, T, D], dh0 [B, D]), float32. CPU tensors run
+    :func:`.ref.rglru_backward_plain`; CUDA tensors run the CUDA kernel
+    (``csrc/rglru_bwd.cu``)."""
+    _check_rglru_bwd(x, a, y, dy, h0, dhT)
+    dev = x.device.type
+    if dev == "cpu":
+        return _plain(rglru_bwd, rglru_backward_plain, x, a, y, dy, h0, dhT)
+    if dev not in _KERNEL_DEVICES:
+        raise ValueError(f"rglru_bwd: no kernel for device {x.device}")
+    dx, da = torch.empty_like(x), torch.empty_like(a)
+    dh0 = torch.empty((x.shape[0], x.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    if dev == "meta":
+        _note(rglru_bwd, x, a, y, dy, h0, dhT)
+    else:
+        _rg.launch_backward(x, a, y, dy, h0, dhT, dx, da, dh0)
+        _counted(rglru_bwd, x, a, y, dy, h0, dhT)
+    return dx, da, dh0
+
+
+rglru_bwd.launches = 0
 
 
 _RWKV_DTYPES = (torch.float32, torch.bfloat16)
@@ -623,8 +717,43 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``None``) -> (o [B, H, T, Dv] in ``v.dtype``, S_T [B, H, Dk, Dv]
     float32). CPU tensors run :func:`.ref.rwkv6_plain`; CUDA tensors run
     the CUDA kernel (``csrc/rwkv6.cu``), whose ``o`` has the strides of
-    ``v``."""
+    ``v``. Differentiable (:class:`_RWKV6Fn`, its backward
+    :func:`rwkv6_bwd`) where grad mode is on and an operand requires a
+    gradient."""
     _check_rwkv6(r, k, v, w, u, s0)
+    if _grad_wanted(r, k, v, w, u, s0):
+        return _RWKV6Fn.apply(r, k, v, w, u, s0)
+    return _rwkv6(r, k, v, w, u, s0)
+
+
+class _RWKV6Fn(torch.autograd.Function):
+    """:func:`rwkv6` with its backward, :func:`rwkv6_bwd` (a launch of the
+    backward kernel on the card, which recomputes the states itself): the
+    forward saves only its inputs, and an unused S_T's gradient reaches the
+    backward as ``None``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.set_materialize_grads(False)
+        o, sT = _rwkv6(r, k, v, w, u, s0)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return o, sT
+
+    @staticmethod
+    def backward(ctx, do, dsT):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(v)
+        elif do.stride(-1) != 1:
+            do = do.contiguous()
+        grads = rwkv6_bwd(r, k, v, w, u, do, s0,
+                          None if dsT is None else dsT.contiguous())
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def _rwkv6(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rwkv6` on checked operands, outside autograd."""
     dev = r.device.type
     if dev == "cpu":
         return _plain(rwkv6, rwkv6_plain, r, k, v, w, u, s0)
@@ -645,8 +774,66 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 rwkv6.launches = 0
 
 
+def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, do: torch.Tensor,
+              s0: Optional[torch.Tensor] = None,
+              dsT: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """Gradients of :func:`rwkv6` at ``do`` (of o: ``v``'s shape and dtype,
+    any strides with a unit last one) and ``dsT`` (of S_T, [B, H, Dk, Dv]
+    float32 contiguous; zeros when ``None``), the other arguments as
+    :func:`rwkv6` takes them -> (dr, dk, dv in the dtype of r, k, v; dw,
+    du [H, Dk], ds0 [B, H, Dk, Dv], float32; dr, dk, dv, dw with their
+    inputs' strides where those are dense). CPU tensors run
+    :func:`.ref.rwkv6_backward_plain`; CUDA tensors run the CUDA kernel
+    (``csrc/rwkv6_bwd.cu``) on a workspace of
+    ``kernels/rwkv6.py:workspace_floats``, and du's per-(b, h) sums add
+    over b in ascending order (the kernel's work: not counted apart)."""
+    _check_rwkv6(r, k, v, w, u, s0)
+    xs = dict(r=r, do=do) if dsT is None else dict(r=r, do=do, dsT=dsT)
+    _check_tensors("rwkv6_bwd", **xs)
+    B, H, T, Dk = r.shape
+    if tuple(do.shape) != tuple(v.shape) or do.dtype != v.dtype \
+            or do.stride(-1) != 1:
+        raise ValueError(f"rwkv6_bwd: do must be {v.dtype} {tuple(v.shape)}"
+                         f" with a unit last stride, got {do.dtype} "
+                         f"{tuple(do.shape)} strides {do.stride()}")
+    if dsT is not None and (tuple(dsT.shape) != (B, H, Dk, v.shape[-1])
+                            or dsT.dtype != torch.float32
+                            or not dsT.is_contiguous()):
+        raise ValueError(f"rwkv6_bwd: dsT must be contiguous float32 "
+                         f"{(B, H, Dk, v.shape[-1])}, got {dsT.dtype} "
+                         f"{tuple(dsT.shape)}")
+    dev = r.device.type
+    if dev == "cpu":
+        return _plain(rwkv6_bwd, rwkv6_backward_plain, r, k, v, w, u, do, s0,
+                      dsT)
+    if dev not in _KERNEL_DEVICES:
+        raise ValueError(f"rwkv6_bwd: no kernel for device {r.device}")
+    Dv = v.shape[-1]
+    dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
+    du_part = torch.empty((B, H, Dk), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty((B, H, Dk, Dv), dtype=torch.float32, device=r.device)
+    work = torch.empty((_rk.workspace_floats(B, H, T, Dk, Dv),),
+                       dtype=torch.float32, device=r.device)
+    if dev == "meta":
+        _note(rwkv6_bwd, r, k, v, w, u, do, s0, dsT)
+    else:
+        _rk.launch_backward(r, k, v, w, u, do, s0, dsT, dr, dk, dv, dw,
+                            du_part, ds0, work)
+        _counted(rwkv6_bwd, r, k, v, w, u, do, s0, dsT)
+    del work
+    with _cost.quiet():
+        du = du_part[0]
+        for b in range(1, B):                 # over b in ascending order
+            du = du + du_part[b]
+    return dr, dk, dv, dw, du, ds0
+
+
+rwkv6_bwd.launches = 0
+
+
 _WRAPPERS = (acd_evict, fifo_dispatch, matmul, flash_attention,
-             flash_decode, rglru, rwkv6)
+             flash_decode, rglru, rglru_bwd, rwkv6, rwkv6_bwd)
 
 
 def _decode_live(length: torch.Tensor, S: int) -> int:
@@ -671,6 +858,10 @@ _COSTS = {
     "rglru": lambda x, a, h0: _cost.rglru(*x.shape, h0 is not None),
     "rwkv6": lambda r, k, v, w, u, s0: _cost.rwkv6(
         *r.shape, v.shape[-1], r.dtype, s0 is not None),
+    "rglru_bwd": lambda x, a, y, dy, h0, dhT: _cost.rglru_backward(
+        *x.shape, h0 is not None, dhT is not None),
+    "rwkv6_bwd": lambda r, k, v, w, u, do, s0, dsT: _cost.rwkv6_backward(
+        *r.shape, v.shape[-1], r.dtype, s0 is not None, dsT is not None),
 }
 
 

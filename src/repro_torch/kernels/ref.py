@@ -189,6 +189,49 @@ def rglru_plain(x: torch.Tensor, a: torch.Tensor,
     return ys.to(x.dtype), h
 
 
+def rglru_backward_plain(x: torch.Tensor, a: torch.Tensor, y: torch.Tensor,
+                         dy: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                         dhT: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of :func:`rglru_plain` (plain version of ``rglru_bwd``):
+    ``y`` is its output (float32, so ``y[:, t - 1]`` is h_{t-1}), ``dy``
+    the gradient of y and ``dhT`` of h_T (zeros when ``None``). A loop in
+    reverse time over elementwise float32 operations, each rounded on its
+    own, with the carry c = dh_T:
+
+        g_t  = dy_t + c
+        dx_t = g_t * s_t                    s_t = sqrt(max(1 - a_t^2, 0))
+        da_t = g_t * h_{t-1} + (-(((g_t * x_t) * (0.5 / s_t)) * tie_t))
+                               * (2 * a_t)
+        c    = a_t * g_t
+
+    tie_t is the gradient XLA gives ``max(v, 0)`` at v = 1 - a_t^2: 1 for
+    v > 0, 0.5 at v = 0 and 0 below. These are the operations of XLA's
+    autodiff of the reference's ``rglru_ref`` in its order, so at a_t = 1
+    exactly (s_t = 0) dx_t is 0 and da_t is -inf * sign(g_t x_t), or NaN
+    where g_t x_t = 0, as ``jax.grad`` gives. Returns (dx, da in the
+    inputs' dtypes, dh0 float32)."""
+    x32, a32, y32, dy32 = x.float(), a.float(), y.float(), dy.float()
+    v = 1.0 - a32 * a32
+    s = torch.sqrt(torch.clamp_min(v, 0.0))
+    tie = torch.where(v > 0, 1.0, torch.where(v == 0, 0.5, 0.0))
+    # a 0-dim divisor: ``0.5 / s`` would take torch's ``reciprocal(s) * 0.5``
+    half_over_s = torch.full((), 0.5, device=s.device) / s
+    two_a = 2.0 * a32
+    dx, da = torch.empty_like(x32), torch.empty_like(a32)
+    c = (torch.zeros_like(x32[:, 0]) if dhT is None
+         else dhT.float().clone())
+    zero = torch.zeros_like(c)
+    for t in reversed(range(x32.shape[1])):
+        g = dy32[:, t] + c
+        hp = y32[:, t - 1] if t else (zero if h0 is None else h0.float())
+        dx[:, t] = g * s[:, t]
+        dv = ((g * x32[:, t]) * half_over_s[:, t]) * tie[:, t]
+        da[:, t] = g * hp + (-dv) * two_a[:, t]
+        c = a32[:, t] * g
+    return dx.to(x.dtype), da.to(a.dtype), c
+
+
 def rwkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 w: torch.Tensor, u: torch.Tensor,
                 s0: Optional[torch.Tensor] = None, term_sums: bool = False
@@ -228,6 +271,98 @@ def rwkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if term_sums:
         return o.to(v.dtype), S, sums
     return o.to(v.dtype), S
+
+
+def rwkv6_backward_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         w: torch.Tensor, u: torch.Tensor, do: torch.Tensor,
+                         s0: Optional[torch.Tensor] = None,
+                         dsT: Optional[torch.Tensor] = None,
+                         term_sums: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Gradients of :func:`rwkv6_plain` (plain version of ``rwkv6_bwd``) at
+    ``do`` (the gradient of o) and ``dsT`` (of S_T; zeros when ``None``).
+    The states S_{t-1} are recomputed forward from ``s0``, as the forward
+    computes them (bit for bit the forward's: the update is elementwise),
+    never inverted (w_t is exactly 0 in float32 for decay logits past
+    ~8.6). Then, per (b, h), with dS = dS_T, in reverse time:
+
+        dr_t[i] = sum_j ((S_{t-1}[i, j] + u[i] (k_t[i] v_t[j])) do_t[j])
+        dkv     = dS + (r_t[i] u[i]) do_t[j]                  [Dk, Dv]
+        dk_t[i] = sum_j dkv[i, j] v_t[j]
+        dv_t[j] = sum_i dkv[i, j] k_t[i]
+        dw_t[i] = sum_j dS[i, j] S_{t-1}[i, j]
+        du[i]  += (r_t[i] k_t[i]) (sum_j do_t[j] v_t[j])       (t descending)
+        dS      = w_t[i] dS + r_t[i] do_t[j]
+
+    and ds0 = dS after t = 1; du's per-(b, h) sums add over b in
+    ascending order. Every term and dS is computed with the kernel's
+    rounded operations, so only the orders of the sums differ from the
+    kernel's (``csrc/rwkv6_bwd.cu`` states its). Returns (dr, dk, dv in
+    the dtype of r, k, v; dw, du, ds0 float32); with ``term_sums`` also
+    the sums of the terms' magnitudes of dr, dk, dv, dw and du (float32,
+    each of its output's shape): the scale of each sum's rounding."""
+    r32, k32, v32, w32, do32 = (t.float() for t in (r, k, v, w, do))
+    b, h, t_len, dk_ = r32.shape
+    dv_ = v32.shape[-1]
+    dev = r.device
+    uu = u.float()[None, :, :, None]                      # [1, H, Dk, 1]
+    S = (torch.zeros((b, h, dk_, dv_), dtype=torch.float32, device=dev)
+         if s0 is None else s0.float().clone())
+    states = []
+    for t in range(t_len):
+        states.append(S)
+        kv = k32[:, :, t, :, None] * v32[:, :, t, None, :]
+        S = w32[:, :, t, :, None] * S + kv
+    dS = (torch.zeros((b, h, dk_, dv_), dtype=torch.float32, device=dev)
+          if dsT is None else dsT.float().clone())
+    dr, dk, dw = (torch.empty_like(r32) for _ in range(3))
+    dv = torch.empty_like(v32)
+    du = torch.zeros((b, h, dk_), dtype=torch.float32, device=dev)
+    sums = ([torch.empty_like(x) for x in (dr, dk, dv, dw)]
+            + [torch.zeros_like(du)] if term_sums else None)
+    for t in reversed(range(t_len)):
+        Sp = states[t]
+        rt, kt, wt = (x[:, :, t, :, None] for x in (r32, k32, w32))
+        vt, dot = v32[:, :, t, None, :], do32[:, :, t, None, :]
+        kv = kt * vt
+        t_r = (Sp + uu * kv) * dot
+        dkv = dS + (rt * uu) * dot
+        t_k, t_v, t_w = dkv * vt, dkv * kt, dS * Sp
+        dr[:, :, t], dk[:, :, t] = t_r.sum(-1), t_k.sum(-1)
+        dv[:, :, t], dw[:, :, t] = t_v.sum(-2), t_w.sum(-1)
+        rk = r32[:, :, t] * k32[:, :, t]
+        dov = do32[:, :, t] * v32[:, :, t]
+        du = du + rk * dov.sum(-1, keepdim=True)
+        if term_sums:
+            for out, x, dim in zip(sums, (t_r, t_k, t_v, t_w), (-1, -1, -2,
+                                                                 -1)):
+                out[:, :, t] = x.abs().sum(dim)
+            sums[4] = sums[4] + rk.abs() * dov.abs().sum(-1, keepdim=True)
+        dS = wt * dS + rt * dot
+    du_sum = du[0]
+    for i in range(1, b):                     # over b in ascending order
+        du_sum = du_sum + du[i]
+    out = (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du_sum, dS)
+    if term_sums:
+        du_abs = sums[4][0]
+        for i in range(1, b):
+            du_abs = du_abs + sums[4][i]
+        return out + (tuple(sums[:4]) + (du_abs,),)
+    return out
+
+
+def sum_order_bound(sums: torch.Tensor, n: int,
+                    got: Optional[torch.Tensor] = None,
+                    want: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """How far two float32 sums of the same ``n`` terms, taken in two
+    orders, may lie apart: 2 (n - 1) 2^-24 times ``sums``, the sum of the
+    terms' magnitudes; where ``got`` is bf16, plus one bf16 ulp of the
+    larger of |got| and |want| (each rounds its float32 sum to bf16)."""
+    bound = 2 * (n - 1) * 2.0 ** -24 * sums.float()
+    if got is not None and got.dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(got.float().abs(),
+                                         want.float().abs()))
+        bound = bound + torch.ldexp(torch.ones_like(bound), e - 8)
+    return bound
 
 
 #: row groups of the CUDA kernel's sum over k (``kGroups`` in

@@ -10,6 +10,12 @@ through their strides. :func:`launch_plan` cuts a head's columns into
 column groups and blocks; no plan changes a value. This module only
 launches; :func:`repro_torch.kernels.ops.rwkv6` is the checked public
 wrapper that ``models/recurrent.py`` calls.
+
+The backward (``csrc/rwkv6_bwd.cu``, :func:`launch_backward`) takes one
+block per (b, h): a forward pass writes the state every
+:data:`BWD_CHUNK` steps into a float32 workspace, then the chunks are
+walked in reverse, each chunk's states recomputed from its checkpoint
+into the block's scratch beside them (:func:`workspace_floats`).
 """
 from __future__ import annotations
 
@@ -46,6 +52,10 @@ SMS = 132
 SCHEDULERS = 4
 WARPS_PER_SCHEDULER = 2
 _FNS = {}
+#: steps between the backward's state checkpoints (``kChunk`` in
+#: ``csrc/rwkv6_bwd.cu``), and its block's scratch in steps
+BWD_CHUNK = 16
+_BWD_ARGTYPES = ([_P] * 15 + [ctypes.c_longlong] + [_I] * 5 + [_P, _P])
 
 
 class Plan(NamedTuple):
@@ -174,3 +184,57 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        sT.data_ptr(), B, H, T, Dk, Dv, strides, plan, stream)
     if err != 0:
         raise RuntimeError(f"rwkv6 launch failed: cudaError_t {err}")
+
+
+def workspace_floats(B: int, H: int, T: int, Dk: int, Dv: int) -> int:
+    """float32 elements of the backward's workspace (``workspace_floats``
+    in ``csrc/rwkv6_bwd.cu``, which refuses a smaller one): a [Dk, Dv4]
+    state (Dv padded to a multiple of 4) for every checkpoint,
+    ceil(T / BWD_CHUNK) a (b, h), and for every step of a (b, h)'s chunk
+    scratch, BWD_CHUNK."""
+    dv4 = -(-Dv // 4) * 4
+    return B * H * (_cdiv(T, BWD_CHUNK) + BWD_CHUNK) * Dk * dv4
+
+
+def _bwd_fn(dtype: torch.dtype):
+    key = ("bwd", dtype)
+    fn = _FNS.get(key)
+    if fn is None:
+        lib = build.load("rwkv6_bwd")
+        fn = getattr(lib, {torch.float32: "rwkv6_bwd_f32",
+                           torch.bfloat16: "rwkv6_bwd_bf16"}[dtype])
+        fn.argtypes = _BWD_ARGTYPES
+        fn.restype = ctypes.c_int
+        _FNS[key] = fn
+    return fn
+
+
+def launch_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor, do: torch.Tensor,
+                    s0: Optional[torch.Tensor], dsT: Optional[torch.Tensor],
+                    dr: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
+                    dw: torch.Tensor, du_part: torch.Tensor,
+                    ds0: torch.Tensor, work: torch.Tensor) -> None:
+    """Launch the backward kernel on the current stream: ``dr``, ``dk``,
+    ``dw`` [B, H, T, Dk], ``dv`` [B, H, T, Dv] (any strides with a unit
+    last one), ``du_part`` [B, H, Dk] and ``ds0`` [B, H, Dk, Dv] (dense)
+    get the gradients of the recurrence of ``r``, ``k``, ``v``, ``w``
+    (read through their strides), ``u`` and ``s0`` at ``do`` (the gradient
+    of o, through its strides) and ``dsT`` (dense; zeros when ``None``);
+    ``work`` holds at least :func:`workspace_floats` float32 elements.
+    The caller has checked devices, dtypes, shapes and strides; raises if
+    the launch reports a CUDA error."""
+    B, H, T, Dk = r.shape
+    Dv = v.shape[-1]
+    strides = (ctypes.c_longlong * 27)(*(
+        s for x in (r, k, v, w, do, dr, dk, dv, dw) for s in x.stride()[:3]))
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = _bwd_fn(r.dtype)(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        do.data_ptr(), None if s0 is None else s0.data_ptr(),
+        None if dsT is None else dsT.data_ptr(), dr.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
+        ds0.data_ptr(), work.data_ptr(), work.numel(), B, H, T, Dk, Dv,
+        strides, stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_bwd launch failed: cudaError_t {err}")

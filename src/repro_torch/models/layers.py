@@ -216,14 +216,22 @@ def init_norm(cfg: ModelConfig, d: int) -> Params:
 
 # -- RoPE ------------------------------------------------------------------
 
+def rope_exponents(half: int, device) -> torch.Tensor:
+    """-i / half for i < half (float32): the frequencies' exponents,
+    divided by ``half`` as a 0-dim tensor on ``device``. torch's CUDA
+    kernel multiplies by the rounded reciprocal of a Python divisor, where
+    its CPU kernel and XLA divide (ROADMAP Queue 3 item 25)."""
+    return -torch.arange(0, half, dtype=torch.float32, device=device) \
+        / torch.full((), half, dtype=torch.float32, device=device)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """x [..., S, H, D] (D even), positions [..., S]. Each head splits in
     halves (not interleaved); angles in float32."""
     d = x.shape[-1]
     half = d // 2
-    freqs = torch.pow(theta, -torch.arange(0, half, dtype=torch.float32,
-                                           device=x.device) / half)
+    freqs = torch.pow(theta, rope_exponents(half, x.device))
     ang = positions[..., None].float() * freqs                 # [..., S, half]
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]

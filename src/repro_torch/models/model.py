@@ -99,9 +99,6 @@ from .moe import DISPATCHES, moe_apply, moe_init
 from .recurrent import (rglru_block, rglru_init, rglru_state_init,
                         rwkv6_block, rwkv6_init, rwkv6_state_init)
 
-#: the mixers whose kernels have no backward, so no config with them trains
-UNTRAINED_MIXERS = ("rglru", "rwkv6")
-
 
 # -- per-layer params -------------------------------------------------------
 
@@ -594,15 +591,9 @@ class Model(nn.Module):
         optional ``labels``, ``loss_mask``, and a vision config's
         ``patches`` or an encoder-decoder's ``frames``), chunked over the
         sequence: (loss, {"loss", "tokens"}), the reference's. Gradients
-        flow to the parameters that require them. Raises for a config
-        with recurrent mixers."""
+        flow to the parameters that require them (a recurrent mixer's
+        through its kernel's autograd Function and backward kernel)."""
         cfg = self.cfg
-        untrained = sorted(set(cfg.block_pattern) & set(UNTRAINED_MIXERS))
-        if untrained:
-            raise NotImplementedError(
-                f"{cfg.name}: training is not ported for its "
-                f"{', '.join(untrained)} mixers (their kernels have no "
-                f"backward): ROADMAP Queue 1 item 14")
         dev = self.device
         tokens = torch.as_tensor(batch["tokens"], device=dev).long()
         b, s = tokens.shape
@@ -668,16 +659,28 @@ class Model(nn.Module):
         return logits, caches
 
 
+#: weight products of each mixer's block (``recurrent.py``: the RG-LRU
+#: block's gate, x, decay, input and output projections; RWKV-6's r, k,
+#: v, w, g and output)
+MIXER_PRODUCTS = {"attn": 4, "rglru": 5, "rwkv6": 6}
+#: the recurrent mixers: each launches its kernel forward and its backward
+#: kernel once a layer
+RECURRENT = ("rglru", "rwkv6")
+
+
 def train_launches(cfg: ModelConfig, seq: int, loss_chunk: int = 512,
                    remat: bool = True) -> Dict[str, int]:
-    """``matmul`` and ``flash_attention`` launches of one training step
-    (:meth:`Model.loss_fn` and its backward) over ``seq`` text positions.
-    A weight product launches once forward and twice in the backward (dX
-    and dW), a norm's row-mean product once forward and once backward (its
-    other operand is a constant column), ``flash_attention`` once forward
-    (its backward is torch code); under ``remat`` every one inside a
+    """Kernel launches of one training step (:meth:`Model.loss_fn` and its
+    backward) over ``seq`` text positions, by kernel: ``matmul``,
+    ``flash_attention``, ``rglru``, ``rglru_bwd``, ``rwkv6``,
+    ``rwkv6_bwd``. A weight product launches once forward and twice in the
+    backward (dX and dW), a norm's row-mean product once forward and once
+    backward (its other operand is a constant column), ``flash_attention``
+    once forward (its backward is torch code), a recurrence once forward
+    and its backward kernel once; under ``remat`` every forward inside a
     super-block, an encoder layer or a loss chunk launches once more in
-    the recompute. Outside them: the remainder layers, the final norms."""
+    the recompute. Outside them: the remainder layers, the final norms.
+    RWKV-6's per-head group norm is two row means over the head dim."""
     from .layers import row_mean_launches
     from .moe import moe_launches
 
@@ -686,35 +689,45 @@ def train_launches(cfg: ModelConfig, seq: int, loss_chunk: int = 512,
     ffn = 3 if cfg.glu else 2
     cross = int(cfg.is_encdec)
 
-    def layer(kind_attn: bool):
-        """(weight products, row-mean products, attention calls)."""
-        w = (4 + 4 * cross) if kind_attn else 0
+    def layer(kind: str):
+        """(weight products, row-mean products, attention calls, the
+        recurrence's kernel or None)."""
+        attn = kind == "attn"
+        w = MIXER_PRODUCTS[kind] + (4 * cross if attn else 0)
         if cfg.num_experts:
             w += moe_launches(cfg) + ffn * cfg.dense_residual
         else:
             w += ffn
-        return w, per_norm * (2 + cross), int(kind_attn) * (1 + cross)
+        r = per_norm * (2 + cross)
+        if kind == "rwkv6":
+            r += 2 * row_mean_launches(cfg.rwkv_head_dim)
+        return (w, r, int(attn) * (1 + cross),
+                kind if kind in RECURRENT else None)
 
     re = int(remat)
     period = cfg.pattern_period
     n_super = cfg.num_layers // period
-    inside = [layer(cfg.block_pattern[si] == "attn")
+    inside = [layer(cfg.block_pattern[si])
               for si in range(period)] * n_super
-    outside = [layer(cfg.layer_kind(li) == "attn")
+    outside = [layer(cfg.layer_kind(li))
                for li in range(n_super * period, cfg.num_layers)]
     if cfg.is_encdec:
-        enc = (4 + ffn, 2 * per_norm, 1)
+        enc = (4 + ffn, 2 * per_norm, 1, None)
         inside += [enc] * cfg.encoder_layers
-        outside.append((0, per_norm, 0))       # the encoder's final norm
-    outside.append((0, per_norm, 0))           # the final norm
+        outside.append((0, per_norm, 0, None))  # the encoder's final norm
+    outside.append((0, per_norm, 0, None))      # the final norm
     chunks = -(-seq // min(loss_chunk, seq))
-    inside.append((chunks, 0, 0))              # the loss chunks' head
-    mm = attn = 0
+    inside.append((chunks, 0, 0, None))         # the loss chunks' head
+    out = dict.fromkeys(("matmul", "flash_attention") + tuple(
+        f"{k}{s}" for k in RECURRENT for s in ("", "_bwd")), 0)
     for group, extra in ((inside, re), (outside, 0)):
-        for w, r, a in group:
-            mm += w * (3 + extra) + r * (2 + extra)
-            attn += a * (1 + extra)
-    return {"matmul": mm, "flash_attention": attn}
+        for w, r, a, rec in group:
+            out["matmul"] += w * (3 + extra) + r * (2 + extra)
+            out["flash_attention"] += a * (1 + extra)
+            if rec is not None:
+                out[rec] += 1 + extra
+                out[f"{rec}_bwd"] += 1
+    return out
 
 
 def _ce_chunk(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,

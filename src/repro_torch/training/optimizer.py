@@ -232,14 +232,15 @@ def _moment_init(shape, device, dtype_cfg: str, kind: str,
 
 def adamw_init(params: Params, cfg: AdamWConfig, layout=None) -> AdamWState:
     """Zero moments of every parameter (of this rank's box of each under a
-    mesh ``layout``, in the whole leaf's blocks)."""
+    mesh ``layout``: its ZeRO part, int8 moments in the whole leaf's
+    blocks)."""
     dev = next(iter(params.values())).device
 
     def moment(k, p, kind):
         if layout is None:
             return _moment_init(p.shape, dev, cfg.state_dtype, kind)
-        return _moment_init(layout.moment_shape(k), dev, cfg.state_dtype,
-                            kind, layout.block(k))
+        return _moment_init(layout.moment_shape(k, cfg.state_dtype == "int8"),
+                            dev, cfg.state_dtype, kind, layout.block(k))
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
         m={k: moment(k, p, "m") for k, p in params.items()},
@@ -331,7 +332,8 @@ def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState,
             if layout is None:
                 _update_leaf(p, g, m, v, cfg, clip, lr, bc1, bc2, decay)
                 continue
-            pw, gw, finish = layout.update_view(name, p, g)
+            pw, gw, finish = layout.update_view(name, p, g,
+                                                cfg.state_dtype == "int8")
             _update_leaf(pw, gw, m, v, cfg, clip, lr, bc1, bc2, decay,
                          layout.block(name))
             finish()

@@ -218,6 +218,8 @@ TRAIN2 = [("llama3-8b", (2, 1), "float32"), ("llama3-8b", (1, 2), "float32"),
           ("olmoe-1b-7b", (1, 2), "int8")]
 TRAIN1 = [("llama3-8b", (1, 1), "float32"), ("llama3-8b", (1, 1), "int8"),
           ("olmoe-1b-7b", (1, 1), "int8")]
+#: a recurrent config on two ranks: its gradients summed across them
+TRAIN2_RECURRENT = [("rwkv6-1.6b", (2, 1), "float32")]
 RESTORE = {2: [(2, 1), (1, 2)], 1: [(1, 1), None]}
 #: where every rank computes the whole batch, so nothing is summed across
 #: ranks and the step is the unsharded one bit for bit
@@ -250,7 +252,8 @@ def ranks(tmp_path_factory):
     runs = {4: four[0]}
     for world in (2, 1):
         got = spawn("suite", world, cases=[
-            ("train", dict(runs=TRAIN2 if world == 2 else TRAIN1))] + [
+            ("train", dict(runs=TRAIN2 + TRAIN2_RECURRENT if world == 2
+                           else TRAIN1))] + [
             ("ckpt", dict(ckpt=ckpt, shape=shape, save=False))
             for shape in RESTORE[world]])
         runs[world] = got[0]
@@ -274,7 +277,8 @@ def _step_values(log):
     return [{k: v for k, v in e.items() if k != "straggled"} for e in log]
 
 
-@pytest.mark.parametrize("arch,shape,state_dtype", TRAIN4 + TRAIN2 + TRAIN1)
+@pytest.mark.parametrize("arch,shape,state_dtype",
+                         TRAIN4 + TRAIN2 + TRAIN1 + TRAIN2_RECURRENT)
 def test_sharded_step_matches_unsharded(ranks, arch, shape, state_dtype):
     got, want = ranks["train"][arch, shape, state_dtype]
     assert [e["step"] for e in got["log"]] == [1, 2]

@@ -312,7 +312,8 @@ def _meta(*shape, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("kernel", ["matmul", "flash_attention",
-                                    "flash_decode", "rglru", "rwkv6"])
+                                    "flash_decode", "rglru", "rwkv6",
+                                    "rglru_bwd", "rwkv6_bwd"])
 def test_meta_branch_shapes_counts_and_preconditions(kernel):
     """On meta a wrapper returns the kernel's output shapes and dtypes,
     reports its cost to a counter, launches nothing, and refuses what the
@@ -348,6 +349,20 @@ def test_meta_branch_shapes_counts_and_preconditions(kernel):
                                     _meta(1, 2, 5, 48),
                                     _meta(1, 2, 5, 48, dtype=f32),
                                     _meta(2, 48, dtype=f32))),
+        "rglru_bwd": (lambda: ops.rglru_bwd(*(_meta(2, 5, 8, dtype=f32)
+                                              for _ in range(4))),
+                      [(2, 5, 8), (2, 5, 8), (2, 8)],
+                      lambda: ops.rglru_bwd(*(_meta(65536, 1, 8, dtype=f32)
+                                              for _ in range(4)))),
+        "rwkv6_bwd": (lambda: ops.rwkv6_bwd(
+            _meta(1, 2, 5, 64), _meta(1, 2, 5, 64), _meta(1, 2, 5, 64),
+            _meta(1, 2, 5, 64, dtype=f32), _meta(2, 64, dtype=f32),
+            _meta(1, 2, 5, 64)),
+            [(1, 2, 5, 64)] * 4 + [(2, 64), (1, 2, 64, 64)],
+            lambda: ops.rwkv6_bwd(
+                _meta(1, 2, 5, 48), _meta(1, 2, 5, 48), _meta(1, 2, 5, 48),
+                _meta(1, 2, 5, 48, dtype=f32), _meta(2, 48, dtype=f32),
+                _meta(1, 2, 5, 48))),
     }
     run, shapes, refused = calls[kernel]
     ops.reset_launch_counts()
@@ -396,16 +411,17 @@ def test_opt_state_sharding_tree_equals_the_reference(arch, ref_dryrun,
 
 # -- argument bytes against the reference's input shardings --------------
 
-def _reckoned(kind, layout, specs_shape):
+def _reckoned(kind, layout, specs_shape, state_dtype):
     """The port's argument bytes less the reference's, reckoned leaf by
-    leaf: each moment stored over whole quantization blocks of its whole
-    leaf (``_Leaf.moment``) where the reference's ZeRO part is narrower
-    (m and v, float32 here); each cache leaf the reference also cuts over
-    'model' (the port keeps the model dims whole on its rows); the decode
-    step's ``pos``, a host int in the port and a 4-byte int32 argument in
-    the reference."""
+    leaf: int8 moments stored over whole quantization blocks of their
+    whole leaf (``_Leaf.moment``) where the reference's ZeRO part is
+    narrower (float32 and bf16 moments take exactly that part: ROADMAP
+    Queue 3 item 26, so none here); each cache leaf the reference also
+    cuts over 'model' (the port keeps the model dims whole on its rows);
+    the decode step's ``pos``, a host int in the port and a 4-byte int32
+    argument in the reference."""
     widened, cache_cut = {}, {}
-    if kind == "train":
+    if kind == "train" and state_dtype == "int8":
         for name, leaf in layout.leaves.items():
             more = (math.prod(hi - lo for lo, hi in leaf.moment)
                     - math.prod(hi - lo for lo, hi in leaf.zero))
@@ -443,16 +459,21 @@ def test_argument_bytes_equal_the_reference_shards(arch, kind, mesh_key,
     try:
         _, mem = dr.trace_step(get_smoke_config(arch), SMALL_SHAPES[kind],
                                mesh)
-        widened, cache_cut, pos = _reckoned(kind, layouts[0],
-                                            SMALL_SHAPES[kind])
+        cfg = get_smoke_config(arch)
+        widened, cache_cut, pos = _reckoned(
+            kind, layouts[0], SMALL_SHAPES[kind],
+            dr.opt_config_for(cfg).state_dtype)
     finally:
         dist.destroy_process_group()
     want = ref_dryrun["args"][f"{arch}|{kind}|{mesh_key}"]
     got = mem["argument_size_in_bytes"]
     assert got == want + sum(widened.values()) + sum(cache_cut.values()) \
         + pos, (widened, cache_cut)
-    if kind != "train":
-        assert not widened
+    # the smoke configs' moments are float32: exactly the reference's
+    # ZeRO parts, so a train cell's arguments equal the reference's
+    assert not widened
+    if kind == "train":
+        assert got == want
     if kind == "prefill":
         assert got == want
     if (arch, kind, mesh_key) == ("llama3-8b", "decode", "(2, 8)"):
@@ -564,15 +585,26 @@ def test_run_cell_small_mesh(arch, kind, mesh_kind, small_production,
 def test_recurrent_train_cells_fail_naming_item_14(arch, small_production,
                                                    no_group, tmp_path,
                                                    capsys):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        dr.run_cell(arch, "train", "single")
+    """The recurrent configs' train cells, which failed while their
+    kernels had no backward (ROADMAP Queue 1 item 14), now trace: each
+    counts its recurrence's forward (twice, under remat) and backward
+    kernel once a layer, as ``train_launches`` does, through ``run_cell``
+    and the command line alike."""
+    res = dr.run_cell(arch, "train", "single")
+    assert res.ok, res.reason
     assert not dist.is_initialized()
+    mixer = "rglru" if arch == "recurrentgemma-9b" else "rwkv6"
+    cfg = get_smoke_config(arch)
+    want = train_launches(cfg, SMALL_SHAPES["train"].seq_len)
+    assert res.kernels[mixer]["calls"] == want[mixer] > 0
+    assert res.kernels[f"{mixer}_bwd"]["calls"] == want[f"{mixer}_bwd"] > 0
+    assert res.kernels[f"{mixer}_bwd"]["operations"] > 0
     dr.main(["--arch", arch, "--shape", "train", "--out", str(tmp_path)])
     out = capsys.readouterr().out
-    assert out.startswith("FAIL") and "item 14" in out
+    assert not out.startswith("FAIL"), out
     res = json.loads((tmp_path / f"{arch}_train_single_baseline.json")
                      .read_text())
-    assert not res["ok"] and not res["skipped"]
+    assert res["ok"] and not res["skipped"]
 
 
 def test_production_decode_cell_on_256_fake_ranks(no_group):

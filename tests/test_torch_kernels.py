@@ -368,7 +368,8 @@ def test_fifo_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
     assert ops.fifo_dispatch.launches == before
     assert set(ops.launch_counts()) == {"acd_evict", "fifo_dispatch",
                                         "matmul", "flash_attention",
-                                        "flash_decode", "rglru", "rwkv6"}
+                                        "flash_decode", "rglru", "rglru_bwd",
+                                        "rwkv6", "rwkv6_bwd"}
 
 
 @pytest.mark.parametrize("case", ["order_dtype", "ready_dtype", "seg_dtype",

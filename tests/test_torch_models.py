@@ -212,15 +212,20 @@ def test_registry_lists_ported_archs_and_names_the_rest(ref):
 
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_model_refuses_unported_parts(ref, arch):
-    """What the port cannot run yet: training a recurrent config (its
-    mixers' kernels have no backward). ``loss_fn`` refuses it on every
-    device alike, naming the ROADMAP item; serving it runs."""
+    """Nothing of a recurrent config is refused any more (training once
+    was: its mixers' kernels had no backward). ``loss_fn`` trains it,
+    its recurrences through their autograd Functions, and serving it
+    runs."""
     m = Model(get_smoke_config(arch), device="cpu").init(
         torch.Generator().manual_seed(0))
     m.requires_grad_(True)
     batch = {"tokens": _tokens(m.cfg, 2, 8, 0)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.loss_fn(batch)
+    loss, _ = m.loss_fn(batch)
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in m.parameters())
+    m.zero_grad(set_to_none=True)
     logits, _ = m.prefill(batch["tokens"], cache_len=8)
     assert torch.isfinite(logits).all()
 
@@ -340,6 +345,53 @@ def test_converter_carries_the_float32_router_of_a_bf16_model(pair, arch):
 
 
 # -- layers -------------------------------------------------------------------
+
+#: RoPE head dims: stablelm-12b's 160 (a half width of 80, not a power of
+#: two) and recurrentgemma-9b's 256
+ROPE_DIMS = (160, 256)
+
+
+def _rope_inputs(d, device="cpu"):
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.normal(size=(2, 9, 3, d)).astype(np.float32))
+    pos = torch.from_numpy(rng.integers(0, 512, (2, 9)))
+    return x.to(device), pos.to(device)
+
+
+@pytest.mark.parametrize("d", ROPE_DIMS + (16, 128))
+def test_rope_frequencies_unchanged_on_the_cpu(d):
+    """The exponents' divisor became a 0-dim tensor (ROADMAP Queue 3 item
+    25): on the CPU the exponents, the frequencies and ``rope`` are bit for
+    bit those of the division by the Python ``half`` (the reference's
+    ``rope`` is held to it in ``test_norms_rope_and_ffn_match_reference``)."""
+    half = d // 2
+    old = -torch.arange(0, half, dtype=torch.float32) / half
+    assert torch.equal(TL.rope_exponents(half, "cpu"), old)
+    x, pos = _rope_inputs(d)
+    ang = pos[..., None].float() * torch.pow(10000.0, old)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    want = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    assert torch.equal(TL.rope(x, pos, 10000.0), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", ROPE_DIMS)
+def test_cuda_rope_equals_the_cpus(d):
+    """On the card the exponents equal the CPU's bit for bit (the division
+    by a Python ``half`` of 80 multiplies by its rounded reciprocal there),
+    and so does ``rope`` within the float32 rounding of the card's own
+    ``pow``, ``cos`` and ``sin``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (chip_smoke.py runs the port there)")
+    half = d // 2
+    assert torch.equal(TL.rope_exponents(half, "cuda").cpu(),
+                       TL.rope_exponents(half, "cpu"))
+    x, pos = _rope_inputs(d)
+    got = TL.rope(x.cuda(), pos.cuda(), 10000.0).cpu()
+    np.testing.assert_allclose(got.numpy(), TL.rope(x, pos, 10000.0).numpy(),
+                               rtol=0, atol=1e-4)
+
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_norms_rope_and_ffn_match_reference(ref, dtype):

@@ -342,14 +342,17 @@ def _assert_same(port_tree, ref_tree):
         np.testing.assert_array_equal(got, want, err_msg=k)
 
 
-@pytest.mark.parametrize("dtype,state_dtype", [
-    ("float32", "float32"), ("bfloat16", "bfloat16"), ("bfloat16", "int8"),
-    ("float32", "int8")])
-def test_checkpoints_cross_between_the_packages(ref, tmp_path, dtype,
+@pytest.mark.parametrize("arch,dtype,state_dtype", [
+    pytest.param("llama3-8b", d, sd, id=f"{d}-{sd}")
+    for d, sd in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                  ("bfloat16", "int8"), ("float32", "int8"))] + [
+    ("rwkv6-1.6b", "bfloat16", "int8"),
+    ("recurrentgemma-9b", "float32", "float32")])
+def test_checkpoints_cross_between_the_packages(ref, tmp_path, arch, dtype,
                                                 state_dtype):
     import jax
 
-    params, opt, tp, ts = _pair_state(ref, "llama3-8b", dtype, state_dtype)
+    params, opt, tp, ts = _pair_state(ref, arch, dtype, state_dtype)
     ref_tree = {"params": params, "opt": opt}
     _assert_same({"params": tp, "opt": ts}, ref_tree)
     # the port writes, the reference restores
@@ -362,8 +365,7 @@ def test_checkpoints_cross_between_the_packages(ref, tmp_path, dtype,
     # the reference writes, the port restores (into zeroed tensors)
     ref_dir = str(tmp_path / "ref")
     ref.checkpoint.save(ref_tree, ref_dir, 9)
-    _, _, tp2, ts2 = _pair_state(ref, "llama3-8b", dtype, state_dtype,
-                                 steps=0)
+    _, _, tp2, ts2 = _pair_state(ref, arch, dtype, state_dtype, steps=0)
     with torch.no_grad():
         for t in TC._leaves({"params": tp2, "opt": ts2}):
             t[1].zero_()
@@ -417,9 +419,22 @@ def _trainers(ref, arch, state_dtype, ckpt=None):
                                   ckpt_every=2)
 
 
+#: per step, the gradient norms' tolerance against the reference's where it
+#: is not LOSS_RTOL (their losses are held to LOSS_RTOL at every step).
+#: rwkv6-1.6b's smoke gradients are ill-conditioned once trained: at the
+#: reference's own parameters after 4 steps, the port's gradient moves by
+#: 1e-4 of scale when only its forward's summation order changes
+#: (``ref.rwkv6_ordered`` for ``rwkv6_plain``), and AdamW carries that into
+#: the next steps' norms. Measured, steps 1-5: float32 1.1e-7, 1.3e-5,
+#: 3.4e-6, 6.8e-6, 6.7e-3; int8 1.1e-7, 1.3e-5, 8.2e-5, 5.5e-5, 1.1e-3 (the
+#: same at 1 and 8 CPU threads); the limits sit 2.4-8x above them
+NORM_RTOL_BY_STEP = {"rwkv6-1.6b": (LOSS_RTOL, 1e-4, 2e-4, 2e-4, 2e-2)}
+
+
 @pytest.mark.parametrize("arch,state_dtype", [
     ("llama3-8b", "float32"), ("llama3-8b", "int8"),
-    ("internvl2-76b", "float32")])
+    ("internvl2-76b", "float32"), ("rwkv6-1.6b", "float32"),
+    ("rwkv6-1.6b", "int8"), ("recurrentgemma-9b", "float32")])
 def test_trainer_fit_matches_reference_losses(ref, arch, state_dtype):
     cfg, rt, p, o, tt = _trainers(ref, arch, state_dtype)
     _, _, want = rt.fit(p, o, ref.pipeline.SyntheticLM(
@@ -430,10 +445,11 @@ def test_trainer_fit_matches_reference_losses(ref, arch, state_dtype):
         tt.model.cfg, DataConfig(32, 4)).iterate(), steps=5, log_every=1)
     assert [e["step"] for e in got] == [e["step"] for e in want]
     assert len(tt.step_times) == 5
-    for g, w in zip(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_allclose(g["loss"], w["loss"], rtol=LOSS_RTOL)
-        np.testing.assert_allclose(g["grad_norm"], w["grad_norm"],
-                                   rtol=LOSS_RTOL)
+        np.testing.assert_allclose(
+            g["grad_norm"], w["grad_norm"],
+            rtol=NORM_RTOL_BY_STEP.get(arch, [LOSS_RTOL] * 5)[i])
         assert g["lr"] == w["lr"] and g["tokens"] == w["tokens"]
 
 

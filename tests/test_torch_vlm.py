@@ -122,7 +122,7 @@ def test_decode_after_patch_prefix_equals_prefill_of_one_more_token(s):
 
 # -- training: loss and gradients against the reference ---------------------
 
-@pytest.mark.parametrize("arch", TRAINED)
+@pytest.mark.parametrize("arch", TRAINED + RECURRENT)
 def test_loss_and_gradients_match_reference(ref, arch):
     import jax
     import jax.numpy as jnp
@@ -200,13 +200,21 @@ def test_patch_prefix_is_dropped_from_the_loss(ref):
                if "cross" not in n)
 
 
+#: kernel name -> the plain version the CPU runs in its place
+PLAINS = {"matmul": "matmul_plain",
+          "flash_attention": "flash_attention_plain",
+          "rglru": "rglru_plain", "rglru_bwd": "rglru_backward_plain",
+          "rwkv6": "rwkv6_plain", "rwkv6_bwd": "rwkv6_backward_plain"}
+
+
 @pytest.mark.parametrize("arch", ["llama3-8b", VLM, "olmoe-1b-7b",
-                                  "whisper-large-v3"])
+                                  "whisper-large-v3", *RECURRENT])
 @pytest.mark.parametrize("remat", [True, False])
 def test_train_launches_counts_every_product(monkeypatch, arch, remat):
     """``train_launches`` against the kernel calls of one loss and backward,
-    counted through the plain versions the CPU runs in their place."""
-    counts = {"matmul": 0, "flash_attention": 0}
+    counted through the plain versions the CPU runs in their place: the
+    products, attention, and the recurrences' forwards and backwards."""
+    counts = dict.fromkeys(PLAINS, 0)
 
     def counted(name, fn):
         def run(*a, **k):
@@ -214,10 +222,8 @@ def test_train_launches_counts_every_product(monkeypatch, arch, remat):
             return fn(*a, **k)
         return run
 
-    monkeypatch.setattr(ops, "matmul_plain",
-                        counted("matmul", ops.matmul_plain))
-    monkeypatch.setattr(ops, "flash_attention_plain",
-                        counted("flash_attention", ops.flash_attention_plain))
+    for name, plain in PLAINS.items():
+        monkeypatch.setattr(ops, plain, counted(name, getattr(ops, plain)))
     cfg = get_smoke_config(arch)
     m = Model(cfg, device="cpu", remat=remat, loss_chunk=8).init(
         torch.Generator().manual_seed(0))
@@ -244,13 +250,23 @@ def test_remat_gives_the_same_gradients():
 
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_recurrent_configs_refuse_training_on_every_device(arch):
-    """The refusal comes before any work, so the full config on the meta
-    device refuses as the CPU's smoke config does."""
+    """Once refused (their kernels had no backward), the recurrent configs
+    now train on every device: the full config on the meta device and the
+    CPU's smoke config each take a loss and its backward, every trainable
+    parameter gets a gradient of its shape, finite on the CPU."""
     for cfg, dev in ((get_config(arch), "meta"),
                      (get_smoke_config(arch), "cpu")):
         m = Model(cfg, device=dev)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            m.loss_fn({"tokens": np.zeros((1, 4), np.int32)})
+        if dev == "cpu":
+            m.init(torch.Generator().manual_seed(0))
+        tp = train_params(m)
+        loss, _ = m.loss_fn({"tokens": np.zeros((1, 4), np.int32)})
+        loss.backward()
+        assert loss.device.type == dev
+        for name, p in tp.items():
+            assert p.grad is not None and p.grad.shape == p.shape, name
+            if dev == "cpu":
+                assert torch.isfinite(p.grad).all(), name
 
 
 def test_serving_stays_out_of_autograd():
@@ -439,8 +455,8 @@ def test_cuda_loss_and_gradients_match_cpu():
             counts = ops.launch_counts()
         grads.append((float(loss.detach()), {k: p.grad.cpu()
                                              for k, p in tp.items()}))
-    assert {k: counts[k] for k in ("matmul", "flash_attention")} == \
-        train_launches(cfg, 40)
+    want = train_launches(cfg, 40)
+    assert {k: counts[k] for k in want} == want
     np.testing.assert_allclose(grads[0][0], grads[1][0], rtol=LOSS_RTOL)
     for k, w in grads[1][1].items():
         _close(grads[0][1][k], w, GRAD_OF_SCALE)
