@@ -4407,18 +4407,22 @@ def check_rwkv6_backward(dev):
     training shape [TRAIN_BATCH, 32, TRAIN_SEQ, 64] in bf16 on head views
     of [B, T, H, D] tensors with no s0 and no dS_T (as ``loss_fn`` calls
     it), in float32 from s0 with dS_T, and at a ragged [2, 3, 37, 32 / 60]
-    in float32. Every term of every sum is the plain version's bit for
-    bit, so dr, dk, dv, dw and du must lie within the bound two summation
-    orders of their n terms allow (``ref.sum_order_bound``: 2 (n - 1)
-    2^-24 times the terms' magnitudes, plus a bf16 ulp in bf16); ds0,
-    elementwise, bit for bit. Then its time by CUDA events and profiler
-    device time at the training shape, the plain version's and the bound.
+    in float32. All six outputs must be ``ref.rwkv6_backward_ordered``'s
+    bit for bit (the kernel's fixed orders in torch). Every term of every
+    sum is the plain version's bit for bit, so dr, dk, dv, dw and du must
+    also lie within the bound two summation orders of their n terms allow
+    (``ref.sum_order_bound``: 2 (n - 1) 2^-24 times the terms' magnitudes,
+    plus a bf16 ulp in bf16); ds0, elementwise, bit for bit. Then its time
+    by CUDA events and profiler device time at the training shape, the
+    plain version's, the bound and the design's own count under its plan.
     Returns its entry of the kernels line."""
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import rwkv6_backward_plain, sum_order_bound
-    from repro_torch.kernels.rwkv6 import BWD_CHUNK
+    from repro_torch.kernels.ref import (rwkv6_backward_ordered,
+                                         rwkv6_backward_plain,
+                                         sum_order_bound)
+    from repro_torch.kernels.rwkv6 import backward_plan
 
     g = torch.Generator(device=dev).manual_seed(24)
 
@@ -4435,11 +4439,15 @@ def check_rwkv6_backward(dev):
 
     def against_plain(label, args):
         got = ops.rwkv6_bwd(*args)
+        ordered = rwkv6_backward_ordered(*args)
+        torch.cuda.synchronize()
+        bits = [torch.equal(x, y) for x, y in zip(got, ordered)]
+        del ordered
         *want, sums = rwkv6_backward_plain(*args, term_sums=True)
         torch.cuda.synchronize()
         B, _, T, Dk = args[0].shape
         Dv = args[2].shape[-1]
-        ok, worst, err = torch.equal(got[5], want[5]), 0.0, 0.0
+        ok, worst, err = torch.equal(got[5], want[5]) and all(bits), 0.0, 0.0
         for gg, ww, sm, n in zip(got, want, sums,
                                  (Dv, Dv, Dk, Dv, Dv + B * T)):
             d = (gg.float() - ww.float()).abs()
@@ -4448,7 +4456,9 @@ def check_rwkv6_backward(dev):
             worst = max(worst, float((d / bound.clamp(min=1e-30)).max()))
             err = max(err, float(d.max()))
         print(f"rwkv6_bwd {list(args[0].shape)} Dv={Dv} "
-              f"{str(args[0].dtype)[6:]} {label}: dr, dk, dv, dw, du "
+              f"{str(args[0].dtype)[6:]} {label}: dr, dk, dv, dw, du, ds0 "
+              f"bitwise equal to ref.rwkv6_backward_ordered {bits}; "
+              f"against the plain version dr, dk, dv, dw, du "
               f"max_abs_err {err!r} (at most {worst:.3f} of the order "
               f"bound), ds0 bitwise equal {torch.equal(got[5], want[5])}; "
               f"gradient strides {[t.stride() for t in got[:4]]}")
@@ -4468,18 +4478,18 @@ def check_rwkv6_backward(dev):
     p_ms = cuda_ms(lambda: rwkv6_backward_plain(*timed), 1)
     bound, by, n_bytes, n_ops = bound_of(cost.rwkv6_backward(
         B, H, T, Dk, Dk, torch.bfloat16, False, False), "float32")
+    plan = backward_plan(Dk, Dk)
     d_bound, d_by, d_bytes, d_ops = bound_of(cost.rwkv6_backward_kernel(
-        B, H, T, Dk, Dk, torch.bfloat16, False, False, BWD_CHUNK),
-        "float32")
+        B, H, T, Dk, Dk, torch.bfloat16, False, False, *plan), "float32")
     print(f"rwkv6_bwd [{B}, {H}, {T}, {Dk}] bf16: kernel {k_ms:.6f} ms by "
           f"events, {d_ms:.6f} ms of device time ({n_ops / k_ms * 1e-9:.3f}"
           f" TFLOP/s of the function's operations), plain {p_ms:.3f} ms, "
           f"bound {bound:.6f} ms by {by} (bytes {n_bytes}, operations "
           f"{n_ops}); kernel at {bound / k_ms:.3f} of the bound. The "
-          f"design's own work (a second recompute, unfactored terms, the "
-          f"checkpoints' round trip): bytes {d_bytes}, operations {d_ops}, "
-          f"{d_bound:.6f} ms by {d_by}; kernel at {d_bound / k_ms:.3f} of "
-          f"it")
+          f"design's own work under plan {tuple(plan)} (a second "
+          f"recompute, unfactored terms, the checkpoints' round trip): "
+          f"bytes {d_bytes}, operations {d_ops}, {d_bound:.6f} ms by "
+          f"{d_by}; kernel at {d_bound / k_ms:.3f} of it")
     return {"name": "rwkv6_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rwkv6_bwd.cu",
             "replaces": "src/repro/kernels/rwkv6.py:56",

@@ -161,19 +161,29 @@ def rwkv6_backward(B: int, H: int, T: int, Dk: int, Dv: int,
 
 def rwkv6_backward_kernel(B: int, H: int, T: int, Dk: int, Dv: int,
                           dtype: torch.dtype, with_s0: bool, with_dsT: bool,
-                          chunk: int) -> Tuple[int, int]:
-    """What ``csrc/rwkv6_bwd.cu`` does for :func:`rwkv6_backward`'s work, a
-    reading of its design beside the bound: per (b, h, t) 22 Dk Dv
-    operations (the state recomputed twice, 3 each; dr's terms 5, dkv's 2,
-    dk's, dv's and dw's 2 each, the dS update 3), 4 Dk (r u, r k, its
-    product with the dot, du's add) and 2 Dv (the dot); the bytes of
-    :func:`rwkv6_backward` with the per-(b, h) du partials written in
-    place of du, and a float32 [Dk, Dv] checkpoint every ``chunk`` steps
-    written and read once. The chunk scratch beside it is read back by the
-    threads that wrote it and counted no further (32 MB at rwkv6-1.6b's
-    training shape: L2)."""
+                          tiles: int, chunk: int) -> Tuple[int, int]:
+    """What ``csrc/rwkv6_bwd.cu`` does for :func:`rwkv6_backward`'s work
+    under its plan (``tiles`` column tiles of four a thread, a checkpoint
+    every ``chunk`` steps: ``kernels/rwkv6.py:backward_plan``), a reading of
+    its design beside the bound. With Dv4 the columns padded to a multiple
+    of four and P those padded to whole groups of ``tiles`` tiles (the
+    columns the threads hold), per (b, h, t): 18 Dk P elementwise
+    operations (the state recomputed twice, 3 each; dr's terms 4, dkv's 2,
+    the products of dk, dv and dw 1 each, the dS update 3); the sums of dr,
+    dk and dw, 3 Dk (3 P / 4 + Dv4 / 4 - 1) adds (three within each tile a
+    thread holds, then the tiles in order); dv's, 3 Dk P / 2 within its
+    tiles of four rows (each of the two row pairs of a tile adds three) and
+    Dv (Dk / 4 - 1) across them; r u once a thread, Dk P / (4 tiles); 3 Dk
+    for du (r k, its product with the dot, the add) and 2 Dv for the dot.
+    The bytes of :func:`rwkv6_backward` with the per-(b, h) du partials
+    written in place of du, and the float32 [Dk, P] checkpoints before
+    every chunk but the last, written and read once."""
     n = B * H * T
-    ckpt = B * H * (-(-T // chunk)) * Dk * (-(-Dv // 4) * 4) * 4
+    dv4 = -(-Dv // 4) * 4
+    width = -(-dv4 // (4 * tiles)) * 4 * tiles
+    ckpt = B * H * (-(-T // chunk) - 1) * Dk * width * 4
     _, nbytes = rwkv6_backward(B, H, T, Dk, Dv, dtype, with_s0, with_dsT)
-    return (n * (22 * Dk * Dv + 4 * Dk + 2 * Dv),
-            nbytes + (B - 1) * H * Dk * 4 + 2 * ckpt)
+    per_step = (18 * Dk * width + 3 * Dk * (3 * width // 4 + dv4 // 4 - 1)
+                + 3 * Dk * width // 2 + Dv * (Dk // 4 - 1)
+                + Dk * width // (4 * tiles) + 3 * Dk + 2 * Dv)
+    return n * per_step, nbytes + (B - 1) * H * Dk * 4 + 2 * ckpt

@@ -785,9 +785,13 @@ def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     du [H, Dk], ds0 [B, H, Dk, Dv], float32; dr, dk, dv, dw with their
     inputs' strides where those are dense). CPU tensors run
     :func:`.ref.rwkv6_backward_plain`; CUDA tensors run the CUDA kernel
-    (``csrc/rwkv6_bwd.cu``) on a workspace of
-    ``kernels/rwkv6.py:workspace_floats``, and du's per-(b, h) sums add
-    over b in ascending order (the kernel's work: not counted apart)."""
+    (``csrc/rwkv6_bwd.cu``, its sums in the fixed orders of
+    :func:`.ref.rwkv6_backward_ordered`, bit for bit) under
+    ``kernels/rwkv6.py:backward_plan`` on a workspace of
+    ``kernels/rwkv6.py:workspace_floats`` (the state every ``chunk``
+    steps), and du's per-(b, h) sums add over b in ascending order (the
+    kernel's work: not counted apart). A CUDA launch that fails raises;
+    nothing falls back to the plain version."""
     _check_rwkv6(r, k, v, w, u, s0)
     xs = dict(r=r, do=do) if dsT is None else dict(r=r, do=do, dsT=dsT)
     _check_tensors("rwkv6_bwd", **xs)

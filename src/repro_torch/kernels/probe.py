@@ -4,6 +4,7 @@ them, on one NVIDIA GPU.
     python -m repro_torch.kernels.probe [--ptxas]
         [--baseline OLD_MATMUL_CU] [--baseline rwkv6=OLD_RWKV6_CU]
         [--baseline fifo_dispatch=OLD_FIFO_CU]
+        [--baseline rwkv6_bwd=OLD_RWKV6_BWD_CU]
 
 (with ``src`` on ``PYTHONPATH``; a baseline file is another version of the
 kernel's source, e.g. ``git show <commit>:src/repro_torch/kernels/csrc/
@@ -12,7 +13,8 @@ card's name and power limit, then:
 
 - with ``--ptxas``, each kernel's registers, shared memory and spills as
   ``nvcc -Xptxas -v`` reports them for ``csrc/matmul.cu``,
-  ``csrc/acd_evict.cu``, ``csrc/rwkv6.cu`` and ``csrc/fifo_dispatch.cu``;
+  ``csrc/acd_evict.cu``, ``csrc/rwkv6.cu``, ``csrc/fifo_dispatch.cu`` and
+  ``csrc/rwkv6_bwd.cu``;
 - with a ``matmul`` baseline (a bare path), the float32 kernel of that
   version (its ``matmul_f32`` taking no plan) against this one on a set of
   products (the MM stage's squares and their integer ``x @ x.T``,
@@ -32,7 +34,18 @@ card's name and power limit, then:
   engine's [30, 3, 4096, 2] (every provider capped, n_pub = J; and random
   n_pub), cold starts off and on, all seven outputs bit for bit, and both
   timed in turns by CUDA events and by device time, each call allocating
-  its outputs and launching through the same ctypes signature.
+  its outputs and launching through the same ctypes signature;
+- with an ``rwkv6_bwd`` baseline (a kernel taking no plan and a
+  workspace of ceil(T / 16) + 16 states a head), that kernel against this
+  one at ``bwd_shapes`` (rwkv6-1.6b's training call [4, 32, 1024, 64] bf16
+  on head views with no s0 or dS_T, the same in float32 from s0 with dS_T,
+  a ragged [2, 3, 37, 32] with Dv = 60 in float32 and in bf16): all six
+  outputs (dr, dk, dv, dw, the per-(b, h) du sums, ds0) bit for bit, each
+  of this kernel's plans (``rwkv6.backward_plans``) bit for bit the
+  first, and this kernel against ``ref.rwkv6_backward_ordered``; then
+  both timed in turns (old, new, new, old) at the training call by CUDA
+  events and by device time, each call allocating its outputs and
+  workspace as ``ops.rwkv6_bwd`` does.
 
 It exits 1 on any mismatch. ``chip_smoke.py`` times the shipped kernels;
 this probe does what needs a second build. Nothing here runs when the
@@ -53,7 +66,7 @@ import torch
 
 from . import build
 from . import fifo as _fifo
-from .ref import rwkv6_ordered
+from .ref import rwkv6_backward_ordered, rwkv6_ordered
 
 # the modules, not the package's wrappers of the same names
 mm = importlib.import_module(".matmul", __package__)
@@ -354,7 +367,120 @@ def fifo_against_baseline(fn) -> bool:
     return ok
 
 
-def ptxas(names=("matmul", "acd_evict", "rwkv6", "fifo_dispatch")):
+def bwd_shapes():
+    """(label, B, H, T, Dk, Dv, dtype, with s0 and dS_T) of the compared
+    ``rwkv6_bwd`` calls, the timed training call first."""
+    return [("[4, 32, 1024, 64] bf16, no s0 or dS_T (the training call)",
+             4, 32, 1024, 64, 64, torch.bfloat16, False),
+            ("[4, 32, 1024, 64] float32 from s0 with dS_T", 4, 32, 1024, 64,
+             64, torch.float32, True),
+            ("ragged [2, 3, 37, 32] Dv=60 float32 from s0 with dS_T", 2, 3,
+             37, 32, 60, torch.float32, True),
+            ("ragged [2, 3, 37, 32] Dv=60 bf16 from s0 with dS_T", 2, 3, 37,
+             32, 60, torch.bfloat16, True)]
+
+
+def _bwd_inputs(B, H, T, Dk, Dv, dt, with_state, gen, dev):
+    """r, k, v, w, u, do, s0, dsT as ``loss_fn`` passes them: head views
+    of [B, T, H, D] tensors."""
+    def heads(D, scale=0.3, to=dt):
+        return (torch.randn(B, T, H, D, device=dev, generator=gen)
+                * scale).to(to).transpose(1, 2)
+    r, k, v = heads(Dk), heads(Dk), heads(Dv)
+    w = torch.exp(-torch.exp(heads(Dk, 1.0, torch.float32) - 4.0))
+    u = torch.randn(H, Dk, device=dev, generator=gen) * 0.1
+    s0, dsT = (torch.randn(B, H, Dk, Dv, device=dev, generator=gen)
+               if with_state else None for _ in range(2))
+    return r, k, v, w, u, heads(Dv), s0, dsT
+
+
+def _bwd_outs(r, v, w):
+    """dr, dk, dv, dw, du_part, ds0 as ``ops.rwkv6_bwd`` allocates them."""
+    B, H, _, Dk = r.shape
+    return (torch.empty_like(r), torch.empty_like(r), torch.empty_like(v),
+            torch.empty_like(w),
+            torch.empty((B, H, Dk), device=r.device),
+            torch.empty((B, H, Dk, v.shape[-1]), device=r.device))
+
+
+def _rwkv_bwd_baseline_fns(path: Path):
+    lib = _baseline_lib("rwkv6_bwd", path)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for dt, name in ((torch.float32, "rwkv6_bwd_f32"),
+                     (torch.bfloat16, "rwkv6_bwd_bf16")):
+        fn = getattr(lib, name)
+        fn.argtypes = [P] * 15 + [ctypes.c_longlong] + [I] * 5 + [P, P]
+        fn.restype = ctypes.c_int
+        fns[dt] = fn
+    return fns
+
+
+def rwkv_bwd_against_baseline(fns) -> bool:
+    """This ``rwkv6_bwd`` against another version's at ``bwd_shapes``: the
+    six outputs bit for bit, every plan alike, and against
+    ``ref.rwkv6_backward_ordered``; then both timed in turns."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ok = True
+    for n_shape, (label, B, H, T, Dk, Dv, dt, state) in enumerate(
+            bwd_shapes()):
+        args = _bwd_inputs(B, H, T, Dk, Dv, dt, state, gen, dev)
+        r, k, v, w, u, do, s0, dsT = args
+        opt = [None if x is None else x.data_ptr() for x in (s0, dsT)]
+
+        def old():  # its own workspace: ceil(T / 16) + 16 states a head
+            outs = _bwd_outs(r, v, w)
+            work = torch.empty(
+                (B * H * (-(-T // 16) + 16) * Dk * (-(-Dv // 4) * 4),),
+                device=dev)
+            strides = (ctypes.c_longlong * 27)(*(
+                s for x in (r, k, v, w, do, *outs[:4]) for s in x.stride()[:3]))
+            err = fns[dt](*(x.data_ptr() for x in (r, k, v, w, u, do)), *opt,
+                          *(x.data_ptr() for x in outs), work.data_ptr(),
+                          work.numel(), B, H, T, Dk, Dv, strides,
+                          torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"baseline rwkv6_bwd: cudaError_t {err}")
+            return outs
+
+        def new(plan=None):
+            outs = _bwd_outs(r, v, w)
+            work = torch.empty((_rk.workspace_floats(B, H, T, Dk, Dv, plan),),
+                               device=dev)
+            _rk.launch_backward(r, k, v, w, u, do, s0, dsT, *outs, work,
+                                _plan=plan)
+            return outs
+
+        base, got = old(), new()
+        plans = {tuple(p): new(p) for p in _rk.backward_plans(Dk, Dv)}
+        want = rwkv6_backward_ordered(*args)
+        torch.cuda.synchronize()
+        same = [torch.equal(x, y) for x, y in zip(base, got)]
+        alike = all(torch.equal(x, y) for outs in plans.values()
+                    for x, y in zip(outs, got))
+        du = got[4][0]
+        for b in range(1, B):
+            du = du + got[4][b]
+        model = all(torch.equal(x, y) for x, y in zip(
+            (*got[:4], du, got[5]), want))
+        ok &= all(same) and alike and model
+        line = (f"probe rwkv6_bwd {label}, plans {list(plans)}: bitwise "
+                f"equal to the baseline kernel (dr, dk, dv, dw, du_part, "
+                f"ds0) {same}, every plan alike {alike}, all six to "
+                f"ref.rwkv6_backward_ordered {model}")
+        if n_shape == 0:
+            ev = [_events_ms(f, 5) for f in (old, new, new, old)]
+            dv = [_device_ms(f, 5) for f in (old, new, new, old)]
+            line += (f"; events ms old {ev[0]:.6f} / {ev[3]:.6f}, new "
+                     f"{ev[1]:.6f} / {ev[2]:.6f}; device ms old {dv[0]:.6f}"
+                     f" / {dv[3]:.6f}, new {dv[1]:.6f} / {dv[2]:.6f}")
+        print(line, flush=True)
+    return ok
+
+
+def ptxas(names=("matmul", "acd_evict", "rwkv6", "fifo_dispatch",
+                 "rwkv6_bwd")):
     for name in names:
         out = build.BUILD_DIR / f"probe_ptxas_{name}.so"
         got = subprocess.run(
@@ -371,8 +497,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", action="append", default=[],
                     help="another version of a kernel's source, as "
-                         "NAME=PATH (NAME matmul, rwkv6 or fifo_dispatch; "
-                         "a bare PATH is matmul's)")
+                         "NAME=PATH (NAME matmul, rwkv6, fifo_dispatch or "
+                         "rwkv6_bwd; a bare PATH is matmul's)")
     ap.add_argument("--ptxas", action="store_true",
                     help="print registers and spills per kernel")
     args = ap.parse_args(argv)
@@ -382,7 +508,7 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    build.build_all(["matmul", "rwkv6", "fifo_dispatch"])
+    build.build_all(["matmul", "rwkv6", "fifo_dispatch", "rwkv6_bwd"])
     if args.ptxas:
         ptxas()
     ok = True
@@ -395,6 +521,9 @@ def main(argv=None) -> int:
             ok &= rwkv_against_baseline(_rwkv_baseline_fn(Path(path)))
         elif name == "fifo_dispatch":
             ok &= fifo_against_baseline(_fifo_baseline_fn(Path(path)))
+        elif name == "rwkv6_bwd":
+            ok &= rwkv_bwd_against_baseline(
+                _rwkv_bwd_baseline_fns(Path(path)))
         else:
             raise SystemExit(f"probe: no baseline for kernel {name!r}")
     print(f"probe: {'all bitwise checks passed' if ok else 'MISMATCH'}")

@@ -404,6 +404,88 @@ def rwkv6_ordered(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(v.dtype), S
 
 
+#: columns of the CUDA backward's tiles, and rows of dv's (``kTile`` in
+#: ``csrc/rwkv6_bwd.cu``)
+RWKV_BWD_TILE = 4
+
+
+def _tile_chain(x: torch.Tensor) -> torch.Tensor:
+    """The sums over the last dimension of ``x`` (a multiple of
+    ``RWKV_BWD_TILE`` long) in the backward kernel's order: each tile of
+    four adds its terms in ascending order from the first, and the tiles'
+    sums add in ascending order from tile 0."""
+    t = x.reshape(*x.shape[:-1], -1, RWKV_BWD_TILE)
+    p = t[..., 0]
+    for c in range(1, RWKV_BWD_TILE):
+        p = p + t[..., c]
+    acc = p[..., 0]
+    for i in range(1, p.shape[-1]):
+        acc = acc + p[..., i]
+    return acc
+
+
+def rwkv6_backward_ordered(r: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+                           do: torch.Tensor,
+                           s0: Optional[torch.Tensor] = None,
+                           dsT: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, ...]:
+    """:func:`rwkv6_backward_plain` with every sum in the CUDA kernel's
+    fixed order (``csrc/rwkv6_bwd.cu``): Dv padded with zero columns to a
+    multiple of four as the kernel pads it (v, do, s0 and dS_T); dr, dk,
+    dw summed over j and dv over i by :func:`_tile_chain`; sum_j do_t[j]
+    v_t[j] over the Dv columns in ascending j from the first term; du from
+    0.0 with t descending, its per-(b, h) sums over b in ascending order.
+    Each operation is one rounded float32 operation, so this gives the
+    kernel's six outputs bit for bit on any device. Same arguments and
+    returns as :func:`rwkv6_backward_plain` (no ``term_sums``)."""
+    r32, k32, v32, w32, do32 = (t.float() for t in (r, k, v, w, do))
+    b, h, t_len, dk_ = r32.shape
+    dv_ = v32.shape[-1]
+    pad = -(-dv_ // RWKV_BWD_TILE) * RWKV_BWD_TILE - dv_
+    dev = r.device
+
+    def wide(x):
+        return torch.nn.functional.pad(x, (0, pad))
+
+    v4, do4 = wide(v32), wide(do32)
+    uu = u.float()[None, :, :, None]                      # [1, H, Dk, 1]
+    S = (torch.zeros((b, h, dk_, dv_ + pad), dtype=torch.float32,
+                     device=dev) if s0 is None else wide(s0.float()))
+    states = []
+    for t in range(t_len):
+        states.append(S)
+        kv = k32[:, :, t, :, None] * v4[:, :, t, None, :]
+        S = w32[:, :, t, :, None] * S + kv
+    dS = (torch.zeros((b, h, dk_, dv_ + pad), dtype=torch.float32,
+                      device=dev) if dsT is None else wide(dsT.float()))
+    dov = do32 * v32                                      # [B, H, T, Dv]
+    dot = dov[..., 0]
+    for j in range(1, dv_):
+        dot = dot + dov[..., j]
+    rows = torch.empty((3, b, h, t_len, dk_), dtype=torch.float32, device=dev)
+    dv = torch.empty((b, h, t_len, dv_ + pad), dtype=torch.float32,
+                     device=dev)
+    du = torch.zeros((b, h, dk_), dtype=torch.float32, device=dev)
+    for t in reversed(range(t_len)):
+        Sp = states[t]
+        rt, kt, wt = (x[:, :, t, :, None] for x in (r32, k32, w32))
+        vt, dot_t = v4[:, :, t, None, :], do4[:, :, t, None, :]
+        kv = kt * vt
+        t_r = (Sp + uu * kv) * dot_t
+        dkv = dS + (rt * uu) * dot_t
+        rows[:, :, :, t] = _tile_chain(torch.stack((t_r, dkv * vt, dS * Sp)))
+        dv[:, :, t] = _tile_chain((dkv * kt).transpose(-1, -2))
+        du = du + (r32[:, :, t] * k32[:, :, t]) * dot[:, :, t, None]
+        dS = wt * dS + rt * dot_t
+    du_sum = du[0]
+    for i in range(1, b):                     # over b in ascending order
+        du_sum = du_sum + du[i]
+    return (rows[0].to(r.dtype), rows[1].to(k.dtype),
+            dv[..., :dv_].to(v.dtype), rows[2], du_sum,
+            dS[..., :dv_].contiguous())
+
+
 #: the TPU attention kernels' logit for a masked (query, key) pair
 MASKED_LOGIT = -0.7 * torch.finfo(torch.float32).max
 #: key positions per online-softmax step of the bf16 attention kernels

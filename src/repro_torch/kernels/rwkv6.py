@@ -12,10 +12,13 @@ launches; :func:`repro_torch.kernels.ops.rwkv6` is the checked public
 wrapper that ``models/recurrent.py`` calls.
 
 The backward (``csrc/rwkv6_bwd.cu``, :func:`launch_backward`) takes one
-block per (b, h): a forward pass writes the state every
-:data:`BWD_CHUNK` steps into a float32 workspace, then the chunks are
-walked in reverse, each chunk's states recomputed from its checkpoint
-into the block's scratch beside them (:func:`workspace_floats`).
+block per (b, h), each thread two state rows of ``tiles`` column tiles
+(:func:`backward_plan`, from Dk and Dv alone): a forward pass writes the
+state every ``chunk`` steps into a float32 workspace
+(:func:`workspace_floats`), then the chunks are walked in reverse, each
+chunk's states recomputed from its checkpoint into the threads'
+registers. :func:`backward_geometry` mirrors the kernel's block size and
+shared memory; no plan changes a value.
 """
 from __future__ import annotations
 
@@ -52,10 +55,101 @@ SMS = 132
 SCHEDULERS = 4
 WARPS_PER_SCHEDULER = 2
 _FNS = {}
-#: steps between the backward's state checkpoints (``kChunk`` in
-#: ``csrc/rwkv6_bwd.cu``), and its block's scratch in steps
-BWD_CHUNK = 16
-_BWD_ARGTYPES = ([_P] * 15 + [ctypes.c_longlong] + [_I] * 5 + [_P, _P])
+_BWD_ARGTYPES = ([_P] * 15 + [ctypes.c_longlong] + [_I] * 5 + [_P, _P, _P])
+#: the backward's thread tile (``kRows`` state rows by ``kTile`` columns a
+#: column tile in ``csrc/rwkv6_bwd.cu``), its most threads a block, its
+#: pass 1 ring in chunks, and the shared memory a block may take
+BWD_ROWS = 2
+BWD_TILE = 4
+BWD_MAX_THREADS = 512
+BWD_SLOTS = 4
+SMEM_MAX = 232448
+
+
+class BackwardPlan(NamedTuple):
+    """How the backward kernel cuts a head: ``tiles`` column tiles (of
+    four columns) a thread, and the ``chunk`` of steps between two
+    checkpoints, whose states a thread keeps in registers (2 rows x 4
+    tiles x chunk = 64 floats in both plans). Every plan gives every
+    element the same bits."""
+    tiles: int
+    chunk: int
+
+
+#: the plans compiled, in order of preference: (2, 4) only at Dk = 64
+BWD_PLANS = (BackwardPlan(1, 8), BackwardPlan(2, 4))
+
+
+class BackwardGeometry(NamedTuple):
+    """The block of a plan (``Geo`` in ``csrc/rwkv6_bwd.cu``): its
+    threads, the columns they hold (Dv padded to whole groups of
+    ``tiles`` column tiles) and its dynamic shared memory in bytes."""
+    threads: int
+    width: int
+    smem: int
+
+
+def backward_geometry(plan: BackwardPlan, Dk: int, Dv: int,
+                      itemsize: int) -> BackwardGeometry:
+    """The kernel's ``geometry`` for ``plan`` at Dk, Dv and inputs of
+    ``itemsize`` bytes (r, k, v, do): the shared memory holds pass 1's ring
+    of ``BWD_SLOTS`` staged chunks or pass 2's tile sums of a chunk
+    (whichever is larger), pass 2's two staged chunks and its chunk
+    widened to float32, a checkpoint tile and two chunks' dots and r_t k_t
+    products."""
+    dv4 = _cdiv(Dv, BWD_TILE) * BWD_TILE
+    nct = dv4 // BWD_TILE
+    groups = _cdiv(nct, plan.tiles)
+    width = groups * plan.tiles * BWD_TILE
+    # dr's, dk's, dw's tile sums of a chunk, then dv's in rows of
+    # MAX_DV + 1 floats (``kVRow``)
+    sums = plan.chunk * (3 * nct * Dk + Dk // BWD_TILE * (MAX_DV + 1))
+    step = sum(_cdiv(n, 16) * 16 for n in (
+        Dk * itemsize, Dk * itemsize, Dk * 4, width * itemsize,
+        width * itemsize))
+    slot = plan.chunk * step
+    shared = _cdiv(max(4 * sums, BWD_SLOTS * slot), 16) * 16
+    smem = (shared + 2 * slot + 4 * plan.chunk * (3 * Dk + 2 * width)
+            + 4 * Dk * width + 8 * plan.chunk * (1 + Dk))
+    return BackwardGeometry(Dk // BWD_ROWS * groups, width, smem)
+
+
+def _bwd_fits(plan: BackwardPlan, Dk: int, Dv: int) -> bool:
+    return ((plan.tiles == 1 or Dk == 64) and backward_geometry(
+        plan, Dk, Dv, 4).threads <= BWD_MAX_THREADS)
+
+
+def backward_plan(Dk: int, Dv: int) -> BackwardPlan:
+    """The backward's plan for heads of Dk x Dv, a function of these alone
+    (never of B, H or T): one column tile a thread with an 8-step chunk
+    while the block stays within ``BWD_MAX_THREADS`` (16 warps at 64 x
+    64), else two with a 4-step chunk (Dk = 64, Dv > 64)."""
+    return next(p for p in BWD_PLANS if _bwd_fits(p, Dk, Dv))
+
+
+def backward_plans(Dk: int, Dv: int) -> List[BackwardPlan]:
+    """Every compiled plan that fits the head, :func:`backward_plan`'s
+    first: what the tests and the development probe hold against one
+    another, bit for bit."""
+    own = backward_plan(Dk, Dv)
+    return [own] + [p for p in BWD_PLANS if p != own and _bwd_fits(p, Dk, Dv)]
+
+
+def backward_cells(plan: BackwardPlan, Dk: int, Dv: int
+                   ) -> List[Tuple[int, int]]:
+    """Every (row, column) of the state that the kernel's threads hold
+    under ``plan``, in the order of (thread, row, column) and as the kernel
+    indexes them (thread t: row pair t mod (Dk / 2), column group
+    t div (Dk / 2)), the columns at or past ``Dv`` left out: each of
+    Dk x Dv must come exactly once."""
+    pairs = Dk // BWD_ROWS
+    ncol = plan.tiles * BWD_TILE
+    out = []
+    for t in range(backward_geometry(plan, Dk, Dv, 4).threads):
+        i0, j0 = (t % pairs) * BWD_ROWS, (t // pairs) * ncol
+        out += [(i0 + a, j0 + c) for a in range(BWD_ROWS)
+                for c in range(ncol) if j0 + c < Dv]
+    return out
 
 
 class Plan(NamedTuple):
@@ -186,14 +280,16 @@ def launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"rwkv6 launch failed: cudaError_t {err}")
 
 
-def workspace_floats(B: int, H: int, T: int, Dk: int, Dv: int) -> int:
+def workspace_floats(B: int, H: int, T: int, Dk: int, Dv: int,
+                     plan: Optional[BackwardPlan] = None) -> int:
     """float32 elements of the backward's workspace (``workspace_floats``
-    in ``csrc/rwkv6_bwd.cu``, which refuses a smaller one): a [Dk, Dv4]
-    state (Dv padded to a multiple of 4) for every checkpoint,
-    ceil(T / BWD_CHUNK) a (b, h), and for every step of a (b, h)'s chunk
-    scratch, BWD_CHUNK."""
-    dv4 = -(-Dv // 4) * 4
-    return B * H * (_cdiv(T, BWD_CHUNK) + BWD_CHUNK) * Dk * dv4
+    in ``csrc/rwkv6_bwd.cu``, which refuses a smaller one): a [Dk, width]
+    state (:func:`backward_geometry`'s padded columns) for every checkpoint
+    but the last chunk's, ceil(T / chunk) - 1 a (b, h), under ``plan``
+    (:func:`backward_plan`'s when ``None``)."""
+    plan = backward_plan(Dk, Dv) if plan is None else plan
+    width = backward_geometry(plan, Dk, Dv, 4).width
+    return B * H * (_cdiv(T, plan.chunk) - 1) * Dk * width
 
 
 def _bwd_fn(dtype: torch.dtype):
@@ -214,18 +310,21 @@ def launch_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     s0: Optional[torch.Tensor], dsT: Optional[torch.Tensor],
                     dr: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
                     dw: torch.Tensor, du_part: torch.Tensor,
-                    ds0: torch.Tensor, work: torch.Tensor) -> None:
+                    ds0: torch.Tensor, work: torch.Tensor, *,
+                    _plan: Optional[BackwardPlan] = None) -> None:
     """Launch the backward kernel on the current stream: ``dr``, ``dk``,
     ``dw`` [B, H, T, Dk], ``dv`` [B, H, T, Dv] (any strides with a unit
     last one), ``du_part`` [B, H, Dk] and ``ds0`` [B, H, Dk, Dv] (dense)
     get the gradients of the recurrence of ``r``, ``k``, ``v``, ``w``
     (read through their strides), ``u`` and ``s0`` at ``do`` (the gradient
     of o, through its strides) and ``dsT`` (dense; zeros when ``None``);
-    ``work`` holds at least :func:`workspace_floats` float32 elements.
-    The caller has checked devices, dtypes, shapes and strides; raises if
-    the launch reports a CUDA error."""
+    ``work`` holds at least :func:`workspace_floats` float32 elements of
+    the plan. The caller has checked devices, dtypes, shapes and strides;
+    raises if the launch reports a CUDA error. ``_plan`` replaces
+    :func:`backward_plan`'s (to hold the plans against one another)."""
     B, H, T, Dk = r.shape
     Dv = v.shape[-1]
+    plan = backward_plan(Dk, Dv) if _plan is None else _plan
     strides = (ctypes.c_longlong * 27)(*(
         s for x in (r, k, v, w, do, dr, dk, dv, dw) for s in x.stride()[:3]))
     stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -235,6 +334,6 @@ def launch_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if dsT is None else dsT.data_ptr(), dr.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
         ds0.data_ptr(), work.data_ptr(), work.numel(), B, H, T, Dk, Dv,
-        strides, stream)
+        strides, (ctypes.c_int * 2)(*plan), stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_bwd launch failed: cudaError_t {err}")

@@ -20,10 +20,14 @@ Tolerances:
 The CUDA kernels run only on a GPU: their cases are marked ``gpu`` and
 skip without one (``chip_smoke.py`` phase 9 holds them at the training
 shapes). There ``rglru_bwd`` equals its plain version bit for bit (every
-operation elementwise), and ``rwkv6_bwd`` within the bound two summation
-orders of n float32 terms can differ by, 2 (n - 1) 2^-24 times the sum of
-the terms' magnitudes (``ref.sum_order_bound``; every term is the plain
-version's bit for bit), plus one bf16 ulp for bf16 results.
+operation elementwise), and ``rwkv6_bwd`` equals
+``ref.rwkv6_backward_ordered`` (the kernel's fixed orders in torch) bit for
+bit, and lies within the bound two summation orders of n float32 terms
+can differ by, 2 (n - 1) 2^-24 times the sum of the terms' magnitudes
+(``ref.sum_order_bound``; every term is the plain version's bit for bit),
+plus one bf16 ulp for bf16 results, of the plain version. On the CPU,
+``ref.rwkv6_backward_ordered`` is held within that bound of the plain
+version and to the reference's autodiff.
 """
 import dataclasses
 
@@ -193,6 +197,85 @@ def test_rwkv6_backward_plain_matches_jax_grad(ref, dtype, with_s0,
         _close(g, np.asarray(wnt), name=name)
 
 
+#: the ordered version's heads: every Dk the kernel takes against one
+#: column, a ragged last tile, one and two wide heads
+ORDERED_HEADS = [(Dk, Dv) for Dk in (16, 32, 64) for Dv in (1, 60, 64, 128)]
+_JAX_GRADS = {}
+
+
+def _ordered_case(Dk, Dv, dtype, with_state):
+    """Seeded inputs at T = 37 with a step of decay exactly 0: the port's
+    torch tensors (r, k, v, do in ``dtype``) and the float32 numpy arrays
+    the reference takes (bf16 values widened), s0 and dS_T as given or
+    ``None``."""
+    r, k, v, w, u, s0, do, dsT = _rwkv6_inputs(Dk + Dv, B=2, H=2, Dk=Dk,
+                                               Dv=Dv)
+    assert (w[:, :, 3] == 0).all()
+    if dtype == "bfloat16":
+        tr, tk, tv, tdo = (_bf16(t) for t in (r, k, v, do))
+        r, k, v, do = (t.float().numpy() for t in (tr, tk, tv, tdo))
+    else:
+        tr, tk, tv, tdo = (torch.from_numpy(t) for t in (r, k, v, do))
+    s0, dsT = (x if with_state else None for x in (s0, dsT))
+    port = (tr, tk, tv, torch.from_numpy(w), torch.from_numpy(u), tdo,
+            None if s0 is None else torch.from_numpy(s0),
+            None if dsT is None else torch.from_numpy(dsT))
+    return port, (r, k, v, w, u, do, s0, dsT)
+
+
+@pytest.mark.parametrize("Dk,Dv", ORDERED_HEADS)
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_backward_ordered_within_order_bound_of_plain(dtype,
+                                                            with_state, Dk,
+                                                            Dv):
+    """``ref.rwkv6_backward_ordered`` (the CUDA kernel's orders, Dv padded
+    as the kernel pads it) takes every term bit for bit as the plain
+    version does, so dr, dk, dv, dw and du lie within the bound two
+    summation orders allow (``ref.sum_order_bound``), and ds0, elementwise,
+    is the plain version's bit for bit; the dtypes and shapes are its."""
+    port, _ = _ordered_case(Dk, Dv, dtype, with_state)
+    got = kref.rwkv6_backward_ordered(*port)
+    *want, sums = kref.rwkv6_backward_plain(*port, term_sums=True)
+    B, _, T, _ = port[0].shape
+    for name, g, wnt, sm, n in zip(("dr", "dk", "dv", "dw", "du"), got,
+                                   want, sums, (Dv, Dv, Dk, Dv, Dv + B * T)):
+        assert g.dtype == wnt.dtype and g.shape == wnt.shape, name
+        bound = kref.sum_order_bound(sm, n, g, wnt)
+        assert bool(((g.float() - wnt.float()).abs() <= bound).all()), name
+    assert got[5].dtype == torch.float32 and torch.equal(got[5], want[5])
+
+
+@pytest.mark.parametrize("Dk,Dv", ORDERED_HEADS)
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_backward_ordered_matches_jax_grad(ref, dtype, with_state, Dk,
+                                                 Dv):
+    """``ref.rwkv6_backward_ordered`` against ``jax.vjp`` of the
+    reference's ``rwkv6_ref`` (src/repro/kernels/ref.py) at T = 37 with a
+    step of decay exactly 0, within the tolerances of the plain version's
+    test. The reference is handed s0 and dS_T as zeros where the port's
+    call has none (one compiled gradient a head shape)."""
+    import jax.numpy as jnp
+
+    port, (r, k, v, w, u, do, s0, dsT) = _ordered_case(Dk, Dv, dtype,
+                                                       with_state)
+    fn = _JAX_GRADS.get(id(ref))
+    if fn is None:
+        def grads(*args):
+            _, vjp = ref.jax.vjp(ref.kref.rwkv6_ref, *args[:6])
+            return vjp(args[6:])
+        fn = _JAX_GRADS[id(ref)] = ref.jax.jit(grads)
+    state = np.zeros(r.shape[:2] + (Dk, Dv), np.float32)
+    want = fn(*(jnp.asarray(x) for x in (
+        r, k, v, w, u, state if s0 is None else s0, do,
+        state if dsT is None else dsT)))
+    got = kref.rwkv6_backward_ordered(*port)
+    for name, g, wnt in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                            want):
+        _close(g, np.asarray(wnt), name=name)
+
+
 # -- the Functions against autograd of the plain forwards ---------------------
 
 def _grads(fn, inputs, seed):
@@ -333,14 +416,18 @@ def test_backward_costs_equal_on_meta_and_the_cpu(with_state):
         *r.shape, v.shape[-1], torch.float32, with_state, with_state))
 
 
-@pytest.mark.parametrize("shape", [(4, 32, 1024, 64, 64), (2, 3, 37, 32, 60)])
+@pytest.mark.parametrize("shape", [(4, 32, 1024, 64, 64), (2, 3, 37, 32, 60),
+                                   (2, 3, 37, 64, 68)])
 def test_rwkv6_backward_cost_is_the_gradients_need(shape):
     """``cost.rwkv6_backward`` counts what the gradients need (14 Dk Dv +
     11 Dk + 4 Dv operations a step; the inputs read and the gradients
-    written once). The kernel's reading adds its design's work: 8 Dk Dv -
-    7 Dk - 2 Dv operations a step, the per-(b, h) du partials, and the
-    checkpoints of its workspace written and read once."""
-    from repro_torch.kernels.rwkv6 import BWD_CHUNK, workspace_floats
+    written once). The kernel's reading counts its design's work under its
+    plan, over the P columns its threads hold: 18 Dk P elementwise, the
+    tile sums, r u a thread group, du and the dot; its bytes add the
+    per-(b, h) du partials and the checkpoints of its workspace written
+    and read once."""
+    from repro_torch.kernels.rwkv6 import (backward_geometry, backward_plan,
+                                           workspace_floats)
 
     B, H, T, Dk, Dv = shape
     n = B * H * T
@@ -349,12 +436,52 @@ def test_rwkv6_backward_cost_is_the_gradients_need(shape):
     assert ops_ == n * (14 * Dk * Dv + 11 * Dk + 4 * Dv)
     assert nbytes == (n * (4 * Dk + 3 * Dv) * 2 + n * Dk * 8 + 2 * H * Dk * 4
                       + B * H * Dk * Dv * 4)
+    plan = backward_plan(Dk, Dv)
     k_ops, k_bytes = cost.rwkv6_backward_kernel(
-        B, H, T, Dk, Dv, torch.bfloat16, False, False, BWD_CHUNK)
-    assert k_ops - ops_ == n * (8 * Dk * Dv - 7 * Dk - 2 * Dv)
+        B, H, T, Dk, Dv, torch.bfloat16, False, False, *plan)
+    P = backward_geometry(plan, Dk, Dv, 2).width
     dv4 = -(-Dv // 4) * 4
-    ckpt = workspace_floats(B, H, T, Dk, Dv) - B * H * BWD_CHUNK * Dk * dv4
-    assert k_bytes - nbytes == (B - 1) * H * Dk * 4 + 2 * 4 * ckpt
+    groups = P // (4 * plan.tiles)
+    assert k_ops == n * (18 * Dk * P + 3 * Dk * (3 * P // 4 + dv4 // 4 - 1)
+                         + 3 * Dk * P // 2 + Dv * (Dk // 4 - 1) + Dk * groups
+                         + 3 * Dk + 2 * Dv)
+    assert k_bytes - nbytes == ((B - 1) * H * Dk * 4
+                                + 2 * 4 * workspace_floats(B, H, T, Dk, Dv))
+
+
+@pytest.mark.parametrize("Dk", [16, 32, 64])
+def test_rwkv6_backward_plan_covers_every_column_once(Dk):
+    """For every Dv the kernel takes, each compiled plan that fits holds
+    every (row, column) of the state in exactly one thread, in a block of
+    at most 512 threads (no cluster: one block a head) within the 232,448
+    bytes of shared memory a block may take, in bf16 and float32; the
+    plan is a function of Dk and Dv alone (never of B, H or T), its chunk
+    keeps 64 states a thread, and the workspace holds one [Dk, P] state
+    per chunk but the last."""
+    import importlib
+    import inspect
+
+    rk = importlib.import_module("repro_torch.kernels.rwkv6")
+    assert list(inspect.signature(rk.backward_plan).parameters) == [
+        "Dk", "Dv"]
+    for Dv in range(1, rk.MAX_DV + 1):
+        plans = rk.backward_plans(Dk, Dv)
+        assert plans[0] == rk.backward_plan(Dk, Dv)
+        for plan in plans:
+            assert plan in rk.BWD_PLANS
+            assert rk.BWD_ROWS * rk.BWD_TILE * plan.tiles * plan.chunk == 64
+            cells = rk.backward_cells(plan, Dk, Dv)
+            assert sorted(cells) == [(i, j) for i in range(Dk)
+                                     for j in range(Dv)], (Dk, Dv, plan)
+            for itemsize in (2, 4):
+                geo = rk.backward_geometry(plan, Dk, Dv, itemsize)
+                assert geo.threads <= rk.BWD_MAX_THREADS
+                assert geo.threads % 2 == 0          # row pairs side by side
+                assert geo.smem <= rk.SMEM_MAX and geo.smem % 16 == 0
+                assert geo.width % (4 * plan.tiles) == 0 and geo.width >= Dv
+            for T in (1, 8, 9, 37):
+                assert rk.workspace_floats(2, 3, T, Dk, Dv, plan) == (
+                    6 * (-(-T // plan.chunk) - 1) * Dk * geo.width)
 
 
 # -- on the card --------------------------------------------------------------
@@ -385,12 +512,17 @@ def test_cuda_rglru_bwd_matches_plain_version(B, T, D):
 
 
 def _rwkv6_cuda_check(r, k, v, w, u, do, s0, dsT):
-    """``ops.rwkv6_bwd`` on the card against the plain backward within the
-    summation-order bound (``ref.sum_order_bound``)."""
+    """``ops.rwkv6_bwd`` on the card bit for bit ``ref.rwkv6_backward_
+    ordered`` in all six outputs, and against the plain backward within
+    the summation-order bound (``ref.sum_order_bound``)."""
     before = ops.rwkv6_bwd.launches
     got = ops.rwkv6_bwd(r, k, v, w, u, do, s0, dsT)
     torch.cuda.synchronize()
     assert ops.rwkv6_bwd.launches == before + 1
+    ordered = kref.rwkv6_backward_ordered(r, k, v, w, u, do, s0, dsT)
+    for name, g, o in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                          ordered):
+        assert g.dtype == o.dtype and torch.equal(g, o), name
     *want, sums = kref.rwkv6_backward_plain(r, k, v, w, u, do, s0, dsT,
                                             term_sums=True)
     B, _, T, Dk = r.shape
@@ -429,6 +561,34 @@ def test_cuda_rwkv6_bwd_matches_plain_version(dtype, Dk, Dv, T):
     got = ops.rwkv6_bwd(rr, kk, vv, ww, uu, dd)
     assert [g.stride() for g in got[:4]] == [x.stride()
                                              for x in (rr, kk, vv, ww)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dk,Dv", [(64, 64), (64, 60), (64, 1)])
+def test_cuda_rwkv6_bwd_plans_agree(Dk, Dv):
+    """Every compiled plan that fits a head (``rwkv6.backward_plans``: one
+    column tile a thread with an 8-step chunk, two with a 4-step chunk)
+    gives all six outputs bit for bit alike, on head views at a ragged T,
+    from s0 with dS_T."""
+    import importlib
+
+    rk = importlib.import_module("repro_torch.kernels.rwkv6")
+    dev = _cuda()
+    r, k, v, w, u, s0, do, dsT = (torch.from_numpy(x).to(dev) for x in
+                                  _rwkv6_inputs(7, T=37, Dk=Dk, Dv=Dv))
+    outs = []
+    for plan in rk.backward_plans(Dk, Dv):
+        B, H, T, _ = r.shape
+        o = (torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
+             torch.empty_like(w), torch.empty((B, H, Dk), device=dev),
+             torch.empty_like(s0))
+        work = torch.empty((rk.workspace_floats(B, H, T, Dk, Dv, plan),),
+                           device=dev)
+        rk.launch_backward(r, k, v, w, u, do, s0, dsT, *o, work, _plan=plan)
+        outs.append(o)
+    torch.cuda.synchronize()
+    assert len(outs) == 2
+    assert all(torch.equal(x, y) for x, y in zip(*outs))
 
 
 @pytest.mark.gpu
