@@ -265,6 +265,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    J=512, uncapped and congested, bit for bit phase 3's and 4's unsplit
    sweeps. Before its state is freed, one more sharded step, untimed,
    under ``launch.counting.StepCounter``, whose counts phase 11 reads.
+   Tensor-parallel serving over the same mesh (``tp_serve``): llama3-8b
+   and qwen1.5-32b (fp8 cache) at full width and TP_SERVE's depth, the
+   serve batch's rows prefilled and decoded greedily, unsharded and then
+   with the weights on their 'model' cuts: logits, tokens and caches bit
+   for bit, launches equal; qwen1.5-32b's decode step at its cache's last
+   slot counted for phase 11. Then ``flash_decode`` against a cache cut
+   along its slots at qwen1.5-32b's ``decode_32k`` per-rank shape
+   ([8, 40, 32768, 128] fp8 in 16 runs: each run's partials, merged) bit
+   for bit the whole-cache kernel and, plain, the whole-cache plain
+   version, timed beside its bounds (``check_flash_decode_split``), and
+   the same at recurrentgemma-9b's rolled 2,048-slot window in 16 runs of
+   128 slots (each chunk split between two runs: within attn_check's
+   tolerance of the whole-cache kernel and of the plain split version);
+   and
+   the 16-way cut's per-rank products at full width, float32 partials
+   included, against their plain versions, ``torch.mm`` and their bounds
+   (``check_tp_products``).
 11. The dry run against the card, once phase 10's NCCL group is
    destroyed: ``launch.dryrun.trace_step`` traces the same sharded step
    (llama3-8b at full width and depth, 4 x 1024 tokens, int8 moments,
@@ -280,7 +297,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``train_launches``. Then
    llama3-8b's decode step at the serve batch (8 rows, cache 192, at its
    last slot) on the card under the counter against its meta trace: the
-   ``matmul`` and ``flash_decode`` calls must be equal. Then the
+   ``matmul`` and ``flash_decode`` calls must be equal; phase 10's
+   tensor-parallel decode step against its meta trace over a fake (1, 1)
+   mesh, equal in every count and in its argument bytes. Then the
    production cells ``DRYRUN_CELLS`` on fake groups of 256 and 512 ranks:
    per-device GiB, the dominant term and the bound, reckoned from the
    H100's data-sheet peaks.
@@ -537,6 +556,39 @@ GPIPE_MICRO = 4
 GPIPE_SHAPE = (512, 4096)
 #: phase 9's steps through ``run`` before the digest phase 10 is held to
 DIGEST_STEPS = 2
+#: phase 10's tensor-parallel serving at world size 1: (arch, layers) at
+#: full width, depth cut for the run's time (the serve batch's rows,
+#: TP_PROMPT tokens each, TP_NEW greedy steps, TP_CACHE slots; qwen1.5-32b
+#: with its fp8 cache), bit for bit the unsharded model; the last one's
+#: decode step at its cache's last slot is counted for phase 11
+TP_SERVE = (("llama3-8b", 4), ("qwen1.5-32b", 4))
+TP_PROMPT, TP_NEW, TP_CACHE, TP_SEED = 64, 4, 192, 91
+#: qwen1.5-32b's decode_32k on one rank of 16 x 16: its 8 rows, 40 heads
+#: (the rules cut neither the 40 heads nor the 40 KV heads 16 ways) and a
+#: [8, 40, 32768, 128] fp8 cache cut into SPLIT_RANKS runs of slots
+SPLIT_DECODE = (8, 40, 32768, 128)
+SPLIT_RANKS = 16
+#: recurrentgemma-9b's decode_32k on one rank of 16 x 16: 8 rows, its 16
+#: query heads over 1 KV head, its 2,048-slot window rolled, cut into
+#: SPLIT_RANKS runs of 128 slots (so every chunk is split between two
+#: runs): q heads, the cache [B, Hkv, S, D], and each row's live keys
+#: (length) ending at end (a short first window in the last row)
+SPLIT_ROLLED = (16, (8, 1, 2048, 256),
+                [2048] * 7 + [300],
+                [32845, 32845, 32896, 33023, 33024, 32769, 35816, 300])
+#: the 16-way cut's per-rank weight products at decode_32k's 8 rows: (arch,
+#: name) -> (K, N, float32 partials): column-parallel outputs and
+#: row-parallel partials at full width
+TP_PRODUCTS = {("qwen1.5-32b", "wq"): (5120, 320, False),
+               ("qwen1.5-32b", "w_up"): (5120, 1712, False),
+               ("qwen1.5-32b", "w_down"): (1712, 5120, True),
+               ("qwen1.5-32b", "wo"): (320, 5120, True),
+               ("internvl2-76b", "wq"): (8192, 512, False),
+               ("internvl2-76b", "wk"): (8192, 64, False),
+               ("internvl2-76b", "w_up"): (8192, 1792, False),
+               ("internvl2-76b", "w_down"): (1792, 8192, True),
+               ("internvl2-76b", "wo"): (512, 8192, True)}
+TP_ROWS = 8
 #: the production cells phase 11 traces on fake groups: (arch, shape, mesh)
 DRYRUN_CELLS = (("llama3-8b", "train_4k", "single"),
                 ("olmoe-1b-7b", "decode_32k", "multi"))
@@ -5075,6 +5127,292 @@ def dist_small_parts(dev):
     return launches
 
 
+def tp_serve(dev, mesh):
+    """Tensor-parallel serving at world size 1 (see TP_SERVE): each arch's
+    prefill and greedy decode steps run unsharded, then with the model's
+    weights held by ``MeshParams`` over ``mesh`` under a ``MeshSharder``
+    (weights on their 'model' cuts, row-parallel products through float32
+    partials, caches cut as ``cache_shardings`` says); logits, tokens and
+    caches must be bit for bit the unsharded run's, the launches equal and
+    every model kernel of the path launched. Then the last arch's decode
+    step at its cache's last slot is counted (``counted_step``) for phase
+    11. Returns (launches of the tensor-parallel runs, readings, the
+    counted step with its config)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (MeshParams, MeshSharder,
+                                         ShardingRules)
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+
+    total, readings, counted = {}, {}, None
+    for arch, layers in TP_SERVE:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        g = torch.Generator(device=dev).manual_seed(TP_SEED)
+        model = Model(cfg, device=dev).init(g)
+        toks = torch.randint(0, cfg.vocab_size, (TP_ROWS, TP_PROMPT),
+                             generator=g, device=dev, dtype=torch.int32)
+
+        def serve():
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(toks, cache_len=TP_CACHE)
+            out = [logits]
+            for i in range(TP_NEW):
+                logits, cache = model.decode_step(
+                    cache, out[-1].argmax(-1).int(), TP_PROMPT + i)
+                out.append(logits)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return torch.stack(out), cache, ops.launch_counts(), wall
+
+        want, want_cache, want_counts, want_s = serve()
+        rules = ShardingRules(cfg, mesh)
+        model.shard = MeshSharder(rules)
+        MeshParams(model, rules)
+        model.shard.global_batch = TP_ROWS
+        got, got_cache, counts, got_s = serve()
+        same_cache = all(
+            torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            for a, b in zip(_cache_leaves(got_cache),
+                            _cache_leaves(want_cache)))
+        same = (torch.equal(got, want) and same_cache
+                and torch.equal(got.argmax(-1), want.argmax(-1)))
+        print(f"dist tensor-parallel serving {arch} (full width, {layers} "
+              f"of {get_config(arch).num_layers} layers, {cfg.kv_dtype} "
+              f"cache) on the (1, 1) mesh: {TP_ROWS} x {TP_PROMPT} tokens "
+              f"+ {TP_NEW} steps, cache {TP_CACHE}: logits, tokens and "
+              f"caches bit for bit the unsharded run {same}; launches "
+              f"{counts}, the unsharded run's {want_counts}; wall "
+              f"{got_s * 1e3:.3f} ms (unsharded {want_s * 1e3:.3f} ms)")
+        missing = [k for k in ("matmul", "flash_attention", "flash_decode")
+                   if counts[k] <= 0]
+        if not same or counts != want_counts or missing:
+            raise AssertionError(f"dist tensor-parallel serving {arch}: "
+                                 f"not the unsharded run (launches "
+                                 f"{counts}, never launched {missing})")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        readings[arch] = {"layers": layers, "launches": counts,
+                          "wall_ms": got_s * 1e3,
+                          "unsharded_wall_ms": want_s * 1e3}
+        del want, want_cache, got, got_cache
+        if arch == TP_SERVE[-1][0]:
+            cache = model.init_cache(TP_ROWS, TP_CACHE)
+            token = torch.randint(0, cfg.vocab_size, (TP_ROWS,), generator=g,
+                                  device=dev, dtype=torch.int32)
+            params = dict(model.named_parameters())
+            counted = counted_step(
+                dev, lambda c, t: model.decode_step(c, t, TP_CACHE - 1),
+                (cache, token), lambda out: (params, out[1], token))
+            counted["cfg"] = cfg
+            del cache, params
+        del model
+        free_card()
+    return total, readings, counted
+
+
+def _cache_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _cache_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _cache_leaves(v)]
+    return [tree]
+
+
+def check_flash_decode_split(dev, smi):
+    """``flash_decode`` against a cache cut along its slots: each of
+    SPLIT_RANKS runs of slots gives its chunks' float32 partials
+    (``ops.flash_decode_partial`` on a view of the run) and
+    ``ops.flash_decode_merge`` merges them. At SPLIT_DECODE (qwen1.5-32b,
+    fp8, runs of whole chunks) the result must be bit for bit the
+    whole-cache kernel's, the plain versions' (partials and merge) bit for
+    bit the whole-cache plain version's, and the kernel within tolerance
+    of it (``kv8_check``, NaNs where the plain version has them). At
+    SPLIT_ROLLED (recurrentgemma-9b, bf16, a rolled window whose chunks
+    two runs split, summed piece by piece in rank order) the result must
+    be within attn_check's tolerance of the whole-cache kernel and of the
+    plain split version. For each, one run's partial, the merge and the
+    whole-cache kernel timed by CUDA events beside their bounds (the
+    run's live keys and the pieces that hold them), with the launches of
+    the checked path. Returns the readings by architecture."""
+    import torch
+
+    from repro_torch.kernels.ref import (flash_decode_merge_plain,
+                                         flash_decode_partial_plain,
+                                         flash_decode_plain)
+
+    B, H, S, D = SPLIT_DECODE
+    g = torch.Generator(device=dev).manual_seed(93)
+    q = torch.randn((B, H, D), generator=g, device=dev).bfloat16()
+    k, v = fp8_caches(B, H, S, D, dev, g)
+    length = torch.full((B,), S, dtype=torch.int32, device=dev)
+    merged, whole, runs, reading = _split_decode_on_card(
+        "qwen1.5-32b", smi, q, k, v, length, None, SPLIT_RANKS)
+    L = S // SPLIT_RANKS
+    same = torch.equal(merged.view(torch.int16), whole.view(torch.int16))
+    plain = flash_decode_plain(q, k, v, length)
+    plain_merged = flash_decode_merge_plain(torch.stack([
+        flash_decode_partial_plain(q, kr, vr, length, None, r * L, S)
+        for r, (kr, vr) in enumerate(runs)]), q, length, None, S, L, H)
+    same_plain = torch.equal(plain_merged.view(torch.int16),
+                             plain.view(torch.int16))
+    err, nans = kv8_check(f"flash_decode split {SPLIT_RANKS} ways fp8 "
+                          f"{list(k.shape)}", merged, whole, plain, v)
+    print(f"{smi}: flash_decode cut {SPLIT_RANKS} ways along {[B, H, S, D]}"
+          f" fp8: merged bit for bit the whole-cache kernel {same}, the "
+          f"plain versions bit for bit the whole-cache plain version "
+          f"{same_plain}")
+    if not (same and same_plain):
+        raise AssertionError("flash_decode split: not the whole-cache "
+                             "kernel bit for bit")
+    out = {"qwen1.5-32b": dict(reading, max_abs_err=err, nan=nans)}
+
+    hq, (B, hkv, S, D), lens, ends = SPLIT_ROLLED
+    q = torch.randn((B, hq, D), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, hkv, S, D), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    end = torch.tensor(ends, dtype=torch.int32, device=dev)
+    merged, whole, runs, reading = _split_decode_on_card(
+        "recurrentgemma-9b", smi, q, k, v, length, end, SPLIT_RANKS)
+    L = S // SPLIT_RANKS
+    plain_merged = flash_decode_merge_plain(torch.stack([
+        flash_decode_partial_plain(q, kr, vr, length, end, r * L, S)
+        for r, (kr, vr) in enumerate(runs)]), q, length, end, S, L, hkv)
+    label = f"flash_decode split {SPLIT_RANKS} ways rolled {[B, hkv, S, D]}"
+    err_whole = attn_check(f"{label} vs the whole-cache kernel", merged,
+                           whole, v)
+    err = attn_check(f"{label} vs the plain split version", merged,
+                     plain_merged, v)
+    out["recurrentgemma-9b"] = dict(reading, max_abs_err=err,
+                                    max_abs_err_whole=err_whole)
+    return out
+
+
+def _split_decode_on_card(arch, smi, q, k, v, length, end, m):
+    """The partials of m runs of k/v's slots merged (launches counted
+    from 0, m + 1 of them), the whole-cache kernel, and one run's partial,
+    the merge and the whole-cache kernel timed beside their bounds:
+    (merged, whole, runs, reading)."""
+    import torch
+
+    from repro_torch.kernels import cost, ops
+    from repro_torch.kernels.ref import decode_local_chunks, decode_pieces
+
+    B, hkv, S, D = k.shape
+    L = S // m
+    runs = [(k[:, :, r * L:(r + 1) * L], v[:, :, r * L:(r + 1) * L])
+            for r in range(m)]
+    whole = ops.flash_decode(q, k, v, length, end)
+    ops.reset_launch_counts()
+    parts = torch.stack([ops.flash_decode_partial(q, kr, vr, length, end,
+                                                  r * L, S)
+                         for r, (kr, vr) in enumerate(runs)])
+    merged = ops.flash_decode_merge(parts, q, length, end, S, L, hkv)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["flash_decode"]
+    if launches != m + 1:
+        raise AssertionError(f"flash_decode split {arch}: {launches} "
+                             f"launches, not {m + 1}")
+    n_out = decode_local_chunks(S, L)
+    kr, vr = runs[0]
+    part_ms = cuda_ms(lambda: ops.flash_decode_partial(
+        q, kr, vr, length, end, 0, S), 20)
+    merge_ms = cuda_ms(lambda: ops.flash_decode_merge(
+        parts, q, length, end, S, L, hkv), 20)
+    whole_ms = cuda_ms(lambda: ops.flash_decode(q, k, v, length, end), 20)
+    lc = length.cpu()
+    ec = None if end is None else end.cpu()
+    live = ops._local_live(lc, ec, 0, L, S)      # run 0's live keys
+    live_all = ops._local_live(lc, ec, 0, S, S)
+    part_pieces = decode_pieces(lc, ec, S, L, [0])
+    pieces = decode_pieces(lc, ec, S, L, range(0, S, L))
+    part_bound = bound_of(cost.flash_decode_partial(
+        q.shape, hkv, q.dtype, k.dtype, live, part_pieces), "bfloat16")
+    merge_bound = bound_of(cost.flash_decode_merge(q.shape, q.dtype,
+                                                   pieces), "float32")
+    whole_bound = bound_of(cost.flash_decode(q.shape, hkv, q.dtype, k.dtype,
+                                             live_all), "bfloat16")
+    print(f"{smi}: {arch} flash_decode cut {m} ways along {[B, hkv, S, D]}"
+          f" {str(k.dtype).split('.')[-1]}, q {list(q.shape)} ({L} slots a "
+          f"run, {n_out} partials a row and run, {pieces} pieces with live "
+          f"keys): {launches} launches ({m} partials, 1 merge); one run's "
+          f"partial {part_ms:.6f} ms (bound {part_bound[0]:.6f} ms by "
+          f"{part_bound[1]}, {part_bound[2]} B), the merge of {m} runs "
+          f"{merge_ms:.6f} ms (bound {merge_bound[0]:.6f} ms by "
+          f"{merge_bound[1]}, {merge_bound[2]} B), the whole-cache kernel "
+          f"{whole_ms:.6f} ms (bound {whole_bound[0]:.6f} ms by "
+          f"{whole_bound[1]})")
+    reading = {"shape": [B, hkv, S, D], "q": list(q.shape), "ranks": m,
+               "partials_per_row": n_out, "pieces": pieces,
+               "launches": launches, "partial_ms": part_ms,
+               "partial_bound_ms": part_bound[0], "merge_ms": merge_ms,
+               "merge_bound_ms": merge_bound[0], "whole_ms": whole_ms,
+               "whole_bound_ms": whole_bound[0]}
+    return merged, whole, runs, reading
+
+
+def check_tp_products(dev, smi):
+    """The 16-way cut's per-rank products (TP_PRODUCTS) at TP_ROWS rows and
+    full width: each column-parallel product against its plain version
+    (``matmul_check``); each row-parallel one's float32 partials against
+    the plain version's float32 sums, and rounded once to bf16 equal to
+    the kernel's bf16 output bit for bit (one rank's sum is its partial);
+    each timed by CUDA events beside ``torch.mm`` of the same function
+    (``out_dtype`` for the partials) and its bound. Returns the
+    readings."""
+    import torch
+
+    from repro_torch.kernels import cost, ops
+    from repro_torch.kernels.ref import matmul_plain
+
+    g = torch.Generator(device=dev).manual_seed(95)
+    out = {}
+    for (arch, name), (K, N, partial) in TP_PRODUCTS.items():
+        x = torch.randn((TP_ROWS, K), generator=g, device=dev).bfloat16()
+        w = (torch.randn((K, N), generator=g, device=dev)
+             * K ** -0.5).bfloat16()
+        label = f"{arch} {name} [{TP_ROWS}, {K}] @ [{K}, {N}]"
+        if partial:
+            got = ops.matmul(x, w, out_dtype=torch.float32)
+            want = matmul_plain(x, w, torch.float32)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            tol = MM_RTOL * (x.float().abs() @ w.float().abs())
+            once = torch.equal(got.to(torch.bfloat16), ops.matmul(x, w))
+            ok = got.dtype == torch.float32 and bool((err <= tol).all())
+            e_max = float(err.max())
+            print(f"matmul {label} float32 partials: max_abs_err "
+                  f"{e_max!r} within MM_RTOL {ok}; rounded once, the bf16 "
+                  f"kernel's bits {once}")
+            if not (ok and once):
+                raise AssertionError(f"matmul {label}: partials")
+            fn = lambda: ops.matmul(x, w, out_dtype=torch.float32)  # noqa
+            lib = lambda: torch.mm(x, w, out_dtype=torch.float32)  # noqa
+            work = cost.matmul(TP_ROWS, K, N, x.dtype, torch.float32)
+        else:
+            e_max = matmul_check(label, x, w, ops.matmul(x, w),
+                                 matmul_plain(x, w))
+            fn = lambda: ops.matmul(x, w)  # noqa: E731
+            lib = lambda: torch.mm(x, w)  # noqa: E731
+            work = cost.matmul(TP_ROWS, K, N, x.dtype)
+        ms, lib_ms = cuda_ms(fn, 50), cuda_ms(lib, 50)
+        bound = bound_of(work, "bfloat16")
+        print(f"{smi}: matmul {label}{' float32 partials' if partial else ''}"
+              f": {ms:.6f} ms, torch.mm {lib_ms:.6f} ms, bound "
+              f"{bound[0]:.6f} ms by {bound[1]}")
+        out[f"{arch} {name}"] = {"shape": [TP_ROWS, K, N],
+                                 "float32_partials": partial, "ms": ms,
+                                 "library_ms": lib_ms,
+                                 "bound_ms": bound[0], "max_abs_err": e_max}
+    return out
+
+
 def dist_split_sweeps(load_kw, main512, load512):
     """The engine's scenario split (``vectorsim._dispatch``) over two
     shards on the one card ([cuda:0, cuda:0]: each shard on a stream and
@@ -5116,10 +5454,12 @@ def dist_split_sweeps(load_kw, main512, load512):
     return out
 
 
-def distribution_phase(dev, phase9, load_kw, main512, load512):
+def distribution_phase(dev, smi, phase9, load_kw, main512, load512):
     """Phase 10 (see the module docstring): returns (the sharded steps'
     launches, their readings, gpipe's matmul launches, the split sweeps'
-    launches, the counted sharded step)."""
+    launches, the counted sharded step, the tensor-parallel readings: its
+    serving runs' launches and readings, its counted decode step, the
+    split decode's and the per-rank products' readings)."""
     import torch
     import torch.distributed as dist
 
@@ -5137,9 +5477,14 @@ def distribution_phase(dev, phase9, load_kw, main512, load512):
         dist_checkpoint(dev, mesh)
         gpipe_launches = dist_small_parts(dev)
         split = dist_split_sweeps(load_kw, main512, load512)
+        tp_launches, tp_readings, tp_counted = tp_serve(dev, mesh)
     finally:
         dist.destroy_process_group()
-    return counts, readings, gpipe_launches, split, counted
+    tp = {"launches": tp_launches, "serve": tp_readings,
+          "counted": tp_counted,
+          "split_decode": check_flash_decode_split(dev, smi),
+          "products": check_tp_products(dev, smi)}
+    return counts, readings, gpipe_launches, split, counted, tp
 
 
 def dryrun_recurrent(smi, rec_counted, shape):
@@ -5193,10 +5538,55 @@ def dryrun_recurrent(smi, rec_counted, shape):
             "card_memory": rec_counted["memory"]}
 
 
-def dryrun_phase(dev, smi, counted, phase9, rec_counted):
+def dryrun_tp_decode(smi, card):
+    """Phase 10's tensor-parallel decode step (its config, TP_ROWS rows, a
+    cache of TP_CACHE slots, at the last) traced on meta over a fake (1,
+    1) mesh: kernel calls, operations and bytes, aten FLOPs and bytes,
+    collectives and argument bytes must equal the card's counted step."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    cfg = card["cfg"]
+    t0 = time.perf_counter()
+    mesh = dryrun.fake_mesh((1, 1), ("data", "model"))
+    try:
+        traced, mem = dryrun.trace_step(
+            cfg, ShapeSpec("decode", TP_CACHE, TP_ROWS, "decode"), mesh)
+    finally:
+        dist.destroy_process_group()
+    trace_s = time.perf_counter() - t0
+    got, real = traced.summary(), card["summary"]
+    args = mem["argument_size_in_bytes"]
+    real_args = card["memory"]["argument_size_in_bytes"]
+    layers = cfg.num_layers
+    print(f"{smi}: dry run {cfg.name} tensor-parallel decode step "
+          f"({layers} layers, batch {TP_ROWS}, cache {TP_CACHE}, "
+          f"{cfg.kv_dtype}) traced on meta over a fake (1, 1) mesh in "
+          f"{trace_s:.3f} s: kernels {got['kernels']}, aten "
+          f"{got['aten_flops']} FLOP, {got['aten_bytes']} B, collectives "
+          f"{got['collectives']}; the card's (phase 10, counted) "
+          f"{real['kernels']}, aten {real['aten_flops']} FLOP, "
+          f"{real['aten_bytes']} B; equal {got == real}; arguments "
+          f"{args:.0f} B against the card's {real_args:.0f} B")
+    if got != real or args != real_args:
+        ops_t, ops_r = traced.ops, card["ops"]
+        for name in sorted(set(ops_t) | set(ops_r)):
+            if ops_t.get(name) != ops_r.get(name):
+                print(f"dry run tp decode: aten {name}: trace "
+                      f"{ops_t.get(name)}, card {ops_r.get(name)}")
+        raise AssertionError("dry run: the tensor-parallel decode trace is "
+                             "not the card's step")
+    return {"trace_s": trace_s, "kernels": got["kernels"],
+            "arguments": args}
+
+
+def dryrun_phase(dev, smi, counted, phase9, rec_counted, tp_counted):
     """Phase 11 (see the module docstring): the dry run's meta traces held
     to the card's steps count for count (``rec_counted``: phase 9's
-    counted rwkv6-1.6b step), then DRYRUN_CELLS. Returns its readings."""
+    counted rwkv6-1.6b step; ``tp_counted``: phase 10's tensor-parallel
+    decode step), then DRYRUN_CELLS. Returns its readings."""
     import dataclasses
 
     import torch
@@ -5319,6 +5709,7 @@ def dryrun_phase(dev, smi, counted, phase9, rec_counted):
     readings["decode"] = {"trace_s": trace_s, "kernels": got["kernels"],
                           "card_kernels": real["kernels"],
                           "all_equal": got == real}
+    readings["tp_decode"] = dryrun_tp_decode(smi, tp_counted)
 
     readings["cells"] = {}
     for arch, shape_name, mesh_kind in DRYRUN_CELLS:
@@ -5886,16 +6277,16 @@ def main() -> int:
     lap("9 training")
     # -- 10. distribution at world size 1 ----------------------------------------
     t0 = time.perf_counter()
-    dist_counts, dist_readings, gpipe_launches, split_launches, counted = \
-        distribution_phase(dev, train_readings, load_kw, outs[512],
-                           louts[512])
+    (dist_counts, dist_readings, gpipe_launches, split_launches, counted,
+     tp) = distribution_phase(dev, smi, train_readings, load_kw, outs[512],
+                              louts[512])
     launches.update(split_launches)
     print(f"dist: phase wall {time.perf_counter() - t0:.3f} s")
     lap("10 distribution")
     # -- 11. the dry run against the card --------------------------------------
     t0 = time.perf_counter()
     dryrun_readings = dryrun_phase(dev, smi, counted, train_readings,
-                                   rec_counted)
+                                   rec_counted, tp["counted"])
     print(f"dry run: phase wall {time.perf_counter() - t0:.3f} s")
     lap("11 dry run")
     # -- 12. result -------------------------------------------------------------
@@ -5956,6 +6347,15 @@ def main() -> int:
     for name in ("matmul", "flash_attention"):
         by_name[name]["dist_train_launches"] = dist_counts[name]
     by_name["matmul"]["dist_train_step"] = dist_readings
+    # phase 10's tensor-parallel serving at world size 1 (a main path of
+    # its own: launches counted from 0 around each run), the split decode
+    # at qwen1.5-32b's per-rank shape and the per-rank products
+    for name in ("matmul", "flash_attention", "flash_decode"):
+        by_name[name]["tp_serve_launches"] = tp["launches"][name]
+        by_name[name]["launches"] += tp["launches"][name]
+    by_name["flash_decode"]["tp_split"] = tp["split_decode"]
+    by_name["matmul"]["tp_products"] = tp["products"]
+    by_name["matmul"]["tp_serve"] = tp["serve"]
     # phase 11: the dry run's traces against the card's steps
     by_name["matmul"]["dry_run"] = dryrun_readings
     by_name["matmul"]["gpipe_launches"] = gpipe_launches
@@ -5985,6 +6385,9 @@ def main() -> int:
     missing += [f"{k} (sharded training)" for k in ("matmul",
                                                      "flash_attention")
                 if dist_counts[k] <= 0]
+    missing += [f"{k} (tensor-parallel serving)" for k in (
+        "matmul", "flash_attention", "flash_decode")
+                if tp["launches"][k] <= 0]
     missing += [f"{k} (recurrent training)" for k in (
         "rglru", "rglru_bwd", "rwkv6", "rwkv6_bwd", "matmul")
                 if rec_steps.get(k, 0) <= 0]

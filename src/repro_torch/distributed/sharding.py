@@ -21,15 +21,31 @@ never sharded).
 
 Where XLA places values by these specs, the port computes with them
 itself (:class:`MeshParams`): each rank holds its parameters' local
-shards (:class:`NamedSharding`), gathers each weight whole where the model
-uses it, and computes its own rows of the batch; activations stay local to
-their rank, the layout XLA itself picks for the dense configs (see
-:meth:`ShardingRules.batch_dim`). Where the reference shards heads,
-sequence or experts over 'model', the port computes the same values
-replicated over 'model': a layout difference, not another function.
+shards (:class:`NamedSharding`) and computes its own rows of the batch.
+
+Training gathers each weight whole where the model uses it (its gradient
+reduce-scattered back), the layout XLA picks for the dense configs (see
+:meth:`ShardingRules.batch_dim`): 'model' dims are computed replicated.
+
+Serving (``Model.prefill``, ``decode_step``, ``init_cache``), where the
+batch leaves 'model' free, computes on the 'model' cuts as the reference's
+hints place them (:class:`MeshSharder` under ``serving``): each weight
+stays on its rule's cut (only a rule's own 'data' cut is gathered); a
+``P(None, 'model')`` product gives this rank's columns, a ``P('model',
+None)`` one takes its columns of x and gives float32 partials, summed over
+'model' in rank order (an all-gather of the partials, or an all-to-all
+where the residual's sequence is cut: Megatron-SP in prefill) and rounded
+once; heads, KV heads, RNN columns and experts run on their cuts; decode
+caches hold their KV heads or their run of slots (``flash_decode``'s
+partials and merge), the recurrent states their columns or heads. Each
+named point brings its tensor to the hint's spec (:meth:`MeshSharder.to`)
+and checks it; the logits are gathered whole. The collectives over a group
+of one rank are the identity: the (1, 1) mesh serves bit for bit as the
+unsharded model.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -278,6 +294,14 @@ def _reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     note_collective("reduce-scatter", out, _group_size(group))
 
 
+def _all_to_all(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """Chunk j of ``inp`` (split along dim 0) to rank j; ``out``'s chunk
+    j from rank j."""
+    with quiet():
+        dist.all_to_all_single(out, inp, group=group)
+    note_collective("all-to-all", out, _group_size(group))
+
+
 def all_reduce(t: torch.Tensor, group) -> None:
     """``dist.all_reduce`` of ``t`` in place over ``group``."""
     with quiet():
@@ -484,43 +508,198 @@ class Region:
 class MeshSharder(Sharder):
     """The model's ``shard=`` hook over a mesh.
 
-    The reference constrains each named activation to its rule's spec; in
-    the port activations are local to their rank (each rank computes its
-    rows of the batch with the weights gathered whole), so this checks the
-    rule's spec against that layout and returns ``x``: the rows must be
-    the whole batch's (``global_batch``) cut along ``rules.batch_dim`` of
-    it, and every dim the spec names must divide. ``global_batch`` is the
-    whole batch's row count, set by the step that cut it (``None``: ``x``
-    holds every row). :meth:`batch_sum` sums the loss's token count over
-    the ranks that hold other rows."""
+    ``global_batch`` is the whole batch's row count, set by the step that
+    cut it (``None``: the rows here are every row); a tensor's rows must be
+    that batch cut along ``rules.batch_dim`` of it. :meth:`batch_sum` sums
+    the loss's token count over the ranks that hold other rows.
+
+    Training (``tp`` False) computes every 'model' dim whole (its weights
+    gathered whole by :class:`MeshParams`): a named point checks the rule's
+    spec against that layout (the rows, and that every named dim divides)
+    and returns ``x``.
+
+    Serving (``Model.prefill``, ``decode_step`` and ``init_cache`` set
+    ``tp`` through :meth:`serving` when the batch leaves 'model' free, as
+    the reference's hints then cut over it) computes on the 'model' cuts:
+    a dim is whole or this rank's 1/``m`` of it (rank-major chunks).
+    :meth:`to` brings a tensor to a named point's hint spec
+    (``ShardingRules.hint`` of its whole shape) by :meth:`fit` on each dim;
+    ``__call__`` checks that every dim equals the spec's cut and raises
+    otherwise; :meth:`reduce` sums row-parallel partials over 'model'. The
+    collectives run over the 'model' group; along a group of one rank each
+    is the identity and runs nothing."""
 
     def __init__(self, rules: ShardingRules):
         self.rules = rules
         self.global_batch: Optional[int] = None
+        self.m = rules.m
+        self.tp = False
+        #: the whole slots of the caches last made (``Model.init_cache`` /
+        #: ``prefill``): ``k`` the self-attention's, ``ck`` the
+        #: cross-attention's, which a decode step reads against its local
+        #: slots
+        self.cache_slots: Dict[str, int] = {}
+
+    @property
+    def rank(self) -> int:
+        return self.rules.mesh.coords.get("model", 0)
 
     def batch_axes(self) -> Tuple[str, ...]:
         if self.global_batch is None:
             return ()
         return _axes(self.rules.batch_dim(self.global_batch))
 
-    def __call__(self, x: torch.Tensor, name: str) -> torch.Tensor:
+    @contextlib.contextmanager
+    def serving(self):
+        """``tp`` set while a serving call runs, where the batch leaves
+        'model' free (otherwise the weights are gathered whole, as in
+        training, and the rows carry 'model')."""
+        prev = self.tp
+        self.tp = "model" not in self.batch_axes()
+        try:
+            yield self.tp
+        finally:
+            self.tp = prev
+
+    def _rows(self, name: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """``shape`` with the whole batch's rows, checked against the
+        cut."""
+        if self.global_batch is None:
+            return shape
+        cut = math.prod(self.rules.mesh.shape[a] for a in self.batch_axes())
+        if shape[0] * cut != self.global_batch:
+            raise ValueError(f"{name}: {shape[0]} rows here, the batch "
+                             f"of {self.global_batch} was cut {cut} ways")
+        return (self.global_batch,) + shape[1:]
+
+    def _spec(self, name: str, full: Tuple[int, ...]):
+        """(the hint's spec of ``full`` with the whole batch, the local
+        shape of its 'model' dims, rows as ``full`` has them)."""
+        whole = self._rows(name, tuple(full))
+        spec = self.rules.hint(name, whole)
+        if spec is None:
+            return None, tuple(full)
+        ent = NamedSharding(self.rules.mesh, spec).entries(len(full))
+        return spec, tuple(n // self.m if "model" in e and i else n
+                           for i, (n, e) in enumerate(zip(full, ent)))
+
+    def __call__(self, x: torch.Tensor, name: str,
+                 full: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
         shape = tuple(x.shape)
-        if self.global_batch is not None:
-            cut = math.prod(self.rules.mesh.shape[a]
-                            for a in self.batch_axes())
-            if shape[0] * cut != self.global_batch:
-                raise ValueError(f"{name}: {shape[0]} rows here, the batch "
-                                 f"of {self.global_batch} was cut {cut} ways")
-            shape = (self.global_batch,) + shape[1:]
-        spec = self.rules.hint(name, shape)
-        if spec is not None:   # every named dim divides
-            NamedSharding(self.rules.mesh, spec).local_shape(shape)
+        if not self.tp:
+            whole = self._rows(name, shape)
+            spec = self.rules.hint(name, whole)
+            if spec is not None:   # every named dim divides
+                NamedSharding(self.rules.mesh, spec).local_shape(whole)
+            return x
+        spec, want = self._spec(name, shape if full is None else full)
+        if spec is not None and shape != want:
+            raise ValueError(f"{name}: local {shape} is not the cut {want} "
+                             f"of {tuple(full)} by {spec}")
         return x
+
+    def to(self, x: torch.Tensor, name: str,
+           full: Tuple[int, ...]) -> torch.Tensor:
+        if self.tp:
+            _, want = self._spec(name, tuple(full))
+            for i in range(1, x.dim()):
+                x = self.fit(x, i, want[i])
+        return self(x, name, full)
+
+    def local(self, name: str, full: Tuple[int, ...]) -> Tuple[int, ...]:
+        if not self.tp:
+            return tuple(full)
+        return self._spec(name, tuple(full))[1]
+
+    def cache_local(self, last: str, full: Tuple[int, ...]
+                    ) -> Tuple[int, ...]:
+        """The shape this rank holds of a decode-cache leaf named ``last``
+        (``k``, ``v``, ``ck``, ``cv``, ``h``, ``conv``, ``shift``,
+        ``wkv``) of whole shape ``full``, rows as ``full`` has them
+        (:func:`cache_shardings`' specs, their 'model' dims cut)."""
+        if not self.tp:
+            return tuple(full)
+        whole = self._rows(last, tuple(full))
+        sh = cache_shardings(self.rules, {last: torch.empty(
+            whole, device="meta")})[last]
+        ent = sh.entries(len(full))
+        return tuple(n // self.m if "model" in e and i else n
+                     for i, (n, e) in enumerate(zip(full, ent)))
+
+    def fit(self, x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        dim %= x.dim()
+        have = x.shape[dim]
+        if have == n:
+            return x
+        if have == n * self.m:                  # this rank's cut
+            return x.narrow(dim, self.rank * n, n).contiguous()
+        if have * self.m == n:                  # gathered whole
+            return _gather_dim(x, dim, self._group())
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} is neither {n} "
+                         f"nor a 'model' cut of it ({self.m} ranks)")
+
+    def reduce(self, part: torch.Tensor, dtype: torch.dtype,
+               residual: bool = False) -> torch.Tensor:
+        if self.m == 1:
+            return part.to(dtype)
+        seq = self._residual_rows(part.shape) if residual else None
+        group = self._group()
+        if seq is not None and seq * self.m == part.shape[1]:
+            # a reduce-scatter along the sequence: rank j's rows of every
+            # rank's partial, then summed in rank order
+            send = part.unflatten(1, (self.m, seq)).movedim(1, 0).contiguous()
+            got = torch.empty_like(send)
+            _all_to_all(got, send, group)
+        else:
+            got = _gather_dim(part[None], 0, group)
+        total = got[0]
+        for j in range(1, self.m):
+            total = total + got[j]
+        out = total.to(dtype)
+        return out if seq is None else self.fit(out, 1, seq)
+
+    def _residual_rows(self, full: Tuple[int, ...]) -> int:
+        """This rank's positions of the residual [B, S, d] (``full``, its
+        sequence whole): all S, or the 'residual' hint's cut of them
+        (prefill's Megatron-SP)."""
+        return self.local("residual", tuple(full))[1]
+
+    def to_residual(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.tp:
+            return x
+        return self.fit(x, 1, self._residual_rows(x.shape))
+
+    def _group(self):
+        return self.rules.mesh.group(("model",))
+
+    def last_token(self, x: torch.Tensor, s: int) -> torch.Tensor:
+        """The last of ``s`` positions of ``x`` [B, S or S/m, d] (its
+        sequence whole or cut over 'model'): [B, d] on every rank."""
+        if x.shape[1] == s:
+            return x[:, -1]
+        return _gather_dim(x[:, -1:].contiguous(), 1, self._group())[:, -1]
+
+    def gather_parts(self, part: torch.Tensor) -> torch.Tensor:
+        """Every 'model' rank's ``part`` (a flat buffer), [m, n] in rank
+        order."""
+        return _gather_dim(part[None], 0, self._group())
 
     def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
         y = x.detach().clone()
         all_reduce(y, self.rules.mesh.group(self.batch_axes()))
         return y
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` concatenated along ``dim`` in rank
+    order (an all-gather); ``x`` itself along a group of one rank."""
+    n = _group_size(group)
+    if n == 1:
+        return x
+    x = x.contiguous()
+    buf = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    _all_gather(buf.view(-1), x.view(-1), group)
+    return buf.movedim(0, dim).flatten(dim, dim + 1)
 
 
 # -- whole-tree specs ----------------------------------------------------
@@ -757,10 +936,30 @@ class MeshParams:
                  ) -> torch.Tensor:
         name = self._names[p]
         sh = self.param[name] if index is None else self._layer[name]
+        if self.sharder.tp:
+            return self._model_cut(p if index is None else p[index], sh)
         if p.requires_grad and torch.is_grad_enabled():
             return _Gather.apply(p, sh, index, self.sharder.batch_axes())
         with torch.no_grad():
             return sh.gather((p if index is None else p[index]).contiguous())
+
+    def _model_cut(self, part: torch.Tensor, sh: NamedSharding
+                   ) -> torch.Tensor:
+        """A serving forward's weight: this rank's part gathered along
+        every axis but 'model' (the reference's serving weights are not
+        ZeRO-spread, so only a rule's own 'data' cut, arctic-480b's
+        expert FFN, is gathered), kept on its 'model' cut, the cut dim in
+        ``tp_cut`` (None: whole)."""
+        ent = sh.entries(part.dim())
+        other = [tuple(a for a in e if a != "model") for e in ent]
+        if any(other):
+            part = NamedSharding(self.mesh, P(*other)).gather(
+                part.contiguous())
+        else:
+            part = part.view(part.shape)   # a tensor of its own to mark
+        cut = [i for i, e in enumerate(ent) if "model" in e]
+        part.tp_cut = cut[0] if cut else None
+        return part
 
     def local_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """This rank's rows of a whole batch (cut along

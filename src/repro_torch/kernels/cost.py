@@ -67,10 +67,13 @@ def note_collective(kind: str, out: torch.Tensor, group_size: int) -> None:
             c.collective(kind, nbytes, group_size)
 
 
-def matmul(M: int, K: int, N: int, dtype: torch.dtype) -> Tuple[int, int]:
+def matmul(M: int, K: int, N: int, dtype: torch.dtype,
+           out_dtype: torch.dtype = None) -> Tuple[int, int]:
     """[M, K] @ [K, N] in ``dtype``: 2MNK operations; x and y read, out
-    written."""
-    return 2 * M * N * K, (M * K + K * N + M * N) * dtype.itemsize
+    written (in ``out_dtype``, float32 for a row-parallel product's
+    partials; ``dtype`` by default)."""
+    out = (out_dtype or dtype).itemsize
+    return 2 * M * N * K, (M * K + K * N) * dtype.itemsize + M * N * out
 
 
 @functools.lru_cache(maxsize=4096)
@@ -108,6 +111,36 @@ def flash_decode(q_shape, Hkv: int, q_dtype: torch.dtype,
     return (4 * Hq * D * live,
             2 * B * Hq * D * q_dtype.itemsize
             + 2 * Hkv * live * D * kv_dtype.itemsize)
+
+
+def flash_decode_partial(q_shape, Hkv: int, q_dtype: torch.dtype,
+                         kv_dtype: torch.dtype, live: int,
+                         pieces: int) -> Tuple[int, int]:
+    """One rank's part of :func:`flash_decode` against its run of a cache
+    cut along the slots: its ``live`` slots' operations and K/V rows, q
+    read, and a float32 partial (m, l and D outputs) of every query head
+    written for each of its ``pieces`` (the chunks of a batch row's live
+    range that meet its slots, summed over the rows:
+    :func:`.ref.decode_pieces`)."""
+    B, Hq, D = q_shape
+    return (4 * Hq * D * live,
+            B * Hq * D * q_dtype.itemsize
+            + 2 * Hkv * live * D * kv_dtype.itemsize
+            + Hq * pieces * (2 + D) * 4)
+
+
+def flash_decode_merge(q_shape, q_dtype: torch.dtype,
+                       pieces: int) -> Tuple[int, int]:
+    """The merge of every rank's partials: ``pieces`` of them for each
+    query head (the (chunk, rank) pairs whose keys meet, summed over the
+    batch rows and ranks: :func:`.ref.decode_pieces`), per partial and
+    query head its two scales (a max, two subtractions, two exponentials)
+    and 3 operations on each of l and the D outputs; those partials read,
+    out written in q's dtype."""
+    B, Hq, D = q_shape
+    n = Hq * pieces
+    return n * (5 + 3 * (1 + D)), (n * (2 + D) * 4
+                                   + B * Hq * D * q_dtype.itemsize)
 
 
 def rglru(B: int, T: int, D: int, with_h0: bool) -> Tuple[int, int]:

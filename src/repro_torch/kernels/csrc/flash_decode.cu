@@ -143,6 +143,14 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(e4m3 v) { return widen(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
+// whether key position pos is held here: its slot pos % S is one of this
+// cache's run off .. off + L - 1 (every slot of a whole cache: off = 0,
+// L = S)
+__device__ __forceinline__ bool local(int pos, int S, int off, int L) {
+  const int slot = pos % S - off;
+  return slot >= 0 && slot < L;
+}
+
 template <int DPAD>
 int smem_bytes(int G) {
   return (G * DPAD + kBK * (DPAD + 1) + kBK * DPAD + G * (kBK + 1) +
@@ -157,7 +165,9 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                     int S, int D, float scale, long long qb_s,
                     long long qh_s, long long kb_s, long long kh_s,
                     long long ks_s, long long vb_s, long long vh_s,
-                    long long vs_s) {
+                    long long vs_s, int off, int L,
+                    float* __restrict__ part_m, float* __restrict__ part_l,
+                    float* __restrict__ part_acc, int n_out) {
   constexpr int KP = DPAD + 1;
   constexpr int PP = kBK + 1;
   extern __shared__ float smem[];
@@ -196,9 +206,11 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
     for (int e = tid; e < kBK * DPAD; e += kThreads) {
       const int t = e / DPAD, d = e % DPAD;
       const int pos = p0 + t;
-      const bool in = pos >= lo && pos < hi && d < D;
       int slot = slot0 + t;
       while (slot >= S) slot -= S;
+      slot -= off;  // in this cache's run of slots
+      const bool in = pos >= lo && pos < hi && d < D && slot >= 0 &&
+                      slot < L;
       ks[t * KP + d] = in ? to_float(kb[slot * ks_s + d]) : 0.0f;
       vs[t * DPAD + d] = in ? to_float(vb[slot * vs_s + d]) : 0.0f;
     }
@@ -211,13 +223,15 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll 8
       for (int d = 0; d < DPAD; ++d) s = fmaf(qr[d], kr[d], s);
       const int pos = p0 + t;
-      ps[g * PP + t] = pos >= lo && pos < hi ? s * scale : kMasked;
+      ps[g * PP + t] = pos >= lo && pos < hi && local(pos, S, off, L)
+                           ? s * scale
+                           : kMasked;
     }
     __syncthreads();
     for (int g = warp; g < G; g += kWarps) {
       float* pr = ps + g * PP;
       const int pos = p0 + lane;
-      const bool live = pos >= lo && pos < hi;
+      const bool live = pos >= lo && pos < hi && local(pos, S, off, L);
       const float s = pr[lane];
       float mx = s;
 #pragma unroll
@@ -252,6 +266,20 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
     }
   }
   __syncthreads();  // l final (also when no tile ran)
+  if (part_m != nullptr) {  // this run's keys as one partial, entry 0
+    const long long row0 = static_cast<long long>(b) * Hkv * G + h * G;
+    for (int g = tid; g < G; g += kThreads) {
+      part_m[(row0 + g) * n_out] = m[g];
+      part_l[(row0 + g) * n_out] = l[g];
+    }
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) {
+      const int e = tid + j * kThreads;
+      if (e < G * DPAD && e % DPAD < D)
+        part_acc[(row0 + e / DPAD) * n_out * D + e % DPAD] = acc[j];
+    }
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < kAcc; ++j) {
     const int e = tid + j * kThreads;
@@ -267,11 +295,20 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   }
 }
 
+// the float32 path's part (ops.py's partial entry, part_m non-null):
+// slots off .. off + L - 1 of the S, one partial of all of them, entry 0
+// of each row's n_out (the wrapper fills the others empty)
+struct F32Part {
+  int off, L;
+  float *m, *l, *acc;
+  int n_out;
+};
+
 template <typename T, typename KV, int DPAD>
 int launch_d(const T* q, const KV* k, const KV* v, const int* length,
              const int* end, T* out, int B, int Hq, int Hkv, int S, int D,
              float scale, const long long* st_q, const long long* st_k,
-             const long long* st_v, cudaStream_t stream) {
+             const long long* st_v, cudaStream_t stream, F32Part pt) {
   const int G = Hq / Hkv;
   if (G * DPAD > kAcc * kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -283,7 +320,8 @@ int launch_d(const T* q, const KV* k, const KV* v, const int* length,
   const dim3 grid(Hkv, B);
   kernel<<<grid, kThreads, bytes, stream>>>(
       q, k, v, length, end, out, G, S, D, scale, st_q[0], st_q[1], st_k[0],
-      st_k[1], st_k[2], st_v[0], st_v[1], st_v[2]);
+      st_k[1], st_k[2], st_v[0], st_v[1], st_v[2], pt.off, pt.L, pt.m,
+      pt.l, pt.acc, pt.n_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -291,23 +329,25 @@ template <typename T, typename KV>
 int launch(const T* q, const KV* k, const KV* v, const int* length,
            const int* end, T* out, int B, int Hq, int Hkv, int S, int D,
            float scale, const long long* st_q, const long long* st_k,
-           const long long* st_v, void* stream) {
+           const long long* st_v, void* stream,
+           F32Part pt = {0, -1, nullptr, nullptr, nullptr, 0}) {
   if (B <= 0 || Hq <= 0) return 0;
+  if (pt.L < 0) pt.L = S;  // the whole cache
   if (Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 || S < 0 ||
-      B > 65535 || Hkv > 65535)
+      B > 65535 || Hkv > 65535 || pt.off < 0 || pt.off + pt.L > S)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 32)
     return launch_d<T, KV, 32>(q, k, v, length, end, out, B, Hq, Hkv, S, D,
-                               scale, st_q, st_k, st_v, s);
+                               scale, st_q, st_k, st_v, s, pt);
   if (D <= 64)
     return launch_d<T, KV, 64>(q, k, v, length, end, out, B, Hq, Hkv, S, D,
-                               scale, st_q, st_k, st_v, s);
+                               scale, st_q, st_k, st_v, s, pt);
   if (D <= 128)
     return launch_d<T, KV, 128>(q, k, v, length, end, out, B, Hq, Hkv, S,
-                                D, scale, st_q, st_k, st_v, s);
+                                D, scale, st_q, st_k, st_v, s, pt);
   return launch_d<T, KV, 256>(q, k, v, length, end, out, B, Hq, Hkv, S, D,
-                              scale, st_q, st_k, st_v, s);
+                              scale, st_q, st_k, st_v, s, pt);
 }
 
 // ---- bf16: the tensor cores, split over the cache ---------------------------
@@ -398,6 +438,23 @@ __device__ __forceinline__ LiveRange live_range(const int* length,
   return r;
 }
 
+// whether chunk c of a row's live range holds a live key at one of the
+// slots off .. off + L - 1 (ref.py:_meets): the chunk's live positions
+// [p0, p1), at most S of them, sit at slots [a, a + p1 - p0) mod S
+__device__ __forceinline__ bool chunk_meets(const LiveRange& lr, int c,
+                                            int S, int off, int L) {
+  const int p0 = max(lr.lo, (lr.first + c) * attn::kChunk);
+  const int p1 = min(lr.hi, (lr.first + c + 1) * attn::kChunk);
+  if (p1 <= p0) return false;
+  const int a = p0 % S, b = a + (p1 - p0);
+  return max(a, off) < min(b, off + L) ||
+         max(a, off + S) < min(b, off + L + S);
+}
+
+// ranks whose partials one merge takes at most (a chunk's ranks are one
+// 64-bit mask)
+constexpr int kMaxRanks = 64;
+
 template <int DP, typename KV>
 __global__ void __launch_bounds__(128)
 flash_decode_mma(const attn::bf16* __restrict__ q,
@@ -409,7 +466,7 @@ flash_decode_mma(const attn::bf16* __restrict__ q,
                  int Hq, int Hkv, int S, int D, float scale, long long qb_s,
                  long long qh_s, long long kb_s, long long kh_s,
                  long long ks_s, long long vb_s, long long vh_s,
-                 long long vs_s, int vec) {
+                 long long vs_s, int vec, int off, int L, int part) {
   using attn::bf16;
   using attn::kTile;
   constexpr bool kKV8 = std::is_same<KV, e4m3>::value;
@@ -430,8 +487,29 @@ flash_decode_mma(const attn::bf16* __restrict__ q,
   const int h = blockIdx.y / groups, g0 = (blockIdx.y % groups) * 16;
   const int rows = min(16, G - g0);
   const LiveRange lr = live_range(length, end, b, S);
-  if (c >= lr.count) return;
-  const int cc = lr.first + c;  // the chunk's index in key position
+  const int n_chunks = gridDim.x;
+  const int row0 = b * Hq + h * G + g0;
+  int ci = c;  // the chunk of the row's live range this block takes
+  if (part) {  // the c-th of those that meet this cache's run of slots
+    ci = -1;
+    for (int i = 0, k = 0; i < lr.count && ci < 0; ++i)
+      if (chunk_meets(lr, i, S, off, L) && k++ == c) ci = i;
+    if (ci < 0) {  // an empty entry
+      for (int e = tid; e < rows * D; e += 32 * NW) {
+        const long long slot =
+            static_cast<long long>(row0 + e / D) * n_chunks + c;
+        part_acc[slot * D + e % D] = 0.0f;
+        if (e % D == 0) {
+          part_m[slot] = attn::kMasked;
+          part_l[slot] = 0.0f;
+        }
+      }
+      return;
+    }
+  } else if (c >= lr.count) {
+    return;
+  }
+  const int cc = lr.first + ci;  // the chunk's index in key position
   const int p_lo = max(lr.lo, cc * attn::kChunk);
   const int p_hi = min(lr.hi, (cc + 1) * attn::kChunk);
   const int t0 = p_lo / kTile, t1 = (p_hi + kTile - 1) / kTile;
@@ -439,16 +517,23 @@ flash_decode_mma(const attn::bf16* __restrict__ q,
   const KV* kb = k + b * kb_s + h * kh_s;
   const KV* vb = v + b * vb_s + h * vh_s;
   // the cache rows of tile t's keys (nullptr outside the chunk's range)
+  // (the keys on slots outside this cache's run off .. off + L - 1 are
+  // not live here: all of them are in a whole cache, off = 0 and L = S)
+  auto here = [=](int pos) { return local(pos, S, off, L); };
   auto k_row = [=](int t) {
     return [=](int r) -> const KV* {
       const int pos = t * kTile + r;
-      return pos >= p_lo && pos < p_hi ? kb + (pos % S) * ks_s : nullptr;
+      return pos >= p_lo && pos < p_hi && here(pos)
+                 ? kb + (pos % S - off) * ks_s
+                 : nullptr;
     };
   };
   auto v_row = [=](int t) {
     return [=](int r) -> const KV* {
       const int pos = t * kTile + r;
-      return pos >= p_lo && pos < p_hi ? vb + (pos % S) * vs_s : nullptr;
+      return pos >= p_lo && pos < p_hi && here(pos)
+                 ? vb + (pos % S - off) * vs_s
+                 : nullptr;
     };
   };
 
@@ -512,11 +597,13 @@ flash_decode_mma(const attn::bf16* __restrict__ q,
     const int j0 = t * kTile;
     auto live = [=](int, int col) {
       const int pos = j0 + col;
-      return pos >= lr.lo && pos < lr.hi;
+      return pos >= lr.lo && pos < lr.hi && here(pos);
     };
     float s[kTile / 8][4];
     attn::qk_tile<DP>(qs, ks, s);
-    if (j0 >= lr.lo && j0 + kTile <= lr.hi)  // every key live
+    const int js = j0 % S - off;  // the tile's first slot in the run
+    if (j0 >= lr.lo && j0 + kTile <= lr.hi &&
+        (L == S || (js >= 0 && js + kTile <= L)))  // every key live
       attn::softmax_pv<DP, NT, true>(s, ks + kTile * P, warp * NT, scale,
                                      live, m, l, acc);
     else
@@ -526,8 +613,6 @@ flash_decode_mma(const attn::bf16* __restrict__ q,
   attn::cp_async_wait<0>();
 
   // the chunk's partial of the group's rows
-  const int n_chunks = gridDim.x;
-  const int row0 = b * Hq + h * G + g0;
   const int cq = (lane & 3) * 2;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -572,14 +657,177 @@ flash_decode_merge(const float* __restrict__ part_m,
   }
 }
 
+// the merge of a sliced cache's partials runs 128 threads a row
+constexpr int kMergeThreads = 128;
+static_assert(kMaxRanks <= kMergeThreads, "a thread for each rank");
+
+// the exclusive scan of v over the block under op (associative, identity
+// id; kMergeThreads threads), and in *all the reduction of every v; tot:
+// kMergeThreads / 32 values of shared memory
+template <typename T, typename Op>
+__device__ __forceinline__ T block_exclusive(T v, T id, Op op, T* tot,
+                                             T* all) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T x = v;
+#pragma unroll
+  for (int k = 1; k < 32; k <<= 1) {
+    const T y = __shfl_up_sync(0xffffffffu, x, k);
+    if (lane >= k) x = op(y, x);
+  }
+  T ex = __shfl_up_sync(0xffffffffu, x, 1);
+  if (lane == 0) ex = id;
+  if (lane == 31) tot[warp] = x;
+  __syncthreads();
+  T pre = id, sum = id;
+#pragma unroll
+  for (int w = 0; w < kMergeThreads / 32; ++w) {
+    if (w < warp) pre = op(pre, tot[w]);
+    sum = op(sum, tot[w]);
+  }
+  *all = sum;
+  __syncthreads();  // tot free again
+  return op(pre, ex);
+}
+
+// thread t's share [lo, hi) of n items taken in contiguous runs
+__device__ __forceinline__ void share(int n, int& lo, int& hi) {
+  const int per = (n + kMergeThreads - 1) / kMergeThreads;
+  lo = min(n, static_cast<int>(threadIdx.x) * per);
+  hi = min(n, lo + per);
+}
+
+// shared bytes of a merge: for each of a row's chunks its ranks' mask and
+// its first piece; for each piece its m's and acc's offsets, e1, e2 and l
+__host__ __device__ constexpr long long merge_smem_bytes(int max_chunks,
+                                                         int max_pieces) {
+  return 12LL * max_chunks + 28LL * max_pieces;
+}
+
+// out[row] = the merge of every rank's partials of the row (parts: rank
+// r's [m | l | acc] at r * rank_stride, n_out entries a row; rank r held
+// slots r L .. r L + L - 1 of the S), chunk by chunk in the whole-cache
+// kernel's order, the pieces of one chunk in rank order, / l. A piece is
+// a (chunk, rank) whose keys meet (chunk_meets, the partial kernel's
+// test); one block a row builds the row's order once in shared memory:
+// (1) each chunk's mask of ranks and its first place in the order (a
+// scan of the masks' counts); (2) thread r puts rank r's entries, in
+// chunk order, at their places; (3) the running max over the order (a
+// scan under fmaxf, which returns one of its operands, so any grouping
+// gives the sequential max's value, up to the sign of a zero that expf of
+// the difference does not see), and each piece's two scales from
+// merge_scales, as the sequential merge computes them; (4) each column
+// thread merges l and its acc column along the order.
+template <typename T>
+__global__ void __launch_bounds__(kMergeThreads)
+flash_decode_merge_parts(const float* __restrict__ parts,
+                         long long rank_stride, int ranks, int n_out,
+                         const int* __restrict__ length,
+                         const int* __restrict__ end, T* __restrict__ out,
+                         int B, int Hq, int S, int L, int D,
+                         int max_chunks, int max_pieces) {
+  extern __shared__ __align__(16) unsigned char merge_smem[];
+  __shared__ int tot_i[kMergeThreads / 32];
+  __shared__ float tot_f[kMergeThreads / 32];
+  auto* mask = reinterpret_cast<unsigned long long*>(merge_smem);
+  auto* src = reinterpret_cast<long long*>(mask + max_chunks);
+  long long* src_m = src + max_pieces;
+  auto* first = reinterpret_cast<int*>(src_m + max_pieces);
+  float* e1s = reinterpret_cast<float*>(first + max_chunks);
+  float* e2s = e1s + max_pieces;  // m of each piece until (3)
+  float* ls = e2s + max_pieces;
+  const int row = blockIdx.x, b = row / Hq, tid = threadIdx.x;
+  const LiveRange lr = live_range(length, end, b, S);
+  const long long n = static_cast<long long>(B) * Hq * n_out;
+
+  // (1) the ranks that each chunk meets, and its first piece
+  int c0, c1;
+  share(lr.count, c0, c1);
+  int mine = 0;
+  for (int c = c0; c < c1; ++c) {
+    unsigned long long mk = 0;
+    for (int r = 0; r < ranks; ++r)
+      if (chunk_meets(lr, c, S, r * L, L)) mk |= 1ull << r;
+    mask[c] = mk;
+    mine += __popcll(mk);
+  }
+  int pieces;
+  int at = block_exclusive(mine, 0, [](int x, int y) { return x + y; },
+                           tot_i, &pieces);
+  for (int c = c0; c < c1; ++c) {
+    first[c] = at;
+    at += __popcll(mask[c]);
+  }
+  __syncthreads();
+
+  // (2) rank r's e-th entry is the e-th chunk that meets it: thread r
+  // places its entries, then every thread reads a share of their m and l
+  if (tid < ranks) {
+    const unsigned long long below = (1ull << tid) - 1;
+    long long e = tid * rank_stride + static_cast<long long>(row) * n_out;
+    for (int c = 0; c < lr.count; ++c) {
+      const unsigned long long mk = mask[c];
+      if (!((mk >> tid) & 1)) continue;
+      const int p = first[c] + __popcll(mk & below);
+      src_m[p] = e;
+      src[p] = e + 2 * n + (e - tid * rank_stride) * (D - 1);
+      ++e;
+    }
+  }
+  __syncthreads();
+  for (int p = tid; p < pieces; p += kMergeThreads) {
+    e2s[p] = parts[src_m[p]];
+    ls[p] = parts[src_m[p] + n];
+  }
+  __syncthreads();
+
+  // (3) the running max before each piece, and the piece's scales
+  int p0, p1;
+  share(pieces, p0, p1);
+  float mx = attn::kMasked;
+  for (int p = p0; p < p1; ++p) mx = fmaxf(mx, e2s[p]);
+  float total;
+  float m = block_exclusive(
+      mx, attn::kMasked, [](float x, float y) { return fmaxf(x, y); },
+      tot_f, &total);
+  for (int p = p0; p < p1; ++p) {
+    float e1, e2;
+    attn::merge_scales(m, e2s[p], e1, e2);
+    e1s[p] = e1;
+    e2s[p] = e2;
+  }
+  __syncthreads();
+
+  // (4) each column along the order
+  for (int d = tid; d < D; d += kMergeThreads) {
+    float l = 0.0f, a = 0.0f;
+#pragma unroll 16
+    for (int p = 0; p < pieces; ++p) {
+      const float e1 = e1s[p], e2 = e2s[p];
+      l = attn::merge_value(l, e1, ls[p], e2);
+      a = attn::merge_value(a, e1, parts[src[p] + d], e2);
+    }
+    const float o = attn::finish(a, l);
+    if constexpr (std::is_same<T, float>::value)
+      out[static_cast<long long>(row) * D + d] = o;
+    else
+      out[static_cast<long long>(row) * D + d] = __float2bfloat16_rn(o);
+  }
+}
+
+// the mma path's part (ops.py's partial entry, part != 0): slots off ..
+// off + L - 1 of the S, the n_out chunks of a row that meet them
+struct MmaPart {
+  int off, L, n_out, part;
+};
+
 template <int DP, typename KV>
 int launch_mma_d(const attn::bf16* q, const KV* k,
                  const KV* v, const int* length, const int* end,
                  attn::bf16* out, float* part_m, float* part_l,
                  float* part_acc, int B, int Hq, int Hkv, int S, int D,
                  float scale, const long long* st_q, const long long* st_k,
-                 const long long* st_v, cudaStream_t stream) {
-  const int n_chunks = chunks(S);
+                 const long long* st_v, cudaStream_t stream, MmaPart pt) {
+  const int n_chunks = pt.part ? pt.n_out : chunks(S);
   if (n_chunks > 0) {
     constexpr bool kKV8 = std::is_same<KV, e4m3>::value;
     constexpr int bytes = dec_smem_bytes<DP, kKV8>();
@@ -601,10 +849,11 @@ int launch_mma_d(const attn::bf16* q, const KV* k,
     kernel<<<grid, 32 * dec_warps<DP>(), bytes, stream>>>(
         q, k, v, length, end, part_m, part_l, part_acc, Hq, Hkv, S, D,
         scale, st_q[0], st_q[1], st_k[0], st_k[1], st_k[2], st_v[0],
-        st_v[1], st_v[2], vec);
+        st_v[1], st_v[2], vec, pt.off, pt.L, pt.part);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  if (pt.part) return 0;
   flash_decode_merge<<<B * Hq, 128, 0, stream>>>(
       part_m, part_l, part_acc, length, end, out, Hq, S, D, n_chunks);
   return static_cast<int>(cudaGetLastError());
@@ -615,16 +864,19 @@ int launch_mma(const attn::bf16* q, const KV* k, const KV* v,
                const int* length, const int* end, attn::bf16* out,
                float* part_m, float* part_l, float* part_acc, int B, int Hq,
                int Hkv, int S, int D, float scale, const long long* st_q,
-               const long long* st_k, const long long* st_v, void* stream) {
+               const long long* st_k, const long long* st_v, void* stream,
+               MmaPart pt = {0, -1, 0, 0}) {
   if (B <= 0 || Hq <= 0) return 0;
+  if (pt.L < 0) pt.L = S;  // the whole cache
   if (Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 || S < 0 ||
       B > 65535 || Hkv * ((Hq / Hkv + 15) / 16) > 65535 ||
-      static_cast<long long>(B) * Hq > 2147483647LL)
+      static_cast<long long>(B) * Hq > 2147483647LL || pt.off < 0 ||
+      pt.off + pt.L > S || pt.n_out > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FD_ARGS                                                           \
   q, k, v, length, end, out, part_m, part_l, part_acc, B, Hq, Hkv, S, D, \
-      scale, st_q, st_k, st_v, s
+      scale, st_q, st_k, st_v, s, pt
   switch (attn::padded_dim(D)) {
     case 16: return launch_mma_d<16, KV>(FD_ARGS);
     case 32: return launch_mma_d<32, KV>(FD_ARGS);
@@ -689,4 +941,116 @@ extern "C" int flash_decode_bf16_kv8(const __nv_bfloat16* q, const void* k,
                     static_cast<const e4m3*>(v), length, end, out, part_m,
                     part_l, part_acc, B, Hq, Hkv, S, D, scale, st_q, st_k,
                     st_v, stream);
+}
+
+// ---- a cache cut along its slots (ops.py: flash_decode_partial, _merge) ----
+//
+// Each rank holds slots off .. off + L - 1 of the S. The _part entry
+// points take the same arguments as the whole-cache ones (k and v this
+// rank's run, their strides), then off, L and n_out (ref.py:
+// decode_local_chunks(S, L)), and write this rank's float32 partials,
+// part_m and part_l [B * Hq * n_out] and part_acc [B * Hq * n_out * D]:
+// bf16 q, each chunk of the whole-cache kernel that meets the run, in
+// chunk order, computed as that kernel computes it with the other slots'
+// keys not live (the unused entries empty: m = kMasked, l = 0, acc = 0);
+// float32 q, one partial of all the run's keys in entry 0 (the caller
+// fills the rest empty). flash_decode_merge_bf16 / _f32 merge every
+// rank's partials (parts [ranks][2 n + n D] floats, n = B * Hq * n_out,
+// rank r at r * rank_stride) into out [B, Hq, D]. Where S and L are
+// multiples of kChunk every chunk lies on one rank and bf16 gives the
+// whole-cache kernel's result bit for bit.
+
+extern "C" int flash_decode_bf16_part(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const int* length, const int* end, int B, int Hq, int Hkv, int S, int D,
+    float scale, const long long* st_q, const long long* st_k,
+    const long long* st_v, int off, int L, int n_out, float* part_m,
+    float* part_l, float* part_acc, void* stream) {
+  return launch_mma(q, k, v, length, end, nullptr, part_m, part_l, part_acc,
+                    B, Hq, Hkv, S, D, scale, st_q, st_k, st_v, stream,
+                    MmaPart{off, L, n_out, 1});
+}
+
+extern "C" int flash_decode_bf16_kv8_part(
+    const __nv_bfloat16* q, const void* k, const void* v, const int* length,
+    const int* end, int B, int Hq, int Hkv, int S, int D, float scale,
+    const long long* st_q, const long long* st_k, const long long* st_v,
+    int off, int L, int n_out, float* part_m, float* part_l,
+    float* part_acc, void* stream) {
+  return launch_mma(q, static_cast<const e4m3*>(k),
+                    static_cast<const e4m3*>(v), length, end, nullptr,
+                    part_m, part_l, part_acc, B, Hq, Hkv, S, D, scale, st_q,
+                    st_k, st_v, stream, MmaPart{off, L, n_out, 1});
+}
+
+extern "C" int flash_decode_f32_part(
+    const float* q, const float* k, const float* v, const int* length,
+    const int* end, int B, int Hq, int Hkv, int S, int D, float scale,
+    const long long* st_q, const long long* st_k, const long long* st_v,
+    int off, int L, int n_out, float* part_m, float* part_l,
+    float* part_acc, void* stream) {
+  return launch<float>(q, k, v, length, end, nullptr, B, Hq, Hkv, S, D,
+                       scale, st_q, st_k, st_v, stream,
+                       F32Part{off, L, part_m, part_l, part_acc, n_out});
+}
+
+extern "C" int flash_decode_f32_kv8_part(
+    const float* q, const void* k, const void* v, const int* length,
+    const int* end, int B, int Hq, int Hkv, int S, int D, float scale,
+    const long long* st_q, const long long* st_k, const long long* st_v,
+    int off, int L, int n_out, float* part_m, float* part_l,
+    float* part_acc, void* stream) {
+  return launch<float, e4m3>(q, static_cast<const e4m3*>(k),
+                             static_cast<const e4m3*>(v), length, end,
+                             nullptr, B, Hq, Hkv, S, D, scale, st_q, st_k,
+                             st_v, stream,
+                             F32Part{off, L, part_m, part_l, part_acc,
+                                     n_out});
+}
+
+template <typename T>
+int merge_parts(const float* parts, long long rank_stride, int ranks,
+                int n_out, const int* length, const int* end, T* out,
+                int B, int Hq, int S, int L, int D, void* stream) {
+  if (B <= 0 || Hq <= 0) return 0;
+  if (ranks <= 0 || ranks > kMaxRanks || L <= 0 || ranks * L != S ||
+      D <= 0 || n_out < 0 || static_cast<long long>(B) * Hq > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a row's live range spans at most chunks(S) chunks, and each rank
+  // keeps at most n_out of their pieces
+  const int max_chunks = chunks(S), max_pieces = ranks * n_out;
+  const long long bytes = merge_smem_bytes(max_chunks, max_pieces);
+  if (bytes > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_decode_merge_parts<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  flash_decode_merge_parts<T>
+      <<<B * Hq, kMergeThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+          parts, rank_stride, ranks, n_out, length, end, out, B, Hq, S, L,
+          D, max_chunks, max_pieces);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int flash_decode_merge_bf16(const float* parts,
+                                       long long rank_stride, int ranks,
+                                       int n_out, const int* length,
+                                       const int* end, __nv_bfloat16* out,
+                                       int B, int Hq, int S, int L, int D,
+                                       void* stream) {
+  return merge_parts(parts, rank_stride, ranks, n_out, length, end, out, B,
+                     Hq, S, L, D, stream);
+}
+
+extern "C" int flash_decode_merge_f32(const float* parts,
+                                      long long rank_stride, int ranks,
+                                      int n_out, const int* length,
+                                      const int* end, float* out, int B,
+                                      int Hq, int S, int L, int D,
+                                      void* stream) {
+  return merge_parts(parts, rank_stride, ranks, n_out, length, end, out, B,
+                     Hq, S, L, D, stream);
 }

@@ -112,9 +112,13 @@
 // configuration's number and how x and y are staged: any staging gives
 // the same bits, 16-byte copies fall back to 4-byte ones where the base
 // or the strides do not allow them) and matmul_bf16 its tile plan (NI,
-// WG, whether y is held K-major) and a flag that stages both operands by
-// threads; last, the CUDA stream. Both return the cudaError_t of the
-// launch (0 = success) and launch asynchronously.
+// WG, whether y is held K-major), a flag that stages both operands by
+// threads and a flag that writes out as the float32 sums themselves (a
+// row-parallel product's partials, summed over the 'model' ranks and
+// rounded to bf16 once there: the same accumulator, so on one rank the
+// partial rounded is this kernel's bf16 out bit for bit); last, the CUDA
+// stream. Both return the cudaError_t of the launch (0 = success) and
+// launch asynchronously.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -585,11 +589,12 @@ struct Tile {
 struct Args {
   const uint16_t* x;
   const uint16_t* y;
-  __nv_bfloat16* out;
+  void* out;   // bf16, or float32 where out_f32 is set
   long long sxm, sxk, syk, syn;
   int M, N, K;
   int x_tma, y_tma;
   int x_rows;  // rows of x a stage loads; the tile's rows past it stay 0
+  int out_f32;  // write the float32 sums themselves (row-parallel partials)
 };
 
 // The 128-byte TMA swizzle as the hardware applies it to a shared-memory
@@ -730,7 +735,19 @@ __device__ void stage_y(unsigned char* tile, const Args& a, int n0, int k0,
 __device__ __forceinline__ void store_pair(const Args& a, int row, int col,
                                            float v0, float v1) {
   if (row >= a.M) return;
-  __nv_bfloat16* p = a.out + static_cast<long long>(row) * a.N + col;
+  if (a.out_f32) {
+    float* p = static_cast<float*>(a.out) + static_cast<long long>(row) *
+                                                a.N + col;
+    if (col + 1 < a.N && (a.N & 1) == 0) {
+      *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+    } else {
+      if (col < a.N) p[0] = v0;
+      if (col + 1 < a.N) p[1] = v1;
+    }
+    return;
+  }
+  __nv_bfloat16* p = static_cast<__nv_bfloat16*>(a.out) +
+                     static_cast<long long>(row) * a.N + col;
   if (col + 1 < a.N && (a.N & 1) == 0) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
   } else {
@@ -991,19 +1008,22 @@ extern "C" int matmul_f32(const float* x, const float* y, float* out, int M,
 }
 
 extern "C" int matmul_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y,
-                           __nv_bfloat16* out, int M, int N, int K,
-                           long long sxm, long long sxk, long long syk,
-                           long long syn, int n_instr, int warpgroups,
-                           int b_kmajor, int by_threads, void* stream) {
+                           void* out, int M, int N, int K, long long sxm,
+                           long long sxk, long long syk, long long syn,
+                           int n_instr, int warpgroups, int b_kmajor,
+                           int by_threads, int out_f32, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if (K < 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (K == 0)
     return static_cast<int>(cudaMemsetAsync(
-        out, 0, static_cast<size_t>(M) * N * sizeof(__nv_bfloat16), st));
+        out, 0,
+        static_cast<size_t>(M) * N *
+            (out_f32 ? sizeof(float) : sizeof(__nv_bfloat16)),
+        st));
   const Args a{reinterpret_cast<const uint16_t*>(x),
                reinterpret_cast<const uint16_t*>(y),
-               out, sxm, sxk, syk, syn, M, N, K, 0, 0, 0};
+               out, sxm, sxk, syk, syn, M, N, K, 0, 0, 0, out_f32 != 0};
   const bool t = by_threads != 0;
   // the tile plans kernels/matmul.py:tile_plan chooses from
 #define MM_CASE(WG, NI)                                   \

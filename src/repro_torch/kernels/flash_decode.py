@@ -9,9 +9,13 @@ cores, one block per (256-position chunk of the live range, KV head and
 group of up to 16 query heads, batch row), each writing a partial to
 float32 scratch that :func:`launch` allocates, then a merge kernel (both
 in one C call); float32 runs one CUDA-core block per (KV head, batch
-row). This module only
-launches; :func:`repro_torch.kernels.ops.flash_decode` is the checked
-public wrapper that ``models/model.py`` calls.
+row). A cache cut along its slots over ranks has two more entries, each one
+C call: :func:`launch_partial` (``_part``: this rank's chunks' float32
+partials) and :func:`launch_merge` (every rank's partials merged in the
+whole-cache kernel's chunk order). This module only launches;
+:func:`repro_torch.kernels.ops.flash_decode` (and ``ops.
+flash_decode_partial`` / ``flash_decode_merge``) are the checked public
+wrappers that ``models/model.py`` calls.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from typing import Optional
 import torch
 
 from . import build
-from .ref import ATTN_CHUNK
+from .ref import ATTN_CHUNK, MASKED_LOGIT, decode_local_chunks
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -115,3 +119,78 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *parts, stream)
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError_t {err}")
+
+
+def _part_fn(q_dtype: torch.dtype, kv_dtype: torch.dtype):
+    """The ``_part`` C entry point for q's and the caches' dtypes."""
+    key = ("part", q_dtype, kv_dtype)
+    fn = _FNS.get(key)
+    if fn is None:
+        lib = build.load("flash_decode")
+        name = ("flash_decode_f32" if q_dtype == torch.float32
+                else "flash_decode_bf16")
+        if kv_dtype == torch.float8_e4m3fn:
+            name += "_kv8"
+        fn = getattr(lib, name + "_part")
+        fn.argtypes = ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        ctypes.c_float, _PLL, _PLL, _PLL, _I, _I, _I, _P, _P,
+                        _P, _P])
+        fn.restype = ctypes.c_int
+        _FNS[key] = fn
+    return fn
+
+
+def launch_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   length: torch.Tensor, end: torch.Tensor, offset: int,
+                   slots: int, out: torch.Tensor) -> None:
+    """Launch this rank's part on the current stream: ``out`` (float32,
+    [m | l | acc] over [B, Hq, decode_local_chunks(slots, L) (, D)]) gets
+    the partials of q [B, Hq, D] over ``k``/``v`` [B, Hkv, L, D], slots
+    ``offset`` .. ``offset + L - 1`` of a cache of ``slots`` whose live
+    keys ``length`` and ``end`` give. The float32 kernel writes one
+    partial a row (entry 0): the others are filled empty here first.
+    Raises if the launch reports a CUDA error."""
+    B, Hq, D = q.shape
+    Hkv, L = k.shape[1], k.shape[2]
+    K = decode_local_chunks(slots, L)
+    n = B * Hq * K
+    if q.dtype == torch.float32:
+        out[:n].fill_(MASKED_LOGIT)
+        out[n:].zero_()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _part_fn(q.dtype, k.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+        end.data_ptr(), B, Hq, Hkv, slots, D, D ** -0.5,
+        _S2(*q.stride()[:2]), _S3(*k.stride()[:3]), _S3(*v.stride()[:3]),
+        offset, L, K, out.data_ptr(), out[n:].data_ptr(),
+        out[2 * n:].data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode partial launch failed: "
+                           f"cudaError_t {err}")
+
+
+def launch_merge(parts: torch.Tensor, length: torch.Tensor,
+                 end: torch.Tensor, slots: int, local_slots: int,
+                 out: torch.Tensor) -> None:
+    """Launch the merge on the current stream: ``out`` [B, Hq, D] (q's
+    dtype) from every rank's partials ``parts`` [ranks, n] (contiguous
+    rows, rank order). Raises if the launch reports a CUDA error."""
+    B, Hq, D = out.shape
+    key = ("merge", out.dtype)
+    fn = _FNS.get(key)
+    if fn is None:
+        lib = build.load("flash_decode")
+        fn = getattr(lib, "flash_decode_merge_f32" if out.dtype ==
+                     torch.float32 else "flash_decode_merge_bf16")
+        fn.argtypes = [_P, ctypes.c_longlong, _I, _I, _P, _P, _P, _I, _I,
+                       _I, _I, _I, _P]
+        fn.restype = ctypes.c_int
+        _FNS[key] = fn
+    parts = parts.contiguous()
+    err = fn(parts.data_ptr(), parts.stride(0), parts.shape[0],
+             decode_local_chunks(slots, local_slots), length.data_ptr(),
+             end.data_ptr(), out.data_ptr(), B, Hq, slots, local_slots, D,
+             torch.cuda.current_stream(out.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode merge launch failed: "
+                           f"cudaError_t {err}")

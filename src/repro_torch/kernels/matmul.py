@@ -30,7 +30,7 @@ _I64 = ctypes.c_longlong
 _ARGTYPES = {torch.float32: [_P, _P, _P, _I, _I, _I, _I64, _I64, _I64, _I64,
                              _I, _I, _I, _P],
              torch.bfloat16: [_P, _P, _P, _I, _I, _I, _I64, _I64, _I64, _I64,
-                              _I, _I, _I, _I, _P]}
+                              _I, _I, _I, _I, _I, _P]}
 _FNS = {}
 
 #: n of the kernel's one wgmma instruction, m64n64k16, for every shape
@@ -199,7 +199,8 @@ def launch(x: torch.Tensor, y: torch.Tensor, out: torch.Tensor, *,
            _by_threads: bool = False,
            _f32_plan: Optional[F32Plan] = None) -> None:
     """Launch the kernel on the current stream: ``out`` [M, N] (dense) gets
-    ``x`` [M, K] @ ``y`` [K, N], read through their strides. The caller
+    ``x`` [M, K] @ ``y`` [K, N], read through their strides, in x's dtype
+    or, for bf16 operands, as float32 sums. The caller
     has checked devices, dtypes and shapes; raises if the launch reports a
     CUDA error. ``_by_threads`` stages both bf16 operands by threads where
     TMA would take them (to hold the two staging paths against each
@@ -218,7 +219,7 @@ def launch(x: torch.Tensor, y: torch.Tensor, out: torch.Tensor, *,
     else:
         plan = tile_plan(M, N, K, y.stride())
         args += [plan.n_instr, plan.warpgroups, int(plan.b_major == "k"),
-                 int(_by_threads)]
+                 int(_by_threads), int(out.dtype == torch.float32)]
     err = _fn(x.dtype)(*args, stream)
     if err != 0:
         raise RuntimeError(f"matmul launch failed: cudaError_t {err}")

@@ -24,6 +24,11 @@ and bytes (:mod:`.cost`): each launch on the card, each meta call, and
 each plain version's call on the CPU (whose own aten ops are then not
 counted apart). With no counter the card's path tests one empty list.
 
+Serving over a mesh adds two entries to ``flash_decode``'s kernel
+(:func:`flash_decode_partial`, :func:`flash_decode_merge`: a cache cut
+along its slots, each a launch of ``flash_decode``) and float32 partials
+to ``matmul`` (``out_dtype``).
+
 ``matmul``, ``flash_attention``, ``rglru`` and ``rwkv6`` are
 differentiable: where grad mode is on and an operand requires a gradient
 they run as a ``torch.autograd.Function`` whose forward is the same kernel
@@ -51,8 +56,10 @@ from . import flash_decode as _fd
 from . import matmul as _mm
 from . import rglru as _rg
 from . import rwkv6 as _rk
-from .ref import (acd_evict_plain, fifo_dispatch_plain,
-                  flash_attention_plain, flash_decode_plain, matmul_plain,
+from .ref import (acd_evict_plain, decode_local_chunks, decode_pieces,
+                  fifo_dispatch_plain, flash_attention_plain,
+                  flash_decode_merge_plain, flash_decode_partial_plain,
+                  flash_decode_plain, matmul_plain,
                   rglru_backward_plain, rglru_plain, rwkv6_backward_plain,
                   rwkv6_plain)
 
@@ -243,17 +250,28 @@ def _grad_wanted(*xs) -> bool:
         x is not None and x.requires_grad for x in xs)
 
 
-def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def matmul(x: torch.Tensor, y: torch.Tensor,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x`` [M, K] @ ``y`` [K, N] with float32 accumulation, in
-    ``x.dtype`` (float32, or bfloat16 for both). Any strides are taken
-    (``x.T`` is passed as a view). CPU tensors run
-    :func:`.ref.matmul_plain`; CUDA tensors run the CUDA kernel
-    (``csrc/matmul.cu``). Differentiable (:class:`_MatmulFn`) where grad
-    mode is on and an operand requires a gradient."""
+    ``x.dtype`` (float32, or bfloat16 for both), or with ``out_dtype``
+    float32 the float32 sums themselves (a row-parallel product's
+    partials; bf16 operands' rounded once where they are summed, not once
+    a rank). Any strides are taken (``x.T`` is passed as a view). CPU
+    tensors run :func:`.ref.matmul_plain`; CUDA tensors run the CUDA
+    kernel (``csrc/matmul.cu``). Differentiable (:class:`_MatmulFn`) where
+    grad mode is on and an operand requires a gradient (``x.dtype``
+    out)."""
     _check_matmul(x, y)
+    if out_dtype not in (None, x.dtype, torch.float32):
+        raise TypeError(f"matmul: out_dtype must be {x.dtype} or float32, "
+                        f"got {out_dtype}")
+    if out_dtype == x.dtype:
+        out_dtype = None
     if _grad_wanted(x, y):
+        if out_dtype is not None:
+            raise ValueError("matmul: float32 partials take no gradient")
         return _MatmulFn.apply(x, y)
-    return _matmul(x, y)
+    return _matmul(x, y, out_dtype)
 
 
 def _left_operand(t: torch.Tensor) -> torch.Tensor:
@@ -292,22 +310,25 @@ class _MatmulFn(torch.autograd.Function):
         return dx, dy
 
 
-def _matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """:func:`matmul` on checked operands, outside autograd."""
+def _matmul(x: torch.Tensor, y: torch.Tensor,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`matmul` on checked operands, outside autograd (``out_dtype``
+    None: x's)."""
     dev = x.device.type
+    more = () if out_dtype is None else (out_dtype,)
     if dev == "cpu":
-        return _plain(matmul, matmul_plain, x, y)
+        return _plain(matmul, matmul_plain, x, y, *more)
     if dev not in _KERNEL_DEVICES:
         raise ValueError(f"matmul: no kernel for device {x.device}")
-    out = torch.empty((x.shape[0], y.shape[1]), dtype=x.dtype,
+    out = torch.empty((x.shape[0], y.shape[1]), dtype=out_dtype or x.dtype,
                       device=x.device)
     if out.numel() == 0:
         return out
     if dev == "meta":
-        _note(matmul, x, y)
+        _note(matmul, x, y, *more)
     else:
         _mm.launch(x, y, out)
-        _counted(matmul, x, y)
+        _counted(matmul, x, y, *more)
     return out
 
 
@@ -493,14 +514,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in ``q.dtype``. CPU tensors run :func:`.ref.flash_decode_plain`; CUDA
     tensors run the CUDA kernel (``csrc/flash_decode.cu``)."""
     _check_attn("flash_decode", q, k, v, 3, kv8=True)
-    ints = dict(length=length) if end is None else dict(length=length,
-                                                        end=end)
-    _check_tensors("flash_decode", q=q, **ints)
-    for arg, t in ints.items():
-        if t.dtype != torch.int32 or tuple(t.shape) != (q.shape[0],):
-            raise TypeError(f"flash_decode: {arg} must be int32 [B] = "
-                            f"[{q.shape[0]}], got {t.dtype} "
-                            f"{tuple(t.shape)}")
+    _check_decode_ints(q, length, end)
     dev = q.device.type
     if dev == "cpu":
         return _plain(flash_decode, flash_decode_plain, q, k, v, length, end)
@@ -521,6 +535,166 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_decode.launches = 0
+
+
+def _check_decode_ints(q, length, end) -> None:
+    ints = dict(length=length) if end is None else dict(length=length,
+                                                        end=end)
+    _check_tensors("flash_decode", q=q, **ints)
+    for arg, t in ints.items():
+        if t.dtype != torch.int32 or tuple(t.shape) != (q.shape[0],):
+            raise TypeError(f"flash_decode: {arg} must be int32 [B] = "
+                            f"[{q.shape[0]}], got {t.dtype} "
+                            f"{tuple(t.shape)}")
+
+
+def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         length: torch.Tensor, end: Optional[torch.Tensor],
+                         offset: int, slots: int) -> torch.Tensor:
+    """:func:`flash_decode`'s part on one rank of a cache cut along its
+    slots: ``k``/``v`` [B, Hkv, L, D] are slots ``offset`` .. ``offset +
+    L - 1`` of the whole cache's ``slots``; q, ``length`` and ``end`` as
+    :func:`flash_decode` takes them for the whole cache. Returns this
+    rank's float32 partials of every query head, packed [m | l | acc]
+    over [B, Hq, ref.decode_local_chunks(slots, L) (, D)]: one for each
+    chunk of the whole-cache kernel that meets these slots, in chunk
+    order (:func:`.ref.flash_decode_partial_plain`), which
+    :func:`flash_decode_merge` takes from every rank. bf16 q on the card
+    computes each chunk as the whole-cache kernel does; float32 q's kernel
+    keeps one partial of all of this rank's keys (its first entry; the
+    rest empty). One launch of ``flash_decode``."""
+    _check_attn("flash_decode", q, k, v, 3, kv8=True)
+    _check_decode_ints(q, length, end)
+    L = k.shape[2]
+    if not (0 <= offset and offset + L <= slots):
+        raise ValueError(f"flash_decode: slots {offset} .. {offset + L - 1} "
+                         f"are not in a cache of {slots}")
+    dev = q.device.type
+    if dev == "cpu":
+        out = _plain_quiet(flash_decode_partial_plain, q, k, v, length, end,
+                           offset, slots)
+        _note_partial(q, k, length, end, offset, slots)
+        return out
+    if dev not in _KERNEL_DEVICES:
+        raise ValueError(f"flash_decode: no kernel for device {q.device}")
+    n = q.shape[0] * q.shape[1] * decode_local_chunks(slots, L)
+    out = torch.empty(n * (2 + q.shape[2]), dtype=torch.float32,
+                      device=q.device)
+    if end is None:
+        end = length.clamp(0, slots)
+    if dev == "meta":
+        _note_partial(q, k, length, end, offset, slots)
+    else:
+        _fd.launch_partial(q, k, v, length.contiguous(), end.contiguous(),
+                           offset, slots, out)
+        with _COUNT_LOCK:
+            flash_decode.launches += 1
+        if _cost.COUNTERS:
+            _note_partial(q, k, length, end, offset, slots)
+    return out
+
+
+def flash_decode_merge(parts: torch.Tensor, q: torch.Tensor,
+                       length: torch.Tensor, end: Optional[torch.Tensor],
+                       slots: int, local_slots: int,
+                       kv_heads: int) -> torch.Tensor:
+    """The attention of q [B, Hq, D] over a cache of ``slots`` slots cut
+    into runs of ``local_slots`` along them, rank r holding run r, from
+    every rank's :func:`flash_decode_partial` (``parts`` [ranks, n],
+    float32, rank order): each row's chunks merged in the whole-cache
+    kernel's chunk order, the pieces of one chunk in rank order -> [B,
+    Hq, D] in q's dtype. Where ``slots`` and ``local_slots`` are
+    multiples of 256 every chunk lies on one rank and a bf16 q gets the
+    whole-cache kernel's result bit for bit (:func:`.ref.
+    flash_decode_merge_plain` its plain version's, of any dtype); else
+    the pieces of a split chunk are summed in that order. ``kv_heads``:
+    the cache's KV heads (the plain version's row blocks). One launch of
+    ``flash_decode``."""
+    _check_decode_ints(q, length, end)
+    K = decode_local_chunks(slots, local_slots)
+    B, Hq, D = q.shape
+    if (parts.dim() != 2 or parts.dtype != torch.float32
+            or parts.shape[1] != B * Hq * K * (2 + D)
+            or parts.device != q.device
+            or parts.shape[0] * local_slots != slots):
+        raise ValueError(f"flash_decode: parts {parts.dtype} "
+                         f"{tuple(parts.shape)} are not [{slots} // "
+                         f"{local_slots}, {B * Hq * K * (2 + D)}] float32 "
+                         f"partials")
+    if q.dtype not in _ATTN_DTYPES or Hq % kv_heads:
+        raise TypeError(f"flash_decode: q {q.dtype} with {Hq} heads over "
+                        f"{kv_heads} KV heads")
+    dev = q.device.type
+    if dev == "cpu":
+        out = _plain_quiet(flash_decode_merge_plain, parts, q, length, end,
+                           slots, local_slots, kv_heads)
+        _note_merge(q, length, end, slots, local_slots)
+        return out
+    if dev not in _KERNEL_DEVICES:
+        raise ValueError(f"flash_decode: no kernel for device {q.device}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if end is None:
+        end = length.clamp(0, slots)
+    if dev == "meta":
+        _note_merge(q, length, end, slots, local_slots)
+    else:
+        _fd.launch_merge(parts, length.contiguous(), end.contiguous(),
+                         slots, local_slots, out)
+        with _COUNT_LOCK:
+            flash_decode.launches += 1
+        if _cost.COUNTERS:
+            _note_merge(q, length, end, slots, local_slots)
+    return out
+
+
+def _plain_quiet(plain, *args):
+    """``plain(*args)`` with its own aten ops out of any counter."""
+    if not _cost.COUNTERS:
+        return plain(*args)
+    with _cost.quiet():
+        return plain(*args)
+
+
+def _note_partial(q, k, length, end, offset, slots) -> None:
+    """A partial's work (its rank's live slots and the pieces that hold
+    them: every slot of its run on ``meta``, as the whole-cache call
+    counts them) to the counters."""
+    if not _cost.COUNTERS:
+        return
+    L = k.shape[2]
+    with _cost.quiet():
+        if length.device.type == "meta":
+            live = q.shape[0] * L
+        else:
+            live = _local_live(length, end, offset, L, slots)
+        pieces = decode_pieces(length, end, slots, L, (offset,))
+    _cost.note_kernel("flash_decode", *_cost.flash_decode_partial(
+        q.shape, k.shape[1], q.dtype, k.dtype, live, pieces))
+
+
+def _note_merge(q, length, end, slots, local_slots) -> None:
+    """The merge's work (the pieces of every rank's run that hold live
+    keys) to the counters."""
+    if not _cost.COUNTERS:
+        return
+    with _cost.quiet():
+        pieces = decode_pieces(length, end, slots, local_slots,
+                               range(0, slots, local_slots))
+    _cost.note_kernel("flash_decode", *_cost.flash_decode_merge(
+        q.shape, q.dtype, pieces))
+
+
+def _local_live(length, end, offset, L, S) -> int:
+    """The live positions of every row whose slot is in offset .. offset
+    + L - 1 (position P at slot P % S)."""
+    n = length.long().clamp(0, S)
+    hi = n if end is None else end.long()
+    lo = (hi - n).clamp_min(0)
+    pos = torch.arange(S, device=length.device)
+    # slot s holds the live position of the row's window that is s mod S
+    p = lo[:, None] + torch.remainder(pos[None] - lo[:, None], S)
+    slot_live = p < hi[:, None]
+    return int(slot_live[:, offset:offset + L].sum())
 
 
 def _check_tensors(name, **xs) -> torch.device:
@@ -852,8 +1026,8 @@ def _decode_live(length: torch.Tensor, S: int) -> int:
 
 #: kernel name -> (operations, bytes) of one call on the wrapper's arguments
 _COSTS = {
-    "matmul": lambda x, y: _cost.matmul(x.shape[0], x.shape[1], y.shape[1],
-                                        x.dtype),
+    "matmul": lambda x, y, out_dtype=None: _cost.matmul(
+        x.shape[0], x.shape[1], y.shape[1], x.dtype, out_dtype),
     "flash_attention": lambda q, k, v, causal, window: _cost.flash_attention(
         q.shape, k.shape, q.dtype, causal, window),
     "flash_decode": lambda q, k, v, length, *_: _cost.flash_decode(

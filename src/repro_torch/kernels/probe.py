@@ -5,6 +5,7 @@ them, on one NVIDIA GPU.
         [--baseline OLD_MATMUL_CU] [--baseline rwkv6=OLD_RWKV6_CU]
         [--baseline fifo_dispatch=OLD_FIFO_CU]
         [--baseline rwkv6_bwd=OLD_RWKV6_BWD_CU]
+        [--baseline flash_decode=OLD_FLASH_DECODE_CU]
 
 (with ``src`` on ``PYTHONPATH``; a baseline file is another version of the
 kernel's source, e.g. ``git show <commit>:src/repro_torch/kernels/csrc/
@@ -45,7 +46,14 @@ card's name and power limit, then:
   first, and this kernel against ``ref.rwkv6_backward_ordered``; then
   both timed in turns (old, new, new, old) at the training call by CUDA
   events and by device time, each call allocating its outputs and
-  workspace as ``ops.rwkv6_bwd`` does.
+  workspace as ``ops.rwkv6_bwd`` does;
+- with a ``flash_decode`` baseline, that version's merge of a sliced
+  cache's partials (``flash_decode_merge_bf16``) against this one at
+  ``merge_shapes`` (qwen1.5-32b's decode_32k per-rank fp8 cache in 16
+  runs of whole chunks; recurrentgemma-9b's rolled window in 16 runs of
+  128 slots), on the partials of this version's ``ops.
+  flash_decode_partial``: bit for bit, then both timed in turns (old,
+  new, new, old) by CUDA events and by device time.
 
 It exits 1 on any mismatch. ``chip_smoke.py`` times the shipped kernels;
 this probe does what needs a second build. Nothing here runs when the
@@ -121,8 +129,8 @@ def _baseline_lib(name: str, path: Path) -> ctypes.CDLL:
     tag = hashlib.sha1(path.read_bytes()).hexdigest()[:12]
     out = build.BUILD_DIR / f"probe_baseline_{name}_{tag}.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out),
-                    str(path)], check=True)
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I",
+                    str(build.CSRC), "-o", str(out), str(path)], check=True)
     return ctypes.CDLL(str(out))
 
 
@@ -479,6 +487,72 @@ def rwkv_bwd_against_baseline(fns) -> bool:
     return ok
 
 
+def merge_shapes():
+    """(label, q heads, cache [B, Hkv, S, D], cache dtype, ranks, length,
+    end) of the merges chip_smoke.py checks (SPLIT_DECODE, SPLIT_ROLLED)."""
+    return [("qwen1.5-32b decode_32k fp8", 40, (8, 40, 32768, 128),
+             torch.float8_e4m3fn, 16, [32768] * 8, None),
+            ("recurrentgemma-9b rolled window", 16, (8, 1, 2048, 256),
+             torch.bfloat16, 16, [2048] * 7 + [300],
+             [32845, 32845, 32896, 33023, 33024, 32769, 35816, 300])]
+
+
+def _merge_baseline_fn(path: Path):
+    fn = _baseline_lib("flash_decode", path).flash_decode_merge_bf16
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, ctypes.c_longlong, I, I, P, P, P, I, I, I, I, I, P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def merge_against_baseline(fn) -> bool:
+    """This merge against the baseline's at ``merge_shapes``, bit for bit,
+    and both timed in turns; prints a line a shape."""
+    from . import ops
+    from .ref import decode_local_chunks
+    from ..models.layers import to_kv
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ok = True
+    for label, hq, (B, hkv, S, D), kv_dtype, m, lens, ends in merge_shapes():
+        q = torch.randn((B, hq, D), generator=gen, device=dev).bfloat16()
+        k, v = (to_kv(torch.randn((B, hkv, S, D), generator=gen,
+                                  device=dev).bfloat16(), kv_dtype)
+                for _ in range(2))
+        length = torch.tensor(lens, dtype=torch.int32, device=dev)
+        end = (length.clamp(0, S) if ends is None
+               else torch.tensor(ends, dtype=torch.int32, device=dev))
+        L = S // m
+        parts = torch.stack([ops.flash_decode_partial(
+            q, k[:, :, r * L:(r + 1) * L], v[:, :, r * L:(r + 1) * L],
+            length, end, r * L, S) for r in range(m)]).contiguous()
+
+        def new():
+            return ops.flash_decode_merge(parts, q, length, end, S, L, hkv)
+
+        def old():  # the baseline's merge through the same C signature
+            out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+            err = fn(parts.data_ptr(), parts.stride(0), m,
+                     decode_local_chunks(S, L), length.data_ptr(),
+                     end.data_ptr(), out.data_ptr(), B, hq, S, L, D,
+                     torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"baseline merge: cudaError_t {err}")
+            return out
+
+        same = torch.equal(new().view(torch.int16), old().view(torch.int16))
+        ok &= same
+        ev = [_events_ms(f, 20) for f in (old, new, new, old)]
+        dv = [_device_ms(f, 20) for f in (old, new, new, old)]
+        print(f"probe flash_decode merge {label} q [{B}, {hq}, {D}] over "
+              f"[{B}, {hkv}, {S}, {D}] in {m} runs: bitwise equal to the "
+              f"baseline merge {same}; ms by events old/new/new/old "
+              f"{ev[0]:.6f} {ev[1]:.6f} {ev[2]:.6f} {ev[3]:.6f}, by device "
+              f"time {dv[0]:.6f} {dv[1]:.6f} {dv[2]:.6f} {dv[3]:.6f}")
+    return ok
+
+
 def ptxas(names=("matmul", "acd_evict", "rwkv6", "fifo_dispatch",
                  "rwkv6_bwd")):
     for name in names:
@@ -497,8 +571,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", action="append", default=[],
                     help="another version of a kernel's source, as "
-                         "NAME=PATH (NAME matmul, rwkv6, fifo_dispatch or "
-                         "rwkv6_bwd; a bare PATH is matmul's)")
+                         "NAME=PATH (NAME matmul, rwkv6, fifo_dispatch, "
+                         "rwkv6_bwd or flash_decode; a bare PATH is "
+                         "matmul's)")
     ap.add_argument("--ptxas", action="store_true",
                     help="print registers and spills per kernel")
     args = ap.parse_args(argv)
@@ -508,7 +583,8 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    build.build_all(["matmul", "rwkv6", "fifo_dispatch", "rwkv6_bwd"])
+    build.build_all(["matmul", "rwkv6", "fifo_dispatch", "rwkv6_bwd",
+                     "flash_decode"])
     if args.ptxas:
         ptxas()
     ok = True
@@ -524,6 +600,8 @@ def main(argv=None) -> int:
         elif name == "rwkv6_bwd":
             ok &= rwkv_bwd_against_baseline(
                 _rwkv_bwd_baseline_fns(Path(path)))
+        elif name == "flash_decode":
+            ok &= merge_against_baseline(_merge_baseline_fn(Path(path)))
         else:
             raise SystemExit(f"probe: no baseline for kernel {name!r}")
     print(f"probe: {'all bitwise checks passed' if ok else 'MISMATCH'}")

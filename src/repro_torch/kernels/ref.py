@@ -146,9 +146,11 @@ def fifo_uncapped_offer(ready: torch.Tensor, dur: torch.Tensor,
 PLAIN_ROWS = 64
 
 
-def matmul_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def matmul_plain(x: torch.Tensor, y: torch.Tensor,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x`` [M, K] @ ``y`` [K, N] with float32 accumulation, returned in
-    ``x.dtype`` (plain version of ``matmul``). Its rows do not depend on how
+    ``out_dtype`` (``x.dtype`` by default; float32: the sums unrounded)
+    (plain version of ``matmul``). Its rows do not depend on how
     many rows come with them, as the kernel's do not: y is widened once,
     and every row goes through a [PLAIN_ROWS, K] @ [K, N] product of the
     same shape (zero rows pad the last), where a single product of all M
@@ -156,13 +158,14 @@ def matmul_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     each row's summation."""
     xf, yf = x.float(), y.float()
     M = xf.shape[0]
+    dt = out_dtype or x.dtype
     if M == 0:
-        return xf.new_zeros((0, yf.shape[1])).to(x.dtype)
+        return xf.new_zeros((0, yf.shape[1])).to(dt)
     pad = -M % PLAIN_ROWS
     if pad:
         xf = torch.cat([xf, xf.new_zeros((pad, xf.shape[1]))])
     out = torch.cat([rows @ yf for rows in xf.split(PLAIN_ROWS)])
-    return out[:M].to(x.dtype)
+    return out[:M].to(dt)
 
 
 def rglru_plain(x: torch.Tensor, a: torch.Tensor,
@@ -673,3 +676,207 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             total = _merge(total, part)
     out = _finish(total)[:, :, 0, :g]
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def decode_local_chunks(S: int, L: int) -> int:
+    """Partials a rank keeps a query row for a decode against its ``L`` of
+    ``S`` cache slots (``flash_decode_partial_plain``): the chunks whose
+    live keys can meet its slots. Where S and L are multiples of
+    ATTN_CHUNK every chunk lies on one rank, and a rank's L / ATTN_CHUNK
+    slot chunks meet at most one chunk each, but one: the chunk of the
+    first live key and that of the last can share a slot chunk in a
+    rolled cache. Otherwise the live keys on a rank's slots are at most
+    two runs (the cache wraps once), each meeting at most ceil(run /
+    ATTN_CHUNK) + 1 chunks."""
+    if S <= 0 or L <= 0:
+        return 0
+    if S % ATTN_CHUNK == 0 and L % ATTN_CHUNK == 0:
+        return L // ATTN_CHUNK + 1
+    return min((S + ATTN_CHUNK - 2) // ATTN_CHUNK + 1,
+               -(-L // ATTN_CHUNK) + 3)
+
+
+def decode_pieces(length: Optional[torch.Tensor],
+                  end: Optional[torch.Tensor], S: int, L: int,
+                  offsets) -> int:
+    """The partials that hold live keys in a decode against a cache of S
+    slots cut into runs of L: for each run that starts at one of
+    ``offsets``, the chunks of each row's live range (``length``/``end``
+    as :func:`flash_decode_plain` takes them) that meet its slots, summed
+    over the rows and runs. This is what a rank's partial writes beyond
+    its empty entries, and what the merge reads (where S and L are
+    multiples of ATTN_CHUNK, the live chunks a row, each on one rank);
+    ``meta`` rows count as full caches."""
+    rows = 1
+    if length is not None and length.device.type == "meta":
+        rows, length, end = length.shape[0], None, None
+    b = 1 if length is None else length.shape[0]
+    lo, hi = _live_bounds(length, end, b, S, "cpu" if length is None
+                          else length.device)
+    count = torch.where(hi > lo, torch.div(hi - 1, ATTN_CHUNK,
+                                           rounding_mode="floor")
+                        - torch.div(lo, ATTN_CHUNK, rounding_mode="floor")
+                        + 1, 0)
+    _, p0, p1 = _chunk_runs(lo, hi, int(count.max()) if b else 0)
+    return rows * sum(int(_meets(p0, p1, S, off, L).sum())
+                      for off in offsets)
+
+
+def _chunk_runs(lo: torch.Tensor, hi: torch.Tensor, n_chunks: int):
+    """(first chunk [B], live positions [p0, p1) of each row's chunk c <
+    n_chunks [B, n_chunks] each): chunk c of a row is the c-th
+    ATTN_CHUNK-aligned chunk from the one holding its first live key."""
+    first = torch.div(lo, ATTN_CHUNK, rounding_mode="floor")
+    c = torch.arange(n_chunks, device=lo.device)
+    start = (first[:, None] + c) * ATTN_CHUNK
+    p0 = torch.maximum(lo[:, None], start)
+    p1 = torch.minimum(hi[:, None], start + ATTN_CHUNK)
+    return first, p0, p1
+
+
+def _meets(p0: torch.Tensor, p1: torch.Tensor, S: int, off: int,
+           L: int) -> torch.Tensor:
+    """Whether the live positions [p0, p1) (at most S of them) hold one at
+    a slot ``off`` .. ``off + L - 1`` (position P at slot P % S)."""
+    a = torch.remainder(p0, max(S, 1))
+    b = a + (p1 - p0)
+    return (p1 > p0) & (
+        (torch.maximum(a, torch.full_like(a, off))
+         < torch.minimum(b, torch.full_like(b, off + L)))
+        | (torch.maximum(a, torch.full_like(a, off + S))
+           < torch.minimum(b, torch.full_like(b, off + L + S))))
+
+
+def _live_bounds(length, end, b, S, dev):
+    n = (torch.full((b,), S, device=dev) if length is None
+         else length.to(dev).long().clamp(0, S))
+    hi = n if end is None else end.to(dev).long()
+    lo = (hi - n).clamp_min(0)
+    return lo, hi
+
+
+def flash_decode_partial_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor,
+                               length: Optional[torch.Tensor],
+                               end: Optional[torch.Tensor], off: int,
+                               S: int) -> torch.Tensor:
+    """This rank's part of :func:`flash_decode_plain` against a cache cut
+    along its slots (plain version of ``flash_decode_partial``): ``k``/
+    ``v`` [B, Hkv, L, D] are slots ``off`` .. ``off + L - 1`` of an
+    S-slot cache, ``length``/``end`` the whole cache's (as
+    :func:`flash_decode_plain` takes them). For each query row, the
+    chunks whose live keys meet these slots, in chunk order, give one
+    float32 partial each (running max m, sum l and unnormalised D
+    outputs), computed as the whole-cache version computes its chunk with
+    the keys on other slots weighing nothing; a row keeps
+    :func:`decode_local_chunks` (S, L) entries, the unused ones empty
+    (m = MASKED_LOGIT, l = 0, acc = 0). Returns them packed, [m | l |
+    acc] over [B, Hq, entries (, D)], float32: what
+    :func:`flash_decode_merge_plain` takes from every rank."""
+    b, hq, d = q.shape
+    hkv, L = k.shape[1], k.shape[2]
+    g = hq // hkv
+    dev = q.device
+    K = decode_local_chunks(S, L)
+    qb = _row_blocks(q.float().reshape(b, hkv, g, d))    # [B, Hkv, 1, R, D]
+    R = qb.shape[-2]
+    pm = torch.full((b, hkv, 1, R, 1, K), MASKED_LOGIT, device=dev)
+    pl = torch.zeros((b, hkv, 1, R, 1, K), device=dev)
+    pa = torch.zeros((b, hkv, 1, R, d, K), device=dev)
+    lo, hi = _live_bounds(length, end, b, S, dev)
+    n_live = (hi - lo).clamp_min(0)
+    base = torch.div(lo, ATTN_CHUNK, rounding_mode="floor") * ATTN_CHUNK
+    span = torch.where(n_live > 0, hi - base, 0)
+    n_tiles = -(-int(span.max()) // ATTN_TILE) if b else 0
+    n_chunks = -(-n_tiles * ATTN_TILE // ATTN_CHUNK)
+    _, p0, p1 = _chunk_runs(lo, hi, n_chunks)
+    mine = _meets(p0, p1, S, off, L)                     # [B, n_chunks]
+    entry = torch.where(mine, torch.cumsum(mine.long(), 1) - 1, -1)
+    kf, vf = k.float(), v.float()
+    rows = torch.arange(b, device=dev)[:, None]
+    scale = d ** -0.5
+    part = _empty_state(qb)
+    for i in range(n_tiles):
+        j = i * ATTN_TILE
+        if j % ATTN_CHUNK == 0:
+            part = _empty_state(qb)
+        pos = base[:, None] + j + torch.arange(ATTN_TILE, device=dev)
+        slot = torch.remainder(pos, max(S, 1)) - off
+        here = (slot >= 0) & (slot < L)
+        live = (pos >= lo[:, None]) & (pos < hi[:, None]) & here  # [B, T]
+        slot = torch.where(here, slot, 0)
+        kt = torch.where(live[:, None, :, None],
+                         kf[rows, :, slot].transpose(1, 2), 0.0)
+        vt = torch.where(live[:, None, :, None],
+                         vf[rows, :, slot].transpose(1, 2), 0.0)
+        if bool(live.any()):   # a tile without a live key is a no-op
+            part = _tile_step(part, qb, kt[:, :, None], vt[:, :, None],
+                              live[:, None, None, None, :], scale)
+        if (j + ATTN_TILE) % ATTN_CHUNK == 0 or i == n_tiles - 1:
+            e = entry[:, j // ATTN_CHUNK]
+            bi = torch.nonzero(e >= 0).flatten()   # rows keeping the chunk
+            for dst, src in zip((pm, pl, pa), part):
+                dst[bi, ..., e[bi]] = src[bi]
+    parts = [t.reshape(b, hkv, R, -1, K)[:, :, :g].reshape(b, hq, -1, K)
+             .transpose(-1, -2) for t in (pm, pl, pa)]
+    return torch.cat([parts[0].reshape(-1), parts[1].reshape(-1),
+                      parts[2].reshape(-1)])
+
+
+def flash_decode_merge_plain(parts: torch.Tensor, q: torch.Tensor,
+                             length: Optional[torch.Tensor],
+                             end: Optional[torch.Tensor], S: int, L: int,
+                             hkv: int) -> torch.Tensor:
+    """The attention of q [B, Hq, D] over a cache of S slots cut into runs
+    of L along them, from every rank's :func:`flash_decode_partial_plain`
+    (``parts`` [m, n], rank order; rank r held slots r L .. r L + L - 1):
+    each row's chunks merged in chunk order from the empty state, and the
+    pieces of one chunk in rank order, over :func:`flash_decode_plain`'s
+    row blocks of the ``hkv`` KV heads (plain version of
+    ``flash_decode_merge``) -> [B, Hq, D] in q's dtype. Where S and L are
+    multiples of ATTN_CHUNK each chunk is one rank's whole chunk, so this
+    is :func:`flash_decode_plain` of the whole cache bit for bit; else a
+    chunk split between ranks sums its pieces' exponentials in another
+    order than the whole chunk's online softmax (a few float32 roundings
+    a chunk)."""
+    b, hq, d = q.shape
+    m = parts.shape[0]
+    K = decode_local_chunks(S, L)
+    dev = q.device
+    # the partials as flash_decode_plain's row blocks: [m, B, Hkv, 1, R,
+    # (1 | D), K], the G query heads of a KV head padded to R rows
+    g = hq // hkv
+    qb = _row_blocks(q.float().reshape(b, hkv, g, d))
+    R = qb.shape[-2]
+    n = b * hq * K
+
+    def blocks(t, w):
+        t = t.reshape(m, b, hkv, g, K, w).movedim(4, -1)
+        pad = t.new_zeros((m, b, hkv, R - g, w, K))
+        return torch.cat([t, pad], 3)[:, :, :, None]
+
+    pm = blocks(parts[:, :n], 1)
+    pl = blocks(parts[:, n:2 * n], 1)
+    pa = blocks(parts[:, 2 * n:], d)
+    lo, hi = _live_bounds(length, end, b, S, dev)
+    n_live = (hi - lo).clamp_min(0)
+    first = torch.div(lo, ATTN_CHUNK, rounding_mode="floor")
+    count = torch.where(n_live > 0, torch.div(
+        hi - 1, ATTN_CHUNK, rounding_mode="floor") - first + 1, 0)
+    n_chunks = int(count.max()) if b else 0
+    _, p0, p1 = _chunk_runs(lo, hi, n_chunks)
+    mine = [_meets(p0, p1, S, r * L, L) for r in range(m)]
+    entry = [torch.cumsum(x.long(), 1) - 1 for x in mine]
+    idx = torch.arange(b, device=dev)
+    total = _empty_state(qb)
+    for c in range(n_chunks):
+        for r in range(m):
+            e = entry[r][:, c].clamp_min(0)
+            part = tuple(t[r][idx, ..., e] for t in (pm, pl, pa))
+            merged = _merge(total, part)
+            keep = mine[r][:, c].view(b, 1, 1, 1, 1)
+            total = tuple(torch.where(keep, x, t)
+                          for x, t in zip(merged, total))
+    out = _finish(total)[:, :, 0, :g]
+    return out.reshape(b, hq, d).to(q.dtype)
+

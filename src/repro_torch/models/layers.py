@@ -12,8 +12,11 @@ land in the same tensors.
 
 Activations pass named points (``shard(x, "ffn_hidden")``, ...) where
 the reference asks its :class:`Sharder` for a sharding constraint; the
-base here is a no-op, and ``repro_torch.distributed.MeshSharder`` checks
-the reference's spec against the port's batch-sharded layout.
+base here is a no-op. ``repro_torch.distributed.MeshSharder`` checks the
+reference's spec against the port's batch-sharded layout in training and,
+serving over a mesh, brings each tensor to it: there :func:`linear` runs
+column- or row-parallel by the weight's cut and attention on the local
+heads (:func:`heads`, :func:`kv_for_heads`).
 
 Every weight product goes through :func:`linear`, the port's ``matmul``
 kernel on the card: it computes each output row the same way whatever the
@@ -42,9 +45,59 @@ Params = Dict[str, Any]
 class Sharder:
     """The activations' sharding hook, called by logical name at the
     reference's points; the base returns ``x`` and counts nothing across
-    ranks (an unsharded model)."""
+    ranks (an unsharded model).
 
-    def __call__(self, x: torch.Tensor, name: str) -> torch.Tensor:
+    Serving over a mesh computes on the 'model' cuts
+    (``repro_torch.distributed.MeshSharder`` with ``tp`` set): there a
+    tensor's dim is either whole or this rank's 1/``m`` of it, and the
+    hooks below move between the two. Here every dim is whole, ``tp`` is
+    False and each hook is the identity."""
+
+    #: whether the forward computes on the 'model' cuts (tensor-parallel
+    #: serving), and the size of the 'model' axis
+    tp = False
+    m = 1
+    #: this rank's index along 'model'
+    rank = 0
+
+    def __call__(self, x: torch.Tensor, name: str,
+                 full: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+        """``x`` at the named point; ``full`` is its whole shape where the
+        tensor-parallel layout may hold a cut of it."""
+        return x
+
+    def to(self, x: torch.Tensor, name: str,
+           full: Tuple[int, ...]) -> torch.Tensor:
+        """``x`` brought to the named point's layout (and checked)."""
+        return x
+
+    def local(self, name: str, full: Tuple[int, ...]) -> Tuple[int, ...]:
+        """The shape this rank holds of a ``full``-shaped tensor at the
+        named point."""
+        return tuple(full)
+
+    def cache_local(self, last: str, full: Tuple[int, ...]
+                    ) -> Tuple[int, ...]:
+        """The shape this rank holds of the decode-cache leaf ``last`` of
+        whole shape ``full``."""
+        return tuple(full)
+
+    def fit(self, x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """``x`` with dim ``dim`` brought to size ``n``: whole, or this
+        rank's cut of it."""
+        return x
+
+    def reduce(self, part: torch.Tensor, dtype: torch.dtype,
+               residual: bool = False) -> torch.Tensor:
+        """The sum over 'model' of the float32 partials ``part`` [B, S,
+        ...], rounded once to ``dtype``; with ``residual``, in the
+        residual's layout (:meth:`to_residual`)."""
+        return part.to(dtype)
+
+    def to_residual(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` [B, S, d], its sequence whole, in the residual's layout
+        (the 'residual' hint's cut of the sequence): ``x`` itself without
+        a mesh."""
         return x
 
     def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -277,7 +330,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 # -- weight products -----------------------------------------------------------
 
-def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def linear(x: torch.Tensor, w: torch.Tensor, shard: "Sharder" = NO_SHARD,
+           residual: bool = False) -> torch.Tensor:
     """``x`` [..., K] @ ``w`` [K, N] with float32 accumulation, in x's dtype,
     through :func:`repro_torch.kernels.ops.matmul`, whose output rows do
     not depend on how many rows come with them. On the card (bf16) every
@@ -288,10 +342,39 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     On the CPU every row goes through a float32 product of the same
     shape, rounded once. ``w`` may be a view (a layer of the stacked
     parameters, or the tied embedding's transpose): it is read through its
-    strides, never copied."""
+    strides, never copied.
+
+    Under tensor parallelism (``shard.tp``) a weight handed out on its
+    'model' cut carries the cut dim (``w.tp_cut``, set by ``MeshParams``):
+    0 is row-parallel (``P('model', None)``: x's own columns in, float32
+    partials out, summed over 'model' in rank order and rounded once), 1
+    column-parallel (``P(None, 'model')``: whole x in, this rank's
+    columns out); an uncut weight takes whole x. ``residual`` marks a
+    block's last product, whose output joins the residual: it comes out
+    whole along the model dim, in the residual's layout along the sequence
+    (``shard.to_residual``)."""
+    if shard.tp:
+        return _tp_linear(x, w, shard, residual)
     lead = x.shape[:-1]
     out = kops.matmul(x.reshape(-1, x.shape[-1]), w)
     return out.reshape(*lead, w.shape[1])
+
+
+def _tp_linear(x: torch.Tensor, w: torch.Tensor, shard: "Sharder",
+               residual: bool) -> torch.Tensor:
+    cut = getattr(w, "tp_cut", None)
+    lead = x.shape[:-1]
+    x = shard.fit(x, -1, w.shape[0])
+    x2 = x.reshape(-1, x.shape[-1])
+    if cut == 0:
+        part = kops.matmul(x2, w, out_dtype=torch.float32)
+        return shard.reduce(part.reshape(*lead, w.shape[1]), x.dtype,
+                            residual)
+    out = kops.matmul(x2, w).reshape(*lead, w.shape[1])
+    if not residual:
+        return out
+    out = shard.fit(out, -1, w.shape[1] * (shard.m if cut == 1 else 1))
+    return shard.to_residual(out)
 
 
 # -- FFN --------------------------------------------------------------------
@@ -302,13 +385,15 @@ def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def ffn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
               shard: Sharder = NO_SHARD) -> torch.Tensor:
-    """Gated (SwiGLU-style) or plain 2-matrix FFN."""
+    """Gated (SwiGLU-style) or plain 2-matrix FFN; its output joins the
+    residual (:func:`linear`)."""
     if cfg.glu:
-        h = _act(cfg, linear(x, p["w_gate"])) * linear(x, p["w_up"])
+        h = (_act(cfg, linear(x, p["w_gate"], shard))
+             * linear(x, p["w_up"], shard))
     else:
-        h = _act(cfg, linear(x, p["w_up"]))
-    h = shard(h, "ffn_hidden")
-    return linear(h, p["w_down"])
+        h = _act(cfg, linear(x, p["w_up"], shard))
+    h = shard.to(h, "ffn_hidden", h.shape[:-1] + (cfg.d_ff,))
+    return linear(h, p["w_down"], shard, residual=True)
 
 
 def ffn_init(cfg: ModelConfig, d: int, ff: int, dtype: torch.dtype) -> Params:
@@ -450,21 +535,65 @@ def attention_apply(
     shard: Sharder = NO_SHARD,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence self-attention (prefill). Returns (out, (k, v)) with
-    k, v [B, Hkv, S, D] after RoPE."""
+    k, v [B, Hkv, S, D] after RoPE (this rank's KV heads at the
+    ``attn_kv`` layout); out joins the residual (:func:`linear`)."""
     b, s, _ = x.shape
-    q = linear(x, p["wq"])
-    k = linear(x, p["wk"])
-    v = linear(x, p["wv"])
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.num_heads, cfg.hd)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.hd)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.hd)
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q, k, v = project_qkv(cfg, p, x, shard)
+    q = heads(shard, q, "attn_heads", H, hd)
+    k = heads(shard, k, "attn_kv", Hkv, hd)
+    v = heads(shard, v, "attn_kv", Hkv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    q = shard(q.transpose(1, 2), "attn_heads")                # [B, H, S, D]
-    kt = shard(k.transpose(1, 2), "attn_kv")
-    vt = shard(v.transpose(1, 2), "attn_kv")
-    out = kops.flash_attention(q, kt, vt, causal=causal, window=window)
+    q = shard(q.transpose(1, 2), "attn_heads", (b, H, s, hd))  # [B, H, S, D]
+    kt = shard(k.transpose(1, 2), "attn_kv", (b, Hkv, s, hd))
+    vt = shard(v.transpose(1, 2), "attn_kv", (b, Hkv, s, hd))
+    ks, vs = kv_for_heads(shard, kt, vt, H, Hkv, q.shape[1])
+    out = kops.flash_attention(q, ks, vs, causal=causal, window=window)
     out = out.transpose(1, 2).reshape(b, s, -1)
-    return linear(out, p["wo"]), (kt, vt)
+    return linear(out, p["wo"], shard, residual=True), (kt, vt)
+
+
+def project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                shard: Sharder = NO_SHARD):
+    """x [B, S, d] @ wq, wk, wv (+ the biases): [B, S, columns] each, this
+    rank's columns where a weight is column-parallel."""
+    q = linear(x, p["wq"], shard)
+    k = linear(x, p["wk"], shard)
+    v = linear(x, p["wv"], shard)
+    if cfg.qkv_bias:
+        q, k, v = (q + shard.fit(p["bq"], -1, q.shape[-1]),
+                   k + shard.fit(p["bk"], -1, k.shape[-1]),
+                   v + shard.fit(p["bv"], -1, v.shape[-1]))
+    return q, k, v
+
+
+def heads(shard: Sharder, t: torch.Tensor, name: str, h: int,
+          hd: int) -> torch.Tensor:
+    """``t`` [B, S, columns] (``h`` heads of ``hd``, whole or this rank's
+    columns) as [B, S, heads, hd] with the heads of ``name``'s layout
+    (all, or this rank's): the columns gathered or cut to them."""
+    b, s = t.shape[:2]
+    n = shard.local(name, (b, h, s, hd))[1]
+    return shard.fit(t, -1, n * hd).reshape(b, s, n, hd)
+
+
+def kv_for_heads(shard: Sharder, k: torch.Tensor, v: torch.Tensor, H: int,
+                 Hkv: int, hq: int):
+    """The KV heads [B, heads, S, D] that this rank's ``hq`` query heads
+    read, with a uniform group: the query heads of one rank are a
+    contiguous run of the ``H`` (the first at ``rank * hq`` when they are
+    cut), and query head ``h`` reads KV head ``h // (H / Hkv)`` of
+    ``Hkv``. ``k``/``v`` hold all KV heads, or this rank's cut of them
+    (which then serves exactly this rank's query heads). A view where the
+    run's KV heads serve equal groups; a copy otherwise."""
+    if k.shape[1] * H == hq * Hkv:      # the KV cut matches the query cut
+        return k, v
+    g = H // Hkv
+    h0 = shard.rank * hq if hq != H else 0
+    kv = [(h0 + i) // g for i in range(hq)]
+    lo, n = kv[0], kv[-1] - kv[0] + 1
+    if hq % n == 0 and kv == [lo + i // (hq // n) for i in range(hq)]:
+        return k[:, lo:lo + n], v[:, lo:lo + n]
+    idx = torch.tensor(kv, device=k.device)
+    return k.index_select(1, idx), v.index_select(1, idx)

@@ -74,14 +74,22 @@ Sharding (the reference's ``Model(shard=...)``): ``shard`` is the
 activations' hook, called by logical name at the reference's points
 (:class:`.layers.Sharder`; a no-op by default). ``param_hook``, when a
 mesh sets it (``repro_torch.distributed.MeshParams``), hands out each
-parameter whole where the forward uses it, from the local shard this
-rank holds: a stacked parameter layer by layer where the stack hands the
-layer out (inside each remat super-block, so the recompute gathers
-again), the embedding, the head and the remainder layers where they are
-used. Without it a parameter is the module's own tensor, as before.
+parameter where the forward uses it, from the local shard this rank
+holds: a stacked parameter layer by layer where the stack hands the layer
+out (inside each remat super-block, so the recompute gathers again), the
+embedding, the head and the remainder layers where they are used. In
+training it is gathered whole. Serving (``prefill``, ``decode_step`` and
+``init_cache`` enter the sharder's ``serving`` context) keeps it on its
+'model' cut and computes there: the residual's sequence cut in prefill
+where the hint cuts it (each block's input gathered after its norm, its
+last product reduce-scattered back), heads, columns and experts on their
+cuts, caches on ``cache_shardings``' cut (a cut along the slots decoded
+by ``flash_decode``'s partials and merge), the logits gathered whole.
+Without a hook a parameter is the module's own tensor, as before.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
@@ -94,7 +102,8 @@ from .config import ModelConfig
 from ..kernels import ops as kops
 from .layers import (NO_SHARD, Init, Params, Sharder, apply_norm,
                      attention_apply, attn_init, cache_update, dtype_of,
-                     ffn_apply, ffn_init, init_norm, linear, rope, to_kv)
+                     ffn_apply, ffn_init, heads, init_norm, kv_for_heads,
+                     linear, project_qkv, rope, to_kv)
 from .moe import DISPATCHES, moe_apply, moe_init
 from .recurrent import (rglru_block, rglru_init, rglru_state_init,
                         rwkv6_block, rwkv6_init, rwkv6_state_init)
@@ -125,8 +134,10 @@ def _layer_init(cfg: ModelConfig, kind: str, cross: bool = False) -> Params:
 
 
 def _layer_cache_init(cfg: ModelConfig, kind: str, batch: int,
-                      cache_len: int, device,
-                      cross_len: int = 0) -> Dict[str, torch.Tensor]:
+                      cache_len: int, device, cross_len: int = 0,
+                      shard: Sharder = NO_SHARD) -> Dict[str, torch.Tensor]:
+    """One layer's decode cache of ``batch`` rows: this rank's cut of each
+    leaf (``shard.cache_local``; the whole leaf without a mesh)."""
     if kind == "attn":
         dt = dtype_of(cfg.kv_dtype)
         hkv, hd = cfg.num_kv_heads, cfg.hd
@@ -134,12 +145,17 @@ def _layer_cache_init(cfg: ModelConfig, kind: str, batch: int,
         slots = {"k": eff, "v": eff}
         if cross_len:  # the encoder-decoder's cross-attention K/V
             slots.update(ck=cross_len, cv=cross_len)
-        return {name: torch.zeros((batch, hkv, n, hd), dtype=dt,
-                                  device=device)
+        return {name: torch.zeros(shard.cache_local(name, (batch, hkv, n,
+                                                           hd)),
+                                  dtype=dt, device=device)
                 for name, n in slots.items()}
     if kind == "rglru":
-        return rglru_state_init(cfg, batch, dtype_of(cfg.dtype), device)
-    return rwkv6_state_init(cfg, batch, dtype_of(cfg.dtype), device)
+        state = rglru_state_init(cfg, batch, dtype_of(cfg.dtype), device)
+    else:
+        state = rwkv6_state_init(cfg, batch, dtype_of(cfg.dtype), device)
+    return {k: t if shard.cache_local(k, t.shape) == tuple(t.shape)
+            else t.new_zeros(shard.cache_local(k, t.shape))
+            for k, t in state.items()}
 
 
 class ParamTree(nn.Module):
@@ -217,25 +233,29 @@ def _fill(p: torch.Tensor, spec: Init,
 def _self_attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
                       cache: Params, pos: int, shard: Sharder = NO_SHARD
                       ) -> Tuple[torch.Tensor, Params]:
-    """x [B,1,d]; cache update at the rolling slot + one-token attention."""
+    """x [B,1,d]; cache update at the rolling slot + one-token attention.
+    Over 'model' the cache holds this rank's KV heads, or its run of
+    slots of every head (:func:`_decode_attend`)."""
     b = x.shape[0]
-    q = linear(x, p["mixer"]["wq"])
-    k = linear(x, p["mixer"]["wk"])
-    v = linear(x, p["mixer"]["wv"])
-    if cfg.qkv_bias:
-        q, k, v = (q + p["mixer"]["bq"], k + p["mixer"]["bk"],
-                   v + p["mixer"]["bv"])
-    q = q.reshape(b, 1, cfg.num_heads, cfg.hd)
-    k = k.reshape(b, 1, cfg.num_kv_heads, cfg.hd)
-    v = v.reshape(b, 1, cfg.num_kv_heads, cfg.hd)
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q, k, v = project_qkv(cfg, p["mixer"], x, shard)
+    s_cache = _slots(shard, cache, "k")
+    full = (b, Hkv, s_cache, hd)
+    kc = shard(cache["k"], "kv_cache", full)
+    vc = shard(cache["v"], "kv_cache", full)
+    q = _decode_heads(shard, q, kc, H, Hkv, hd)
+    k = shard.fit(k, -1, kc.shape[1] * hd).reshape(b, 1, -1, hd)
+    v = shard.fit(v, -1, kc.shape[1] * hd).reshape(b, 1, -1, hd)
     posb = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q = rope(q, posb, cfg.rope_theta)[:, 0]                          # [B,H,D]
     k = rope(k, posb, cfg.rope_theta)[:, 0]                          # [B,Hkv,D]
     v = v[:, 0]
-    s_cache = cache["k"].shape[2]
     slot = pos % s_cache if cfg.window else min(pos, s_cache - 1)
-    k_new = shard(cache_update(cache["k"], k, slot), "kv_cache")
-    v_new = shard(cache_update(cache["v"], v, slot), "kv_cache")
+    here = slot - shard.rank * kc.shape[2] if kc.shape[2] != s_cache \
+        else slot                               # the slot in this rank's run
+    if 0 <= here < kc.shape[2]:
+        cache_update(kc, k, here)
+        cache_update(vc, v, here)
     # rolling cache: every slot is valid once pos >= s_cache; eff_pos + 1
     # keys are live (decode_attention's mask kpos <= eff_pos), read in
     # position order (position p sits at slot p % s_cache), as the prefill
@@ -244,11 +264,46 @@ def _self_attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     length = torch.full((b,), eff_pos + 1, dtype=torch.int32,
                         device=x.device)
     end = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
-    out = kops.flash_decode(q, k_new, v_new, length, end)
-    out = linear(out.reshape(b, 1, -1), p["mixer"]["wo"])
+    out = _decode_attend(shard, q, kc, vc, length, end, s_cache)
+    out = linear(out.reshape(b, 1, -1), p["mixer"]["wo"], shard,
+                 residual=True)
     new_cache = dict(cache)
-    new_cache["k"], new_cache["v"] = k_new, v_new
+    new_cache["k"], new_cache["v"] = kc, vc
     return out, new_cache
+
+
+def _slots(shard: Sharder, cache: Params, name: str) -> int:
+    """The whole cache's slots of leaf ``name`` (``k`` or ``ck``): its own
+    where it is whole; over 'model' the count its caches were made with
+    (``shard.cache_slots``), which a cut along the slots hides."""
+    return shard.cache_slots[name] if shard.tp else cache[name].shape[2]
+
+
+def _decode_heads(shard: Sharder, q: torch.Tensor, kc: torch.Tensor, H: int,
+                  Hkv: int, hd: int) -> torch.Tensor:
+    """The query [B, 1, columns] as [B, 1, heads, hd]: the query heads of
+    the cache's KV heads (this rank's where the cache holds a cut of them,
+    else all)."""
+    n = H if kc.shape[1] == Hkv else kc.shape[1] * (H // Hkv)
+    return shard.fit(q, -1, n * hd).reshape(q.shape[0], 1, n, hd)
+
+
+def _decode_attend(shard: Sharder, q: torch.Tensor, kc: torch.Tensor,
+                   vc: torch.Tensor, length: torch.Tensor,
+                   end: Optional[torch.Tensor], s_cache: int) -> torch.Tensor:
+    """``flash_decode`` of q [B, Hq, D] over the cache: whole along the
+    slots (whole, or this rank's KV heads) in one call; cut along them
+    (this rank holds slots ``rank * L .. rank * L + L - 1`` of
+    ``s_cache``), each rank's chunks' partials for every query head
+    (``flash_decode_partial``), exchanged over 'model' and merged in the
+    whole-cache kernel's chunk order (``flash_decode_merge``)."""
+    L = kc.shape[2]
+    if L == s_cache:
+        return kops.flash_decode(q, kc, vc, length, end)
+    part = kops.flash_decode_partial(q, kc, vc, length, end,
+                                     shard.rank * L, s_cache)
+    return kops.flash_decode_merge(shard.gather_parts(part), q, length, end,
+                                   s_cache, L, kc.shape[1])
 
 
 def _right_align_cache(cfg: ModelConfig, kt: torch.Tensor, vt: torch.Tensor,
@@ -272,8 +327,9 @@ def _right_align_cache(cfg: ModelConfig, kt: torch.Tensor, vt: torch.Tensor,
         k_sl = torch.nn.functional.pad(kt, pad)
         v_sl = torch.nn.functional.pad(vt, pad)
     kd = dtype_of(cfg.kv_dtype)
-    return {"k": shard(to_kv(k_sl, kd).contiguous(), "kv_cache"),
-            "v": shard(to_kv(v_sl, kd).contiguous(), "kv_cache")}
+    full = (kt.shape[0], cfg.num_kv_heads, eff, cfg.hd)
+    return {"k": shard.to(to_kv(k_sl, kd).contiguous(), "kv_cache", full),
+            "v": shard.to(to_kv(v_sl, kd).contiguous(), "kv_cache", full)}
 
 
 def _cross_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -286,27 +342,37 @@ def _cross_attn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     [B, Hkv, Se, D] in ``new_cache`` (cast to ``kv_dtype``; the attention
     reads them before the cast, as the reference's does); a decode step
     reads all Se cached slots, which it leaves as they are. ``"train"``
-    mode attends as prefill and stores nothing."""
+    mode attends as prefill and stores nothing. The output joins the
+    residual (:func:`.layers.linear`)."""
     b, s, _ = x.shape
-    q = shard(linear(x, p["wq"]).reshape(b, s, cfg.num_heads,
-                                         cfg.hd).transpose(1, 2),
-              "attn_heads")                                 # [B, H, S, D]
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = linear(x, p["wq"], shard)
     if mode == "decode":
-        ck, cv = cache["ck"], cache["cv"]
-        length = torch.full((b,), ck.shape[2], dtype=torch.int32,
-                            device=x.device)
-        out = kops.flash_decode(q[:, :, 0], ck, cv, length)
+        se = _slots(shard, cache, "ck")
+        full = (b, Hkv, se, hd)
+        ck = shard(cache["ck"], "kv_cache", full)
+        cv = shard(cache["cv"], "kv_cache", full)
+        q = _decode_heads(shard, q, ck, H, Hkv, hd)[:, 0]
+        length = torch.full((b,), se, dtype=torch.int32, device=x.device)
+        out = _decode_attend(shard, q, ck, cv, length, None, se)
     else:
         se = enc_out.shape[1]
-        ck, cv = (linear(enc_out, p[w]).reshape(
-            b, se, cfg.num_kv_heads, cfg.hd).transpose(1, 2)
-            for w in ("wk", "wv"))
-        out = kops.flash_attention(q, ck, cv, causal=False).transpose(1, 2)
+        q = shard(heads(shard, q, "attn_heads", H, hd).transpose(1, 2),
+                  "attn_heads", (b, H, s, hd))               # [B, H, S, D]
+        ck, cv = (shard(heads(shard, linear(enc_out, p[w], shard),
+                              "attn_kv", Hkv, hd).transpose(1, 2),
+                        "attn_kv", (b, Hkv, se, hd))
+                  for w in ("wk", "wv"))
+        ks, vs = kv_for_heads(shard, ck, cv, H, Hkv, q.shape[1])
+        out = kops.flash_attention(q, ks, vs, causal=False).transpose(1, 2)
         if mode == "prefill":
             kd = dtype_of(cfg.kv_dtype)
-            new_cache["ck"] = to_kv(ck, kd).contiguous()
-            new_cache["cv"] = to_kv(cv, kd).contiguous()
-    return linear(out.reshape(b, s, -1), p["wo"])
+            full = (b, Hkv, se, hd)
+            new_cache["ck"] = shard.to(to_kv(ck, kd).contiguous(),
+                                       "kv_cache", full)
+            new_cache["cv"] = shard.to(to_kv(cv, kd).contiguous(),
+                                       "kv_cache", full)
+    return linear(out.reshape(b, s, -1), p["wo"], shard, residual=True)
 
 
 def _layer_apply(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
@@ -319,7 +385,11 @@ def _layer_apply(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     """One layer in ``mode`` ``"prefill"``, ``"decode"`` or ``"train"``
     (the whole sequence, causal, no cache: training, and the encoder's
     layers)."""
-    h = apply_norm(cfg, p["norm1"], x)
+    # over 'model' in prefill the residual x may hold this rank's run of
+    # the sequence (Megatron-SP): each block's input is gathered whole
+    # after its norm, and its last product comes back cut as x is
+    full_s = positions.shape[1]
+    h = shard.fit(apply_norm(cfg, p["norm1"], x), 1, full_s)
     new_cache = None
     if kind == "attn":
         if mode == "decode":
@@ -336,17 +406,18 @@ def _layer_apply(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         out, new_cache = rwkv6_block(cfg, p["mixer"], h, cache, shard)
     x = x + out
     if "cross" in p:  # the encoder-decoder's decoder layers
-        hx = apply_norm(cfg, p["norm_cross"], x)
+        hx = shard.fit(apply_norm(cfg, p["norm_cross"], x), 1, full_s)
         x = x + _cross_attn(cfg, p["cross"], hx, mode, cache, enc_out,
                             new_cache, shard)
-    h2 = apply_norm(cfg, p["norm2"], x)
+    h2 = shard.fit(apply_norm(cfg, p["norm2"], x), 1, full_s)
     if cfg.num_experts:
         out2 = moe_apply(cfg, p["moe"], h2, moe_dispatch, shard)
         if cfg.dense_residual:
             out2 = out2 + ffn_apply(cfg, p["ffn"], h2, shard)
     else:
         out2 = ffn_apply(cfg, p["ffn"], h2, shard)
-    return shard(x + out2, "residual"), new_cache
+    return shard(x + out2, "residual", (x.shape[0], full_s, x.shape[2])), \
+        new_cache
 
 
 # -- the model ---------------------------------------------------------------
@@ -450,12 +521,19 @@ class Model(nn.Module):
 
     # ---- caches ----
     def init_cache(self, batch: int, cache_len: int) -> Params:
+        """Zeroed decode caches of ``batch`` rows and ``cache_len`` slots
+        (a window's fewer): over 'model' this rank's cut of each leaf."""
+        with self._serving():
+            return self._init_cache(batch, cache_len)
+
+    def _init_cache(self, batch: int, cache_len: int) -> Params:
         cfg = self.cfg
         period = cfg.pattern_period
         cross_len = cfg.encoder_seq if cfg.is_encdec else 0
+        self._note_slots(cache_len, cross_len)
         caches: Params = {"rest": [
             _layer_cache_init(cfg, cfg.layer_kind(li), batch, cache_len,
-                              self.device, cross_len)
+                              self.device, cross_len, self.shard)
             for li in self._group_layers()["rest_layers"]]}
         if self.n_super:
             caches["scan"] = {
@@ -463,9 +541,26 @@ class Model(nn.Module):
                     k: x[None].expand((self.n_super,) + x.shape).clone()
                     for k, x in _layer_cache_init(
                         cfg, cfg.block_pattern[si], batch, cache_len,
-                        self.device, cross_len).items()}
+                        self.device, cross_len, self.shard).items()}
                 for si in range(period)}
         return caches
+
+    def _note_slots(self, cache_len: int, cross_len: int) -> None:
+        """Tell a tensor-parallel sharder the whole slots of the caches
+        being made (``MeshSharder.cache_slots``), which a decode step's
+        cut along the slots does not show."""
+        if self.shard.tp:
+            cfg = self.cfg
+            self.shard.cache_slots = {
+                "k": min(cache_len, cfg.window) if cfg.window else cache_len,
+                "ck": cross_len}
+
+    def _serving(self):
+        """The sharder's serving context (``MeshSharder.serving``: the
+        weights and activations on their 'model' cuts); none without a
+        mesh."""
+        serving = getattr(self.shard, "serving", None)
+        return serving() if serving is not None else contextlib.nullcontext()
 
     # ---- stack ----
     def _remat(self) -> bool:
@@ -541,8 +636,13 @@ class Model(nn.Module):
         in the backward under ``remat``."""
         enc_cfg = self.encoder_cfg()
         enc = self.encoder
-        b, se, _ = frames.shape
-        x = frames + self._param(enc.pos_embed)[None, :se]
+        b, se, d = frames.shape
+        pos_embed = self._param(enc.pos_embed)
+        # over 'model': this rank's columns of the sum, gathered whole, and
+        # the residual's layout from the first layer on
+        x = self.shard.fit(self.shard.fit(frames, -1, pos_embed.shape[1])
+                           + pos_embed[None, :se], -1, d)
+        x = self.shard.to(x, "residual", (b, se, d))
         positions = torch.arange(se, device=frames.device).expand(b, se)
         take = self.param_hook
 
@@ -554,25 +654,39 @@ class Model(nn.Module):
         for li in range(self.cfg.encoder_layers):
             x = (checkpoint(layer, x, li, use_reentrant=False)
                  if self._remat() else layer(x, li))
-        return apply_norm(self.cfg, enc.final_norm.tree(None, take), x)
+        return self.shard.fit(apply_norm(self.cfg,
+                                         enc.final_norm.tree(None, take), x),
+                              1, se)
 
     def _head(self) -> torch.Tensor:
         if self.cfg.tied_embeddings:
-            return self._param(self.embed).T
+            embed = self._param(self.embed)
+            head = embed.T
+            cut = getattr(embed, "tp_cut", None)
+            if cut is not None:
+                head.tp_cut = 1 - cut
+            return head
         return self._param(self.lm_head)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, d] @ the head: [B, V], every column (gathered over 'model'
+        where the head is cut along the vocabulary)."""
+        return self.shard.fit(linear(x, self._head(), self.shard), -1,
+                              self.cfg.vocab_size)
 
     def _inputs(self, tokens, patches=None, frames=None
                 ) -> Tuple[torch.Tensor, int, Optional[torch.Tensor]]:
         """(embeddings [B, P + S, d] with a vision config's ``patches``
         [B, P, d] in front, cast to the model's dtype; P; the encoder's
         output over an encoder-decoder config's ``frames``)."""
-        x = self._param(self.embed)[tokens]
+        d = self.cfg.d_model
+        x = self.shard.fit(self._param(self.embed)[tokens], -1, d)
         n_prefix = 0
         if self.cfg.vision_patches and patches is not None:
             pt = torch.as_tensor(patches, device=self.device).to(x.dtype)
             x = torch.cat([pt, x], 1)
             n_prefix = pt.shape[1]
-        x = self.shard(x, "activations")
+        x = self.shard.to(x, "activations", x.shape)
         enc_out = None
         if self.cfg.is_encdec:
             if frames is None:
@@ -628,35 +742,45 @@ class Model(nn.Module):
         Se, d_model], the frontend's frame embeddings (cast to the model's
         dtype), and its caches hold the cross-attention's ``ck``/``cv`` of
         Se slots."""
+        with self._serving():
+            return self._prefill(tokens, cache_len, patches, frames)
+
+    def _prefill(self, tokens, cache_len, patches, frames):
         tokens = torch.as_tensor(tokens, device=self.device).long()
         b = tokens.shape[0]
-        x, _, enc_out = self._inputs(tokens, patches, frames)
-        s = x.shape[1]
+        x, n_prefix, enc_out = self._inputs(tokens, patches, frames)
+        s = tokens.shape[1] + n_prefix
         positions = torch.arange(s, device=self.device).expand(b, s)
         cache_len = cache_len or s
+        self._note_slots(cache_len, enc_out.shape[1] if enc_out is not None
+                         else 0)
         x, caches = self._run_stack(x, positions, "prefill", None, None,
                                     cache_len, enc_out)
-        x = apply_norm(self.cfg, self.final_norm.tree(None, self.param_hook),
-                       x)
-        logits = linear(x[:, -1], self._head())                  # [B, V]
-        return logits, caches
+        norm = self.final_norm.tree(None, self.param_hook)
+        if self.shard.tp:   # the last position, from the rank holding it
+            x = apply_norm(self.cfg, norm, self.shard.last_token(x, s))
+        else:
+            x = apply_norm(self.cfg, norm, x)[:, -1]
+        return self._logits(x), caches                           # [B, V]
 
     @torch.inference_mode()
     def decode_step(self, caches: Params, token, pos: int
                     ) -> Tuple[torch.Tensor, Params]:
         """token [B] int, pos int -> (logits [B, V], caches updated in
         place)."""
-        token = torch.as_tensor(token, device=self.device).long()
-        pos = int(pos)
-        x = self.shard(self._param(self.embed)[token[:, None]],
-                       "activations")                   # [B, 1, d]
-        positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
-                               device=self.device)
-        x, caches = self._run_stack(x, positions, "decode", caches, pos, 0)
-        x = apply_norm(self.cfg, self.final_norm.tree(None, self.param_hook),
-                       x)
-        logits = linear(x[:, 0], self._head())
-        return logits, caches
+        with self._serving():
+            token = torch.as_tensor(token, device=self.device).long()
+            pos = int(pos)
+            x = self.shard.fit(self._param(self.embed)[token[:, None]], -1,
+                               self.cfg.d_model)
+            x = self.shard.to(x, "activations", x.shape)       # [B, 1, d]
+            positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
+                                   device=self.device)
+            x, caches = self._run_stack(x, positions, "decode", caches, pos,
+                                        0)
+            x = apply_norm(self.cfg,
+                           self.final_norm.tree(None, self.param_hook), x)
+            return self._logits(x[:, 0]), caches
 
 
 #: weight products of each mixer's block (``recurrent.py``: the RG-LRU

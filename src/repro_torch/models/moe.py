@@ -114,18 +114,25 @@ def route(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor,
 
 
 def _hint5(shard: Sharder, t: torch.Tensor, b: int, ns: int, cap: int,
-           name: str) -> torch.Tensor:
-    """``shard`` asked about the expert-major slot rows ``t`` [E, b * ns *
-    cap, f] in the reference's [B, N, E, C, f] layout (a view each way)."""
-    E, _, f = t.shape
-    v = t.view(E, b, ns, cap, f).permute(1, 2, 0, 3, 4)
-    return shard(v, name).permute(2, 0, 1, 3, 4).reshape(E, -1, f)
+           name: str, E: int) -> torch.Tensor:
+    """``shard`` asked about the expert-major slot rows ``t`` [E or this
+    rank's experts, b * ns * cap, f] in the reference's [B, N, E, C, f]
+    layout (a view each way; ``E`` the whole count)."""
+    e, _, f = t.shape
+    v = t.view(e, b, ns, cap, f).permute(1, 2, 0, 3, 4)
+    return shard(v, name, (b, ns, E, cap, f)).permute(2, 0, 1, 3, 4
+                                                       ).reshape(e, -1, f)
 
 
 def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
               dispatch: str = "einsum",
               shard: Sharder = NO_SHARD) -> torch.Tensor:
-    """x [B, S, d] -> [B, S, d]."""
+    """x [B, S, d] -> [B, S, d]. Over 'model', where the rules cut the
+    experts (``w_up``'s ``tp_cut``), each rank routes every token alike
+    and computes its run of experts' slots; the combine sums this rank's
+    experts' share in float32, reduced over 'model' (``shard.reduce``)
+    and rounded once; the output joins the residual
+    (:func:`.layers.linear`)."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"moe dispatch must be one of {DISPATCHES}, got "
                          f"{dispatch!r}")
@@ -138,34 +145,41 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     dev = x.device
     xg = x.reshape(bn, gl, d)
     r = route(cfg, p["router"], xg, cap)
-    # each pair's slot row, expert-major ([E, bn, cap]); a dropped pair
-    # points past the last slot, at a row of zeros
+    # this rank's experts e0 .. e0 + n - 1 (all of them but over 'model')
+    n = p["w_up"].shape[0]
+    e0 = shard.rank * n if n != E else 0
+    # each pair's slot row, expert-major ([n, bn, cap]) among this rank's
+    # experts; a dropped pair, or one of another rank's experts, points
+    # past the last slot, at a row of zeros
     group = torch.arange(bn, device=dev).view(bn, 1, 1)
-    dest = torch.where(r.kept, (r.idx * bn + group) * cap + r.slot,
-                       E * rows)
+    if n == E:
+        mine, idx = r.kept, r.idx
+    else:
+        mine, idx = r.kept & (r.idx >= e0) & (r.idx < e0 + n), r.idx - e0
+    dest = torch.where(mine, (idx * bn + group) * cap + r.slot, n * rows)
     # the token in each slot (bn * gl, a row of zeros, when empty); only
     # the discarded last entry is written more than once
-    held = torch.full((E * rows + 1,), bn * gl, dtype=torch.int64,
+    held = torch.full((n * rows + 1,), bn * gl, dtype=torch.int64,
                       device=dev)
     held[dest.reshape(-1)] = torch.arange(
         bn * gl, device=dev).repeat_interleave(k)
     zero = x.new_zeros((1, d))
     xin = torch.cat([xg.reshape(bn * gl, d), zero])[held[:-1]].view(
-        E, rows, d)
-    xin = _hint5(shard, xin, b, s // gl, cap, "moe_expert_in5")
+        n, rows, d)
+    xin = _hint5(shard, xin, b, s // gl, cap, "moe_expert_in5", E)
     # one view per expert (unbind: in training one gradient node stacks
     # the experts' gradients, where indexing each would add a zero-filled
     # copy of the whole stack per expert)
     w_up, w_down = p["w_up"].unbind(0), p["w_down"].unbind(0)
-    up = torch.cat([linear(xin[e], w_up[e]) for e in range(E)])
+    up = torch.cat([linear(xin[e], w_up[e]) for e in range(n)])
     if cfg.glu:
         w_gate = p["w_gate"].unbind(0)
-        gate = torch.cat([linear(xin[e], w_gate[e]) for e in range(E)])
+        gate = torch.cat([linear(xin[e], w_gate[e]) for e in range(n)])
         h = _act(cfg, gate) * up
     else:
         h = _act(cfg, up)
-    h = _hint5(shard, h.view(E, rows, -1), b, s // gl, cap, "moe_hidden5")
-    out = torch.cat([linear(h[e], w_down[e]) for e in range(E)] + [zero])
+    h = _hint5(shard, h.view(n, rows, -1), b, s // gl, cap, "moe_hidden5", E)
+    out = torch.cat([linear(h[e], w_down[e]) for e in range(n)] + [zero])
     if dispatch == "einsum":
         dest = dest.gather(-1, r.idx.argsort(-1))    # ascending experts
         w = [_ordered_sum(r.gates).to(x.dtype).float()[..., None]] * k
@@ -176,7 +190,9 @@ def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     acc = w[0] * got[:, :, 0].float()
     for j in range(1, k):
         acc = acc + w[j] * got[:, :, j].float()
-    return acc.to(x.dtype).reshape(b, s, d)
+    if getattr(p["w_up"], "tp_cut", None) == 0:          # experts cut
+        return shard.reduce(acc.reshape(b, s, d), x.dtype, residual=True)
+    return shard.to_residual(acc.to(x.dtype).reshape(b, s, d))
 
 
 def moe_launches(cfg: ModelConfig) -> int:

@@ -49,11 +49,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out, xx[:, -(k - 1):, :]
 
 
-def _decay(p: Params, x: torch.Tensor) -> torch.Tensor:
+def _decay(p: Params, x: torch.Tensor,
+           shard: Sharder = NO_SHARD) -> torch.Tensor:
     """a_t = exp(-c * softplus(lam) * sigmoid(W_rg x))  in (0, 1)."""
     c = 8.0
-    r = sigmoid(linear(x, p["w_rg"]).float())
-    lam = p["lam"]
+    r = sigmoid(linear(x, p["w_rg"], shard).float())
+    lam = shard.fit(p["lam"], -1, r.shape[-1])
     # jax.nn.softplus is logaddexp(x, 0)
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))
     return torch.exp(-c * softplus * r)
@@ -63,17 +64,21 @@ def rglru_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 state: Optional[Dict[str, torch.Tensor]] = None,
                 shard: Sharder = NO_SHARD
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x [B,S,d] -> (out [B,S,d], new_state {conv [B,K-1,d], h [B,d]})."""
-    gate = gelu(linear(x, p["w_gate"]))
-    u = linear(x, p["w_x"])
+    """x [B,S,d] -> (out [B,S,d], new_state {conv [B,K-1,d], h [B,d]}).
+    Over 'model' the branches, the scan and the state run on this rank's
+    columns (``rnn_hidden``); out joins the residual (``linear``)."""
+    b, s, d = x.shape
+    gate = gelu(linear(x, p["w_gate"], shard))
+    u = linear(x, p["w_x"], shard)
+    conv = shard.fit(p["conv"], -1, u.shape[-1])
     u, conv_state = _causal_conv(
-        u, p["conv"], None if state is None else state["conv"])
-    u = shard(u, "rnn_hidden")
-    a = _decay(p, x)
-    i = sigmoid(linear(x, p["w_ig"]).float())
+        u, conv, None if state is None else state["conv"])
+    u = shard.to(u, "rnn_hidden", (b, s, d))
+    a = _decay(p, x, shard)
+    i = sigmoid(linear(x, p["w_ig"], shard).float())
     h0 = None if state is None else state["h"]
     y, hT = kops.rglru(u.float() * i, a, h0)
-    out = linear(y.to(x.dtype) * gate, p["w_out"])
+    out = linear(y.to(x.dtype) * gate, p["w_out"], shard, residual=True)
     return out, {"conv": conv_state, "h": hT}
 
 
@@ -122,31 +127,43 @@ def rwkv6_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
     r, k, v and w reach the kernel as [B,H,S,hd] views of the [B,S,d]
     projections (no copy: the kernel reads their strides), and its output
-    comes back in v's layout, so the swap back is a view too."""
+    comes back in v's layout, so the swap back is a view too. Over 'model'
+    the recurrence runs on this rank's heads (``attn_heads``), ``u`` and
+    the state on their cut; the shift state holds this rank's columns;
+    out joins the residual (``linear``)."""
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
     H = d // hd
-    xs = _token_shift(x, None if state is None else state["shift"])
+    prev = None if state is None else shard.fit(state["shift"], -1, d)
+    xs = _token_shift(x, prev)
     mix = p["mix"].to(x.dtype)
     xr, xk, xv, xw, xg = (x * mix[i] + xs * (1 - mix[i]) for i in range(5))
-    r = linear(xr, p["w_r"]).reshape(b, s, H, hd).transpose(1, 2)   # [B,H,S,hd]
-    k = linear(xk, p["w_k"]).reshape(b, s, H, hd).transpose(1, 2)
-    v = linear(xv, p["w_v"]).reshape(b, s, H, hd).transpose(1, 2)
-    w = torch.exp(-torch.exp(linear(xw, p["w_w"]).float() - 4.0))
-    w = w.reshape(b, s, H, hd).transpose(1, 2)
-    g = silu(linear(xg, p["w_g"]))
-    r = shard(r, "attn_heads")
+    n = shard.local("attn_heads", (b, H, s, hd))[1]     # this rank's heads
+
+    def proj(t, w):
+        return shard.fit(linear(t, p[w], shard), -1, n * hd)
+
+    r = proj(xr, "w_r").reshape(b, s, n, hd).transpose(1, 2)  # [B,H,S,hd]
+    k = proj(xk, "w_k").reshape(b, s, n, hd).transpose(1, 2)
+    v = proj(xv, "w_v").reshape(b, s, n, hd).transpose(1, 2)
+    w = torch.exp(-torch.exp(proj(xw, "w_w").float() - 4.0))
+    w = w.reshape(b, s, n, hd).transpose(1, 2)
+    g = silu(proj(xg, "w_g"))
+    r = shard(r, "attn_heads", (b, H, s, hd))
     s0 = None if state is None else state["wkv"]
-    o, sT = kops.rwkv6(r, k, v, w, p["u"], s0)
-    o = o.transpose(1, 2).reshape(b, s, d)
+    o, sT = kops.rwkv6(r, k, v, w, shard.fit(p["u"], 0, n), s0)
+    o = o.transpose(1, 2).reshape(b, s, n * hd)
     # per-head group norm (population variance, as jnp.var), its row means
     # independent of the row count
-    o32 = o.float().reshape(b, s, H, hd)
+    o32 = o.float().reshape(b, s, n, hd)
     centred = o32 - row_mean(o32)
     o32 = centred * torch.rsqrt(row_mean(centred * centred) + 1e-5)
-    o = (o32.reshape(b, s, d) * p["ln_scale"]).to(x.dtype)
-    out = linear(o * g, p["w_o"])
-    return out, {"shift": x[:, -1:], "wkv": sT}
+    o = (o32.reshape(b, s, n * hd)
+         * shard.fit(p["ln_scale"], -1, n * hd)).to(x.dtype)
+    out = linear(o * g, p["w_o"], shard, residual=True)
+    shift = x[:, -1:]
+    shift = shard.fit(shift, -1, shard.cache_local("shift", shift.shape)[-1])
+    return out, {"shift": shift, "wkv": sT}
 
 
 def rwkv6_state_init(cfg: ModelConfig, batch: int,

@@ -1,5 +1,6 @@
 """Rank processes for the port's multi-rank CPU tests
-(``tests/test_torch_distributed.py``): each rank is a process of its own,
+(``tests/test_torch_distributed.py``, ``tests/test_torch_tensor_parallel.
+py``): each rank is a process of its own,
 in a ``gloo`` group of ``world`` ranks that meet through a file store.
 
     python -m tests._torch_ranks RANK WORLD STORE_FILE CASE ARGS_JSON OUT
@@ -183,13 +184,144 @@ def _gathered(t):
     return [o.numpy() for o in out]
 
 
+def _serve_inputs(cfg, batch, seq, seed):
+    """Tokens [batch, seq + 1] and a config's frames or patches, from
+    ``seed`` with numpy."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, seq + 1))
+           .astype(np.int64)}
+    if cfg.is_encdec:
+        out["frames"] = rng.normal(
+            size=(batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.vision_patches:
+        out["patches"] = rng.normal(
+            size=(batch, cfg.vision_patches, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _serve(model, inputs, seq, cache_len, steps, rows=slice(None),
+           plus_one=False):
+    """Prefill ``seq`` tokens of the rows ``rows`` into ``cache_len``
+    slots, then ``steps`` greedy decode steps: (logits of every step [steps
+    + 1, B, V], greedy tokens [steps + 1, B], the caches after them); with
+    ``plus_one`` also the logits of one decode step on token ``seq`` and
+    of a prefill of ``seq + 1`` tokens."""
+    kw = {k: torch.as_tensor(v[rows]).to(model.embed.dtype)
+          for k, v in inputs.items() if k != "tokens"}
+    toks = torch.as_tensor(inputs["tokens"][rows])
+    n_prefix = model.cfg.vision_patches if "patches" in kw else 0
+    logits, cache = model.prefill(toks[:, :seq], cache_len=cache_len, **kw)
+    out = [logits]
+    extra = {}
+    if plus_one:
+        extra["decode"] = model.decode_step(
+            cache, toks[:, seq], seq + n_prefix)[0]
+        extra["prefill"] = model.prefill(toks[:, :seq + 1],
+                                         cache_len=cache_len, **kw)[0]
+        logits, cache = model.prefill(toks[:, :seq], cache_len=cache_len,
+                                      **kw)
+    for i in range(steps):
+        tok = out[-1].argmax(-1)
+        logits, cache = model.decode_step(cache, tok, seq + n_prefix + i)
+        out.append(logits)
+    logits = torch.stack(out)
+    return logits, logits.argmax(-1), cache, extra
+
+
+def _tree_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k], path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, x in enumerate(tree):
+            yield from _tree_leaves(x, path + (str(i),))
+    else:
+        yield path, tree
+
+
+def case_serve(runs, weights=None):
+    """Each run (a dict: ``arch``, mesh ``shape``, ``dtype``, ``batch``,
+    ``seq``, ``cache_len``, ``steps``, config ``overrides``, ``plus_one``):
+    the tensor-parallel prefill and greedy decode steps of the smoke
+    config over the mesh (weights drawn from seed 0, or, where ``ref`` is
+    set, the reference's from ``weights``, an ``.npz`` of ``arch/name``
+    arrays), their logits,
+    tokens and caches gathered whole; and, on rank 0, the unsharded
+    port's on the same weights and inputs in this process."""
+    from repro_torch.core.convert import model_params_from_fields
+    from repro_torch.distributed import (MeshParams, MeshSharder,
+                                         NamedSharding, P, ShardingRules,
+                                         cache_shardings)
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import Model
+
+    bank = (np.load(weights) if any(r.get("ref") for r in runs)
+            else None)
+    meshes = {}
+    out = []
+    for run in runs:
+        cfg = dataclasses.replace(_cfg(run["arch"]), dtype=run["dtype"],
+                                  kv_dtype=run["dtype"],
+                                  **run.get("overrides", {}))
+        shape = tuple(run["shape"])
+        if shape not in meshes:
+            meshes[shape] = Mesh(shape, ("data", "model"))
+        mesh = meshes[shape]
+
+        def build(device="cpu"):
+            if not run.get("ref"):
+                return Model(cfg, device=device).init(
+                    torch.Generator().manual_seed(0))
+            pre = run["arch"] + "/"
+            return model_params_from_fields(cfg, {
+                k[len(pre):]: bank[k] for k in bank.files
+                if k.startswith(pre)}, device=device)
+
+        inputs = _serve_inputs(cfg, run["batch"], run["seq"], run["seed"])
+        rules = ShardingRules(cfg, mesh)
+        model = build()
+        model.shard = MeshSharder(rules)
+        layout = MeshParams(model, rules)
+        b = run["batch"]
+        rows_sh = NamedSharding(mesh, P(rules.batch_dim(b)))
+        (lo, hi), = rows_sh.bounds((b,))
+        layout.sharder.global_batch = b
+        logits, toks, cache, extra = _serve(
+            model, inputs, run["seq"], run["cache_len"], run["steps"],
+            slice(lo, hi), run.get("plus_one", False))
+        whole_rows = NamedSharding(mesh, P(None, rules.batch_dim(b)))
+        got = {"logits": whole_rows.gather(logits.clone()),
+               "tokens": whole_rows.gather(toks.clone())}
+        got.update({k: NamedSharding(mesh, P(rules.batch_dim(b))).gather(
+            v.clone()) for k, v in extra.items()})
+        shapes = Model(cfg, device="meta").init_cache(b, run["cache_len"])
+        shs = cache_shardings(rules, shapes)
+        got["cache"] = {"/".join(path): sh.gather(leaf.clone())
+                        for (path, leaf), (_, sh) in zip(
+                            _tree_leaves(cache), _tree_leaves(shs))}
+        got["local_cache"] = {"/".join(path): tuple(leaf.shape)
+                              for path, leaf in _tree_leaves(cache)}
+        want = None
+        if mesh.rank == 0:
+            plain = build()
+            logits, toks, cache, extra = _serve(
+                plain, inputs, run["seq"], run["cache_len"], run["steps"],
+                plus_one=run.get("plus_one", False))
+            want = {"logits": logits, "tokens": toks, **extra,
+                    "cache": {"/".join(path): leaf for path, leaf in
+                              _tree_leaves(cache)}}
+        out.append((run, got, want))
+    return out
+
+
 def case_suite(cases):
     """Several cases, one after another, in one group: their results."""
     return [CASES[name](**kw) for name, kw in cases]
 
 
 CASES = {"train": case_train, "ckpt": case_ckpt, "gpipe": case_gpipe,
-         "compress": case_compress, "suite": case_suite}
+         "compress": case_compress, "serve": case_serve,
+         "suite": case_suite}
 
 
 def main(argv):

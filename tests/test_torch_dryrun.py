@@ -46,7 +46,10 @@ SMALL_MESHES = {"(2, 8)": ((2, 8), ("data", "model")),
                 "(2, 2, 4)": ((2, 2, 4), ("pod", "data", "model"))}
 ARG_CELLS = [("llama3-8b", "train"), ("olmoe-1b-7b", "train"),
              ("whisper-large-v3", "train"), ("llama3-8b", "prefill"),
-             ("llama3-8b", "decode"), ("rwkv6-1.6b", "decode")]
+             ("llama3-8b", "decode"), ("rwkv6-1.6b", "decode"),
+             ("olmoe-1b-7b", "prefill"), ("qwen1.5-32b", "decode"),
+             ("recurrentgemma-9b", "decode"), ("olmoe-1b-7b", "decode"),
+             ("whisper-large-v3", "decode")]
 
 _REF_SCRIPT = """
 import jax, jax.experimental
@@ -419,7 +422,9 @@ def _reckoned(kind, layout, specs_shape, state_dtype):
     Queue 3 item 26, so none here); each cache leaf the reference also
     cuts over 'model' (the port keeps the model dims whole on its rows);
     the decode step's ``pos``, a host int in the port and a 4-byte int32
-    argument in the reference."""
+    argument in the reference. Serving over a mesh whose batch leaves
+    'model' free holds each cache leaf on the reference's cut (its KV
+    heads, its slots, its columns), so there ``cache_cut`` is empty."""
     widened, cache_cut = {}, {}
     if kind == "train" and state_dtype == "int8":
         for name, leaf in layout.leaves.items():
@@ -431,11 +436,13 @@ def _reckoned(kind, layout, specs_shape, state_dtype):
         b, s = specs_shape.global_batch, specs_shape.seq_len
         rows = dr.NamedSharding(layout.mesh, dr.P(
             layout.rules.batch_dim(b))).local_shape((b,))[0]
-        cache = layout.model.init_cache(b, s)
-        shs = cache_shardings(layout.rules, cache)
-        for (path, c), (_, sh) in zip(_leaves(cache), _leaves(shs)):
-            port = c.numel() // b * rows * c.element_size()
-            ref = math.prod(sh.local_shape(c.shape)) * c.element_size()
+        local = layout.model.init_cache(rows, s)     # the trace's cache
+        whole = Model(layout.model.cfg, device=META).init_cache(b, s)
+        shs = cache_shardings(layout.rules, whole)
+        for (path, c), (_, w), (_, sh) in zip(_leaves(local), _leaves(whole),
+                                              _leaves(shs)):
+            port = c.numel() * c.element_size()
+            ref = math.prod(sh.local_shape(w.shape)) * w.element_size()
             if port != ref:
                 cache_cut["/".join(path)] = port - ref
     pos = -4 if kind == "decode" else 0
@@ -476,12 +483,15 @@ def test_argument_bytes_equal_the_reference_shards(arch, kind, mesh_key,
         assert got == want
     if kind == "prefill":
         assert got == want
+    if kind == "decode":
+        # every cache leaf on the reference's cut (llama3-8b's 2 KV heads
+        # cut along the 64 slots 8 ways, ...): only ``pos`` differs
+        assert not cache_cut
+        assert got == want + pos
     if (arch, kind, mesh_key) == ("llama3-8b", "decode", "(2, 8)"):
         # XLA's own argument_size_in_bytes of the compiled cell is the sum
-        # of its input shards; the port's cache rows keep the sequence
-        # whole, where the reference cuts it 8 ways over 'model'
+        # of its input shards
         assert ref_dryrun["xla_decode_args"] == want
-        assert set(cache_cut) == {f"scan/slot0/{k}" for k in "kv"}
 
 
 # -- the trace against a real step --------------------------------------
@@ -611,10 +621,23 @@ def test_production_decode_cell_on_256_fake_ranks(no_group):
     res = dr.run_cell("llama3-8b", "decode_32k", "single")
     assert res.ok and res.n_chips == 256
     cfg = get_config("llama3-8b")
-    # 8 of the 128 rows on each rank (batch over data, then model)
-    assert res.kernels["flash_decode"]["calls"] == cfg.num_layers
-    assert res.kernels["flash_decode"]["operations"] == (
-        4 * cfg.num_heads * cfg.hd * 8 * 32768 * cfg.num_layers)
+    # 8 of the 128 rows on each rank (batch over data; 'model' left free),
+    # the 8 KV heads' cache cut 16 ways along its 32,768 slots: a layer
+    # takes this rank's partials over its 2,048 slots for every query head
+    # and merges the pieces of all 16 ranks that hold keys: each full row's
+    # 128 chunks, one on each rank (of the 2,048 / 256 + 1 = 9 entries a
+    # rank keeps a row, the ninth stays empty where the window does not
+    # roll)
+    from repro_torch.kernels.ref import decode_local_chunks, decode_pieces
+    assert decode_local_chunks(32768, 2048) == 9
+    full = torch.full((8,), 32768, dtype=torch.int32)
+    pieces = decode_pieces(full, None, 32768, 2048, range(0, 32768, 2048))
+    assert pieces == 8 * 128
+    assert res.kernels["flash_decode"]["calls"] == 2 * cfg.num_layers
+    assert res.kernels["flash_decode"]["operations"] == cfg.num_layers * (
+        4 * cfg.num_heads * cfg.hd * 8 * 2048
+        + cost.flash_decode_merge((8, cfg.num_heads, cfg.hd),
+                                  torch.bfloat16, pieces)[0])
     assert res.collectives["n_all-gather"] > 0
     assert res.memory["per_device_hbm_bytes"] > 0
     skipped = dr.run_cell("llama3-8b", "long_500k", "single")
